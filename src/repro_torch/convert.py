@@ -1,18 +1,22 @@
-"""Carry schedules and workloads across from the JAX package.
+"""Carry schedules, workloads and model parameters across from the JAX
+package.
 
 Duck-typed: any object with the reference's fields converts, so the port
 never imports ``repro``.  The tests use it to run both packages on the
 same objects, which makes the data-plane parity independent of the
-construction parity.
+construction parity, and the model parity independent of the two
+packages' random generators.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.schedule import Schedule
 from .core.simulator import Workload
+from .models.transformer import check_supported
 
-__all__ = ["schedule_from", "workload_from"]
+__all__ = ["params_from", "schedule_from", "workload_from"]
 
 
 def schedule_from(s) -> Schedule:
@@ -31,3 +35,22 @@ def workload_from(wl) -> Workload:
                     size=np.array(wl.size, dtype=np.float64),
                     arrival=np.array(wl.arrival, dtype=np.int64),
                     n=int(wl.n), horizon=int(wl.horizon))
+
+
+def params_from(jax_params, cfg) -> dict:
+    """The port's model parameters, CPU tensors, from the reference's
+    parameter tree as numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    The two trees have one layout: weights ``(d_in, d_out)`` stacked with a
+    leading repetition axis under ``["cells"][j]``, so each leaf is copied
+    as it is and nothing is split or transposed."""
+    check_supported(cfg)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
+        return torch.from_numpy(np.array(tree))
+
+    return conv(jax_params)

@@ -1,0 +1,191 @@
+"""Shared model layers: RMSNorm, RoPE, GQA attention, SwiGLU FFN.
+
+Counterpart of ``repro.models.layers`` for dense GQA models, over plain
+dicts of tensors with the reference's layout: weights are
+``(d_in, d_out)`` and used as ``x @ W``, cast to the activation type at
+each product (a copy already in that type, as :func:`repro_torch.models.
+model.serve_params` makes, casts to itself at no cost).  RMSNorm and the
+RoPE angles compute in f32, as the reference does.
+
+Attention goes through the port's kernels: prefill through
+``kernels.flash_attention.ops.attention`` and each decode step through
+``kernels.decode_attention.ops.decode_attn``, which launch the hand-written
+CUDA kernels on the card and take their plain versions on the CPU.
+``plain=True`` calls the plain versions on any device: a check-only switch,
+for holding the kernels against them on the card; serving never sets it.
+MLA, cross-attention and sliding-window decode are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention import ops as decode_ops
+from ..kernels.decode_attention.ref import decode_attention_ref
+from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.flash_attention.ref import attention_ref
+
+__all__ = ["dense_init", "rms_norm", "init_rms_norm", "rope", "init_gqa",
+           "gqa_qkv", "gqa_attention", "init_mla", "mla_attention",
+           "init_ffn", "ffn"]
+
+# truncated_normal(stddev) of jax.nn.initializers: a standard normal cut at
+# +-2 and scaled so that the cut distribution has the requested stddev
+_TRUNC_STD = 0.87962566103423978
+
+UNPORTED_MLA = ("MLA attention is not ported yet (ROADMAP queue 1: the "
+                "model families that wait)")
+UNPORTED_WINDOW_DECODE = (
+    "decode with a sliding window is not ported yet (ROADMAP queue 1: the "
+    "model families that wait; the one windowed config, Mixtral, is MoE)")
+
+
+def dense_init(gen: torch.Generator, shape: tuple,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Weights drawn as the reference's ``_dense_init`` draws them,
+    truncated normal with stddev 0.02 (its distribution, not its bits: the
+    generators differ)."""
+    t = torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0,
+                                       generator=gen).mul_(0.02 / _TRUNC_STD)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(dt)
+
+
+def init_rms_norm(d: int, dtype: torch.dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., :, None].float() * freqs       # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_gqa(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (d, h * hd), dtype),
+        "wk": dense_init(gen, (d, kv * hd), dtype),
+        "wv": dense_init(gen, (d, kv * hd), dtype),
+        "wo": dense_init(gen, (h * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+    return p
+
+
+def gqa_qkv(p: dict, x: torch.Tensor, cfg):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
+            v.reshape(b, s, kv, hd))
+
+
+def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  kv_cache: tuple | None = None, causal: bool = True,
+                  cross_kv=None, plain: bool = False):
+    """Full GQA block; returns ``(out, new_cache)``.
+
+    Without a cache, attention over ``x``'s own keys.  With
+    ``kv_cache=(k, v, length)`` (k/v ``(B, max_len, KV, dh)``, updated in
+    place) the new keys are written at ``length`` and:
+
+    * ``S > 1`` tokens (prefill; ``length`` an int): the queries attend over
+      the cache prefix ``[0, length + S)`` with end-aligned positions,
+      which is the reference's ``q_offset = length`` mask; at ``length``
+      0 that is the prompt's own keys, so the tail of the cache adds
+      nothing, as in the reference;
+    * one token (decode; ``length`` an int or a ``(B,)`` tensor, one per
+      lane): the write index is clamped to ``max_len - 1`` as the
+      reference's ``dynamic_update_slice`` clamps it, and the query sees
+      cache positions ``<= length`` (all of them once ``length >=
+      max_len``).  A sliding-window config raises here: the decode kernel
+      has no window.
+
+    ``plain=True`` is a check-only switch: the kernels' plain versions on
+    any device.  The cache returned is ``(k, v, length + S)``."""
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (encoder-decoder) is not ported yet (ROADMAP "
+            "queue 1: the model families that wait)")
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    attend = attention_ref if plain else flash_ops.attention
+    decode = decode_attention_ref if plain else decode_ops.decode_attn
+    q, k, v = gqa_qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if kv_cache is None:
+        o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
+    else:
+        ck, cv, ln = kv_cache
+        if s == 1:
+            if cfg.sliding_window:
+                raise NotImplementedError(UNPORTED_WINDOW_DECODE)
+            idx = decode_ops.lengths_vector(ln, b, ck.device).clamp(
+                max=ck.shape[1] - 1)
+            lanes = torch.arange(b, device=ck.device)
+            ck[lanes, idx] = k[:, 0].to(ck.dtype)
+            cv[lanes, idx] = v[:, 0].to(cv.dtype)
+            o = decode(q, ck, cv, ln)
+        else:
+            if not isinstance(ln, int):
+                raise TypeError("a multi-token cache write takes an int "
+                                "length")
+            if ln + s > ck.shape[1]:
+                raise ValueError(f"{s} tokens at {ln} do not fit a cache of "
+                                 f"{ck.shape[1]}")
+            ck[:, ln:ln + s] = k.to(ck.dtype)
+            cv[:, ln:ln + s] = v.to(cv.dtype)
+            o = attend(q, ck[:, :ln + s], cv[:, :ln + s], causal=True,
+                       window=cfg.sliding_window)
+        new_cache = (ck, cv, ln + s)
+    o = o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    return o, new_cache
+
+
+def init_mla(gen, cfg, dtype):
+    raise NotImplementedError(UNPORTED_MLA)
+
+
+def mla_attention(p, x, cfg, positions, kv_cache=None, causal=True):
+    raise NotImplementedError(UNPORTED_MLA)
+
+
+def init_ffn(gen: torch.Generator, d: int, ff: int,
+             dtype: torch.dtype) -> dict:
+    return {
+        "w_gate": dense_init(gen, (d, ff), dtype),
+        "w_in": dense_init(gen, (d, ff), dtype),
+        "w_out": dense_init(gen, (ff, d), dtype),
+    }
+
+
+def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    h = x @ p["w_in"].to(x.dtype)
+    return (g * h) @ p["w_out"].to(x.dtype)

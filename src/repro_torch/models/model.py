@@ -1,0 +1,95 @@
+"""High-level model API: init / prefill / decode, for dense attention
+models.
+
+Counterpart of ``repro.models.model``.  Every entry point takes
+``device=None``, meaning the card, and raises without one unless given
+``device="cpu"``; the parameters must already be on that device.  The
+caches are written in place.  ``loss_fn`` waits for the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from . import transformer as T
+
+__all__ = ["init_params", "serve_params", "prefill", "decode_step",
+           "greedy_generate"]
+
+
+def _device(params, device) -> torch.device:
+    dev = resolve_device(device)
+    where = params["embed"].device
+    if where.type != dev.type:
+        raise ValueError(f"the parameters are on {where}, not on {dev}")
+    return dev
+
+
+def init_params(gen: torch.Generator, cfg, device=None) -> dict:
+    """Seeded weights (f32, ``cfg.param_dtype``) drawn from ``gen``, which
+    must live on ``device``."""
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator is on {gen.device}, not on {dev}")
+    return T.init_params(gen, cfg)
+
+
+def serve_params(params, cfg) -> dict:
+    """``params`` with every weight, bias and the embedding cast once to the
+    activation type ``cfg.dtype``, which is what each product casts them to
+    anyway, so the results are the same; norm scales stay as they are
+    (RMSNorm multiplies in f32)."""
+    dt = getattr(torch, cfg.dtype)
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: (v if k == "scale" else cast(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.to(dt)
+
+    return cast(params)
+
+
+def prefill(params, cfg, tokens, max_len: int, device=None,
+            plain: bool = False):
+    """Run the prompt ``tokens`` (B, S) through the model, filling fresh
+    caches of ``max_len`` positions.  Returns (logits of the last position
+    (B, V), caches, length S).  ``plain=True`` is a check-only switch: it
+    takes the kernels' plain versions on any device, to hold the kernels
+    against them on the card; serving never sets it."""
+    dev = _device(params, device)
+    tokens = torch.as_tensor(tokens, device=dev)
+    b, s = tokens.shape
+    caches = T.init_cache(cfg, b, max_len, dev)
+    x = T.embed_tokens(params, cfg, tokens)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    x = T.run_cells(params, x, cfg, positions, caches, 0, plain)
+    h = T.rms_norm_final(params, cfg, x[:, -1:])
+    return T.logits_fn(params, cfg, h)[:, -1], caches, s
+
+
+def decode_step(params, cfg, tokens, caches, length, device=None,
+                plain: bool = False):
+    """One token (B, 1) at cache fill ``length`` (an int, or a (B,) tensor,
+    one per lane).  Returns (logits (B, V), caches).  ``plain=True`` is the
+    check-only switch of :func:`prefill`."""
+    dev = _device(params, device)
+    tokens = torch.as_tensor(tokens, device=dev)
+    return T.decode_step(params, cfg, tokens, caches, length, plain)
+
+
+def greedy_generate(params, cfg, prompt, steps: int, max_len: int,
+                    device=None):
+    """Greedy continuation of ``prompt`` (B, S): (B, steps) tokens."""
+    logits, caches, length = prefill(params, cfg, prompt, max_len, device)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out = [tok]
+    for _ in range(steps - 1):
+        logits, caches = decode_step(params, cfg, tok, caches, length,
+                                     device)
+        length = length + 1
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)

@@ -1,0 +1,185 @@
+"""Decoder LM for dense attention models: init, prefill/decode forward,
+KV caches.
+
+Counterpart of ``repro.models.transformer`` with the same parameter tree:
+layers grouped into repeating supercells, each cell position's parameters
+stacked with a leading repetition axis under ``params["cells"][j]``, and
+KV caches ``(R, B, max_len, KV, dh)`` per cell position.  The reference
+scans over repetitions; the port loops over them in Python (serving needs
+no rematerialisation).  Mamba, mLSTM and sLSTM blocks, MoE, MLA,
+encoder-decoder and VLM models are not ported yet and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import layers as L
+
+__all__ = ["supercell_size", "cell_structure", "check_supported",
+           "init_params", "embed_tokens", "rms_norm_final", "logits_fn",
+           "run_cells", "init_cache", "decode_step"]
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1: the model families "
+        f"that wait)")
+
+
+def supercell_size(cfg) -> int:
+    g = 1
+    if cfg.attn_every > 1:
+        g = math.lcm(g, cfg.attn_every)
+    if cfg.family == "ssm" and cfg.slstm_every:
+        g = math.lcm(g, cfg.slstm_every)
+    if cfg.n_experts and cfg.moe_every > 1:
+        g = math.lcm(g, cfg.moe_every)
+    if cfg.n_layers % g != 0:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by cell={g}")
+    return g
+
+
+def cell_structure(cfg) -> list[tuple[str, str]]:
+    """[(block_kind, ffn_kind)] per position in one supercell."""
+    kinds = cfg.layer_kinds()[: supercell_size(cfg)]
+    out = []
+    for i, kind in enumerate(kinds):
+        if cfg.family == "ssm":
+            ffn_kind = "none"
+        elif cfg.layer_is_moe(i):
+            ffn_kind = "moe"
+        elif cfg.d_ff:
+            ffn_kind = "dense"
+        else:
+            ffn_kind = "none"
+        out.append((kind, ffn_kind))
+    return out
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot run yet."""
+    if cfg.family in ("encdec", "vlm"):
+        raise _unported(f"the {cfg.family} family ({cfg.name})")
+    if cfg.attention == "mla":
+        raise _unported(f"MLA attention ({cfg.name})")
+    for kind, ffn_kind in cell_structure(cfg):
+        if kind != "attn":
+            raise _unported(f"the {kind} block ({cfg.name})")
+        if ffn_kind == "moe":
+            raise _unported(f"the MoE FFN ({cfg.name})")
+
+
+def _init_block(gen, cfg, ffn_kind: str, dtype) -> dict:
+    p: dict = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
+               "attn": L.init_gqa(gen, cfg, dtype)}
+    if ffn_kind == "dense":
+        p["ln2"] = L.init_rms_norm(cfg.d_model, dtype, gen.device)
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(gen: torch.Generator, cfg) -> dict:
+    """Seeded weights on ``gen``'s device, with the reference's tree and
+    distributions (not its bits)."""
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    reps = cfg.n_layers // supercell_size(cfg)
+    cells = [_stack([_init_block(gen, cfg, ffn_kind, dtype)
+                     for _ in range(reps)])
+             for _, ffn_kind in cell_structure(cfg)]
+    p = {
+        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype),
+        "cells": cells,
+        "ln_f": L.init_rms_norm(cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    return p
+
+
+def _layer(tree, r: int):
+    """Repetition ``r`` of a stacked parameter tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _block_forward(bp, x, cfg, ffn_kind, positions, cache=None,
+                   plain=False):
+    """One attention block; returns x (the cache is written in place)."""
+    h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    o, new_cache = L.gqa_attention(bp["attn"], h, cfg, positions,
+                                   kv_cache=cache, plain=plain)
+    x = x + o
+    if ffn_kind == "dense":
+        x = x + L.ffn(bp["ffn"], L.rms_norm(x, bp["ln2"]["scale"],
+                                            cfg.norm_eps))
+    return x
+
+
+def run_cells(params, x, cfg, positions, caches=None, length=0,
+              plain=False):
+    """All layers in order.  ``caches``: per cell position a ``(k, v)``
+    pair of ``(R, B, max_len, KV, dh)`` tensors, updated in place, with
+    ``length`` the cache fill (an int, or a ``(B,)`` tensor for a one-token
+    step)."""
+    struct = cell_structure(cfg)
+    reps = cfg.n_layers // len(struct)
+    for r in range(reps):
+        for j, (_, ffn_kind) in enumerate(struct):
+            cache = None
+            if caches is not None:
+                ck, cv = caches[j]
+                cache = (ck[r], cv[r], length)
+            x = _block_forward(_layer(params["cells"][j], r), x, cfg,
+                               ffn_kind, positions, cache, plain)
+    return x
+
+
+def embed_tokens(params, cfg, tokens):
+    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def rms_norm_final(params, cfg, x):
+    return L.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
+
+
+def logits_fn(params, cfg, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return h @ w.to(h.dtype)
+
+
+def init_cache(cfg, batch: int, max_len: int, device) -> list:
+    """Per cell position a ``(k, v)`` pair of zero ``(R, B, max_len, KV,
+    dh)`` tensors in the activation type."""
+    check_supported(cfg)
+    reps = cfg.n_layers // supercell_size(cfg)
+    shape = (reps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = getattr(torch, cfg.dtype)
+    return [(torch.zeros(shape, dtype=dt, device=device),
+             torch.zeros(shape, dtype=dt, device=device))
+            for _ in cell_structure(cfg)]
+
+
+def decode_step(params, cfg, tokens, caches, length, plain=False):
+    """One-token decode.  tokens: (B, 1); length: the cache fill, an int or
+    a (B,) int tensor (one per lane).  Writes the caches in place; returns
+    (logits (B, V), caches)."""
+    x = embed_tokens(params, cfg, tokens)
+    if isinstance(length, torch.Tensor):
+        positions = length.reshape(-1, 1).expand(tokens.shape)
+    else:
+        positions = torch.full(tokens.shape, length, dtype=torch.int32,
+                               device=tokens.device)
+    x = run_cells(params, x, cfg, positions, caches, length, plain)
+    h = rms_norm_final(params, cfg, x)
+    return logits_fn(params, cfg, h)[:, -1], caches

@@ -3,16 +3,28 @@ against its plain PyTorch version.  Needs no jax, so it runs on a machine
 with a card and PyTorch alone (``pytest -m gpu``); without a card every
 test skips.  Whether a card is present is decided inside each test.
 
-Tolerances: f32 rtol 1e-5 / atol 1e-6, as tests/test_kernels.py holds the
-Pallas kernel (reduction order only); f64 rtol 1e-12 over 200 iterations.
+Tolerances: Sinkhorn f32 rtol 1e-5 / atol 1e-6, as tests/test_kernels.py
+holds the Pallas kernel (reduction order only), f64 rtol 1e-12 over 200
+iterations; attention f32 2e-5 and bf16 2e-2, as tests/test_kernels.py
+holds the Pallas attention kernels; the served model's logits, kernels
+against plain versions, within 2e-2 of the largest logit (bf16).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref
+from repro_torch.models import decode_step, init_params, prefill, serve_params
+from repro_torch.serve.engine import Request, ServeEngine
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def _card():
@@ -65,3 +77,120 @@ def test_sinkhorn_kernel_rejects_bad_input():
     with pytest.raises(TypeError, match="float32 or float64"):
         ops.sinkhorn_kernel(torch.ones(4, 4, device="cuda",
                                        dtype=torch.float16))
+
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window", [
+    (1, 300, 300, 16, 16, 64, True, 0),       # the served model's prefill
+    (2, 1000, 1000, 4, 2, 64, True, 0),       # ragged
+    (1, 512, 512, 24, 8, 128, True, 0),       # Llama-3.2-3B's GQA
+    (1, 256, 256, 8, 1, 64, True, 0),         # MQA
+    (1, 384, 384, 4, 2, 64, True, 100),       # sliding window
+    (1, 128, 512, 8, 8, 128, True, 0),        # Sq < Sk, end-aligned
+    (2, 130, 130, 4, 4, 128, False, 0),       # non-causal
+    (1, 256, 128, 2, 2, 64, True, 0),         # rows with no visible key
+])
+def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
+                                    window):
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
+    q = _randn(gen, b, sq, h, dh, dtype=dt)
+    k = _randn(gen, b, sk, kv, dh, dtype=dt)
+    v = _randn(gen, b, sk, kv, dh, dtype=dt)
+    before = flash_ops.launches
+    got = flash_ops.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kv,dh", [
+    (2048, 16, 16, 64),         # the served model's decode
+    (1024, 24, 8, 128),         # Llama-3.2-3B's GQA
+    (1024, 8, 1, 64),           # MQA
+    (1024, 4, 2, 64),           # rep 2
+])
+def test_decode_kernel_matches_plain(dtype, s, h, kv, dh):
+    _card()
+    dt = getattr(torch, dtype)
+    lens = [0, 1, 255, 256, 257, s // 2 + 3, s - 1, s, s + 40]
+    b = len(lens)
+    gen = torch.Generator(device="cuda").manual_seed(s + h)
+    q = _randn(gen, b, 1, h, dh, dtype=dt)
+    k = _randn(gen, b, s, kv, dh, dtype=dt)
+    v = _randn(gen, b, s, kv, dh, dtype=dt)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = decode_ops.launches
+    got = decode_ops.decode_attn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    want = decode_attention_ref(q, k, v, length)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # fixed-order combine: the same input gives the same bits
+    assert torch.equal(got, decode_ops.decode_attn(q, k, v, length))
+    # a scalar length broadcasts
+    torch.testing.assert_close(
+        decode_ops.decode_attn(q, k, v, 300).float(),
+        decode_attention_ref(q, k, v, 300).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_bad_input():
+    _card()
+    x = torch.zeros(1, 8, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops.attention_kernel(x, x, x)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_ops.decode_kernel(x[:, :1], x, x, 3)
+    h16 = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_ops.attention_kernel(h16, h16, h16)
+    q = torch.zeros(1, 1, 64, 64, device="cuda")
+    kv1 = torch.zeros(1, 8, 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        decode_ops.decode_kernel(q, kv1, kv1, 3)
+    strided = torch.zeros(1, 8, 64, 2, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="packed"):
+        flash_ops.attention_kernel(strided, strided, strided)
+
+
+@pytest.mark.gpu
+def test_served_model_kernels_match_plain():
+    """A narrow Qwen-shaped model (head dim 64) on the card: prefill and
+    decode steps through the kernels against the same calls through the
+    plain versions, fed the same tokens; then the engine, whose run must
+    launch both kernels."""
+    _card()
+    cfg = get_config("qwen1.5-0.5b", smoke=True).replace(
+        d_model=256, n_heads=4, n_kv_heads=4, head_dim=0, d_ff=512)
+    assert cfg.head_dim == 64
+    p = serve_params(init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg), cfg)
+    prompt = torch.arange(1, 41, device="cuda")[None] % cfg.vocab
+    lk, ck, ln = prefill(p, cfg, prompt, 128)
+    lp, cp, _ = prefill(p, cfg, prompt, 128, plain=True)
+    for step in range(6):
+        scale = max(1.0, float(lp.float().abs().max()))
+        assert float((lk.float() - lp.float()).abs().max()) <= 2e-2 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step)
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True)
+    f0, d0 = flash_ops.launches, decode_ops.launches
+    reqs = [Request(rid=i, prompt=np.arange(1, 5 + 7 * i), max_new_tokens=5)
+            for i in range(3)]
+    done = ServeEngine(p, cfg, n_lanes=2, max_len=64).run(reqs)
+    assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
+    assert flash_ops.launches - f0 == 3 * cfg.n_layers
+    assert decode_ops.launches > d0
