@@ -23,11 +23,27 @@ it and read just after:
    128-1024 tokens and 32 new tokens each; prefill runs the flash-attention
    kernel, every decode step the flash-decode kernel.  Two requests are
    then rerun one at a time, fed the tokens the engine served them,
-   through the kernels and through the plain versions, in bf16 and in
-   f32, and their logits compared at every step; two deliberately broken
-   uses of the kernels are read the same way (controls: the gate must sit
-   between them and the kernels), and each token the engine served must
-   be a near-argmax of the plain version's logits.
+   through the kernels and through the plain versions, in bf16, and their
+   logits compared at every step; in f32 the same, after a two-lane f32
+   engine has served those two requests (its tokens are fed).  Two
+   deliberately broken uses of the kernels are read the same way
+   (controls: the f32 gate must sit between them and the kernels), and
+   each token an engine served must be a near-argmax of the plain
+   version's logits of its type.
+3. Serving xLSTM-350M the same way at full width and depth (24 layers:
+   21 mLSTM, sLSTM at 1, 9 and 17; d_model 1024, 4 heads of dim 512,
+   vocab 50,304), on the same deployment and requests: every prefill runs
+   the chunkwise mLSTM kernel once per mLSTM layer (16 x 21 = 336 launches),
+   decode is the plain recurrence.  The logits check is Qwen's, with two
+   broken uses of the mLSTM kernel as controls (the prompt's final state
+   not handed to decode; q's 1/sqrt(dh) scale left out); its bf16 logits
+   and tokens are read, not gated (see ``SERVED``), and the f32 checks,
+   the two-lane engine's included, are its gates.
+
+Before the serving paths each kernel is held against its plain version at
+the main path's shapes and beside them (the mLSTM kernel in f32 with its
+states: the served prefills from a fresh state, a carried nonzero state,
+S <= 256, S a multiple of 256, ragged S, head dims 32-512).
 
 Any failure raises: no phase is caught.
 
@@ -69,9 +85,13 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref  # noqa: E402
 from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops  # noqa: E402
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 N, D_HAT, K, RECFG = 256, 8, 3, 1 / 9
@@ -119,9 +139,18 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # ulp is 0.4-0.8 % of a value)
 LOGIT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 # a served token's plain logit may sit below the plain maximum by twice
-# the bf16 gate: the engine's logits and the plain ones each lie within
-# LOGIT_TOL of the kernel path's
-TOKEN_GAP = 2 * LOGIT_TOL[torch.bfloat16]
+# the gate of its type: the engine's logits and the plain ones each lie
+# within that gate of the kernel path's
+
+# the second served model: xLSTM-350M at full width and depth, on the same
+# deployment and requests (src/repro/configs/xlstm_350m.py)
+XLSTM_ARCH = "xlstm-350m"
+
+# mLSTM kernel vs plain, f32, on the outputs and the final states: the
+# kernel's chunks are 64 positions, the plain version's 256, so its sums
+# and exponent arguments are grouped differently (|diff| <= atol + rtol
+# |plain|)
+MLSTM_TOL = (1e-4, 1e-4)
 
 
 def log(msg: str = "") -> None:
@@ -390,6 +419,88 @@ def check_decode(label: str, lens: list, s: int, h: int, kv: int, dh: int,
             "bound_by": bound_by}
 
 
+def mlstm_bound_ms(b: int, s: int, h: int, dh: int) -> tuple:
+    """(least ms for the mLSTM's work on this card, "bytes" | "operations"):
+    inputs (q, k, v, gates, state) read once and outputs (out, state)
+    written once, over HBM rate; against the least operations the function
+    needs, those of its recurrent form: per position and head, C's update
+    (k^T v) and q C, dh^2 multiply-adds each, and n's update and q . n, dh
+    each, over the f32 peak of the CUDA cores.  The chunkwise forms' causal
+    q k^T and W v within a chunk are work a chunk size chooses, not work the
+    function needs, and are not counted."""
+    state = b * h * (dh * dh + dh + 1)
+    t_bytes = 4 * (4 * b * s * h * dh + 2 * b * s * h + 2 * state) / HBM_BPS
+    macs = b * s * h * (2 * dh * dh + 2 * dh)
+    t_ops = 2 * macs / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlstm_inputs(b: int, s: int, h: int, dh: int, state: str,
+                 seed: int = SEED) -> tuple:
+    """q, k, v, logi, logf at the scale of xLSTM-350M's projections on its
+    random weights (std ~0.58), and a state: None, the serving path's fresh
+    one (``init_mlstm_state``), or a nonzero one."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + s + dh)
+    r = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                   device=DEV)
+    q, k, v = r(b, s, h, dh) * 0.58, r(b, s, h, dh) * 0.58, \
+        r(b, s, h, dh) * 0.58
+    li, lf = r(b, s, h) * 0.58, F.logsigmoid(r(b, s, h) * 0.58)
+    if state == "fresh":
+        st = (torch.zeros(b, h, dh, dh, device=DEV),
+              torch.zeros(b, h, dh, device=DEV),
+              torch.full((b, h), -1e9, device=DEV))
+    elif state == "carried":
+        st = (r(b, h, dh, dh) * 0.1, r(b, h, dh) * 0.1, r(b, h))
+    else:
+        st = None
+    return (q, k, v, li, lf), st
+
+
+def check_mlstm(label: str, b: int, s: int, h: int, dh: int, state: str,
+                reps: int = 5) -> dict:
+    """The mLSTM kernel against its plain version on one input, outputs and
+    final states; checks two calls bitwise; times kernel and plain version
+    on the card alone (:func:`device_ms`), and the kernel's calls with the
+    host's share (:func:`time_ms`).  No single PyTorch call computes the
+    mLSTM: no library time."""
+    ins, st = mlstm_inputs(b, s, h, dh, state)
+    out, fin = mlstm_ops.mlstm_kernel(*ins, st)
+    again, again_fin = mlstm_ops.mlstm_kernel(*ins, st)
+    torch.cuda.synchronize()
+    want, want_fin = mlstm_chunkwise_ref(*ins, st)
+    rtol, atol = MLSTM_TOL
+    errs, ok = [], True
+    for got, w in zip((out, *fin), (want, *want_fin)):
+        diff = (got - w).abs()
+        errs.append(float(diff.max()))
+        ok &= bool((diff <= atol + rtol * w.abs()).all())
+    same = all(torch.equal(a, w) for a, w in zip((out, *fin),
+                                                   (again, *again_fin)))
+    call = lambda: mlstm_ops.mlstm_kernel(*ins, st)  # noqa: E731
+    ms = device_ms(call, reps)
+    call_ms = time_ms(call, reps)
+    plain_ms = device_ms(lambda: mlstm_chunkwise_ref(*ins, st), 2)
+    bound_ms, bound_by = mlstm_bound_ms(b, s, h, dh)
+    log(f"  {label:16s} float32  B={b} S={s} H={h} dh={dh} state={state}: "
+        f"max_abs_err out {errs[0]:.3e}, C {errs[1]:.3e}, n {errs[2]:.3e}, "
+        f"m {errs[3]:.3e} (rtol {rtol:g}, atol {atol:g}) "
+        f"{'ok' if ok else 'FAIL'}; deterministic={same}; kernel {ms:.4f} ms "
+        f"(with the host {call_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    if not ok:
+        raise AssertionError(f"mLSTM kernel disagrees with its plain "
+                             f"version: {label} S={s} dh={dh} {state}")
+    if not same:
+        raise AssertionError(f"mLSTM kernel is not deterministic: {label}")
+    return {"label": label, "dtype": "float32", "shape": [b, s, h, dh],
+            "state": state, "max_abs_err": max(errs),
+            "max_abs_err_out_c_n_m": errs, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def _numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -432,10 +543,41 @@ def flash_unscaled(q, k, v, causal=True, window=0):
                                       window)
 
 
+def mlstm_unscaled(q, k, v, logi, logf, state=None):
+    """Control: the mLSTM kernel with the 1/sqrt(dh) scale of q left
+    out."""
+    return mlstm_ops.mlstm_kernel(q * q.shape[-1] ** 0.5, k, v, logi, logf,
+                                  state)
+
+
+def mlstm_state_lost(q, k, v, logi, logf, state=None):
+    """Control: the mLSTM kernel's outputs, but the state it was given
+    handed on in place of its final state (decode starts from the lane's
+    fresh state)."""
+    out, _ = mlstm_ops.mlstm_kernel(q, k, v, logi, logf, state)
+    return out, state
+
+
 # the controls: module, wrapper name, the broken use of the kernel
 CONTROLS = {"decode_split_dropped": (decode_ops, "decode_attn",
                                      decode_split_dropped),
             "flash_unscaled": (flash_ops, "attention", flash_unscaled)}
+MLSTM_CONTROLS = {"mlstm_state_lost": (mlstm_ops, "mlstm", mlstm_state_lost),
+                  "mlstm_unscaled": (mlstm_ops, "mlstm", mlstm_unscaled)}
+
+# xLSTM-350M in bf16 on random weights turns any change in the mLSTM's f32
+# rounding into a large change of the logits (on an H100, ~0.11 of the
+# largest logit where the f32 logits move by ~3e-5, and as much from the
+# plain version run in f64): its bf16 logits and served tokens are read,
+# held to no gate.  Its f32 logits, and the logits and tokens of a
+# two-lane f32 engine, carry the gates, as they do for Qwen.
+
+# the served models: the wrappers of their kernels (whose launches the
+# serving run counts), the broken uses the logits check reads as controls,
+# and whether the bf16 logits and tokens are gated (else read)
+SERVED = {ARCH: ({"flash_attention": flash_ops,
+                  "decode_attention": decode_ops}, CONTROLS, True),
+          XLSTM_ARCH: ({"mlstm": mlstm_ops}, MLSTM_CONTROLS, False)}
 
 
 def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
@@ -451,6 +593,29 @@ def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
     return out
 
 
+def engine_logits(p, cfg, reqs: list) -> list:
+    """Serve ``reqs`` on an engine of one lane each (all admitted at once,
+    request i in lane i), recording the logits (f32, (V,)) the engine
+    computed for each: its prefill's, then its lane's at each decode step
+    while it is active."""
+    eng = ServeEngine(p, cfg, n_lanes=len(reqs), max_len=MAX_LEN, device=DEV)
+    seen: list = []
+
+    def rec(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            seen.append(out[0].float())
+            return out
+        return call
+
+    with swapped(M, "prefill", rec(M.prefill)), \
+            swapped(M, "decode_step", rec(M.decode_step)):
+        eng.run(reqs)
+    n = len(reqs)
+    return [[seen[i][0]] + [lg[i] for lg in seen[n:n + len(r.out_tokens) - 1]]
+            for i, r in enumerate(reqs)]
+
+
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over the largest |b| (at least 1)."""
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
@@ -463,26 +628,27 @@ def _gaps(logits: list, tokens: list) -> list:
             for lg, t in zip(logits, tokens)]
 
 
-def check_logits(p, cfg, req: Request) -> tuple:
+def check_logits(p, cfg, req: Request, controls: dict) -> tuple:
     """Prefill plus CHECK_STEPS decode steps of one request, fed the tokens
-    the engine served it, through the kernels, through the plain versions
-    and through each control; per position the max |logit diff| against
-    the plain versions over their largest |logit|.  Returns (readings, the
-    plain versions' logits)."""
+    it was served, through the kernels, through the plain versions and
+    through each broken use of ``controls`` (name: module, wrapper name,
+    broken use); per position the max |logit diff| against the plain
+    versions over their largest |logit|.  Returns (readings, the plain
+    versions' logits)."""
     prompt = torch.as_tensor(req.prompt, device=DEV)[None]
     feed = req.out_tokens[:CHECK_STEPS]
     kern = logits_path(p, cfg, prompt, feed)
     plain = logits_path(p, cfg, prompt, feed, plain=True)
-    controls = {}
-    for name, (module, attr, fn) in CONTROLS.items():
+    readings: dict = {}
+    for name, (module, attr, fn) in controls.items():
         with swapped(module, attr, fn):
             bad = logits_path(p, cfg, prompt, feed)
-        controls[name] = max(_rel(a, b) for a, b in zip(bad, plain))
+        readings[name] = max(_rel(a, b) for a, b in zip(bad, plain))
     rel = [_rel(a, b) for a, b in zip(kern, plain)]
     return {"rid": req.rid, "prompt": len(req.prompt),
             "dtype": _dname(getattr(torch, cfg.dtype)),
-            "max_rel_diff": max(rel), "per_step": rel,
-            "controls": controls, "positions": len(rel)}, plain
+            "max_rel_diff": max(rel), "per_step": rel, "controls": readings,
+            "positions": len(rel)}, plain
 
 
 def attention_phases() -> tuple:
@@ -523,14 +689,114 @@ def attention_phases() -> tuple:
     return flash, flash_main, decode, decode_main
 
 
-def serving_phases() -> dict:
-    """The serving main path at full size, its traced decode steps and the
-    logits check; returns what they measured, launch counts included."""
-    cfg = get_config(ARCH)
+def _device_kind(name: str) -> str:
+    return ("flash_fwd" if "flash_fwd" in name else
+            "mlstm_fwd" if "mlstm_fwd" in name else
+            "decode_partial" if "decode_partial" in name else
+            "decode_combine" if "decode_combine" in name else
+            "gemm" if "gemm" in name.lower() else "other")
+
+
+def _device_time(prof) -> tuple:
+    """(events on the card, busy s, busy s by kind) of a profile."""
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_kind: dict = {}
+    for e in on_dev:
+        key = _device_kind(e.name)
+        by_kind[key] = by_kind.get(key, 0.0) + e.time_range.elapsed_us() / 1e6
+    return len(on_dev), sum(by_kind.values()), by_kind
+
+
+def prefill_breakdown(p, cfg, req: Request) -> dict:
+    """Where one prefill's time goes (B = 1): its wall time; the host-clock
+    time of each block kind, each block between two synchronisations (a
+    second run); the card's busy time by kernel kind and idle share (a
+    third run, under torch.profiler)."""
+    prompt = torch.as_tensor(req.prompt, device=DEV)[None]
+    run = lambda: prefill(p, cfg, prompt, MAX_LEN, DEV)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_block: dict = {}
+    block = T._block_forward
+
+    def timed(bp, x, cfg_, kind, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = block(bp, x, cfg_, kind, *args, **kw)
+        torch.cuda.synchronize()
+        by_block[kind] = by_block.get(kind, 0.0) + time.perf_counter() - t
+        return out
+
+    with swapped(T, "_block_forward", timed):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        timed_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        run()
+        torch.cuda.synchronize()
+    traced_wall = time.perf_counter() - t0
+    n_ev, busy, by_kind = _device_time(prof)
+    out = {"prompt": len(req.prompt), "wall_s": wall,
+           "timed_wall_s": timed_wall, "block_s": by_block,
+           "block_share": {k: v / timed_wall for k, v in by_block.items()},
+           "traced_wall_s": traced_wall, "device_events": n_ev,
+           "device_busy_s": busy, "device_s_by_kind": by_kind,
+           "idle_share": 1 - busy / traced_wall if n_ev else None}
+    log(f"== one prefill of {len(req.prompt)} tokens: wall {wall:.6f} s; "
+        f"blocks between synchronisations (run of {timed_wall:.6f} s): "
+        + ", ".join(f"{k} {v:.6f} s ({v / timed_wall:.3f})"
+                    for k, v in by_block.items())
+        + (f"; traced: {n_ev} device events, busy {busy:.6f} s of "
+           f"{traced_wall:.6f} s (idle share {1 - busy / traced_wall:.4f}), "
+           f"by kind (s) {json.dumps(by_kind)}" if n_ev else
+           "; the profiler recorded no device events"))
+    return out
+
+
+def mlstm_phases() -> tuple:
+    """The mLSTM kernel against its plain version at the main path's shapes
+    and beside them; returns (instances, the one the kernel line
+    reports)."""
+    log("== mLSTM kernel vs plain PyTorch version on the card (f32, outputs "
+        "and final states)")
+    cfg = get_config(XLSTM_ARCH)
+    h = cfg.n_heads
+    dh = cfg.mamba_expand * cfg.d_model // h
+    lens = [len(r.prompt) for r in serving_requests(cfg.vocab)]
+    served = [min(lens), lens[0], max(lens)]
+    inst = [check_mlstm("served prefill", 1, n, h, dh, "fresh")
+            for n in served]
+    main = inst[-1]                     # the longest prompt of the main path
+    inst.append(check_mlstm("carried state", 1, lens[0], h, dh, "carried"))
+    inst.append(check_mlstm("S = 4 x 256", 1, 1024, h, dh, "fresh", reps=3))
+    inst.append(check_mlstm("ragged, no state", 1, 1000, h, dh, "none",
+                            reps=3))
+    inst.append(check_mlstm("dh 32", 2, 300, 8, 32, "carried"))
+    inst.append(check_mlstm("dh 64", 2, 256, 4, 64, "none"))
+    inst.append(check_mlstm("dh 128", 2, 1000, 4, 128, "fresh"))
+    inst.append(check_mlstm("S = 2", 1, 2, h, dh, "carried"))
+    log("  no single PyTorch call computes the mLSTM: library time n/a")
+    return inst, main
+
+
+def serving_phases(arch: str) -> dict:
+    """The serving main path of ``arch`` at full size, its traced decode
+    steps and the logits check; returns what they measured, launch counts
+    included."""
+    wrappers, controls, bf16_gated = SERVED[arch]
+    cfg = get_config(arch)
+    kinds = cfg.layer_kinds()
     reqs = serving_requests(cfg.vocab)
-    log(f"== serving: {cfg.name}, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
-        f"head_dim {cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype}; "
+    log(f"== serving: {cfg.name}, {cfg.n_layers} layers "
+        f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
+        f"), d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"kv, head_dim {cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype}; "
         f"{LANES} lanes x {MAX_LEN}, {N_REQUESTS} requests, prompts "
         f"{PROMPT_LO}-{PROMPT_HI}, {NEW_TOKENS} new tokens, seed {SEED}")
     t0 = time.perf_counter()
@@ -541,22 +807,28 @@ def serving_phases() -> dict:
     del params
     n_params = _numel(eng.params)
     torch.cuda.synchronize()
-    log(f"  weights: {n_params} parameters, init + bf16 copy "
+    log(f"  weights: {n_params} parameters, init + {cfg.dtype} copy "
         f"{time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.reset_launches()
-    decode_ops.reset_launches()
+    for ops in wrappers.values():
+        ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(reqs)
     serve_wall = time.perf_counter() - t0
-    serve_launches = {"flash_attention": flash_ops.launches,
-                      "decode_attention": decode_ops.launches}
+    serve_launches = {name: ops.launches for name, ops in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     st = dict(eng.stats)
     log(f"  launches: {serve_launches}")
+    # a call per prefill (every prompt has >= 2 tokens) or per decode step,
+    # for each layer of the kernel's kind
+    expected = {"flash_attention": N_REQUESTS * kinds.count("attn"),
+                "decode_attention": st["decode_steps"] * kinds.count("attn"),
+                "mlstm": N_REQUESTS * kinds.count("mlstm")}
     for name, n in serve_launches.items():
-        if n <= 0:
-            raise AssertionError(f"the serving path launched {name} no time")
+        want = expected[name]
+        if n != want or n <= 0:
+            raise AssertionError(f"the serving path launched {name} {n} "
+                                 f"times (expected {want})")
     if len(done) != N_REQUESTS or any(
             len(r.out_tokens) != NEW_TOKENS
             or not all(0 <= t < cfg.vocab for t in r.out_tokens)
@@ -580,6 +852,8 @@ def serving_phases() -> dict:
         f"({peak / 2**30:.3f} GiB)")
     log(f"  request 0: {len(reqs[0].prompt)} prompt tokens -> "
         f"{reqs[0].out_tokens[:8]}...")
+    serving["prefill_breakdown"] = prefill_breakdown(
+        eng.params, cfg, max(reqs, key=lambda r: len(r.prompt)))
 
     # a traced rerun of decode steps: the device's idle share
     log(f"== traced decode: {LANES} lanes admitted, {TRACED_STEPS} steps "
@@ -592,24 +866,15 @@ def serving_phases() -> dict:
         for _ in range(TRACED_STEPS):
             eng.step()
     traced_wall = eng.stats["decode_s"] - before
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if on_dev:
-        busy = sum(e.time_range.elapsed_us() for e in on_dev) / 1e6
-        by_name: dict = {}
-        for e in on_dev:
-            key = ("flash_fwd" if "flash_fwd" in e.name else
-                   "decode_partial" if "decode_partial" in e.name else
-                   "decode_combine" if "decode_combine" in e.name else
-                   "gemm" if "gemm" in e.name.lower() else "other")
-            by_name[key] = by_name.get(key, 0.0) + \
-                e.time_range.elapsed_us() / 1e6
+    n_ev, busy, by_name = _device_time(prof)
+    if n_ev:
         serving["traced_idle_share"] = 1 - busy / traced_wall
         serving["traced_busy_s"] = busy
         serving["traced_wall_s"] = traced_wall
         serving["traced_device_s_by_kind"] = by_name
-        log(f"  {len(on_dev)} device events ({len(on_dev) / TRACED_STEPS:.1f}"
-            f" per step); device busy {busy:.6f} s of {traced_wall:.6f} s "
-            f"(idle share {1 - busy / traced_wall:.4f}); by kind (s): "
+        log(f"  {n_ev} device events ({n_ev / TRACED_STEPS:.1f} per step); "
+            f"device busy {busy:.6f} s of {traced_wall:.6f} s (idle share "
+            f"{1 - busy / traced_wall:.4f}); by kind (s): "
             f"{json.dumps(by_name)}")
     else:
         log("  the profiler recorded no device events: device busy time "
@@ -618,59 +883,94 @@ def serving_phases() -> dict:
         eng.step()
 
     # served logits: kernels against plain versions, in bf16 (the served
-    # type) and in f32 (the same weights), each beside its controls; the
-    # engine's tokens against the plain versions' logits
+    # type) and in f32 (the same weights), each beside its controls.  In f32
+    # the check requests are first served by a two-lane engine whose own
+    # logits are recorded, so that the engine's path (prefill caches spliced
+    # into lanes, lanes decoded as one batch) is held in f32 too; each
+    # type's requests are then fed the tokens their engine served
     cfg32 = cfg.replace(dtype="float32")
     params32 = init_params(torch.Generator(device=DEV).manual_seed(SEED),
                            cfg32, DEV)
-    checks, plain_bf16 = [], []
-    for p, c in ((eng.params, cfg), (params32, cfg32)):
+    reqs32 = [Request(rid=r.rid, prompt=r.prompt,
+                      max_new_tokens=CHECK_STEPS + 1)
+              for r in reqs[:CHECK_REQUESTS]]
+    served32 = engine_logits(params32, cfg32, reqs32)
+    checks, tokens, failures = [], [], []
+    for p, c, served in ((eng.params, cfg, reqs[:CHECK_REQUESTS]),
+                         (params32, cfg32, reqs32)):
         dt = getattr(torch, c.dtype)
-        log(f"== logits of {CHECK_REQUESTS} requests fed their served "
-            f"tokens, {c.dtype}: kernels vs plain versions, prefill + "
-            f"{CHECK_STEPS} decode steps (tol {LOGIT_TOL[dt]:g} of the "
-            f"largest |logit|), and the controls")
-        for r in reqs[:CHECK_REQUESTS]:
-            chk, plain = check_logits(p, c, r)
+        is32 = dt == torch.float32
+        gate = LOGIT_TOL[dt] if bf16_gated or is32 else None
+        where = (f"a {CHECK_REQUESTS}-lane engine" if is32 else
+                 f"the engine's {LANES} lanes")
+        log(f"== logits of {CHECK_REQUESTS} requests fed the tokens "
+            f"{where} served them, {c.dtype}: kernels vs plain versions, "
+            f"prefill + {CHECK_STEPS} decode steps"
+            + (", and the engine's own logits vs plain" if is32 else "")
+            + " (" + (f"gate {gate:g} of the largest |logit|" if gate else
+                      "read, no gate") + "), and the controls")
+        plains = []
+        for i, r in enumerate(served):
+            chk, plain = check_logits(p, c, r, controls)
+            chk["gate"] = gate
+            if is32:
+                eng_rel = [_rel(a, b) for a, b in zip(served32[i], plain)]
+                chk["engine_max_rel_diff"] = max(eng_rel)
+                if len(eng_rel) != len(plain) or not max(eng_rel) <= gate:
+                    failures.append(
+                        f"request {r.rid}: the {CHECK_REQUESTS}-lane f32 "
+                        f"engine's logits differ from the plain versions' "
+                        f"by {max(eng_rel):.3e} at {len(eng_rel)} of "
+                        f"{len(plain)} positions (gate {gate:g})")
             checks.append(chk)
-            if dt == torch.bfloat16:
-                plain_bf16.append(plain)
+            plains.append(plain)
             log(f"  request {chk['rid']} ({chk['prompt']} prompt tokens): "
                 f"max rel diff {chk['max_rel_diff']:.3e}; per position "
-                f"{[f'{x:.2e}' for x in chk['per_step']]}; controls "
-                f"{json.dumps(chk['controls'])}")
-            if not chk["max_rel_diff"] <= LOGIT_TOL[dt]:
-                raise AssertionError(
+                f"{[f'{x:.2e}' for x in chk['per_step']]}; "
+                + (f"the engine's own logits: max rel diff "
+                   f"{chk['engine_max_rel_diff']:.3e}; "
+                   if "engine_max_rel_diff" in chk else "")
+                + f"controls {json.dumps(chk['controls'])}")
+            if gate is not None and not chk["max_rel_diff"] <= gate:
+                failures.append(
                     f"request {chk['rid']} ({c.dtype}): logits through the "
                     f"kernels differ from the plain versions' by "
-                    f"{chk['max_rel_diff']:.3e}")
-            if dt == torch.float32:
+                    f"{chk['max_rel_diff']:.3e} (gate {gate:g})")
+            if is32:
                 for name, x in chk["controls"].items():
-                    if not x > LOGIT_TOL[dt]:
-                        raise AssertionError(
+                    if not x > gate:
+                        failures.append(
                             f"control {name} reads {x:.3e}, inside the f32 "
                             f"gate: the check cannot tell that kernel fault")
-    log(f"== served tokens against the plain versions' bf16 logits (a "
-        f"token may sit at most {TOKEN_GAP:g} of the largest |logit| below "
-        f"the maximum); control: the other request's tokens")
-    tokens = []
-    for i, r in enumerate(reqs[:CHECK_REQUESTS]):
-        own = r.out_tokens[:CHECK_STEPS + 1]
-        other = reqs[(i + 1) % CHECK_REQUESTS].out_tokens[:CHECK_STEPS + 1]
-        gaps = _gaps(plain_bf16[i], own)
-        swapped_gaps = _gaps(plain_bf16[i], other)
-        exact = sum(g == 0.0 for g in gaps)
-        tokens.append({"rid": r.rid, "max_gap": max(gaps), "gaps": gaps,
-                       "argmax_agree": exact, "positions": len(gaps),
-                       "other_request_max_gap": max(swapped_gaps)})
-        log(f"  request {r.rid}: served tokens {own}; max gap "
-            f"{max(gaps):.3e}, argmax of the plain logits at {exact} of "
-            f"{len(gaps)} positions; request "
-            f"{reqs[(i + 1) % CHECK_REQUESTS].rid}'s tokens here: max gap "
-            f"{max(swapped_gaps):.3e}")
-        if not max(gaps) <= TOKEN_GAP:
-            raise AssertionError(f"request {r.rid}: a served token sits "
-                                 f"{max(gaps):.3e} below the plain maximum")
+        limit = 2 * gate if gate is not None else None
+        log(f"== tokens {where} served against the plain versions' "
+            f"{c.dtype} logits ("
+            + (f"a token may sit at most {limit:g} of the largest |logit| "
+               f"below the maximum, twice the logits gate" if limit else
+               "read, no limit")
+            + "); control: the other request's tokens")
+        for i, r in enumerate(served):
+            own = r.out_tokens[:CHECK_STEPS + 1]
+            other = served[(i + 1) % CHECK_REQUESTS]
+            gaps = _gaps(plains[i], own)
+            other_gap = max(_gaps(plains[i],
+                                  other.out_tokens[:CHECK_STEPS + 1]))
+            exact = sum(g == 0.0 for g in gaps)
+            tokens.append({"rid": r.rid, "dtype": c.dtype,
+                           "max_gap": max(gaps), "gaps": gaps,
+                           "gap_limit": limit, "argmax_agree": exact,
+                           "positions": len(gaps),
+                           "other_request_max_gap": other_gap})
+            log(f"  request {r.rid}: served tokens {own}; max gap "
+                f"{max(gaps):.3e}, argmax of the plain logits at {exact} of "
+                f"{len(gaps)} positions; request {other.rid}'s tokens here: "
+                f"max gap {other_gap:.3e}")
+            if limit is not None and not max(gaps) <= limit:
+                failures.append(f"request {r.rid} ({c.dtype}): a served "
+                                f"token sits {max(gaps):.3e} below the "
+                                f"plain maximum (limit {limit:g})")
+    if failures:
+        raise AssertionError("; ".join(failures))
     serving["served_tokens"] = tokens
     serving["logit_checks"] = checks
     return serving
@@ -817,17 +1117,21 @@ def main() -> int:
         log("  the profiler recorded no device events: device busy time "
             "not measured")
 
-    # -- 5b. the attention kernels; the serving path ------------------------
+    # -- 5b. the attention and mLSTM kernels; the serving paths -------------
     flash, flash_main, decode, decode_main = attention_phases()
-    serving = serving_phases()
-    serve_launches = serving["launches"]
+    mlstm, mlstm_main = mlstm_phases()
+    serving = serving_phases(ARCH)
+    serving_x = serving_phases(XLSTM_ARCH)
+    serve_launches = {**serving["launches"], **serving_x["launches"]}
 
     # -- 6. results -----------------------------------------------------------
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(f"f32 instances: {json.dumps(f32)}")
     log(f"flash instances: {json.dumps(flash)}")
     log(f"decode instances: {json.dumps(decode)}")
+    log(f"mlstm instances: {json.dumps(mlstm)}")
     log(f"serving: {json.dumps(serving)}")
+    log(f"serving {XLSTM_ARCH}: {json.dumps(serving_x)}")
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -851,7 +1155,8 @@ def main() -> int:
              "src/repro/kernels/flash_attention/flash_attention.py:59", 1),
             ("decode_attention", decode_main,
              "src/repro/kernels/decode_attention/decode_attention.py:58",
-             2)):
+             2),
+            ("mlstm", mlstm_main, "src/repro/kernels/mlstm/mlstm.py:73", 1)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -41,9 +41,11 @@ def params_from(jax_params, cfg) -> dict:
     """The port's model parameters, CPU tensors, from the reference's
     parameter tree as numpy arrays (``jax.tree.map(np.asarray, params)``).
 
-    The two trees have one layout: weights ``(d_in, d_out)`` stacked with a
-    leading repetition axis under ``["cells"][j]``, so each leaf is copied
-    as it is and nothing is split or transposed."""
+    The two trees have one layout: weights ``(d_in, d_out)`` and norm
+    vectors (attention blocks' ``{"scale": ...}``, the xLSTM blocks'
+    ``"norm"``) stacked with a leading repetition axis under
+    ``["cells"][j]``, so each leaf is copied as it is and nothing is split
+    or transposed."""
     check_supported(cfg)
 
     def conv(tree):

@@ -1,0 +1,122 @@
+"""Chunkwise mLSTM entry point: the CUDA kernel on the card, the plain
+version on the CPU.
+
+Counterpart of ``repro.kernels.mlstm.ops.mlstm``, with a state in and a
+state out (the serving path starts each prefill from ``init_mlstm_state``
+and hands its final state to decode).  The kernel
+(``kernels/csrc/mlstm.cu``) replaces the Pallas TPU kernel
+``mlstm_chunkwise_pallas`` (``repro/kernels/mlstm/mlstm.py``), which is the
+special case "zero state in, no state out", and is instantiated in f32 at
+head dims :data:`HEAD_DIMS`.  ``launches`` counts the calls that ran the
+kernel; nothing else adds to it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import M_INIT, mlstm_chunkwise_ref, pads
+
+__all__ = ["HEAD_DIMS", "launches", "mlstm", "mlstm_kernel",
+           "reset_launches"]
+
+HEAD_DIMS = (32, 64, 128, 512)   # the tests' and xLSTM-350M's
+
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _entry():
+    lib = _build.load("mlstm")
+    fn = lib.mlstm_chunkwise_f32
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.cuda_error_string
+
+
+def _zero_state(b: int, h: int, dh: int, device) -> tuple:
+    return (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=device),
+            torch.zeros((b, h, dh), dtype=torch.float32, device=device),
+            torch.full((b, h), M_INIT, dtype=torch.float32, device=device))
+
+
+def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logi: torch.Tensor, logf: torch.Tensor,
+                 state: tuple | None = None) -> tuple:
+    """Launch the CUDA kernel.  q, k, v (B, S, H, dh) and logi, logf
+    (B, S, H) contiguous f32 CUDA tensors, S >= 2, dh in
+    :data:`HEAD_DIMS`; ``state`` ``(C (B, H, dh, dh), n (B, H, dh),
+    m (B, H))`` contiguous f32 on the same card, or None (zero state, ``m``
+    at -1e30).  Returns (out (B, S, H, dh), (C, n, m)), new f32 tensors."""
+    global launches
+    ins = (("q", q), ("k", k), ("v", v), ("logi", logi), ("logf", logf))
+    if state is not None:
+        if len(state) != 3:
+            raise ValueError("state must be (C, n, m)")
+        ins += tuple(zip(("C", "n", "m"), state))
+    if any(t.device.type != "cuda" for _, t in ins):
+        raise ValueError("mlstm_kernel needs CUDA tensors (got "
+                         f"{[str(t.device) for _, t in ins]})")
+    if any(t.dtype != torch.float32 for _, t in ins):
+        raise TypeError("mlstm_kernel takes float32 tensors (got "
+                        f"{[str(t.dtype) for _, t in ins]})")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"mlstm_kernel takes q, k, v of one shape (B, S, H, "
+                         f"dh) (got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)})")
+    b, s, h, dh = q.shape
+    if logi.shape != (b, s, h) or logf.shape != (b, s, h):
+        raise ValueError(f"logi, logf must have shape {(b, s, h)} (got "
+                         f"{tuple(logi.shape)}, {tuple(logf.shape)})")
+    if s < 2:
+        raise ValueError(f"mlstm_kernel takes S >= 2 (got {s}); one token "
+                         f"is the recurrence step of mlstm_block")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"mlstm_kernel takes head dims {HEAD_DIMS} "
+                         f"(got {dh})")
+    if state is None:
+        state = _zero_state(b, h, dh, q.device)
+    shapes = ((b, h, dh, dh), (b, h, dh), (b, h))
+    for name, t, want in zip(("C", "n", "m"), state, shapes):
+        if tuple(t.shape) != want:
+            raise ValueError(f"state {name} must have shape {want} (got "
+                             f"{tuple(t.shape)})")
+    for name, t in ins:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    c0, n0, m0 = state
+    fn, err_str = _entry()
+    out = torch.empty_like(q)
+    c1, n1, m1 = (torch.empty_like(t) for t in state)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+                 logf.data_ptr(), c0.data_ptr(), n0.data_ptr(),
+                 m0.data_ptr(), out.data_ptr(), c1.data_ptr(),
+                 n1.data_ptr(), m1.data_ptr(), b, s, h, dh, int(pads(s)),
+                 dh ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm kernel launch failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")
+    launches += 1
+    return out, (c1, n1, m1)
+
+
+def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          logi: torch.Tensor, logf: torch.Tensor,
+          state: tuple | None = None) -> tuple:
+    """Chunkwise mLSTM with a state in and out: (out, (C, n, m)).  CPU
+    tensors take the plain version (:func:`mlstm_chunkwise_ref`); CUDA
+    tensors launch the kernel, or raise if it does not take them."""
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_ref(q, k, v, logi, logf, state)
+    return mlstm_kernel(q, k, v, logi, logf, state)

@@ -5,7 +5,9 @@
 
 Counterpart of ``repro.launch.serve``, with the same flags and requests,
 plus ``--device`` (default: the card; without one it raises unless given
-``--device cpu``).  Weights are random, from the port's seeded
+``--device cpu``).  ``--arch`` takes the models the port serves: the dense
+attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``) and
+``xlstm-350m``.  Weights are random, from the port's seeded
 ``init_params``.
 """
 from __future__ import annotations

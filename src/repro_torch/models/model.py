@@ -1,5 +1,5 @@
 """High-level model API: init / prefill / decode, for dense attention
-models.
+models and xLSTM.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given
@@ -34,16 +34,22 @@ def init_params(gen: torch.Generator, cfg, device=None) -> dict:
     return T.init_params(gen, cfg)
 
 
+# leaves kept as they are: norm scales (RMSNorm multiplies in f32; the
+# xLSTM blocks keep theirs under "norm") and the sLSTM's gate weights, which
+# its recurrence reads in f32
+_KEEP = frozenset({"scale", "norm", "w_gates", "r_gates"})
+
+
 def serve_params(params, cfg) -> dict:
     """``params`` with every weight, bias and the embedding cast once to the
     activation type ``cfg.dtype``, which is what each product casts them to
-    anyway, so the results are the same; norm scales stay as they are
-    (RMSNorm multiplies in f32)."""
+    anyway, so the results are the same; the leaves named in ``_KEEP``
+    stay as they are."""
     dt = getattr(torch, cfg.dtype)
 
     def cast(tree):
         if isinstance(tree, dict):
-            return {k: (v if k == "scale" else cast(v))
+            return {k: (v if k in _KEEP else cast(v))
                     for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v) for v in tree]
@@ -55,7 +61,8 @@ def serve_params(params, cfg) -> dict:
 def prefill(params, cfg, tokens, max_len: int, device=None,
             plain: bool = False):
     """Run the prompt ``tokens`` (B, S) through the model, filling fresh
-    caches of ``max_len`` positions.  Returns (logits of the last position
+    caches (``max_len`` positions for attention; recurrent states hold the
+    prompt's final state).  Returns (logits of the last position
     (B, V), caches, length S).  ``plain=True`` is a check-only switch: it
     takes the kernels' plain versions on any device, to hold the kernels
     against them on the card; serving never sets it."""

@@ -1,14 +1,17 @@
-"""Decoder LM for dense attention models: init, prefill/decode forward,
-KV caches.
+"""Decoder LM for dense attention models and xLSTM: init, prefill/decode
+forward, caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
 stacked with a leading repetition axis under ``params["cells"][j]``, and
-KV caches ``(R, B, max_len, KV, dh)`` per cell position.  The reference
-scans over repetitions; the port loops over them in Python (serving needs
-no rematerialisation).  Mamba, mLSTM and sLSTM blocks, MoE, MLA,
-encoder-decoder and VLM models are not ported yet and raise
-``NotImplementedError``.
+one cache per cell position in the layout of the reference's
+``init_cache``: an attention block's ``(k, v)`` pair of ``(R, B, max_len,
+KV, dh)`` tensors, an mLSTM block's ``(C, n, m)`` and an sLSTM block's
+``(c, h, n, m)`` recurrent states, f32 with the leading ``(R, B)`` axes.
+The reference scans over repetitions; the port loops over them in Python
+(serving needs no rematerialisation) and updates every cache in place.
+Mamba blocks, MoE, MLA, encoder-decoder and VLM models are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 import torch
 
 from . import layers as L
+from . import xlstm as X
 
 __all__ = ["supercell_size", "cell_structure", "check_supported",
            "init_params", "embed_tokens", "rms_norm_final", "logits_fn",
@@ -59,6 +63,11 @@ def cell_structure(cfg) -> list[tuple[str, str]]:
     return out
 
 
+# recurrent block kinds: (init of its parameters, init of its state)
+_RECURRENT = {"mlstm": (X.init_mlstm, X.init_mlstm_state),
+              "slstm": (X.init_slstm, X.init_slstm_state)}
+
+
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet."""
     if cfg.family in ("encdec", "vlm"):
@@ -66,15 +75,18 @@ def check_supported(cfg) -> None:
     if cfg.attention == "mla":
         raise _unported(f"MLA attention ({cfg.name})")
     for kind, ffn_kind in cell_structure(cfg):
-        if kind != "attn":
+        if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
         if ffn_kind == "moe":
             raise _unported(f"the MoE FFN ({cfg.name})")
 
 
-def _init_block(gen, cfg, ffn_kind: str, dtype) -> dict:
-    p: dict = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
-               "attn": L.init_gqa(gen, cfg, dtype)}
+def _init_block(gen, cfg, kind: str, ffn_kind: str, dtype) -> dict:
+    p: dict = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device)}
+    if kind == "attn":
+        p["attn"] = L.init_gqa(gen, cfg, dtype)
+    else:
+        p[kind] = _RECURRENT[kind][0](gen, cfg, dtype)
     if ffn_kind == "dense":
         p["ln2"] = L.init_rms_norm(cfg.d_model, dtype, gen.device)
         p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)
@@ -93,9 +105,9 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     check_supported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     reps = cfg.n_layers // supercell_size(cfg)
-    cells = [_stack([_init_block(gen, cfg, ffn_kind, dtype)
+    cells = [_stack([_init_block(gen, cfg, kind, ffn_kind, dtype)
                      for _ in range(reps)])
-             for _, ffn_kind in cell_structure(cfg)]
+             for kind, ffn_kind in cell_structure(cfg)]
     p = {
         "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype),
         "cells": cells,
@@ -113,35 +125,61 @@ def _layer(tree, r: int):
     return tree[r]
 
 
-def _block_forward(bp, x, cfg, ffn_kind, positions, cache=None,
+def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
                    plain=False):
-    """One attention block; returns x (the cache is written in place)."""
+    """One block; returns (x, the new recurrent state or None).  An
+    attention block writes its KV cache in place."""
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-    o, new_cache = L.gqa_attention(bp["attn"], h, cfg, positions,
-                                   kv_cache=cache, plain=plain)
+    new_state = None
+    if kind == "attn":
+        o, _ = L.gqa_attention(bp["attn"], h, cfg, positions, kv_cache=cache,
+                               plain=plain)
+    elif kind == "mlstm":
+        o, new_state = X.mlstm_block(bp["mlstm"], h, cfg, state=cache,
+                                     plain=plain)
+    else:
+        o, new_state = X.slstm_block(bp["slstm"], h, cfg, state=cache)
     x = x + o
     if ffn_kind == "dense":
         x = x + L.ffn(bp["ffn"], L.rms_norm(x, bp["ln2"]["scale"],
                                             cfg.norm_eps))
-    return x
+    return x, new_state
+
+
+def _cache_in(kind: str, cache: tuple, r: int, length) -> tuple:
+    """Repetition ``r`` of a cell position's cache, as its block takes it:
+    ``(k, v, length)`` for attention, the state tensors otherwise."""
+    if kind == "attn":
+        ck, cv = cache
+        return ck[r], cv[r], length
+    return tuple(t[r] for t in cache)
+
+
+def _cache_out(kind: str, cache: tuple, r: int, new_state) -> None:
+    """Write a recurrent block's new state into repetition ``r`` of its
+    cache (an attention block has written its own)."""
+    if kind != "attn":
+        for dst, src in zip(cache, new_state):
+            dst[r].copy_(src)
 
 
 def run_cells(params, x, cfg, positions, caches=None, length=0,
               plain=False):
-    """All layers in order.  ``caches``: per cell position a ``(k, v)``
-    pair of ``(R, B, max_len, KV, dh)`` tensors, updated in place, with
-    ``length`` the cache fill (an int, or a ``(B,)`` tensor for a one-token
-    step)."""
+    """All layers in order.  ``caches``: per cell position the cache of
+    its block kind (see the module docstring), updated in place, with
+    ``length`` the attention caches' fill (an int, or a ``(B,)`` tensor
+    for a one-token step; recurrent blocks do not read it)."""
     struct = cell_structure(cfg)
     reps = cfg.n_layers // len(struct)
     for r in range(reps):
-        for j, (_, ffn_kind) in enumerate(struct):
-            cache = None
+        for j, (kind, ffn_kind) in enumerate(struct):
+            cache = (None if caches is None
+                     else _cache_in(kind, caches[j], r, length))
+            x, new_state = _block_forward(_layer(params["cells"][j], r), x,
+                                          cfg, kind, ffn_kind, positions,
+                                          cache, plain)
             if caches is not None:
-                ck, cv = caches[j]
-                cache = (ck[r], cv[r], length)
-            x = _block_forward(_layer(params["cells"][j], r), x, cfg,
-                               ffn_kind, positions, cache, plain)
+                _cache_out(kind, caches[j], r, new_state)
     return x
 
 
@@ -159,15 +197,26 @@ def logits_fn(params, cfg, h):
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> list:
-    """Per cell position a ``(k, v)`` pair of zero ``(R, B, max_len, KV,
-    dh)`` tensors in the activation type."""
+    """Per cell position: for attention a ``(k, v)`` pair of zero ``(R, B,
+    max_len, KV, dh)`` tensors in the activation type; for an mLSTM or
+    sLSTM block its fresh state (``init_*_state``, f32, ``m`` at -1e9)
+    repeated to ``(R, B, ...)``.  Recurrent states stay f32, as in the
+    reference: they are small beside KV caches and accumulate over every
+    decode step."""
     check_supported(cfg)
     reps = cfg.n_layers // supercell_size(cfg)
     shape = (reps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = getattr(torch, cfg.dtype)
-    return [(torch.zeros(shape, dtype=dt, device=device),
-             torch.zeros(shape, dtype=dt, device=device))
-            for _ in cell_structure(cfg)]
+    caches = []
+    for kind, _ in cell_structure(cfg):
+        if kind == "attn":
+            caches.append((torch.zeros(shape, dtype=dt, device=device),
+                           torch.zeros(shape, dtype=dt, device=device)))
+        else:
+            st = _RECURRENT[kind][1](cfg, batch, device)
+            caches.append(tuple(t.expand((reps,) + t.shape).contiguous()
+                                for t in st))
+    return caches
 
 
 def decode_step(params, cfg, tokens, caches, length, plain=False):

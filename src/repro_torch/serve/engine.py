@@ -1,9 +1,11 @@
-"""Batched serving engine: continuous batching over KV-cache lanes.
+"""Batched serving engine: continuous batching over cache lanes.
 
 Counterpart of ``repro.serve.engine``.  ``ServeEngine`` owns a fixed pool
-of cache lanes.  Requests are admitted into free lanes (a prefill each);
-every ``step()`` decodes one token for all lanes in one batched
-``decode_step`` and retires finished requests.  The reference ``vmap``s a
+of cache lanes (KV caches, recurrent states, or both: every cache tensor
+has the lane at axis 1).  Requests are admitted into free lanes (a prefill
+each, whose caches are spliced into the lane); every ``step()`` decodes
+one token for all lanes in one batched ``decode_step`` and retires
+finished requests.  The reference ``vmap``s a
 one-lane decode over the lanes; here the lane is the batch dimension of
 every tensor, with the per-lane cache fill held as a ``(L,)`` int32 device
 tensor that the decode kernel reads (a host copy drives retirement, so the
@@ -71,9 +73,9 @@ class ServeEngine:
         logits, caches_1, ln = M.prefill(self.params, self.cfg, prompt[None],
                                          self.max_len, self.device)
         tok = torch.argmax(logits, dim=-1)
-        for (pk, pv), (ok, ov) in zip(self.caches, caches_1):
-            pk[:, lane] = ok[:, 0]
-            pv[:, lane] = ov[:, 0]
+        for pool, one in zip(self.caches, caches_1):
+            for a, o in zip(pool, one):     # (R, L, ...) <- (R, 1, ...)
+                a[:, lane] = o[:, 0]
         self.lengths[lane] = ln
         self._lengths[lane] = ln
         self.cur_tok[lane] = tok

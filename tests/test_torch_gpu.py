@@ -6,8 +6,11 @@ test skips.  Whether a card is present is decided inside each test.
 Tolerances: Sinkhorn f32 rtol 1e-5 / atol 1e-6, as tests/test_kernels.py
 holds the Pallas kernel (reduction order only), f64 rtol 1e-12 over 200
 iterations; attention f32 2e-5 and bf16 2e-2, as tests/test_kernels.py
-holds the Pallas attention kernels; the served model's logits, kernels
-against plain versions, within 2e-2 of the largest logit (bf16).
+holds the Pallas attention kernels; mLSTM f32 rtol 1e-4 / atol 1e-4 on the
+outputs and the final states (the kernel's chunks are 64 positions, the
+plain version's 256, so its sums and exponent arguments are grouped
+differently); the served models' logits, kernels against plain versions,
+within 2e-2 of the largest logit (bf16).
 """
 import numpy as np
 import pytest
@@ -19,12 +22,15 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref
 from repro_torch.models import decode_step, init_params, prefill, serve_params
 from repro_torch.serve.engine import Request, ServeEngine
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+MLSTM_TOL = 1e-4
 
 
 def _card():
@@ -194,3 +200,108 @@ def test_served_model_kernels_match_plain():
     assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
     assert flash_ops.launches - f0 == 3 * cfg.n_layers
     assert decode_ops.launches > d0
+
+
+def _mlstm_inputs(gen, b, s, h, dh, state):
+    """q, k, v, logi, logf at the scale of xLSTM-350M's projections, and a
+    state: None, the serving path's fresh one, or a nonzero one."""
+    q, k, v = (_randn(gen, b, s, h, dh, dtype=torch.float32) * 0.58
+               for _ in range(3))
+    li = _randn(gen, b, s, h, dtype=torch.float32) * 0.58
+    lf = torch.nn.functional.logsigmoid(
+        _randn(gen, b, s, h, dtype=torch.float32) * 0.58)
+    if state == "fresh":
+        st = (torch.zeros(b, h, dh, dh, device="cuda"),
+              torch.zeros(b, h, dh, device="cuda"),
+              torch.full((b, h), -1e9, device="cuda"))
+    elif state == "carried":
+        st = (_randn(gen, b, h, dh, dh, dtype=torch.float32) * 0.1,
+              _randn(gen, b, h, dh, dtype=torch.float32) * 0.1,
+              _randn(gen, b, h, dtype=torch.float32))
+    else:
+        st = None
+    return (q, k, v, li, lf), st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,dh,state", [
+    (1, 552, 4, 512, "fresh"),      # the served model's prefill, padded
+    (1, 159, 4, 512, "fresh"),      # S <= 256
+    (1, 300, 4, 512, "carried"),    # a nonzero state carried in
+    (1, 512, 4, 512, "fresh"),      # S a multiple of 256
+    (2, 256, 4, 64, "carried"),
+    (2, 1000, 8, 32, "fresh"),      # ragged
+    (2, 300, 2, 128, "none"),
+    (1, 2, 4, 64, "carried"),       # the shortest sequence it takes
+])
+def test_mlstm_kernel_matches_plain(b, s, h, dh, state):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(s * 3 + dh)
+    ins, st = _mlstm_inputs(gen, b, s, h, dh, state)
+    before = mlstm_ops.launches
+    out, fin = mlstm_ops.mlstm(*ins, st)
+    torch.cuda.synchronize()
+    assert mlstm_ops.launches == before + 1
+    assert out.shape == (b, s, h, dh) and out.dtype == torch.float32
+    want, wfin = mlstm_chunkwise_ref(*ins, st)
+    torch.testing.assert_close(out, want, rtol=MLSTM_TOL, atol=MLSTM_TOL)
+    for a, w in zip(fin, wfin):
+        torch.testing.assert_close(a, w, rtol=MLSTM_TOL, atol=MLSTM_TOL)
+    # fixed-order sums: the same input gives the same bits
+    again, again_fin = mlstm_ops.mlstm(*ins, st)
+    assert torch.equal(out, again)
+    assert all(torch.equal(a, w) for a, w in zip(fin, again_fin))
+
+
+@pytest.mark.gpu
+def test_mlstm_kernel_rejects_bad_input():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    (q, k, v, li, lf), st = _mlstm_inputs(gen, 1, 8, 2, 64, "fresh")
+    with pytest.raises(ValueError, match="S >= 2"):
+        mlstm_ops.mlstm_kernel(q[:, :1], k[:, :1], v[:, :1], li[:, :1],
+                               lf[:, :1], st)
+    with pytest.raises(ValueError, match="head dims"):
+        mlstm_ops.mlstm_kernel(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous(), li, lf)
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_ops.mlstm_kernel(q.bfloat16(), k.bfloat16(), v.bfloat16(), li,
+                               lf)
+    with pytest.raises(ValueError, match="contiguous"):
+        mlstm_ops.mlstm_kernel(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, li, lf)
+    with pytest.raises(ValueError, match="state C"):
+        mlstm_ops.mlstm_kernel(q, k, v, li, lf, (st[0][..., :32], *st[1:]))
+    with pytest.raises(ValueError, match="logi, logf"):
+        mlstm_ops.mlstm_kernel(q, k, v, li[:, :4], lf)
+
+
+@pytest.mark.gpu
+def test_served_xlstm_kernel_matches_plain():
+    """A narrow xLSTM (head dim 128) on the card: prefill and decode steps
+    with the kernel against the plain version, fed the same tokens; then
+    the engine, whose prefills must each launch the kernel once per mLSTM
+    layer."""
+    _card()
+    cfg = get_config("xlstm-350m", smoke=True).replace(d_model=256)
+    n_mlstm = sum(k == "mlstm" for k in cfg.layer_kinds())
+    p = serve_params(init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg), cfg)
+    prompt = torch.arange(1, 301, device="cuda")[None] % cfg.vocab
+    before = mlstm_ops.launches
+    lk, ck, ln = prefill(p, cfg, prompt, 512)
+    assert mlstm_ops.launches - before == n_mlstm
+    lp, cp, _ = prefill(p, cfg, prompt, 512, plain=True)
+    for step in range(4):
+        scale = max(1.0, float(lp.float().abs().max()))
+        assert float((lk.float() - lp.float()).abs().max()) <= 2e-2 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step)
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True)
+    before = mlstm_ops.launches
+    reqs = [Request(rid=i, prompt=np.arange(1, 5 + 7 * i), max_new_tokens=5)
+            for i in range(3)]
+    done = ServeEngine(p, cfg, n_lanes=2, max_len=64).run(reqs)
+    assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
+    assert mlstm_ops.launches - before == 3 * n_mlstm

@@ -250,6 +250,24 @@ def test_serve_params_give_the_same_logits():
     a, _, _ = prefill(p, cfg, prompt, 16, device="cpu")
     b, _, _ = prefill(sp, cfg, prompt, 16, device="cpu")
     assert torch.equal(a, b)
+    # xLSTM: the blocks' "norm" vectors and the sLSTM's gate weights, which
+    # its recurrence reads in f32, stay f32; prefill and a decode step give
+    # the same logits
+    cfg = get_config("xlstm-350m", smoke=True)
+    p = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    sp = serve_params(p, cfg)
+    ml, sl = sp["cells"][0]["mlstm"], sp["cells"][1]["slstm"]
+    assert ml["wq"].dtype == sl["up"].dtype == torch.bfloat16
+    assert ml["norm"].dtype == sl["norm"].dtype == torch.float32
+    assert sl["w_gates"].dtype == sl["r_gates"].dtype == torch.float32
+    prompt = torch.from_numpy(_prompt(cfg.vocab, seed=5))
+    outs = []
+    for params in (p, sp):
+        lg, caches, ln = prefill(params, cfg, prompt, 16, device="cpu")
+        lg2, _ = decode_step(params, cfg, prompt[:, :1], caches, ln,
+                             device="cpu")
+        outs.append((lg, lg2))
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 def test_init_params_tree_and_distribution():
@@ -273,8 +291,8 @@ def test_init_params_tree_and_distribution():
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b",
-                                  "jamba-1.5-large-398b", "xlstm-350m",
-                                  "whisper-tiny", "internvl2-76b"])
+                                  "jamba-1.5-large-398b", "whisper-tiny",
+                                  "internvl2-76b"])
 def test_unported_models_raise(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
