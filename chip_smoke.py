@@ -6,9 +6,9 @@
 Run from a checkout on a machine with an NVIDIA Hopper card and ``nvcc``.
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), holds each kernel against its
-plain PyTorch version on the card, and drives the port's two paths once
-at full size, each with the kernels' launch counts set to 0 just before
-it and read just after:
+plain PyTorch version on the card, and drives the port's paths once at
+full size, each with the kernels' launch counts set to 0 just before it
+and read just after:
 
 1. Vermilion schedules built with ``normalize="saturate"`` (Sinkhorn on
    the card), then a batched single-hop sweep whose data plane runs on the
@@ -40,10 +40,25 @@ it and read just after:
    and tokens are read, not gated (see ``SERVED``), and the f32 checks,
    the two-lane engine's included, are its gates.
 
+4. Serving Jamba-1.5-Large cut to what one card holds (``jamba-1.5-large``:
+   one supercell of 8 layers at full width, d_model 8192, 64 / 8 heads of
+   128, 7 Mamba layers of d_inner 16384 and d_state 16, 4 MoE FFNs holding
+   experts 0-7 of 16 with the router whole, 4 dense FFNs, vocab 65,536;
+   25.8 B parameters drawn straight into bf16) on the same deployment and
+   requests: every prefill runs the selective-scan kernel once per Mamba
+   layer (16 x 7 = 112 launches) and the flash kernel once, every decode
+   step the flash-decode kernel once.  The logits check is xLSTM's, with
+   two broken uses of the scan kernel as controls (C left out of y; B left
+   out of the input), its f32 weights holding 2 of the 16
+   experts so that they fit the card.
+
 Before the serving paths each kernel is held against its plain version at
-the main path's shapes and beside them (the mLSTM kernel in f32 with its
-states: the served prefills from a fresh state, a carried nonzero state,
-S <= 256, S a multiple of 256, ragged S, head dims 32-512).
+the main path's shapes and beside them (the attention kernels at Qwen's
+and Jamba's head shapes; the mLSTM kernel in f32 with its states: the
+served prefills from a fresh state, a carried nonzero state, S <= 256, S a
+multiple of 256, ragged S, head dims 32-512; the scan kernel on y and the
+final state: the served prefills, a carried nonzero state, S = 1, ragged
+S, bf16 and f32 inputs, B 2 at a narrow D, d_state 8).
 
 Any failure raises: no phase is caught.
 
@@ -85,12 +100,16 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as mamba_ops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref  # noqa: E402
 from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops  # noqa: E402
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
@@ -151,6 +170,21 @@ XLSTM_ARCH = "xlstm-350m"
 # and exponent arguments are grouped differently (|diff| <= atol + rtol
 # |plain|)
 MLSTM_TOL = (1e-4, 1e-4)
+
+# the third served model: Jamba-1.5-Large cut to what one card holds, one
+# supercell (1 attention, 7 Mamba layers, 4 MoE and 4 dense FFNs) at full
+# width with experts 0-7 of its 16 (src/repro_torch/configs/
+# jamba_1_5_large.py, SERVED and REDUCED), on the same deployment and
+# requests; its f32 checks hold 2 of the 16 experts, so that the f32
+# weights (42.1 GiB) fit the card
+JAMBA_ARCH = "jamba-1.5-large"
+JAMBA_F32_HELD = 2
+
+# selective-scan kernel vs plain, f32, on y and the final state: the
+# tolerance of the reference's own test of the Pallas kernel
+# (tests/test_kernels.py); the two differ by FMA contraction and the order
+# of the sum over the 16 states (|diff| <= atol + rtol |plain|)
+MAMBA_TOL = (1e-4, 1e-4)
 
 
 def log(msg: str = "") -> None:
@@ -501,6 +535,89 @@ def check_mlstm(label: str, b: int, s: int, h: int, dh: int, state: str,
             "bound_by": bound_by}
 
 
+def mamba_bound_ms(b: int, s: int, d: int, n: int, u_bytes: int,
+                   with_h0: bool) -> tuple:
+    """(least ms for the selective scan's work on this card, "bytes" |
+    "operations"): inputs (dt, a, B, C, u, and h0 when one is given) read
+    once and outputs (y f32, h_last f32) written once, over HBM rate;
+    against its f32 operations over the CUDA cores' f32 peak: per
+    (position, channel, state) one exponential (counted as one operation),
+    dt a, the input product, the state's multiply-add and the output's
+    multiply-add (7), and per (position, state) dt B (1)."""
+    ins = 4 * (b * s + d * n + 2 * b * s * n) + u_bytes * b * s * d
+    if with_h0:
+        ins += 4 * b * d * n
+    outs = 4 * (b * s * d + b * d * n)
+    t_bytes = (ins + outs) / HBM_BPS
+    t_ops = (7 * b * s * d * n + b * s * n) / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mamba_inputs(b: int, s: int, d: int, n: int, u_dtype: torch.dtype,
+                 state: str, seed: int = SEED) -> tuple:
+    """dt, a, B, C, u at the scale of Jamba's Mamba layers on its random
+    weights (dt = softplus(~0.5), a = -(1..N), unit B, C, u), and a state:
+    the serving path's fresh one (zeros, as a prefill from a new lane
+    passes it), a nonzero one, or None."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + s + d + n)
+    r = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                   device=DEV)
+    dt = F.softplus(0.5 + 0.1 * r(b, s))
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=DEV).expand(d, n).contiguous()
+    bmat, cmat, u = r(b, s, n), r(b, s, n), r(b, s, d).to(u_dtype)
+    h0 = {"fresh": torch.zeros(b, d, n, device=DEV),
+          "carried": r(b, d, n)}.get(state)
+    return dt, a, bmat, cmat, u, h0
+
+
+def check_mamba(label: str, b: int, s: int, d: int, n: int,
+                u_dtype: torch.dtype, state: str, reps: int = 10) -> dict:
+    """The selective-scan kernel against its plain version on one input, y
+    and the final state; checks two calls bitwise; times kernel and plain
+    version on the card alone (:func:`device_ms`), and the kernel's calls
+    with the host's share (:func:`time_ms`).  No single PyTorch call
+    computes a selective scan: no library time."""
+    ins = mamba_inputs(b, s, d, n, u_dtype, state)
+    y, h = mamba_ops.selective_scan_kernel(*ins)
+    again, again_h = mamba_ops.selective_scan_kernel(*ins)
+    torch.cuda.synchronize()
+    want_y, want_h = selective_scan_ref(*ins)
+    rtol, atol = MAMBA_TOL
+    errs, ok = [], True
+    for got, w in ((y, want_y), (h, want_h)):
+        diff = (got - w).abs()
+        errs.append(float(diff.max()))
+        ok &= bool((diff <= atol + rtol * w.abs()).all())
+    same = torch.equal(y, again) and torch.equal(h, again_h)
+    call = lambda: mamba_ops.selective_scan_kernel(*ins)  # noqa: E731
+    ms = device_ms(call, reps)
+    call_ms = time_ms(call, reps)
+    plain_ms = device_ms(lambda: selective_scan_ref(*ins), 1, warm=1,
+                         replays=1)
+    bound_ms, bound_by = mamba_bound_ms(b, s, d, n, ins[4].element_size(),
+                                        ins[5] is not None)
+    log(f"  {label:16s} u {_dname(u_dtype):8s} B={b} S={s} D={d} N={n} "
+        f"state={state}: max_abs_err y {errs[0]:.3e}, h_last {errs[1]:.3e} "
+        f"(rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}; "
+        f"deterministic={same}; kernel {ms:.4f} ms (with the host "
+        f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}), x bound {ms / bound_ms:.1f}")
+    if not ok:
+        raise AssertionError(f"mamba_scan kernel disagrees with its plain "
+                             f"version: {label} S={s} D={d} {state}")
+    if not same:
+        raise AssertionError(f"mamba_scan kernel is not deterministic: "
+                             f"{label}")
+    return {"label": label, "dtype": "float32", "u_dtype": _dname(u_dtype),
+            "shape": [b, s, d, n], "state": state, "max_abs_err": max(errs),
+            "max_abs_err_y_h": errs, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "x_bound": ms / bound_ms,
+            "deterministic": same}
+
+
 def _numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -558,26 +675,50 @@ def mlstm_state_lost(q, k, v, logi, logf, state=None):
     return out, state
 
 
+def mamba_c_ignored(dt, a, bmat, cmat, u, h0=None):
+    """Control: the scan kernel with C left out of the output,
+    y = sum_n h."""
+    return mamba_ops.selective_scan_kernel(dt, a, bmat,
+                                           torch.ones_like(cmat), u, h0)
+
+
+def mamba_b_ignored(dt, a, bmat, cmat, u, h0=None):
+    """Control: the scan kernel with B left out of the input,
+    b_bar = dt u."""
+    return mamba_ops.selective_scan_kernel(dt, a, torch.ones_like(bmat), cmat,
+                                           u, h0)
+
+
 # the controls: module, wrapper name, the broken use of the kernel
 CONTROLS = {"decode_split_dropped": (decode_ops, "decode_attn",
                                      decode_split_dropped),
             "flash_unscaled": (flash_ops, "attention", flash_unscaled)}
 MLSTM_CONTROLS = {"mlstm_state_lost": (mlstm_ops, "mlstm", mlstm_state_lost),
                   "mlstm_unscaled": (mlstm_ops, "mlstm", mlstm_unscaled)}
+MAMBA_CONTROLS = {"mamba_c_ignored": (mamba_ops, "selective_scan",
+                                      mamba_c_ignored),
+                  "mamba_b_ignored": (mamba_ops, "selective_scan",
+                                      mamba_b_ignored)}
 
 # xLSTM-350M in bf16 on random weights turns any change in the mLSTM's f32
 # rounding into a large change of the logits (on an H100, ~0.11 of the
 # largest logit where the f32 logits move by ~3e-5, and as much from the
 # plain version run in f64): its bf16 logits and served tokens are read,
 # held to no gate.  Its f32 logits, and the logits and tokens of a
-# two-lane f32 engine, carry the gates, as they do for Qwen.
+# two-lane f32 engine, carry the gates, as they do for Qwen.  Jamba's
+# likewise: a bf16 rounding flipped by an f32 reordering can flip a top-2
+# expert choice of its router.
 
 # the served models: the wrappers of their kernels (whose launches the
 # serving run counts), the broken uses the logits check reads as controls,
 # and whether the bf16 logits and tokens are gated (else read)
 SERVED = {ARCH: ({"flash_attention": flash_ops,
                   "decode_attention": decode_ops}, CONTROLS, True),
-          XLSTM_ARCH: ({"mlstm": mlstm_ops}, MLSTM_CONTROLS, False)}
+          XLSTM_ARCH: ({"mlstm": mlstm_ops}, MLSTM_CONTROLS, False),
+          JAMBA_ARCH: ({"mamba_scan": mamba_ops,
+                        "flash_attention": flash_ops,
+                        "decode_attention": decode_ops}, MAMBA_CONTROLS,
+                       False)}
 
 
 def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
@@ -672,6 +813,11 @@ def attention_phases() -> tuple:
         flash.append(check_flash("window 256", 1, 1024, 1024, 16, 16, 64, dt,
                                  window=256))
         flash.append(check_flash("Sq<Sk", 1, 128, 512, 8, 8, 128, dt))
+        # Jamba's attention layer: H 64 / KV 8 at dh 128, its served
+        # prefills' shortest and longest prompts
+        for n in (prompt_lens[0], prompt_lens[-1]):
+            flash.append(check_flash("Jamba prefill", 1, n, n, 64, 8, 128,
+                                     dt))
     log("== flash-decode kernel vs plain PyTorch version on the card")
     mid = [len(r.prompt) + NEW_TOKENS // 2 for r in reqs[:LANES]]
     edge = [0, 1, 255, 256, MAX_LEN - 1, MAX_LEN, MAX_LEN + 40, 1000]
@@ -686,12 +832,15 @@ def attention_phases() -> tuple:
                                    dt))
         decode.append(check_decode("llama GQA", mid, MAX_LEN, 24, 8, 128, dt))
         decode.append(check_decode("MQA", mid, MAX_LEN, 8, 1, 64, dt))
+        decode.append(check_decode("Jamba decode", mid, MAX_LEN, 64, 8, 128,
+                                   dt))
     return flash, flash_main, decode, decode_main
 
 
 def _device_kind(name: str) -> str:
     return ("flash_fwd" if "flash_fwd" in name else
             "mlstm_fwd" if "mlstm_fwd" in name else
+            "mamba_scan_fwd" if "mamba_scan_fwd" in name else
             "decode_partial" if "decode_partial" in name else
             "decode_combine" if "decode_combine" in name else
             "gemm" if "gemm" in name.lower() else "other")
@@ -709,9 +858,10 @@ def _device_time(prof) -> tuple:
 
 def prefill_breakdown(p, cfg, req: Request) -> dict:
     """Where one prefill's time goes (B = 1): its wall time; the host-clock
-    time of each block kind, each block between two synchronisations (a
-    second run); the card's busy time by kernel kind and idle share (a
-    third run, under torch.profiler)."""
+    time of each block kind (its mixer: attn, mamba, mlstm, slstm) and each
+    FFN kind (moe, dense ffn), each between two synchronisations (a second
+    run); the card's busy time by kernel kind and idle share (a third run,
+    under torch.profiler)."""
     prompt = torch.as_tensor(req.prompt, device=DEV)[None]
     run = lambda: prefill(p, cfg, prompt, MAX_LEN, DEV)  # noqa: E731
     run()
@@ -721,17 +871,38 @@ def prefill_breakdown(p, cfg, req: Request) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_block: dict = {}
-    block = T._block_forward
+    inside: list = []                   # the block kind being run
 
-    def timed(bp, x, cfg_, kind, *args, **kw):
+    def add(key: str, dt: float) -> None:
+        by_block[key] = by_block.get(key, 0.0) + dt
+
+    def block(bp, x, cfg_, kind, *args, **kw):
+        inside.append(kind)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = block(bp, x, cfg_, kind, *args, **kw)
+        out = fwd(bp, x, cfg_, kind, *args, **kw)
         torch.cuda.synchronize()
-        by_block[kind] = by_block.get(kind, 0.0) + time.perf_counter() - t
+        add(kind, time.perf_counter() - t)
+        inside.pop()
         return out
 
-    with swapped(T, "_block_forward", timed):
+    def ffn_timed(fn, key: str):
+        # an FFN runs inside its block: its time is moved to its own key
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            add(key, dt)
+            add(inside[-1], -dt)
+            return out
+        return call
+
+    fwd = T._block_forward
+    with swapped(T, "_block_forward", block), \
+            swapped(MOE, "moe_ffn", ffn_timed(MOE.moe_ffn, "moe")), \
+            swapped(L, "ffn", ffn_timed(L.ffn, "ffn")):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -785,6 +956,34 @@ def mlstm_phases() -> tuple:
     return inst, main
 
 
+def mamba_phases() -> tuple:
+    """The selective-scan kernel against its plain version at the main
+    path's shapes and beside them; returns (instances, the one the kernel
+    line reports)."""
+    log("== selective-scan kernel vs plain PyTorch version on the card "
+        "(f32 state, y and the final state)")
+    cfg = get_config(JAMBA_ARCH)
+    d, n = cfg.mamba_expand * cfg.d_model, cfg.d_state
+    lens = [len(r.prompt) for r in serving_requests(cfg.vocab)]
+    bf16 = torch.bfloat16
+    inst = [check_mamba("served prefill", 1, max(lens), d, n, bf16, "fresh")]
+    main = inst[0]                      # the longest prompt of the main path
+    inst.append(check_mamba("served prefill", 1, min(lens), d, n, bf16,
+                            "fresh"))
+    inst.append(check_mamba("carried state", 1, lens[0], d, n, bf16,
+                            "carried"))
+    inst.append(check_mamba("f32 u (f32 path)", 1, max(lens), d, n,
+                            torch.float32, "fresh"))
+    inst.append(check_mamba("S = 1", 1, 1, d, n, bf16, "carried"))
+    inst.append(check_mamba("ragged, no state", 1, 1000, d, n, bf16, "none"))
+    inst.append(check_mamba("B 2, narrow D", 2, 333, 96, n, torch.float32,
+                            "carried"))
+    inst.append(check_mamba("N 8", 2, 300, 512, 8, torch.float32, "none"))
+    log("  no single PyTorch call computes a selective scan: library time "
+        "n/a")
+    return inst, main
+
+
 def serving_phases(arch: str) -> dict:
     """The serving main path of ``arch`` at full size, its traced decode
     steps and the logits check; returns what they measured, launch counts
@@ -793,22 +992,28 @@ def serving_phases(arch: str) -> dict:
     cfg = get_config(arch)
     kinds = cfg.layer_kinds()
     reqs = serving_requests(cfg.vocab)
+    torch.cuda.empty_cache()            # what an earlier phase left cached
     log(f"== serving: {cfg.name}, {cfg.n_layers} layers "
         f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
         f"), d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
-        f"kv, head_dim {cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype}; "
-        f"{LANES} lanes x {MAX_LEN}, {N_REQUESTS} requests, prompts "
-        f"{PROMPT_LO}-{PROMPT_HI}, {NEW_TOKENS} new tokens, seed {SEED}")
+        f"kv, head_dim {cfg.head_dim}, vocab {cfg.vocab}"
+        + (f", experts {cfg.expert_offset}-"
+           f"{cfg.expert_offset + cfg.n_held - 1} of {cfg.n_experts} held, "
+           f"top-{cfg.top_k}" if cfg.n_experts else "")
+        + f", {cfg.dtype}; {LANES} lanes x {MAX_LEN}, {N_REQUESTS} requests, "
+        f"prompts {PROMPT_LO}-{PROMPT_HI}, {NEW_TOKENS} new tokens, seed "
+        f"{SEED}")
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=DEV).manual_seed(SEED),
-                         cfg, DEV)
+                         cfg, DEV, serve=True)
     eng = ServeEngine(params, cfg, n_lanes=LANES, max_len=MAX_LEN,
                       device=DEV)
     del params
     n_params = _numel(eng.params)
     torch.cuda.synchronize()
-    log(f"  weights: {n_params} parameters, init + {cfg.dtype} copy "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"  weights: {n_params} parameters, drawn into {cfg.dtype} in "
+        f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated()} "
+        f"B allocated")
     torch.cuda.reset_peak_memory_stats()
     for ops in wrappers.values():
         ops.reset_launches()
@@ -823,7 +1028,8 @@ def serving_phases(arch: str) -> dict:
     # for each layer of the kernel's kind
     expected = {"flash_attention": N_REQUESTS * kinds.count("attn"),
                 "decode_attention": st["decode_steps"] * kinds.count("attn"),
-                "mlstm": N_REQUESTS * kinds.count("mlstm")}
+                "mlstm": N_REQUESTS * kinds.count("mlstm"),
+                "mamba_scan": N_REQUESTS * kinds.count("mamba")}
     for name, n in serve_launches.items():
         want = expected[name]
         if n != want or n <= 0:
@@ -883,23 +1089,32 @@ def serving_phases(arch: str) -> dict:
         eng.step()
 
     # served logits: kernels against plain versions, in bf16 (the served
-    # type) and in f32 (the same weights), each beside its controls.  In f32
-    # the check requests are first served by a two-lane engine whose own
-    # logits are recorded, so that the engine's path (prefill caches spliced
-    # into lanes, lanes decoded as one batch) is held in f32 too; each
-    # type's requests are then fed the tokens their engine served
-    cfg32 = cfg.replace(dtype="float32")
-    params32 = init_params(torch.Generator(device=DEV).manual_seed(SEED),
-                           cfg32, DEV)
+    # type) and in f32 (the same weights drawn anew in f32, after the bf16
+    # engine is freed; a model that holds a share of its experts holds
+    # JAMBA_F32_HELD of them in f32, so that its f32 weights fit the card),
+    # each beside its controls.  In f32 the check requests are first served
+    # by a two-lane engine whose own logits are recorded, so that the
+    # engine's path (prefill caches spliced into lanes, lanes decoded as one
+    # batch) is held in f32 too; each type's requests are then fed the
+    # tokens their engine served
     reqs32 = [Request(rid=r.rid, prompt=r.prompt,
                       max_new_tokens=CHECK_STEPS + 1)
               for r in reqs[:CHECK_REQUESTS]]
-    served32 = engine_logits(params32, cfg32, reqs32)
     checks, tokens, failures = [], [], []
-    for p, c, served in ((eng.params, cfg, reqs[:CHECK_REQUESTS]),
-                         (params32, cfg32, reqs32)):
+    for is32 in (False, True):
+        if is32:
+            p = eng = None
+            torch.cuda.empty_cache()
+            c = cfg.replace(dtype="float32")
+            if cfg.experts_held:
+                c = c.replace(experts_held=JAMBA_F32_HELD)
+            p = init_params(torch.Generator(device=DEV).manual_seed(SEED), c,
+                            DEV)
+            served = reqs32
+            served32 = engine_logits(p, c, reqs32)
+        else:
+            p, c, served = eng.params, cfg, reqs[:CHECK_REQUESTS]
         dt = getattr(torch, c.dtype)
-        is32 = dt == torch.float32
         gate = LOGIT_TOL[dt] if bf16_gated or is32 else None
         where = (f"a {CHECK_REQUESTS}-lane engine" if is32 else
                  f"the engine's {LANES} lanes")
@@ -1117,12 +1332,18 @@ def main() -> int:
         log("  the profiler recorded no device events: device busy time "
             "not measured")
 
-    # -- 5b. the attention and mLSTM kernels; the serving paths -------------
+    # -- 5b. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
-    serving = serving_phases(ARCH)
-    serving_x = serving_phases(XLSTM_ARCH)
-    serve_launches = {**serving["launches"], **serving_x["launches"]}
+    mamba, mamba_main = mamba_phases()
+    served = {arch: serving_phases(arch)
+              for arch in (ARCH, XLSTM_ARCH, JAMBA_ARCH)}
+    # each kernel's launches on every serving path that runs it, each path
+    # read between its own resets
+    by_path: dict = {}
+    for arch, res in served.items():
+        for name, n in res["launches"].items():
+            by_path.setdefault(name, {})[arch] = n
 
     # -- 6. results -----------------------------------------------------------
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -1130,8 +1351,9 @@ def main() -> int:
     log(f"flash instances: {json.dumps(flash)}")
     log(f"decode instances: {json.dumps(decode)}")
     log(f"mlstm instances: {json.dumps(mlstm)}")
-    log(f"serving: {json.dumps(serving)}")
-    log(f"serving {XLSTM_ARCH}: {json.dumps(serving_x)}")
+    log(f"mamba_scan instances: {json.dumps(mamba)}")
+    for arch, res in served.items():
+        log(f"serving {arch}: {json.dumps(res)}")
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -1148,20 +1370,25 @@ def main() -> int:
         "n": main_shape["n"],
         "iters": main_shape["iters"],
     }]
-    # `launches` counts wrapper calls; a decode call is two CUDA launches
-    # (split partials, combine), and `ms` is the device time of both
+    # `launches` counts wrapper calls on the serving paths, summed over the
+    # paths that run the kernel (`launches_by_path`); a decode call is two
+    # CUDA launches (split partials, combine), and `ms` is the device time
+    # of both
     for name, inst, replaces, per_call in (
             ("flash_attention", flash_main,
              "src/repro/kernels/flash_attention/flash_attention.py:59", 1),
             ("decode_attention", decode_main,
              "src/repro/kernels/decode_attention/decode_attention.py:58",
              2),
-            ("mlstm", mlstm_main, "src/repro/kernels/mlstm/mlstm.py:73", 1)):
+            ("mlstm", mlstm_main, "src/repro/kernels/mlstm/mlstm.py:73", 1),
+            ("mamba_scan", mamba_main,
+             "src/repro/kernels/mamba_scan/mamba_scan.py:54", 1)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": serve_launches[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             **{k: inst[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "call_ms", "dtype", "shape")},

@@ -1,4 +1,5 @@
-"""Architecture registry: the 10 assigned configs + smoke variants."""
+"""Architecture registry: the 10 assigned configs + smoke variants, and
+the one-card served cut of Jamba (``jamba-1.5-large``)."""
 from __future__ import annotations
 
 from .base import ModelConfig, ShapeConfig, TrainConfig, SHAPES
@@ -12,6 +13,7 @@ from .llama4_maverick import FULL as LLAMA4_MAVERICK, smoke as llama4_maverick_s
 from .mixtral_8x7b import FULL as MIXTRAL_8X7B, smoke as mixtral_8x7b_smoke
 from .whisper_tiny import FULL as WHISPER_TINY, smoke as whisper_tiny_smoke
 from .jamba_1_5_large import FULL as JAMBA_1_5_LARGE, smoke as jamba_1_5_large_smoke
+from .jamba_1_5_large import SERVED as JAMBA_1_5_LARGE_SERVED
 from .xlstm_350m import FULL as XLSTM_350M, smoke as xlstm_350m_smoke
 
 REGISTRY: dict[str, ModelConfig] = {
@@ -25,6 +27,8 @@ REGISTRY: dict[str, ModelConfig] = {
     "whisper-tiny": WHISPER_TINY,
     "jamba-1.5-large-398b": JAMBA_1_5_LARGE,
     "xlstm-350m": XLSTM_350M,
+    # one supercell holding 8 of 16 experts: what one card serves
+    "jamba-1.5-large": JAMBA_1_5_LARGE_SERVED,
 }
 
 SMOKE: dict[str, ModelConfig] = {
@@ -38,6 +42,7 @@ SMOKE: dict[str, ModelConfig] = {
     "whisper-tiny": whisper_tiny_smoke(),
     "jamba-1.5-large-398b": jamba_1_5_large_smoke(),
     "xlstm-350m": xlstm_350m_smoke(),
+    "jamba-1.5-large": jamba_1_5_large_smoke(),
 }
 
 # archs whose `long_500k` cell runs (sub-quadratic sequence mixing);

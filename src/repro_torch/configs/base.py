@@ -34,6 +34,12 @@ class ModelConfig:
     moe_every: int = 1           # MoE layers at layer % moe_every == moe_offset
     moe_offset: int = 0
     capacity_factor: float = 1.25
+    # the experts this device holds of each MoE layer under expert
+    # parallelism: experts [expert_offset, expert_offset + experts_held);
+    # 0 means all n_experts.  n_experts stays the published count: it sets
+    # the router's width and the capacity
+    experts_held: int = 0
+    expert_offset: int = 0
 
     # hybrid (jamba): attention layers at layer % attn_every == attn_offset,
     # all other layers are Mamba blocks
@@ -67,6 +73,15 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.expert_offset + self.n_held > self.n_experts:
+            raise ValueError(
+                f"experts [{self.expert_offset}, {self.expert_offset + self.n_held}"
+                f") are not among the {self.n_experts} experts")
+
+    @property
+    def n_held(self) -> int:
+        """Experts held per MoE layer (``experts_held``, or all)."""
+        return self.experts_held or self.n_experts
 
     @property
     def is_encdec(self) -> bool:
@@ -100,7 +115,8 @@ class ModelConfig:
 
     # ------------------------------------------------------------------
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks), for roofline."""
+        """Analytic parameter count (embedding + blocks), for roofline;
+        the experts counted are those held (``n_held``)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         h, kv, hd = self.n_heads, self.n_kv_heads, self.head_dim
         total = v * d  # embedding
@@ -133,7 +149,7 @@ class ModelConfig:
                 total += d_inner * d              # down proj
             if kind == "attn" or self.family != "ssm":
                 if self.layer_is_moe(i):
-                    total += self.n_experts * 3 * d * ff + d * self.n_experts
+                    total += self.n_held * 3 * d * ff + d * self.n_experts
                 elif ff:
                     total += 3 * d * ff
         if self.is_encdec:
@@ -148,7 +164,7 @@ class ModelConfig:
             return self.param_count()
         d, ff = self.d_model, self.d_ff
         n_moe = sum(self.layer_is_moe(i) for i in range(self.n_layers))
-        dense_equiv = self.param_count() - n_moe * self.n_experts * 3 * d * ff
+        dense_equiv = self.param_count() - n_moe * self.n_held * 3 * d * ff
         return int(dense_equiv + n_moe * max(self.top_k, 1) * 3 * d * ff)
 
 

@@ -45,14 +45,21 @@ def params_from(jax_params, cfg) -> dict:
     vectors (attention blocks' ``{"scale": ...}``, the xLSTM blocks'
     ``"norm"``) stacked with a leading repetition axis under
     ``["cells"][j]``, so each leaf is copied as it is and nothing is split
-    or transposed."""
+    or transposed, with one exception: where ``cfg`` holds a share of the
+    experts (``experts_held``), the MoE layers' ``(R, E, d, ff)`` expert
+    stacks are cut to the share's ``[expert_offset, expert_offset +
+    experts_held)`` on their expert axis (the router stays whole)."""
     check_supported(cfg)
+    share = slice(cfg.expert_offset, cfg.expert_offset + cfg.n_held)
 
-    def conv(tree):
+    def conv(tree, in_moe=False):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, k == "moe" or (in_moe and k != "router"))
+                    for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [conv(v) for v in tree]
-        return torch.from_numpy(np.array(tree))
+        a = np.array(tree)
+        return torch.from_numpy(np.ascontiguousarray(a[:, share]) if in_moe
+                                else a)
 
     return conv(jax_params)

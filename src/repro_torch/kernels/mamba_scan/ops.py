@@ -1,0 +1,111 @@
+"""Selective-scan entry point: the CUDA kernel on the card, the plain
+version on the CPU.
+
+The kernel (``kernels/csrc/mamba_scan.cu``) replaces the Pallas TPU kernel
+``mamba_scan`` (``repro/kernels/mamba_scan/mamba_scan.py``) and computes
+what the model runs (:func:`~.ref.selective_scan_ref`): the discretisation
+fused into the scan, so the ``(S, D, N)`` tensors never reach device
+memory, a state in and a state out.  It takes any S, B and D, d_state
+in :data:`D_STATES`, ``u`` in f32 or bf16.  ``launches`` counts the calls
+that ran the kernel; nothing else adds to it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import selective_scan_ref
+
+__all__ = ["D_STATES", "launches", "reset_launches", "selective_scan",
+           "selective_scan_kernel"]
+
+D_STATES = (8, 16)   # the reference test's and the models' d_state
+
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _entry():
+    lib = _build.load("mamba_scan")
+    fn = lib.mamba_scan
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.cuda_error_string
+
+
+def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
+                          bmat: torch.Tensor, cmat: torch.Tensor,
+                          u: torch.Tensor,
+                          h0: torch.Tensor | None = None) -> tuple:
+    """Launch the CUDA kernel.  dt (B, S) and a (D, N) f32; bmat, cmat
+    (B, S, N), any float type (cast to f32 here: they are small); u
+    (B, S, D) f32 or bf16; h0 (B, D, N) f32 or None (zero state); all on one
+    card.  Returns (y (B, S, D), h_last (B, D, N)), new f32 tensors."""
+    global launches
+    ins = {"dt": dt, "a": a, "bmat": bmat, "cmat": cmat, "u": u}
+    if h0 is not None:
+        ins["h0"] = h0
+    if any(t.device.type != "cuda" for t in ins.values()):
+        raise ValueError("selective_scan_kernel needs CUDA tensors (got "
+                         f"{[str(t.device) for t in ins.values()]})")
+    if dt.dim() != 2 or a.dim() != 2 or u.dim() != 3:
+        raise ValueError(f"dt (B, S), a (D, N), u (B, S, D) expected (got "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(u.shape)})")
+    b, s = dt.shape
+    d, n = a.shape
+    if n not in D_STATES:
+        raise ValueError(f"selective_scan_kernel takes d_state in {D_STATES} "
+                         f"(got {n})")
+    want = {"bmat": (b, s, n), "cmat": (b, s, n), "u": (b, s, d),
+            "h0": (b, d, n)}
+    for name, shape in want.items():
+        if name in ins and tuple(ins[name].shape) != shape:
+            raise ValueError(f"{name} must have shape {shape} (got "
+                             f"{tuple(ins[name].shape)})")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32 or (
+            h0 is not None and h0.dtype != torch.float32):
+        raise TypeError("dt, a and h0 must be float32")
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"u must be float32 or bfloat16 (got {u.dtype})")
+    if any(not t.is_contiguous() for t in (dt, a, u, *(() if h0 is None
+                                                       else (h0,)))):
+        raise ValueError("dt, a, u and h0 must be contiguous")
+    bmat = bmat.float().contiguous()
+    cmat = cmat.float().contiguous()
+    fn, err_str = _entry()
+    y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
+    h_last = torch.empty((b, d, n), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = fn(dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+                 cmat.data_ptr(), u.data_ptr(),
+                 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
+                 h_last.data_ptr(), b, s, d, n,
+                 int(u.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
+                           f"{err} ({err_str(err).decode()})")
+    launches += 1
+    return y, h_last
+
+
+def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, u: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> tuple:
+    """The selective scan with the discretisation fused, a state in and
+    out: (y (B, S, D), h_last (B, D, N)), f32.  CPU tensors take the plain
+    version (:func:`selective_scan_ref`); CUDA tensors launch the kernel,
+    or raise if it does not take them."""
+    if u.device.type == "cpu":
+        return selective_scan_ref(dt, a, bmat, cmat, u, h0)
+    return selective_scan_kernel(dt, a, bmat, cmat, u, h0)

@@ -6,9 +6,11 @@
 Counterpart of ``repro.launch.serve``, with the same flags and requests,
 plus ``--device`` (default: the card; without one it raises unless given
 ``--device cpu``).  ``--arch`` takes the models the port serves: the dense
-attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``) and
-``xlstm-350m``.  Weights are random, from the port's seeded
-``init_params``.
+attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``),
+``xlstm-350m``, and ``jamba-1.5-large``, the Jamba cut one H100 serves (one
+supercell at full width holding 8 of its 16 experts; ``--smoke`` gives the
+narrow 8-layer Jamba for the CPU).  Weights are random, from the port's
+seeded ``init_params``, drawn straight into the served type.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                         dev)
+                         dev, serve=True)
     eng = ServeEngine(params, cfg, n_lanes=args.lanes, max_len=96,
                       device=dev)
     rng = np.random.default_rng(0)

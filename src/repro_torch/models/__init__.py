@@ -1,7 +1,7 @@
-"""Model stack of the port: dense attention decoders and xLSTM
-(``transformer``) over the blocks of ``layers`` and ``xlstm``, with the
-high-level API of ``model``."""
-from . import layers, model, transformer, xlstm
+"""Model stack of the port: dense attention decoders, xLSTM and the Jamba
+hybrid (``transformer``) over the blocks of ``layers``, ``xlstm``,
+``mamba`` and ``moe``, with the high-level API of ``model``."""
+from . import layers, mamba, model, moe, transformer, xlstm
 from .model import (
     decode_step,
     greedy_generate,
@@ -10,5 +10,6 @@ from .model import (
     serve_params,
 )
 
-__all__ = ["layers", "model", "transformer", "xlstm", "decode_step",
-           "greedy_generate", "init_params", "prefill", "serve_params"]
+__all__ = ["layers", "mamba", "model", "moe", "transformer", "xlstm",
+           "decode_step", "greedy_generate", "init_params", "prefill",
+           "serve_params"]

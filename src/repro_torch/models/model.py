@@ -1,5 +1,5 @@
 """High-level model API: init / prefill / decode, for dense attention
-models and xLSTM.
+models, xLSTM and the Jamba hybrid.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given
@@ -25,19 +25,25 @@ def _device(params, device) -> torch.device:
     return dev
 
 
-def init_params(gen: torch.Generator, cfg, device=None) -> dict:
+def init_params(gen: torch.Generator, cfg, device=None,
+                serve: bool = False) -> dict:
     """Seeded weights (f32, ``cfg.param_dtype``) drawn from ``gen``, which
-    must live on ``device``."""
+    must live on ``device``.  ``serve=True`` returns what
+    :func:`serve_params` would make of them, cast leaf by leaf as they are
+    drawn: the way to build a model whose f32 weights do not fit the card
+    beside their served copy."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"the generator is on {gen.device}, not on {dev}")
-    return T.init_params(gen, cfg)
+    return T.init_params(
+        gen, cfg, (lambda tree: serve_params(tree, cfg)) if serve else None)
 
 
 # leaves kept as they are: norm scales (RMSNorm multiplies in f32; the
-# xLSTM blocks keep theirs under "norm") and the sLSTM's gate weights, which
-# its recurrence reads in f32
-_KEEP = frozenset({"scale", "norm", "w_gates", "r_gates"})
+# xLSTM blocks keep theirs under "norm"), the sLSTM's gate weights, which
+# its recurrence reads in f32, and the Mamba decay rates' log, which the
+# scan reads in f32 (bf16 would move A = -exp(a_log) by up to 0.4 %)
+_KEEP = frozenset({"scale", "norm", "w_gates", "r_gates", "a_log"})
 
 
 def serve_params(params, cfg) -> dict:
@@ -78,13 +84,17 @@ def prefill(params, cfg, tokens, max_len: int, device=None,
 
 
 def decode_step(params, cfg, tokens, caches, length, device=None,
-                plain: bool = False):
+                plain: bool = False, per_lane: bool = False):
     """One token (B, 1) at cache fill ``length`` (an int, or a (B,) tensor,
     one per lane).  Returns (logits (B, V), caches).  ``plain=True`` is the
-    check-only switch of :func:`prefill`."""
+    check-only switch of :func:`prefill`.  ``per_lane=True`` routes each
+    row's MoE tokens as a group of their own, as a serving engine decodes
+    independent lanes; by default the B tokens form one group, as in the
+    reference's ``decode_step``."""
     dev = _device(params, device)
     tokens = torch.as_tensor(tokens, device=dev)
-    return T.decode_step(params, cfg, tokens, caches, length, plain)
+    return T.decode_step(params, cfg, tokens, caches, length, plain,
+                         per_lane)
 
 
 def greedy_generate(params, cfg, prompt, steps: int, max_len: int,

@@ -1,16 +1,18 @@
-"""Decoder LM for dense attention models and xLSTM: init, prefill/decode
-forward, caches.
+"""Decoder LM for dense attention models, xLSTM and the Jamba hybrid: init,
+prefill/decode forward, caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
 stacked with a leading repetition axis under ``params["cells"][j]``, and
 one cache per cell position in the layout of the reference's
 ``init_cache``: an attention block's ``(k, v)`` pair of ``(R, B, max_len,
-KV, dh)`` tensors, an mLSTM block's ``(C, n, m)`` and an sLSTM block's
-``(c, h, n, m)`` recurrent states, f32 with the leading ``(R, B)`` axes.
-The reference scans over repetitions; the port loops over them in Python
-(serving needs no rematerialisation) and updates every cache in place.
-Mamba blocks, MoE, MLA, encoder-decoder and VLM models are not ported yet
+KV, dh)`` tensors, an mLSTM block's ``(C, n, m)``, an sLSTM block's
+``(c, h, n, m)`` and a Mamba block's ``(ssm, conv_buf)`` recurrent states,
+f32 with the leading ``(R, B)`` axes.  An FFN is dense or MoE (holding the
+config's share of the experts, ``models.moe``).  The reference scans over
+repetitions; the port loops over them in Python (serving needs no
+rematerialisation) and updates every cache in place.  MLA,
+encoder-decoder, VLM models and sliding-window decode are not ported yet
 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -20,6 +22,8 @@ import math
 import torch
 
 from . import layers as L
+from . import mamba as MB
+from . import moe as MOE
 from . import xlstm as X
 
 __all__ = ["supercell_size", "cell_structure", "check_supported",
@@ -65,7 +69,8 @@ def cell_structure(cfg) -> list[tuple[str, str]]:
 
 # recurrent block kinds: (init of its parameters, init of its state)
 _RECURRENT = {"mlstm": (X.init_mlstm, X.init_mlstm_state),
-              "slstm": (X.init_slstm, X.init_slstm_state)}
+              "slstm": (X.init_slstm, X.init_slstm_state),
+              "mamba": (MB.init_mamba, MB.init_mamba_state)}
 
 
 def check_supported(cfg) -> None:
@@ -74,47 +79,63 @@ def check_supported(cfg) -> None:
         raise _unported(f"the {cfg.family} family ({cfg.name})")
     if cfg.attention == "mla":
         raise _unported(f"MLA attention ({cfg.name})")
-    for kind, ffn_kind in cell_structure(cfg):
+    if cfg.sliding_window:
+        raise _unported(f"decode with a sliding window ({cfg.name})")
+    for kind, _ in cell_structure(cfg):
         if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
-        if ffn_kind == "moe":
-            raise _unported(f"the MoE FFN ({cfg.name})")
 
 
-def _init_block(gen, cfg, kind: str, ffn_kind: str, dtype) -> dict:
+def _init_block(gen, cfg, kind: str, ffn_kind: str, dtype, cast,
+                store) -> dict:
+    """One block's weights, each part passed through ``cast`` as soon as it
+    is drawn (the experts are drawn one at a time into ``store``)."""
     p: dict = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device)}
     if kind == "attn":
-        p["attn"] = L.init_gqa(gen, cfg, dtype)
+        p["attn"] = cast(L.init_gqa(gen, cfg, dtype))
     else:
-        p[kind] = _RECURRENT[kind][0](gen, cfg, dtype)
-    if ffn_kind == "dense":
+        p[kind] = cast(_RECURRENT[kind][0](gen, cfg, dtype))
+    if ffn_kind != "none":
         p["ln2"] = L.init_rms_norm(cfg.d_model, dtype, gen.device)
-        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)
+        if ffn_kind == "moe":
+            p["moe"] = cast(MOE.init_moe(gen, cfg, dtype, store))
+        else:
+            p["ffn"] = cast(L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype))
     return p
 
 
 def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:
+        return trees[0].unsqueeze(0)       # a view: no second copy
     return torch.stack(trees)
 
 
-def init_params(gen: torch.Generator, cfg) -> dict:
+def init_params(gen: torch.Generator, cfg, serve_cast=None) -> dict:
     """Seeded weights on ``gen``'s device, with the reference's tree and
-    distributions (not its bits)."""
+    distributions (not its bits), in ``cfg.param_dtype``.  ``serve_cast``
+    (a function of a subtree) is applied to each block's parts and to the
+    embeddings as soon as they are drawn, and the experts are drawn one at a
+    time into ``cfg.dtype``: the served copy is made leaf by leaf, never
+    beside a whole f32 tree."""
     check_supported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
+    cast = serve_cast or (lambda tree: tree)
+    store = getattr(torch, cfg.dtype) if serve_cast else None
     reps = cfg.n_layers // supercell_size(cfg)
-    cells = [_stack([_init_block(gen, cfg, kind, ffn_kind, dtype)
+    cells = [_stack([_init_block(gen, cfg, kind, ffn_kind, dtype, cast,
+                                 store)
                      for _ in range(reps)])
              for kind, ffn_kind in cell_structure(cfg)]
     p = {
-        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype),
+        "embed": cast(L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype)),
         "cells": cells,
         "ln_f": L.init_rms_norm(cfg.d_model, dtype, gen.device),
     }
     if not cfg.tie_embeddings:
-        p["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+        p["unembed"] = cast(L.dense_init(gen, (cfg.d_model, cfg.vocab),
+                                         dtype))
     return p
 
 
@@ -126,9 +147,10 @@ def _layer(tree, r: int):
 
 
 def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
-                   plain=False):
+                   plain=False, per_lane=False):
     """One block; returns (x, the new recurrent state or None).  An
-    attention block writes its KV cache in place."""
+    attention block writes its KV cache in place.  ``per_lane`` groups an
+    MoE FFN's tokens within each batch row (see :func:`run_cells`)."""
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     new_state = None
     if kind == "attn":
@@ -137,12 +159,20 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
     elif kind == "mlstm":
         o, new_state = X.mlstm_block(bp["mlstm"], h, cfg, state=cache,
                                      plain=plain)
+    elif kind == "mamba":
+        o, new_state = MB.mamba_block(bp["mamba"], h, cfg, state=cache,
+                                      plain=plain)
     else:
         o, new_state = X.slstm_block(bp["slstm"], h, cfg, state=cache)
     x = x + o
     if ffn_kind == "dense":
         x = x + L.ffn(bp["ffn"], L.rms_norm(x, bp["ln2"]["scale"],
                                             cfg.norm_eps))
+    elif ffn_kind == "moe":
+        o, _ = MOE.moe_ffn(bp["moe"], L.rms_norm(x, bp["ln2"]["scale"],
+                                                 cfg.norm_eps), cfg,
+                           per_row=per_lane)
+        x = x + o
     return x, new_state
 
 
@@ -164,11 +194,14 @@ def _cache_out(kind: str, cache: tuple, r: int, new_state) -> None:
 
 
 def run_cells(params, x, cfg, positions, caches=None, length=0,
-              plain=False):
+              plain=False, per_lane=False):
     """All layers in order.  ``caches``: per cell position the cache of
     its block kind (see the module docstring), updated in place, with
     ``length`` the attention caches' fill (an int, or a ``(B,)`` tensor
-    for a one-token step; recurrent blocks do not read it)."""
+    for a one-token step; recurrent blocks do not read it).  ``per_lane``
+    groups each MoE FFN's tokens within each batch row instead of over the
+    whole batch: the capacity then couples no two lanes, as in the
+    reference engine's per-lane decode."""
     struct = cell_structure(cfg)
     reps = cfg.n_layers // len(struct)
     for r in range(reps):
@@ -177,7 +210,7 @@ def run_cells(params, x, cfg, positions, caches=None, length=0,
                      else _cache_in(kind, caches[j], r, length))
             x, new_state = _block_forward(_layer(params["cells"][j], r), x,
                                           cfg, kind, ffn_kind, positions,
-                                          cache, plain)
+                                          cache, plain, per_lane)
             if caches is not None:
                 _cache_out(kind, caches[j], r, new_state)
     return x
@@ -198,11 +231,11 @@ def logits_fn(params, cfg, h):
 
 def init_cache(cfg, batch: int, max_len: int, device) -> list:
     """Per cell position: for attention a ``(k, v)`` pair of zero ``(R, B,
-    max_len, KV, dh)`` tensors in the activation type; for an mLSTM or
-    sLSTM block its fresh state (``init_*_state``, f32, ``m`` at -1e9)
-    repeated to ``(R, B, ...)``.  Recurrent states stay f32, as in the
-    reference: they are small beside KV caches and accumulate over every
-    decode step."""
+    max_len, KV, dh)`` tensors in the activation type; for an mLSTM, sLSTM
+    or Mamba block its fresh state (``init_*_state``, f32; the xLSTM
+    stabilisers ``m`` at -1e9) repeated to ``(R, B, ...)``.  Recurrent
+    states stay f32, as in the reference: they are small beside KV caches
+    and accumulate over every decode step."""
     check_supported(cfg)
     reps = cfg.n_layers // supercell_size(cfg)
     shape = (reps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -219,16 +252,18 @@ def init_cache(cfg, batch: int, max_len: int, device) -> list:
     return caches
 
 
-def decode_step(params, cfg, tokens, caches, length, plain=False):
+def decode_step(params, cfg, tokens, caches, length, plain=False,
+                per_lane=False):
     """One-token decode.  tokens: (B, 1); length: the cache fill, an int or
-    a (B,) int tensor (one per lane).  Writes the caches in place; returns
-    (logits (B, V), caches)."""
+    a (B,) int tensor (one per lane); ``per_lane`` as in :func:`run_cells`.
+    Writes the caches in place; returns (logits (B, V), caches)."""
     x = embed_tokens(params, cfg, tokens)
     if isinstance(length, torch.Tensor):
         positions = length.reshape(-1, 1).expand(tokens.shape)
     else:
         positions = torch.full(tokens.shape, length, dtype=torch.int32,
                                device=tokens.device)
-    x = run_cells(params, x, cfg, positions, caches, length, plain)
+    x = run_cells(params, x, cfg, positions, caches, length, plain,
+                  per_lane)
     h = rms_norm_final(params, cfg, x)
     return logits_fn(params, cfg, h)[:, -1], caches

@@ -12,6 +12,9 @@ tensor that the decode kernel reads (a host copy drives retirement, so the
 loop reads nothing back but the new tokens).  As in the reference, every
 lane's length grows by one each step, active or not; an idle lane's
 writes are clamped to the last cache slot and never read by another lane.
+An MoE FFN routes each lane's token as a group of its own
+(``per_lane=True``), as the reference's one-lane decode does: batched
+over lanes, the capacity would otherwise couple them.
 
 ``stats`` accumulates host wall time (each phase ends by reading its
 tokens back, so the card has finished) and work counts: ``prefill_s``,
@@ -94,7 +97,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.caches = M.decode_step(self.params, self.cfg,
                                             self.cur_tok, self.caches,
-                                            self.lengths, self.device)
+                                            self.lengths, self.device,
+                                            per_lane=True)
         toks = torch.argmax(logits, dim=-1)
         self.cur_tok = toks[:, None]
         self.lengths += 1

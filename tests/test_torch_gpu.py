@@ -9,8 +9,11 @@ iterations; attention f32 2e-5 and bf16 2e-2, as tests/test_kernels.py
 holds the Pallas attention kernels; mLSTM f32 rtol 1e-4 / atol 1e-4 on the
 outputs and the final states (the kernel's chunks are 64 positions, the
 plain version's 256, so its sums and exponent arguments are grouped
-differently); the served models' logits, kernels against plain versions,
-within 2e-2 of the largest logit (bf16).
+differently); the selective scan rtol 1e-4 / atol 1e-4 on ``y`` and the
+final state, as tests/test_kernels.py holds the Pallas kernel; the served
+models' logits, kernels against plain versions, within 2e-2 of the
+largest logit (bf16), 1e-3 for the narrow Jamba in f32 (its router is
+discontinuous: bf16 roundings would flip expert choices).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
@@ -305,3 +310,99 @@ def test_served_xlstm_kernel_matches_plain():
     done = ServeEngine(p, cfg, n_lanes=2, max_len=64).run(reqs)
     assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
     assert mlstm_ops.launches - before == 3 * n_mlstm
+
+
+def _scan_inputs(gen, b, s, d, n, u_dtype, state):
+    """dt, a, B, C, u at the scale of Jamba's Mamba layers on random
+    weights (dt = softplus(~0.5), a = -(1..N)), and a state: None or a
+    nonzero one."""
+    dt = torch.nn.functional.softplus(
+        0.5 + 0.1 * _randn(gen, b, s, dtype=torch.float32))
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").expand(d, n).contiguous()
+    bmat, cmat = (_randn(gen, b, s, n, dtype=torch.float32)
+                  for _ in range(2))
+    u = _randn(gen, b, s, d, dtype=torch.float32).to(u_dtype)
+    h0 = (_randn(gen, b, d, n, dtype=torch.float32)
+          if state == "carried" else None)
+    return dt, a, bmat, cmat, u, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,n,u_dtype,state", [
+    (1, 980, 16384, 16, "bfloat16", "none"),   # the served prefill
+    (1, 159, 16384, 16, "bfloat16", "carried"),
+    (1, 1, 16384, 16, "float32", "carried"),
+    (2, 333, 96, 16, "float32", "carried"),    # ragged tiles, narrow D
+    (2, 64, 256, 8, "float32", "none"),
+])
+def test_mamba_kernel_matches_plain(b, s, d, n, u_dtype, state):
+    """y and the final state against the plain version, at the reference
+    test's tolerance (tests/test_kernels.py: rtol 1e-4, atol 1e-4)."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(s + d + n)
+    dt, a, bmat, cmat, u, h0 = _scan_inputs(gen, b, s, d, n,
+                                            getattr(torch, u_dtype), state)
+    before = mamba_ops.launches
+    y, h = mamba_ops.selective_scan(dt, a, bmat, cmat, u, h0)
+    torch.cuda.synchronize()
+    assert mamba_ops.launches == before + 1
+    assert y.shape == (b, s, d) and h.shape == (b, d, n)
+    want_y, want_h = selective_scan_ref(dt, a, bmat, cmat, u, h0)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    again, again_h = mamba_ops.selective_scan(dt, a, bmat, cmat, u, h0)
+    assert torch.equal(y, again) and torch.equal(h, again_h)
+
+
+@pytest.mark.gpu
+def test_mamba_kernel_rejects_bad_input():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt, a, bmat, cmat, u, h0 = _scan_inputs(gen, 1, 8, 64, 16,
+                                            torch.float32, "carried")
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_ops.selective_scan_kernel(dt, a[:, :4].contiguous(),
+                                        bmat[..., :4], cmat[..., :4], u)
+    with pytest.raises(TypeError, match="u must be"):
+        mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u.half())
+    with pytest.raises(ValueError, match="u must have shape"):
+        mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u[..., :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_ops.selective_scan_kernel(
+            dt, a, bmat, cmat, u.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.gpu
+def test_served_jamba_kernels_match_plain():
+    """A narrow Jamba (head dim 128, d_inner 512, half of its 4 experts
+    held) on the card: prefill and decode steps through the kernels
+    against the plain versions in f32, fed the same tokens; then the
+    engine, whose prefills must each launch the scan once per Mamba layer
+    and the flash kernel once per attention layer."""
+    _card()
+    cfg = get_config("jamba-1.5-large", smoke=True).replace(
+        d_model=256, n_heads=2, n_kv_heads=1, head_dim=0, dtype="float32",
+        experts_held=2, expert_offset=2)
+    assert cfg.head_dim == 128
+    kinds = cfg.layer_kinds()
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    serve=True)
+    prompt = torch.arange(1, 301, device="cuda")[None] % cfg.vocab
+    before = mamba_ops.launches
+    lk, ck, ln = prefill(p, cfg, prompt, 512)
+    assert mamba_ops.launches - before == kinds.count("mamba")
+    lp, cp, _ = prefill(p, cfg, prompt, 512, plain=True)
+    for step in range(4):
+        scale = max(1.0, float(lp.abs().max()))
+        assert float((lk - lp).abs().max()) <= 1e-3 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step)
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True)
+    m0, f0 = mamba_ops.launches, flash_ops.launches
+    reqs = [Request(rid=i, prompt=np.arange(1, 5 + 7 * i), max_new_tokens=5)
+            for i in range(3)]
+    done = ServeEngine(p, cfg, n_lanes=2, max_len=64).run(reqs)
+    assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
+    assert mamba_ops.launches - m0 == 3 * kinds.count("mamba")
+    assert flash_ops.launches - f0 == 3 * kinds.count("attn")

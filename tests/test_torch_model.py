@@ -291,8 +291,7 @@ def test_init_params_tree_and_distribution():
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b",
-                                  "jamba-1.5-large-398b", "whisper-tiny",
-                                  "internvl2-76b"])
+                                  "whisper-tiny", "internvl2-76b"])
 def test_unported_models_raise(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
