@@ -54,7 +54,11 @@ and read just after:
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (the attention kernels at Qwen's
-and Jamba's head shapes; the mLSTM kernel in f32 with its states: the
+and Jamba's head shapes and at the bf16 kernels' tile edges: Sq = Sk of
+63-255 around the 64-row query and 64- and 128-key tiles, ragged Sq < Sk,
+a window edge inside key tiles, rep 1, 3, 8 and 32, decode lengths of
+none, one key, a split-share boundary and S - 1 to past S; each twice,
+bitwise; the mLSTM kernel in f32 with its states: the
 served prefills from a fresh state, a carried nonzero state, S <= 256, S a
 multiple of 256, ragged S, head dims 32-512; the scan kernel on y and the
 final state: the served prefills, a carried nonzero state, S = 1, ragged
@@ -353,12 +357,14 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     k = torch.randn(b, sk, kv, dh, generator=gen, device=DEV).to(dtype)
     v = torch.randn(b, sk, kv, dh, generator=gen, device=DEV).to(dtype)
     got = flash_ops.attention_kernel(q, k, v, causal=causal, window=window)
+    again = flash_ops.attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = attention_ref(q, k, v, causal=causal, window=window)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     tol = ATTN_TOL[dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
+    same = bool(torch.equal(got, again))
     call = lambda: flash_ops.attention_kernel(  # noqa: E731
         q, k, v, causal, window)
     ms = device_ms(call, reps)
@@ -382,12 +388,17 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     log(f"  {label:14s} {_dname(dtype):8s} B={b} Sq={sq} Sk={sk} H={h} "
         f"KV={kv} dh={dh} causal={int(causal)} window={window}: "
         f"max_abs_err={err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; "
+        f"deterministic={same}; "
         f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by})")
+        f"{bound_ms:.6f} ms ({bound_by}); x bound {ms / bound_ms:.1f}, "
+        f"x sdpa {ms / library_ms:.2f}")
     if not ok:
         raise AssertionError(f"flash-attention kernel disagrees with its "
                              f"plain version: {label} {_dname(dtype)}")
+    if not same:
+        raise AssertionError(f"flash-attention kernel is not deterministic: "
+                             f"{label} {_dname(dtype)}")
     return {"label": label, "dtype": _dname(dtype),
             "shape": [b, sq, sk, h, kv, dh], "causal": causal,
             "window": window, "max_abs_err": err, "ms": ms,
@@ -438,7 +449,8 @@ def check_decode(label: str, lens: list, s: int, h: int, kv: int, dh: int,
         f"(tol {tol:g}) {'ok' if ok else 'FAIL'}; deterministic={same}; "
         f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by})")
+        f"{bound_ms:.6f} ms ({bound_by}); x bound {ms / bound_ms:.1f}, "
+        f"x sdpa {ms / library_ms:.2f}")
     if not ok:
         raise AssertionError(f"flash-decode kernel disagrees with its plain "
                              f"version: {label} {_dname(dtype)}")
@@ -645,10 +657,14 @@ def swapped(module, name: str, fn):
         setattr(module, name, old)
 
 
+# keys the decode control leaves out (a split's worth of the first version)
+DROPPED_KEYS = 256
+
+
 def decode_split_dropped(q, k, v, length):
-    """Control: the decode kernel with the first cache split's keys left
-    out, what a combine that lost one partial would return."""
-    s = decode_ops.SPLIT
+    """Control: the decode kernel with the first DROPPED_KEYS cache keys
+    left out, what a combine that lost one partial would return."""
+    s = DROPPED_KEYS
     ln = decode_ops.lengths_vector(length, q.shape[0], q.device) - s
     return decode_ops.decode_kernel(q, k[:, s:], v[:, s:], ln)
 
@@ -818,9 +834,38 @@ def attention_phases() -> tuple:
         for n in (prompt_lens[0], prompt_lens[-1]):
             flash.append(check_flash("Jamba prefill", 1, n, n, 64, 8, 128,
                                      dt))
+        # the bf16 kernel's edges: 64-row query tiles, 128-key tiles at dh
+        # 64 and 64-key tiles at dh 128 (B 2 x 64 heads: a full grid),
+        # ragged Sq < Sk, a window whose edge falls inside key tiles, rep
+        # 1, 3, 8 and 32
+        for n in (63, 64, 65, 127, 128, 129, 255):
+            flash.append(check_flash("tile edge", 1, n, n, 8, 8, 64, dt,
+                                     reps=5))
+        for n in (65, 129, 255):
+            flash.append(check_flash("tile edge dh128", 2, n, n, 64, 8, 128,
+                                     dt, reps=5))
+        for sq, sk, h, kv, dh in ((100, 612, 8, 8, 128), (77, 301, 6, 3, 64)):
+            flash.append(check_flash("Sq<Sk ragged", 1, sq, sk, h, kv, dh, dt,
+                                     reps=5))
+        for h, kv, dh in ((16, 16, 64), (64, 8, 128)):
+            flash.append(check_flash("window 256", 1, 1000, 1000, h, kv, dh,
+                                     dt, window=256, reps=5))
+        for h, kv, dh in ((32, 32, 64), (24, 8, 128), (64, 8, 64),
+                          (32, 1, 128)):
+            flash.append(check_flash(f"rep {h // kv}", 1, 300, 300, h, kv,
+                                     dh, dt, reps=5))
     log("== flash-decode kernel vs plain PyTorch version on the card")
     mid = [len(r.prompt) + NEW_TOKENS // 2 for r in reqs[:LANES]]
-    edge = [0, 1, 255, 256, MAX_LEN - 1, MAX_LEN, MAX_LEN + 40, 1000]
+
+    def edge(kv: int) -> list:
+        # every length class the device split meets: none, one key, a
+        # share boundary (visible keys a multiple of the splits times 128
+        # rows, then one more), 255 and 256, S - 1, S, past S
+        sms = decode_ops.sm_count(torch.device(DEV))
+        b = decode_ops.split_plan(LANES, kv, MAX_LEN, sms) * 128
+        return [0, 1, b - 1, b, 255, 256, MAX_LEN - 1, MAX_LEN,
+                MAX_LEN + 40, 1000]
+
     decode = [check_decode("served decode", mid, MAX_LEN, 16, 16, 64,
                            torch.bfloat16)]
     decode_main = decode[0]
@@ -828,12 +873,15 @@ def attention_phases() -> tuple:
         if dt == torch.float32:
             decode.append(check_decode("served decode", mid, MAX_LEN, 16, 16,
                                        64, dt))
-        decode.append(check_decode("edge lengths", edge, MAX_LEN, 16, 16, 64,
-                                   dt))
+        decode.append(check_decode("edge lengths", edge(16), MAX_LEN, 16, 16,
+                                   64, dt))
         decode.append(check_decode("llama GQA", mid, MAX_LEN, 24, 8, 128, dt))
         decode.append(check_decode("MQA", mid, MAX_LEN, 8, 1, 64, dt))
         decode.append(check_decode("Jamba decode", mid, MAX_LEN, 64, 8, 128,
                                    dt))
+        decode.append(check_decode("Jamba edges", edge(8), MAX_LEN, 64, 8,
+                                   128, dt))
+        decode.append(check_decode("rep 32", mid, MAX_LEN, 32, 1, 128, dt))
     return flash, flash_main, decode, decode_main
 
 
@@ -1373,7 +1421,8 @@ def main() -> int:
     # `launches` counts wrapper calls on the serving paths, summed over the
     # paths that run the kernel (`launches_by_path`); a decode call is two
     # CUDA launches (split partials, combine), and `ms` is the device time
-    # of both
+    # of both; `x_bound` and `x_library` are `ms` over `bound_ms` and
+    # `library_ms` at the reported (served) shape
     for name, inst, replaces, per_call in (
             ("flash_attention", flash_main,
              "src/repro/kernels/flash_attention/flash_attention.py:59", 1),
@@ -1393,6 +1442,10 @@ def main() -> int:
                                     "bound_ms", "bound_by", "library_ms",
                                     "call_ms", "dtype", "shape")},
             "cuda_launches_per_call": per_call})
+    for entry in kernels:
+        entry["x_bound"] = entry["ms"] / entry["bound_ms"]
+        entry["x_library"] = (entry["ms"] / entry["library_ms"]
+                              if entry["library_ms"] else None)
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

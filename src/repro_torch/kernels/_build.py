@@ -5,7 +5,8 @@ library with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``).
 Libraries go into ``kernels/build/`` beside this module (git-ignored; the
 ``REPRO_TORCH_BUILD_DIR`` environment variable overrides it), named by the
-hash of the source and the flags, so an edited source rebuilds and an
+hash of the source, the headers beside it (``csrc/*.cuh``, which a source
+may include) and the flags, so an edited source or header rebuilds and an
 unchanged one is found in the cache.  :func:`build_all` starts one ``nvcc``
 per source at once, so the build takes as long as the slowest source.
 
@@ -63,7 +64,12 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path in the cache: named by the hash of the source,
+    of every header in its directory (name and bytes) and of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -10,40 +10,49 @@
 // serving engine computes: `length` is one int32 per batch row (a (B,)
 // device tensor; the reference engine vmaps the scalar kernel over its
 // lanes).  length >= S sees the whole cache (the reference engine lets idle
-// lanes' lengths run past it).
+// lanes' lengths run past it); length < 0 sees nothing and returns 0.
 //
 // Bound.  Decoding reads each visible cache row once: 2 (length + 1) KV dh
 // elements per batch row, plus q and o; ~2 FLOP per element read, far below
 // the ~295 FLOP per byte at which the tensor cores would bound it.  So the
-// least time is those bytes over the HBM rate (3.35 TB/s), and the kernel's
-// design is about reading only the visible rows and reading them in
-// parallel.
+// least time is those bytes over the HBM rate (3.35 TB/s), and the design
+// is about reading only the visible rows, at full width, with every thread
+// busy.  Every sum is in f32.
 //
 // Design (split-K flash-decoding).  The TPU kernel walks the cache blocks in
 // order, carrying the softmax state in scratch from one grid step to the
 // next; Hopper's blocks run in parallel and carry nothing, so:
-//   1. `decode_partial`: one block of 128 threads per (cache split of
-//      `split` keys, kv head, batch row).  A split with no visible key
-//      writes (m = -inf, l = 0) and returns at once, so it adds exactly 0
-//      and costs no cache reads.  Otherwise the block streams its visible
-//      rows in 64-key tiles through shared memory (only visible rows are
-//      read) and runs an online softmax for up to 8 of the kv head's query
-//      heads at a time (more passes for rep > 8): 16 threads per head row
-//      own 4 key columns of the score tile and dh / 16 columns of the
-//      accumulator, so the running max, sum and accumulator stay in
-//      registers, reduced across the row's 16 lanes with warp shuffles (the
-//      flash-attention kernel's layout).  It writes each head's partial
-//      (m, l, acc) to a scratch tensor that the wrapper allocates.
+//   1. The partials: one block of 128 threads per (split, kv head, batch
+//      row), `nsplit` splits chosen by the wrapper from B KV so that the
+//      working blocks fill the card about twice.  Each block reads its
+//      lane's length and takes an equal share of that lane's visible keys,
+//      rounded up to the tile: no host synchronisation, and no block reads
+//      a row past the lane's length.  A share that is empty writes
+//      (m = -inf, l = 0), which adds exactly 0.  The share streams through
+//      a ring of tiles in shared memory, filled by 16-byte cp.async copies
+//      and kept in the stored type.  At the end the block merges its
+//      warps' states in a fixed order through shared memory and writes one
+//      partial (m, l, acc) per head.
+//      bf16, `decode_partial_mma`: 64-row tiles, chunks swizzled for
+//      ldmatrix, rows past the share zero-filled; the scores and P V on
+//      the tensor cores by mma m16n8k16, 16 heads a pass (rows past rep
+//      are zero and cost no memory traffic), f32 sums.  It is faster than
+//      a CUDA-core loop at every rep measured, 1 to 8 (PERF.md).
+//      f32, `decode_partial`, on the CUDA cores (TF32 would not keep the
+//      f32 path's precision): lanes map to (key, dh slice), LPK = dh / 4
+//      lanes cover one key, 16 bytes each.  Those lane groups are split
+//      into HG head groups x KG key groups; each lane keeps the scaled q
+//      slices, the running max, sum and accumulator slice of HPL heads in
+//      registers, so every rep head of the kv head is served by one pass
+//      over each staged tile while HG HPL >= rep (up to 8 at dh 128 and 16
+//      at dh 64); wider groups take 2-4 passes, each re-reading the share.
+//      A score's partial dot products are summed over the key's LPK lanes
+//      by shuffles.  With rep = 1 no lane idles: the lane groups take
+//      different keys.  The online softmax rescales only when a key raises
+//      the running max.
 //   2. `decode_combine`: one block per (q head, batch row) merges the
 //      partials in split order.  No atomics anywhere, so two calls give the
 //      same bits.
-// With rep = 1 (Qwen) 7 of the 8 head rows idle; the kernel is bound by its
-// reads, not its arithmetic.  The P.V loop runs over the whole tile (the
-// weights past the visible rows are 0): an earlier version whose loop
-// stopped at the visible row count sent nvcc 12.9's front end (cicc) into a
-// compile that did not finish.  Later versions: 16-byte vector loads, a
-// cp.async/TMA ring, all rep heads in one pass, and a split count chosen
-// from the lengths rather than fixed.
 //
 // Plain C interface for ctypes: the entry points launch both kernels on the
 // given stream, do not synchronise, and return the first cudaGetLastError().
@@ -51,19 +60,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int TX = 16;                // threads per head row
-constexpr int ROWS = THREADS / TX;    // head rows per pass
-constexpr int TILE = 64;              // cache rows staged per step
-constexpr int CPT = TILE / TX;        // score columns per thread
-constexpr int MAX_REP = 32;           // query heads per kv head
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 32;      // cache rows per staged tile (f32)
+constexpr int STAGES = 4;     // tiles in the ring (f32)
+constexpr int MAX_REP = 32;   // query heads per kv head
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -73,139 +82,420 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// ---- f32: the CUDA cores ---------------------------------------------------
+constexpr int EPL = 4;          // floats per lane (16 bytes)
+
 template <int DH>
-struct Layout {
-  static constexpr int KP = DH + 1;    // padded row of Q and K
-  static constexpr int PP = TILE + 1;  // padded row of P
-  static constexpr size_t bytes =
-      (size_t(ROWS) * KP + size_t(TILE) * KP + size_t(TILE) * DH +
-       size_t(ROWS) * PP) * sizeof(float);
+struct Geo {
+  static constexpr int LPK = DH / EPL;         // lanes per key
+  static constexpr int SLOTS = 32 / LPK;       // lane groups per warp
+  static constexpr size_t RING =
+      size_t(STAGES) * 2 * TILE * DH * sizeof(float);
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-decode_partial(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const int* __restrict__ lengths,
-               float* __restrict__ part_ml, float* __restrict__ part_acc,
-               int s_len, int h, int rep, long long q_sb, long long kv_sb,
-               long long kv_ss, int split, int nsplit, float scale) {
-  constexpr int KP = Layout<DH>::KP;
-  constexpr int PP = Layout<DH>::PP;
-  constexpr int DPT = DH / TX;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [ROWS][KP], scaled
-  float* Ks = Qs + ROWS * KP;   // [TILE][KP]
-  float* Vs = Ks + TILE * KP;   // [TILE][DH]
-  float* Ps = Vs + TILE * DH;   // [ROWS][PP]
+// shared memory of one block: the ring, then the merge area for hpp heads
+template <int DH>
+size_t smem_bytes(int hpp, int kg) {
+  return Geo<DH>::RING + size_t(hpp) * WARPS * kg * (DH + 2) * sizeof(float);
+}
 
-  const int tid = threadIdx.x;
-  const int r = tid / TX, tx = tid % TX;
+template <int DH, int HPL>
+__global__ void __launch_bounds__(THREADS)
+decode_partial(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ lengths,
+               float* __restrict__ part_ml, float* __restrict__ part_acc,
+               int s_len, int h, int rep, int hg_n, int kg_n,
+               long long q_sb, long long kv_sb, long long kv_ss, int nsplit,
+               float scale_log2) {
+  constexpr int LPK = Geo<DH>::LPK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);    // [STAGES][K|V][TILE][DH]
+  float* merge = reinterpret_cast<float*>(smem + Geo<DH>::RING);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int j = lane % LPK;            // this lane's dh slice
+  const int grp = lane / LPK;
+  const int hg = grp % hg_n, kg = grp / hg_n;
+  const int nslot = WARPS * kg_n;      // partial states per head in a block
+  const int slot = warp * kg_n + kg;
+  const int hpp = hg_n * HPL;          // heads per pass
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+
+  // this split's share of the visible keys [0, n_vis)
   const int len = lengths[b];
-  // the visible keys are [0, min(len, S - 1)]; this split's share of them
-  const int k_first = sp * split;
-  const int k_last = min(sp * split + split - 1, min(len, s_len - 1));
-  // partial (b, head g * rep + j, sp) sits at p0 + j * nsplit
+  const int n_vis = len < 0 ? 0 : min(len, s_len - 1) + 1;
+  const int share = ((n_vis + nsplit - 1) / nsplit + TILE - 1) / TILE * TILE;
+  const int k_first = sp * share;
+  const int k_stop = min(n_vis, k_first + share);
+  // partial (b, head g * rep + r, sp) sits at p0 + r * nsplit
   const long long p0 =
       (static_cast<long long>(b) * h + static_cast<long long>(g) * rep) *
           nsplit + sp;
 
-  if (k_first > k_last) {  // nothing visible here: adds exactly 0
-    for (int j = tid; j < rep; j += THREADS) {
-      part_ml[2 * (p0 + j * nsplit)] = -INFINITY;
-      part_ml[2 * (p0 + j * nsplit) + 1] = 0.f;
+  if (k_first >= k_stop) {  // nothing visible here: adds exactly 0
+    for (int r = tid; r < rep; r += THREADS) {
+      part_ml[2 * (p0 + r * nsplit)] = -INFINITY;
+      part_ml[2 * (p0 + r * nsplit) + 1] = 0.f;
     }
     return;
   }
 
-  const T* qb = q + b * q_sb + static_cast<long long>(g) * rep * DH;
-  const T* kb = k + b * kv_sb + static_cast<long long>(g) * DH;
-  const T* vb = v + b * kv_sb + static_cast<long long>(g) * DH;
+  const float* qb = q + b * q_sb + static_cast<long long>(g) * rep * DH;
+  const float* kb = k + b * kv_sb + static_cast<long long>(g) * DH;
+  const float* vb = v + b * kv_sb + static_cast<long long>(g) * DH;
+  const int n_tiles = (k_stop - k_first + TILE - 1) / TILE;
+  const int steps = TILE / (WARPS * kg_n);  // key steps of a warp per tile
 
-  for (int r0 = 0; r0 < rep; r0 += ROWS) {
-    __syncthreads();  // the previous pass is done with Qs, Ks, Vs, Ps
-    for (int e = tid; e < ROWS * DH; e += THREADS) {
-      const int rr = e / DH, c = e % DH;
-      Qs[rr * KP + c] =
-          r0 + rr < rep ? to_f(qb[(r0 + rr) * DH + c]) * scale : 0.f;
-    }
-    float m = -INFINITY, l = 0.f, acc[DPT];
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-
-    const int n_tiles = (k_last - k_first) / TILE + 1;
-    for (int t = 0; t < n_tiles; ++t) {
+  // 16-byte copies of the tile's visible rows into stage t % STAGES
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
       const int k0 = k_first + t * TILE;
-      const int rows = min(TILE, k_last - k0 + 1);
-      __syncthreads();  // Q is staged; the last tile is used
-      for (int e = tid; e < TILE * DH; e += THREADS) {
-        const int rr = e / DH, c = e % DH;
-        float kx = 0.f, vx = 0.f;
-        if (rr < rows) {
-          const long long off = (k0 + rr) * kv_ss + c;
-          kx = to_f(kb[off]);
-          vx = to_f(vb[off]);
+      const int rows = min(TILE, k_stop - k0);
+      float* ks = ring + (t % STAGES) * 2 * TILE * DH;
+      float* vs = ks + TILE * DH;
+      for (int c = tid; c < rows * LPK; c += THREADS) {
+        const int row = c / LPK, part = c % LPK;
+        const long long off = (k0 + row) * kv_ss + part * EPL;
+        hopper::cp_async_16(ks + row * DH + part * EPL, kb + off);
+        hopper::cp_async_16(vs + row * DH + part * EPL, vb + off);
+      }
+    }
+    hopper::cp_async_commit();  // an empty group past the end keeps counts
+  };
+
+  for (int pass = 0; pass * hpp < rep; ++pass) {
+    const int h0 = pass * hpp + hg * HPL;  // this lane's first head
+    float qf[HPL][EPL], acc[HPL][EPL], m[HPL], l[HPL];
+#pragma unroll
+    for (int i = 0; i < HPL; ++i) {
+      const int r = h0 + i;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        qf[i][e] = r < rep ? qb[r * DH + j * EPL + e] * scale_log2 : 0.f;
+        acc[i][e] = 0.f;
+      }
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+    for (int t = 0; t < n_tiles; ++t) {
+      load_tile(t + STAGES - 1);
+      hopper::cp_async_wait<STAGES - 1>();  // tile t has landed (this thread)
+      __syncthreads();                      // ... for every thread
+      const float* ks = ring + (t % STAGES) * 2 * TILE * DH;
+      const float* vs = ks + TILE * DH;
+      const int rows = min(TILE, k_stop - (k_first + t * TILE));
+      for (int st = 0; st < steps; ++st) {
+        const int key = (st * WARPS + warp) * kg_n + kg;
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(ks + key * DH + j * EPL);
+        const float kf[EPL] = {k4.x, k4.y, k4.z, k4.w};
+        float d[HPL];
+#pragma unroll
+        for (int i = 0; i < HPL; ++i) {
+          float x = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) x = fmaf(qf[i][e], kf[e], x);
+          d[i] = x;
         }
-        Ks[rr * KP + c] = kx;
-        Vs[rr * DH + c] = vx;
+        // the key's LPK lanes are neighbours: sum their partial products
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int i = 0; i < HPL; ++i)
+            d[i] += __shfl_xor_sync(0xffffffffu, d[i], off);
+        if (key < rows) {
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(vs + key * DH + j * EPL);
+          const float vf[EPL] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int i = 0; i < HPL; ++i) {
+            if (d[i] > m[i]) {  // a new running max: rescale
+              const float alpha = exp2f(m[i] - d[i]);
+              l[i] *= alpha;
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) acc[i][e] *= alpha;
+              m[i] = d[i];
+            }
+            const float p = exp2f(d[i] - m[i]);
+            l[i] += p;
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
+          }
+        }
       }
-      __syncthreads();
+      __syncthreads();  // stage t % STAGES is free for tile t + STAGES
+    }
+    hopper::cp_async_wait<0>();
 
-      float s[CPT];
+    // merge the block's partial states of each head, in slot order
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[j] = 0.f;
-      for (int d = 0; d < DH; ++d) {
-        const float qv = Qs[r * KP + d];
+    for (int i = 0; i < HPL; ++i) {
+      float* at = merge + ((hg * HPL + i) * nslot + slot) * (DH + 2);
 #pragma unroll
-        for (int j = 0; j < CPT; ++j)
-          s[j] = fmaf(qv, Ks[(tx + TX * j) * KP + d], s[j]);
-      }
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        if (tx + TX * j >= rows) s[j] = -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      // the 16 threads of a head row are 16 neighbouring lanes of one warp
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[j] - m_use);
-        Ps[r * PP + tx + TX * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l = l * alpha + sum;
-      m = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[j] *= alpha;
-      __syncthreads();
-
-      for (int c = 0; c < TILE; ++c) {
-        const float pv = Ps[r * PP + c];
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          acc[j] = fmaf(pv, Vs[c * DH + tx + TX * j], acc[j]);
+      for (int e = 0; e < EPL; ++e) at[j * EPL + e] = acc[i][e];
+      if (j == 0) {
+        at[DH] = m[i];
+        at[DH + 1] = l[i];
       }
     }
-
-    if (r0 + r < rep) {
-      const long long at = p0 + static_cast<long long>(r0 + r) * nsplit;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) part_acc[at * DH + tx + TX * j] = acc[j];
-      if (tx == 0) {
-        part_ml[2 * at] = m;
-        part_ml[2 * at + 1] = l;
+    __syncthreads();
+    for (int idx = tid; idx < hpp * DH; idx += THREADS) {
+      const int rr = idx / DH, dd = idx % DH, r = pass * hpp + rr;
+      if (r >= rep) continue;
+      const float* at = merge + rr * nslot * (DH + 2);
+      float mm = -INFINITY;
+      for (int s2 = 0; s2 < nslot; ++s2) mm = fmaxf(mm, at[s2 * (DH + 2) + DH]);
+      float ll = 0.f, aa = 0.f;
+      for (int s2 = 0; s2 < nslot; ++s2) {
+        const float ms = at[s2 * (DH + 2) + DH];
+        if (ms == -INFINITY) continue;  // a slot that saw no key
+        const float w = exp2f(ms - mm);
+        ll = fmaf(at[s2 * (DH + 2) + DH + 1], w, ll);
+        aa = fmaf(at[s2 * (DH + 2) + dd], w, aa);
+      }
+      const long long pa = p0 + static_cast<long long>(r) * nsplit;
+      part_acc[pa * DH + dd] = aa;
+      if (dd == 0) {
+        part_ml[2 * pa] = mm;
+        part_ml[2 * pa + 1] = ll;
       }
     }
+    __syncthreads();  // the merge area and the ring are free again
+  }
+}
+
+// ---- bf16: the scores and P V on the tensor cores ---------------------------
+constexpr int MMA_TILE = 64;    // cache rows per staged tile: 16 per warp
+constexpr int MMA_STAGES = 3;
+constexpr int MMA_HEADS = 16;   // query heads per pass (the mma's M)
+
+template <int DH>
+constexpr size_t mma_smem_bytes() {
+  return size_t(MMA_STAGES) * 2 * MMA_TILE * DH * sizeof(__nv_bfloat16);
+}
+
+// element offset of 16-byte chunk `c` of row `r` in a [rows][DH] bf16 tile
+// whose chunks are XOR-swizzled by r % 8 (ldmatrix reads 8 rows of one
+// chunk without bank conflicts)
+template <int DH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DH + ((c ^ (r & 7)) << 3);
+}
+
+// One block of 4 warps per (split, kv head, batch row), as decode_partial;
+// each warp takes 16 rows of every 64-row tile.  Per warp and tile:
+// S (16 heads x 16 keys) = Q K^T by mma m16n8k16 (Q as the A operand from
+// registers, rows past rep zero; K through ldmatrix), the online softmax on
+// the accumulator fragment (each thread holds heads g and g + 8, keys 2t,
+// 2t + 1 of each 8), P converted to bf16 in registers as the A operand of
+// O += P V (V through ldmatrix.trans).  Sums stay in f32; the scale is
+// applied to S in f32.
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+decode_partial_mma(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ lengths,
+                   float* __restrict__ part_ml, float* __restrict__ part_acc,
+                   int s_len, int h, int rep, long long q_sb,
+                   long long kv_sb, long long kv_ss, int nsplit,
+                   float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  constexpr int CH = DH / 8;   // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [STAGES][K|V][TILE][DH]
+  float* merge = reinterpret_cast<float*>(smem);  // after the ring is done
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int sp = blockIdx.x, kvh_i = blockIdx.y, b = blockIdx.z;
+  const int len = lengths[b];
+  const int n_vis = len < 0 ? 0 : min(len, s_len - 1) + 1;
+  const int share = ((n_vis + nsplit - 1) / nsplit + MMA_TILE - 1) /
+                    MMA_TILE * MMA_TILE;
+  const int k_first = sp * share;
+  const int k_stop = min(n_vis, k_first + share);
+  const long long p0 =
+      (static_cast<long long>(b) * h + static_cast<long long>(kvh_i) * rep) *
+          nsplit + sp;
+  if (k_first >= k_stop) {
+    for (int r = tid; r < rep; r += THREADS) {
+      part_ml[2 * (p0 + r * nsplit)] = -INFINITY;
+      part_ml[2 * (p0 + r * nsplit) + 1] = 0.f;
+    }
+    return;
+  }
+  const bf16* qb = q + b * q_sb + static_cast<long long>(kvh_i) * rep * DH;
+  const bf16* kb = k + b * kv_sb + static_cast<long long>(kvh_i) * DH;
+  const bf16* vb = v + b * kv_sb + static_cast<long long>(kvh_i) * DH;
+  const int n_tiles = (k_stop - k_first + MMA_TILE - 1) / MMA_TILE;
+  const int kw0 = warp * 16;   // this warp's rows of a tile
+
+  // 16-byte copies of a tile; rows past the share are zero-filled, so that
+  // P = 0 never meets stale bits of V
+  auto load_tile = [&](int t) {
+    if (t < n_tiles) {
+      const int k0 = k_first + t * MMA_TILE;
+      const int rows = min(MMA_TILE, k_stop - k0);
+      bf16* ks = ring + (t % MMA_STAGES) * 2 * MMA_TILE * DH;
+      bf16* vs = ks + MMA_TILE * DH;
+      for (int c = tid; c < MMA_TILE * CH; c += THREADS) {
+        const int row = c / CH, ch = c % CH;
+        const bool in = row < rows;
+        const long long off = in ? (k0 + row) * kv_ss + ch * 8 : 0;
+        hopper::cp_async_16_or_zero(ks + swz<DH>(row, ch), kb + off, in);
+        hopper::cp_async_16_or_zero(vs + swz<DH>(row, ch), vb + off, in);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  for (int pass = 0; pass * MMA_HEADS < rep; ++pass) {
+    const int h0 = pass * MMA_HEADS;
+    // Q as A fragments: rows g, g + 8 (heads), columns 2 t4 (+8) of each
+    // 16-wide slice of dh
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int head = h0 + g + 8 * (i % 2);
+        const int col = 16 * kk + 2 * t4 + 8 * (i / 2);
+        qa[kk][i] = head < rep ? *reinterpret_cast<const uint32_t*>(
+                                     qb + head * DH + col)
+                               : 0u;
+      }
+    float o[DH / 8][4];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+#pragma unroll
+    for (int t = 0; t < MMA_STAGES - 1; ++t) load_tile(t);
+    for (int t = 0; t < n_tiles; ++t) {
+      load_tile(t + MMA_STAGES - 1);
+      hopper::cp_async_wait<MMA_STAGES - 1>();
+      __syncthreads();
+      const bf16* ks = ring + (t % MMA_STAGES) * 2 * MMA_TILE * DH;
+      const bf16* vs = ks + MMA_TILE * DH;
+      const int rows = min(MMA_TILE, k_stop - (k_first + t * MMA_TILE));
+      if (kw0 < rows) {  // warp-uniform: some of this warp's rows are seen
+        const int mi = lane / 8, rr = lane % 8;
+        float s[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t kf[4];  // K^T fragments of keys 0-7 and 8-15
+          hopper::ldmatrix_x4(
+              kf, ks + swz<DH>(kw0 + (mi / 2) * 8 + rr, 2 * kk + mi % 2));
+          hopper::mma_16816(s[0], qa[kk], kf[0], kf[1]);
+          hopper::mma_16816(s[1], qa[kk], kf[2], kf[3]);
+        }
+        // s[n][i]: head g + 8 (i / 2), key kw0 + 8 n + 2 t4 + i % 2
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (kw0 + 8 * n + 2 * t4 + i % 2 >= rows) s[n][i] = -INFINITY;
+            if (i < 2) mx0 = fmaxf(mx0, s[n][i]);
+            else mx1 = fmaxf(mx1, s[n][i]);
+          }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0 * scale_log2);
+        const float mn1 = fmaxf(m1, mx1 * scale_log2);
+        const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+        const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+        const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+        m0 = mn0;
+        m1 = mn1;
+        uint32_t pa[4];  // P as the A fragment: keys 0-7 then 8-15
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const float mu = hi ? mu1 : mu0;
+            const float pl = exp2f(fmaf(s[n][2 * hi], scale_log2, -mu));
+            const float ph = exp2f(fmaf(s[n][2 * hi + 1], scale_log2, -mu));
+            if (hi) rs1 += pl + ph;
+            else rs0 += pl + ph;
+            __nv_bfloat162 pp = __floats2bfloat162_rn(pl, ph);
+            pa[2 * n + hi] = *reinterpret_cast<uint32_t*>(&pp);
+          }
+        l0 = l0 * al0 + rs0;
+        l1 = l1 * al1 + rs1;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          o[j][0] *= al0;
+          o[j][1] *= al0;
+          o[j][2] *= al1;
+          o[j][3] *= al1;
+        }
+#pragma unroll
+        for (int jj = 0; jj < DH / 16; ++jj) {
+          uint32_t vf[4];  // V fragments of dh columns 16 jj .. 16 jj + 15
+          hopper::ldmatrix_x4_trans(
+              vf, vs + swz<DH>(kw0 + (mi % 2) * 8 + rr, 2 * jj + mi / 2));
+          hopper::mma_16816(o[2 * jj], pa, vf[0], vf[1]);
+          hopper::mma_16816(o[2 * jj + 1], pa, vf[2], vf[3]);
+        }
+      }
+      __syncthreads();
+    }
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // the ring is free: the merge area overlays it
+
+    // each head's 4 warp states, merged in warp order
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float* at = merge + ((g + 8 * hi) * WARPS + warp) * (DH + 2);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        at[8 * j + 2 * t4] = o[j][2 * hi];
+        at[8 * j + 2 * t4 + 1] = o[j][2 * hi + 1];
+      }
+      if (t4 == 0) {
+        at[DH] = hi ? m1 : m0;
+        at[DH + 1] = hi ? l1 : l0;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < MMA_HEADS * DH; idx += THREADS) {
+      const int rr2 = idx / DH, dd = idx % DH, r = h0 + rr2;
+      if (r >= rep) continue;
+      const float* at = merge + rr2 * WARPS * (DH + 2);
+      float mm = -INFINITY;
+      for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, at[w * (DH + 2) + DH]);
+      float ll = 0.f, aa = 0.f;
+      for (int w = 0; w < WARPS; ++w) {
+        const float ms = at[w * (DH + 2) + DH];
+        if (ms == -INFINITY) continue;
+        const float wt = exp2f(ms - mm);
+        ll = fmaf(at[w * (DH + 2) + DH + 1], wt, ll);
+        aa = fmaf(at[w * (DH + 2) + dd], wt, aa);
+      }
+      const long long pa2 = p0 + static_cast<long long>(r) * nsplit;
+      part_acc[pa2 * DH + dd] = aa;
+      if (dd == 0) {
+        part_ml[2 * pa2] = mm;
+        part_ml[2 * pa2 + 1] = ll;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -221,7 +511,7 @@ __global__ void decode_combine(const float* __restrict__ part_ml,
   for (int s = 0; s < nsplit; ++s) {
     const float ms = part_ml[2 * (base + s)];
     if (ms == -INFINITY) continue;  // a split with no visible key
-    const float w = expf(ms - m);
+    const float w = exp2f(ms - m);
     l = fmaf(part_ml[2 * (base + s) + 1], w, l);
     a = fmaf(part_acc[(base + s) * DH + d], w, a);
   }
@@ -229,30 +519,80 @@ __global__ void decode_combine(const float* __restrict__ part_ml,
       from_f<T>(l > 0.f ? a / l : 0.f);
 }
 
+template <int DH, int HPL>
+int launch_partial(const void* q, const void* k, const void* v,
+                   const void* lengths, void* part_ml, void* part_acc,
+                   int batch, int s_len, int h, int kvh, int hg, int kg,
+                   long long q_sb, long long kv_sb, long long kv_ss,
+                   int nsplit, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<DH>(hg * HPL, kg);
+  const cudaError_t err = cudaFuncSetAttribute(
+      decode_partial<DH, HPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_partial<DH, HPL><<<dim3(nsplit, kvh, batch), THREADS, smem,
+                            stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths),
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc), s_len, h,
+      h / kvh, hg, kg, q_sb, kv_sb, kv_ss, nsplit, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* o, void* part_ml, void* part_acc, int batch, int s_len,
            int h, int kvh, long long q_sb, long long kv_sb, long long kv_ss,
-           int split, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<DH>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_partial<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+           int nsplit, float scale, cudaStream_t stream) {
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
-  const int nsplit = (s_len + split - 1) / split;
-  if (nsplit > 0) {
-    decode_partial<T, DH><<<dim3(nsplit, kvh, batch), THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int*>(lengths),
-        static_cast<float*>(part_ml), static_cast<float*>(part_acc), s_len, h,
-        h / kvh, q_sb, kv_sb, kv_ss, split, nsplit, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int rep = h / kvh;
+  int err = 0;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (s_len > 0) {
+      constexpr size_t smem = mma_smem_bytes<DH>();
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_partial_mma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      decode_partial_mma<DH><<<dim3(nsplit, kvh, batch), THREADS, smem,
+                               stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<const int*>(lengths), static_cast<float*>(part_ml),
+          static_cast<float*>(part_acc), s_len, h, rep, q_sb, kv_sb, kv_ss,
+          nsplit, scale * LOG2E);
+      err = static_cast<int>(cudaGetLastError());
+    }
+  } else if (s_len > 0) {
+    // lane groups of a warp: HG head groups (a power of two <= rep) x KG
+    // key groups; each lane serves HPL heads (<= 8 registers-worth)
+    const int slots = Geo<DH>::SLOTS;
+    int hg = 1;
+    while (hg * 2 <= slots && hg * 2 <= rep) hg *= 2;
+    const int kg = slots / hg;
+    const int want = (rep + hg - 1) / hg;
+    if (want <= 1)
+      err = launch_partial<DH, 1>(q, k, v, lengths, part_ml, part_acc, batch,
+                                  s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
+                                  nsplit, scale, stream);
+    else if (want <= 2)
+      err = launch_partial<DH, 2>(q, k, v, lengths, part_ml, part_acc, batch,
+                                  s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
+                                  nsplit, scale, stream);
+    else if (want <= 4)
+      err = launch_partial<DH, 4>(q, k, v, lengths, part_ml, part_acc, batch,
+                                  s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
+                                  nsplit, scale, stream);
+    else
+      err = launch_partial<DH, 8>(q, k, v, lengths, part_ml, part_acc, batch,
+                                  s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
+                                  nsplit, scale, stream);
   }
+  if (err != 0) return err;
   decode_combine<T, DH><<<dim3(h, batch), DH, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<T*>(o), h, nsplit);
+      static_cast<T*>(o), h, s_len > 0 ? nsplit : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,16 +600,16 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
              void* o, void* part_ml, void* part_acc, int batch, int s_len,
              int h, int kvh, int dh, long long q_sb, long long kv_sb,
-             long long kv_ss, int split, float scale, void* stream) {
+             long long kv_ss, int nsplit, float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (kvh <= 0 || h % kvh != 0 || h / kvh > MAX_REP || split <= 0)
+  if (kvh <= 0 || h % kvh != 0 || h / kvh > MAX_REP || nsplit <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
     return launch<T, 64>(q, k, v, lengths, o, part_ml, part_acc, batch, s_len,
-                         h, kvh, q_sb, kv_sb, kv_ss, split, scale, st);
+                         h, kvh, q_sb, kv_sb, kv_ss, nsplit, scale, st);
   if (dh == 128)
     return launch<T, 128>(q, k, v, lengths, o, part_ml, part_acc, batch,
-                          s_len, h, kvh, q_sb, kv_sb, kv_ss, split, scale,
+                          s_len, h, kvh, q_sb, kv_sb, kv_ss, nsplit, scale,
                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -280,28 +620,30 @@ extern "C" {
 
 // q (B, 1, H, dh) with heads packed (stride dh), dh contiguous, batch stride
 // q_sb; k/v (B, S, KV, dh) with heads packed, batch and sequence strides
-// kv_sb / kv_ss in elements; lengths (B,) int32 on the card; o a contiguous
-// (B, 1, H, dh) tensor; part_ml (B, H, nsplit, 2) and part_acc
-// (B, H, nsplit, dh) float scratch with nsplit = ceil(S / split).
+// kv_sb / kv_ss in elements, base and strides 16-byte aligned (cp.async);
+// lengths (B,) int32 on the card; o a contiguous (B, 1, H, dh) tensor;
+// part_ml (B, H, nsplit, 2) and part_acc (B, H, nsplit, dh) float scratch,
+// nsplit the number of splits of each lane's visible keys.
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* lengths, void* o, void* part_ml,
                          void* part_acc, int batch, int s_len, int h, int kvh,
                          int dh, long long q_sb, long long kv_sb,
-                         long long kv_ss, int split, float scale,
+                         long long kv_ss, int nsplit, float scale,
                          void* stream) {
   return dispatch<float>(q, k, v, lengths, o, part_ml, part_acc, batch, s_len,
-                         h, kvh, dh, q_sb, kv_sb, kv_ss, split, scale, stream);
+                         h, kvh, dh, q_sb, kv_sb, kv_ss, nsplit, scale,
+                         stream);
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* lengths, void* o, void* part_ml,
                           void* part_acc, int batch, int s_len, int h,
                           int kvh, int dh, long long q_sb, long long kv_sb,
-                          long long kv_ss, int split, float scale,
+                          long long kv_ss, int nsplit, float scale,
                           void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, lengths, o, part_ml, part_acc,
                                  batch, s_len, h, kvh, dh, q_sb, kv_sb, kv_ss,
-                                 split, scale, stream);
+                                 nsplit, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

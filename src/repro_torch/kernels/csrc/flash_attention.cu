@@ -22,29 +22,63 @@
 // 8 S H dh bytes in bf16 (Sk = Sq, KV = H).  That is S / 4 FLOP per byte,
 // at most 256 at the main path's prompts (S <= 1024, H 16, dh 64): below
 // the ~295 the card needs to be bound by its tensor cores, so the bytes
-// set the least time, and both bounds are a few microseconds.  This first
-// version does not approach either: it runs the
-// products on the CUDA cores in f32 (67 TFLOP/s at most, not the tensor
-// cores' 989 in bf16), one 64 x 64 tile at a time.
+// set the least time there; with GQA (Jamba's 64 / 8 heads of 128) the
+// bytes shrink and the operations set it.  Both bounds are a few to a few
+// tens of microseconds.
 //
-// Design.  One block of 256 threads per (query tile of 64 rows, q head,
-// batch row).  The scaled Q tile is converted to f32 once and kept in shared
-// memory; 64-key K and V tiles stream through shared memory (dynamic shared
-// memory: 66 KB at dh 64, 113 KB at dh 128, above the 48 KB default); rows
-// are padded by one float so that neighbouring threads hit neighbouring
-// banks.  Each thread owns 4 query rows x 4 key columns of the score tile
-// and 4 rows x dh/16 columns of the accumulator, so the online softmax's
-// running max and sum stay in registers, reduced across the 16 threads of a
-// row with warp shuffles.  Key tiles that no row of the block can see
-// (causal future, behind the window) are skipped; skipping them is exact.
-// K/V are never repeated in memory.  Later versions: wgmma on bf16 tiles
-// fed by TMA, a ring of stages, warp specialisation.
+// Two kernels, one per type.
+//
+// bf16: `flash_fwd_wgmma`, the products on the tensor cores.  One block per
+// (query tile, q head, batch row); the query tiles are walked longest-first
+// (blockIdx.x reversed), so the causal tail's heavy tiles do not run last.
+// One consumer warpgroup owns the tile's 64 query rows (the wgmma M): two
+// warpgroups on a 128-row tile, sharing its K/V loads, measured slower at
+// the main path's long prompts (PERF.md), and two 160-thread blocks fit an
+// SM.  One producer warp issues TMA loads: the Q tile once, then K and V
+// tiles of BK keys (128 at dh 64, 64 at dh 128) through a ring of STAGES
+// shared-memory stages, each with a full and an empty mbarrier.  Tiles are
+// 128-byte swizzled panels of 64 columns, as wgmma reads them.  Per tile a
+// consumer warpgroup computes S = Q K^T by `wgmma m64nBKk16` from shared
+// memory, runs the online softmax on the accumulator fragment in registers
+// (each thread holds 2 rows; row max and sum across the 4 threads of a quad
+// by shuffles; exp2 with the scale folded in), converts P to bf16 in
+// registers and adds P V by `wgmma m64nDHk16` with P as the register A
+// operand and V read from shared memory as stored (the transpose bit).  The
+// only rounding beyond the f32 version's is P to bf16 before P V (the sum l
+// takes P in f32).  Only tiles that cross the causal diagonal, a window edge
+// or Sk take the mask path; tiles no row sees are never loaded.
+// Rows past Sk arrive as zeros (TMA's out-of-bounds fill) and are masked.
+// TMA needs 16-byte aligned bases and 16-byte multiple strides; the wrapper
+// checks them.  The tensor maps are encoded on the host per call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library needs no -lcuda.
+//
+// f32: `flash_fwd`, the CUDA-core kernel of the first version, kept for the
+// f32 path on purpose: the tensor-core route for f32 is TF32 (about 3
+// decimal digits), which the f32 checks (2e-5 against the plain version)
+// could not hold.  One block of 256 threads per (query tile of 64 rows, q
+// head, batch row).  The scaled Q tile is kept in shared memory; 64-key K
+// and V tiles stream through shared memory (66 KB at dh 64, 113 KB at dh
+// 128); rows are padded by one float so that neighbouring threads hit
+// neighbouring banks.  Each thread owns 4 query rows x 4 key columns of the
+// score tile and 4 rows x dh/16 columns of the accumulator, so the online
+// softmax's running max and sum stay in registers, reduced across the 16
+// threads of a row with warp shuffles.  Key tiles that no row of the block
+// can see (causal future, behind the window) are skipped; skipping them is
+// exact.
+//
+// K/V are never repeated in memory, and no sum uses atomics: two calls give
+// the same bits.
 //
 // Plain C interface for ctypes: each entry point launches on the given
-// stream, does not synchronise, and returns cudaGetLastError().
+// stream, does not synchronise, and returns cudaGetLastError() (or
+// TMAP_ERROR + the CUresult if a tensor map cannot be encoded).
 
+#include <cuda.h>  // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -57,17 +91,10 @@ constexpr int RPT = BQ / TY;  // query rows per thread
 constexpr int CPT = BK / TX;  // score columns per thread
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DH>
 struct Layout {
@@ -221,6 +248,319 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16: wgmma on TMA-fed tiles ------------------------------------------
+using bf16 = __nv_bfloat16;
+
+template <int DH>
+struct Wg {
+  static constexpr int BK = DH == 64 ? 128 : 64;  // keys per tile
+  static constexpr int STAGES = 2;
+  static constexpr int NP = DH / 64;             // 64-column panels of a row
+  static constexpr int Q_PANEL = 64 * 128;       // bytes: 64 rows x 128 B
+  static constexpr int KV_PANEL = BK * 128;
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_BYTES = NP * KV_PANEL;  // K (or V) of one stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int THREADS = 128 + 32;  // + the producer warp
+  // 1024 B of slack to align the panels, then the barriers
+  static constexpr size_t SMEM = 1024 + Q_BYTES +
+                                 size_t(STAGES) * STAGE_BYTES +
+                                 8 * (1 + 2 * STAGES);
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 64) hopper::wgmma_ss_n64(d, a, b, scale_d);
+  else hopper::wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, b);
+  else hopper::wgmma_rs_n128(d, a, b);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Wg<DH>::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                bf16* __restrict__ o, int sq, int sk, int h, int rep,
+                int causal, int window, float scale_log2) {
+  using C = Wg<DH>;
+  constexpr int BK = C::BK, NP = C::NP, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_q = smem;                      // [NP] panels of 64 rows
+  uint8_t* s_kv = smem + C::Q_BYTES;        // [STAGES] {K, V} [NP] panels
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      s_kv + STAGES * C::STAGE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * 64;
+  const int q_off = sk - sq;  // end-aligned query positions
+  // keys that some row of this tile can see: [k_begin, k_end); every key
+  // tile in it is seen by some row
+  const int pos_lo = q_off + q0;
+  const int pos_hi = q_off + min(q0 + 64, sq) - 1;
+  const int k_end = causal ? min(sk, pos_hi + 1) : sk;
+  const int k_begin = window ? (max(0, pos_lo - window + 1) / BK) * BK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: one thread issues every load
+    if (lane == 0) {
+      hopper::mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int p = 0; p < NP; ++p)
+        hopper::tma_load_4d(s_q + p * C::Q_PANEL, &qmap, q_full, p * 64,
+                            head, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        hopper::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        uint8_t* ks = s_kv + s * C::STAGE_BYTES;
+        const int k0 = k_begin + t * BK;
+        for (int p = 0; p < NP; ++p) {
+          hopper::tma_load_4d(ks + p * C::KV_PANEL, &kmap, &full[s], p * 64,
+                              head / rep, k0, b);
+          hopper::tma_load_4d(ks + C::KV_BYTES + p * C::KV_PANEL, &vmap,
+                              &full[s], p * 64, head / rep, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: 64 query rows; this thread holds rows r0, r0 + 8
+  const int r0 = 16 * warp + lane / 4;
+  const int qpos0 = pos_lo + r0, qpos1 = qpos0 + 8;
+
+  float acc[DH / 2], sacc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    const int k0 = k_begin + t * BK;
+    hopper::mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint8_t* ks = s_kv + s * C::STAGE_BYTES;
+    const uint8_t* vs = ks + C::KV_BYTES;
+    // S = Q K^T: 16 columns of dh per step, 32 bytes into a panel
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss<BK>(sacc,
+                   hopper::desc_sw128(s_q + (kk / 4) * C::Q_PANEL +
+                                      (kk % 4) * 32, 0),
+                   hopper::desc_sw128(ks + (kk / 4) * C::KV_PANEL +
+                                      (kk % 4) * 32, 0),
+                   kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+
+    // fragment element i: key k0 + 8 (i / 4) + 2 (lane % 4) + i % 2,
+    // row r0 + 8 ((i / 2) % 2)
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > pos_lo) ||
+                      (window && k0 <= pos_hi - window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const int qpos = (i / 2) % 2 ? qpos1 : qpos0;
+        bool ok = kpos < sk;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window) ok = ok && kpos > qpos - window;
+        if (!ok) sacc[i] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      if ((i / 2) % 2) mx1 = fmaxf(mx1, sacc[i]);
+      else mx0 = fmaxf(mx0, sacc[i]);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // running max in scaled log2 units; a row with nothing seen yet keeps
+    // -inf and subtracts 0
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    // P in bf16 registers as wgmma's A fragments: keys 16 kk .. 16 kk + 15
+    // are accumulator elements 8 kk .. 8 kk + 7, in the A operand's order
+    uint32_t pa[BK / 16][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const bool hi = (i / 2) % 2;
+      const float mu = hi ? mu1 : mu0;
+      const float p0 = exp2f(fmaf(sacc[i], scale_log2, -mu));
+      const float p1 = exp2f(fmaf(sacc[i + 1], scale_log2, -mu));
+      if (hi) rs1 += p0 + p1;
+      else rs0 += p0 + p1;
+      __nv_bfloat162 pp = __floats2bfloat162_rn(p0, p1);
+      pa[i / 8][(i % 8) / 2] = *reinterpret_cast<uint32_t*>(&pp);
+    }
+    l0 = l0 * al0 + rs0;  // this thread's columns; the quad sums at the end
+    l1 = l1 * al1 + rs1;
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
+    // O += P V: 16 keys per step, 16 rows (2048 B) into V's panels
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DH>(acc, pa[kk],
+                   hopper::desc_sw128(vs + kk * 16 * 128, C::KV_PANEL));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  bf16* o0 = o + ((static_cast<long long>(b) * sq + row0) * h + head) * DH;
+  bf16* o1 = o0 + 8LL * h * DH;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    if (row0 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row1 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+  }
+}
+
+// ---- host --------------------------------------------------------------------
+constexpr int TMAP_ERROR = 100000;  // + CUresult: a map could not be encoded
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime, so that
+// the library links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (dh, heads, seq, batch) bf16 tensor, boxes of 64 x 1 x rows x 1 with
+// the 128-byte swizzle; strides in elements; rows past seq read as zeros
+int encode_map(CUtensorMap* map, const void* base, int dh, int heads,
+               int seq, int batch, long long ss, long long sb, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
+                              cuuint64_t(seq), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(dh) * 2, cuuint64_t(ss) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int batch, int sq, int sk, int h, int kvh, long long q_sb,
+                 long long q_ss, long long kv_sb, long long kv_ss, int causal,
+                 int window, float scale, cudaStream_t stream) {
+  using C = Wg<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap qm, km, vm;
+  int e = encode_map(&qm, q, DH, h, sq, batch, q_ss, q_sb, 64);
+  if (e == 0) e = encode_map(&km, k, DH, kvh, sk, batch, kv_ss, kv_sb, C::BK);
+  if (e == 0) e = encode_map(&vm, v, DH, kvh, sk, batch, kv_ss, kv_sb, C::BK);
+  if (e != 0) return e;
+  const dim3 grid((sq + 63) / 64, h, batch);
+  flash_fwd_wgmma<DH><<<grid, C::THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), sq, sk, h, h / kvh, causal, window,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                  int batch, int sq, int sk, int h, int kvh, int dh,
+                  long long q_sb, long long q_ss, long long kv_sb,
+                  long long kv_ss, int causal, int window, float scale,
+                  void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (kvh <= 0 || h % kvh != 0 || (dh != 64 && dh != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || sq == 0 || h == 0) return static_cast<int>(cudaSuccess);
+  if (sk == 0)  // no key anywhere: every row is 0 (a map needs seq >= 1)
+    return static_cast<int>(cudaMemsetAsync(
+        o, 0, size_t(batch) * sq * h * dh * sizeof(bf16), st));
+  if (dh == 64)
+    return launch_wgmma<64>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
+                            kv_sb, kv_ss, causal, window, scale, st);
+  return launch_wgmma<128>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
+                           kv_sb, kv_ss, causal, window, scale, st);
+}
+
+// ---- f32: the CUDA-core kernel -----------------------------------------------
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int sk, int h, int kvh, long long q_sb, long long q_ss,
@@ -263,7 +603,8 @@ extern "C" {
 
 // q (B, Sq, H, dh) and k/v (B, Sk, KV, dh): heads packed (stride dh) and dh
 // contiguous; batch and sequence strides in elements (k and v share them).
-// o is a contiguous (B, Sq, H, dh) tensor.
+// o is a contiguous (B, Sq, H, dh) tensor.  bf16 takes the TMA route: base
+// pointers 16-byte aligned, strides multiples of 8 elements.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int batch, int sq, int sk, int h, int kvh, int dh,
                         long long q_sb, long long q_ss, long long kv_sb,
@@ -278,9 +619,8 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          int dh, long long q_sb, long long q_ss,
                          long long kv_sb, long long kv_ss, int causal,
                          int window, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, batch, sq, sk, h, kvh, dh, q_sb,
-                                 q_ss, kv_sb, kv_ss, causal, window, scale,
-                                 stream);
+  return dispatch_bf16(q, k, v, o, batch, sq, sk, h, kvh, dh, q_sb, q_ss,
+                       kv_sb, kv_ss, causal, window, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

@@ -7,23 +7,28 @@ kernel ``decode_attention``
 (``repro/kernels/decode_attention/decode_attention.py``) and is
 instantiated for f32 and bf16 at head dims 64 and 128.  One call issues two
 CUDA launches (the split partials, then their combine) and adds one to
-``launches``; nothing else adds to it.
+``launches``; nothing else adds to it.  The number of splits of each lane's
+visible keys is :func:`split_plan`'s; the kernel divides the keys by the
+lengths on the card.  The split scratch is allocated once per shape,
+device and stream and reused.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
 from .ref import decode_attention_ref
 
-__all__ = ["HEAD_DIMS", "MAX_REP", "SPLIT", "decode_attn", "decode_kernel",
-           "launches", "reset_launches"]
+__all__ = ["HEAD_DIMS", "MAX_REP", "TILE", "check_aligned", "check_q",
+           "decode_attn", "decode_kernel", "launches", "reset_launches",
+           "sm_count", "split_plan"]
 
 HEAD_DIMS = (64, 128)
-MAX_REP = 32        # query heads per kv head (kernel's shared-memory plan)
-SPLIT = 256         # cache rows per block of the first launch
+MAX_REP = 32        # query heads per kv head (kernel's register plan)
+TILE = 32           # f32 cache rows per staged tile (bf16: 64)
 
 launches = 0
 
@@ -36,6 +41,7 @@ def reset_launches() -> None:
     launches = 0
 
 
+@functools.cache     # the library's entry point, typed once
 def _entry(dtype: torch.dtype):
     lib = _build.load("decode_attention")
     fn = getattr(lib, _FNS[dtype])
@@ -46,6 +52,63 @@ def _entry(dtype: torch.dtype):
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.cuda_error_string
+
+
+def split_plan(batch: int, kvh: int, s: int, sms: int) -> int:
+    """Splits of each lane's visible keys (one block each per lane and kv
+    head): enough that the ``batch * kvh * nsplit`` blocks fill ``sms`` SMs
+    about twice, and no more than ``S`` has tiles."""
+    want = -(-2 * sms // max(1, batch * kvh))
+    return max(1, min(want, -(-s // TILE)))
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, the split plan's ``sms``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(b: int, h: int, nsplit: int, dh: int, device,
+             stream: int) -> tuple:
+    """The split partials' (m, l) and accumulators, one pair per shape,
+    device and stream, reused by every call on that stream (calls on one
+    stream run in order, so none overwrites another's partials before its
+    combine has read them)."""
+    key = (device, stream, b, h, nsplit, dh)
+    bufs = _SCRATCH.get(key)
+    if bufs is None:
+        bufs = _SCRATCH[key] = (
+            torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=device),
+            torch.empty((b, h, nsplit, dh), dtype=torch.float32,
+                        device=device))
+    return bufs
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """``ValueError`` unless the cache ``t`` (B, S, KV, dh) starts on a
+    16-byte boundary and its batch and sequence strides are multiples of 16
+    bytes: the kernel copies its rows 16 bytes at a time."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any((st * size) % 16 for st in t.stride()[:2]):
+        raise ValueError(f"{name} must start on a 16-byte boundary and have "
+                         f"batch and sequence strides that are multiples of "
+                         f"16 bytes for the kernel's 16-byte copies (got "
+                         f"address {t.data_ptr():#x}, strides "
+                         f"{tuple(t.stride())})")
+
+
+def check_q(q: torch.Tensor) -> None:
+    """``ValueError`` unless a bf16 ``q`` (B, 1, H, dh) starts on a 4-byte
+    boundary and has an even batch stride: the kernel reads bf16 q two
+    elements at a time.  f32 q is read one element at a time."""
+    if q.dtype == torch.bfloat16 and (q.data_ptr() % 4 or q.stride(0) % 2):
+        raise ValueError(f"a bfloat16 q must start on a 4-byte boundary and "
+                         f"have an even batch stride for the kernel's 4-byte "
+                         f"reads (got address {q.data_ptr():#x}, strides "
+                         f"{tuple(q.stride())})")
 
 
 def lengths_vector(length, batch: int, device) -> torch.Tensor:
@@ -65,7 +128,8 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel.  q (B, 1, H, dh) and a cache k/v
     (B, S, KV, dh), CUDA tensors of one type (f32 or bf16), dh in
     :data:`HEAD_DIMS`, H / KV <= :data:`MAX_REP`, heads packed and dh
-    contiguous (k and v share their batch and sequence strides); ``length``
+    contiguous (k and v share their batch and sequence strides, which with
+    k's base are 16-byte aligned for the kernel's 16-byte copies); ``length``
     the last visible index, a scalar or one per batch row.  Returns a new
     contiguous (B, 1, H, dh) tensor."""
     global launches
@@ -95,20 +159,20 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"packed (got strides {tuple(t.stride())})")
     if k.stride() != v.stride():
         raise ValueError("k and v must share their strides")
+    check_q(q)
+    check_aligned("k", k)
+    check_aligned("v", v)
     lengths = lengths_vector(length, b, q.device)
     fn, err_str = _entry(q.dtype)
-    nsplit = -(-s // SPLIT)
+    nsplit = split_plan(b, kvh, s, sm_count(q.device))
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
-    part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, h, nsplit, dh), dtype=torch.float32,
-                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_ml, part_acc = _scratch(b, h, nsplit, dh, q.device, stream)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                  out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
                  b, s, h, kvh, dh, q.stride(0), k.stride(0), k.stride(1),
-                 SPLIT, dh ** -0.5, stream)
+                 nsplit, dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")

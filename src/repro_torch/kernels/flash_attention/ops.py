@@ -4,12 +4,16 @@ version on the CPU.
 Counterpart of ``repro.kernels.flash_attention.ops.attention``.  The kernel
 (``kernels/csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``flash_attention`` (``repro/kernels/flash_attention/flash_attention.py``)
-and is instantiated for f32 and bf16 at head dims 64 and 128.
+and is instantiated for f32 and bf16 at head dims 64 and 128: bf16 runs
+``wgmma`` on tiles that TMA loads, f32 the CUDA-core kernel.  TMA takes
+16-byte aligned base pointers and strides that are multiples of 16 bytes;
+:func:`tma_strides` checks them and raises where they fail.
 ``launches`` counts the calls that ran the kernel; nothing else adds to it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,7 +21,7 @@ from .. import _build
 from .ref import attention_ref
 
 __all__ = ["HEAD_DIMS", "attention", "attention_kernel", "launches",
-           "reset_launches"]
+           "reset_launches", "tma_strides"]
 
 HEAD_DIMS = (64, 128)
 
@@ -25,6 +29,7 @@ launches = 0
 
 _FNS = {torch.float32: "flash_attention_f32",
         torch.bfloat16: "flash_attention_bf16"}
+_TMAP_ERROR = 100000    # + CUresult: a tensor map the library could not encode
 
 
 def reset_launches() -> None:
@@ -32,6 +37,7 @@ def reset_launches() -> None:
     launches = 0
 
 
+@functools.cache     # the library's entry point, typed once
 def _entry(dtype: torch.dtype):
     lib = _build.load("flash_attention")
     fn = getattr(lib, _FNS[dtype])
@@ -51,12 +57,34 @@ def _check_heads_packed(name: str, t: torch.Tensor) -> None:
                          f"packed (got strides {tuple(t.stride())})")
 
 
+def tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """(batch, sequence) strides in elements of a (B, S, heads, dh) tensor
+    that the bf16 kernel's tensor maps take: its base 16-byte aligned and
+    every stride a multiple of 16 bytes, else ``ValueError``.  A batch of
+    one has no batch stride to honour: it is given the one a contiguous
+    tensor would have."""
+    size = t.element_size()
+    sb, ss = t.stride(0), t.stride(1)
+    if t.shape[0] == 1:
+        sb = max(t.shape[1], 1) * ss
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                         f"kernel's TMA loads (address {t.data_ptr():#x})")
+    for what, st in (("batch", sb), ("sequence", ss)):
+        if (st * size) % 16 or st <= 0 or st * size >= 2 ** 40:
+            raise ValueError(f"{name}'s {what} stride ({st} elements) must "
+                             f"be a positive multiple of 16 bytes for the "
+                             f"kernel's TMA loads")
+    return sb, ss
+
+
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = True, window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel.  q (B, Sq, H, dh) and k/v (B, Sk, KV, dh)
     CUDA tensors of one type (f32 or bf16), dh in :data:`HEAD_DIMS`, heads
-    packed and dh contiguous (batch and sequence strides are free; k and v
-    share theirs).  Returns a new contiguous (B, Sq, H, dh) tensor."""
+    packed and dh contiguous (batch and sequence strides are free, in bf16
+    as far as :func:`tma_strides` allows; k and v share theirs).  Returns a
+    new contiguous (B, Sq, H, dh) tensor."""
     global launches
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError("attention_kernel needs CUDA tensors (got "
@@ -79,14 +107,22 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_heads_packed(name, t)
     if k.stride() != v.stride():
         raise ValueError("k and v must share their strides")
+    q_sb, q_ss = q.stride(0), q.stride(1)
+    kv_sb, kv_ss = k.stride(0), k.stride(1)
+    if q.dtype == torch.bfloat16:
+        q_sb, q_ss = tma_strides("q", q)
+        kv_sb, kv_ss = tma_strides("k", k)
+        tma_strides("v", v)
     fn, err_str = _entry(q.dtype)
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kvh, dh, q.stride(0), q.stride(1),
-                 k.stride(0), k.stride(1), int(causal), int(window),
-                 dh ** -0.5, stream)
+                 b, sq, sk, h, kvh, dh, q_sb, q_ss, kv_sb, kv_ss,
+                 int(causal), int(window), dh ** -0.5, stream)
+    if err >= _TMAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _TMAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")

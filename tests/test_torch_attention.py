@@ -203,3 +203,155 @@ def test_lengths_vector_shapes():
     assert v.dtype == torch.int32 and v.tolist() == [1, 2]
     with pytest.raises(ValueError, match="shape"):
         decode_ops.lengths_vector(torch.tensor([1, 2]), 3, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' pure-Python rules for the redesigned kernels, on CPU tensors.
+def _offset_view(shape, dtype, offset):
+    """A tensor of ``shape`` that starts ``offset`` elements into a larger
+    contiguous buffer (storage_offset), so its address moves by
+    ``offset * itemsize`` bytes."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 16, dtype=dtype)[offset:offset + n].view(shape)
+
+
+def test_tma_strides_accept_served_layouts():
+    q = torch.zeros(2, 130, 16, 64, dtype=torch.bfloat16)
+    assert flash_ops.tma_strides("q", q) == (130 * 16 * 64, 16 * 64)
+    cache = torch.zeros(2, 2048, 8, 128, dtype=torch.bfloat16)
+    view = cache[:, :300]                   # prefill attends over ck[:, :n]
+    assert flash_ops.tma_strides("k", view) == (2048 * 8 * 128, 8 * 128)
+    # a batch of one has no batch stride to honour
+    one = torch.zeros(4, 64, 2, 64, dtype=torch.bfloat16)[1:2]
+    assert flash_ops.tma_strides("k", one) == (64 * 2 * 64, 2 * 64)
+
+
+def test_tma_strides_refuse_misaligned_base():
+    q = _offset_view((1, 64, 2, 64), torch.bfloat16, 1)    # 2 bytes off
+    assert q.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_ops.tma_strides("q", q)
+    ok = _offset_view((1, 64, 2, 64), torch.bfloat16, 8)   # 16 bytes off
+    assert flash_ops.tma_strides("q", ok) == (64 * 2 * 64, 2 * 64)
+
+
+def test_tma_strides_refuse_unaligned_strides():
+    base = torch.zeros(2 * 50 * 132, dtype=torch.bfloat16)
+    # sequence stride 132 elements = 264 bytes: not a multiple of 16
+    k = base.as_strided((2, 50, 2, 64), (50 * 132, 132, 64, 1))
+    with pytest.raises(ValueError, match="sequence stride"):
+        flash_ops.tma_strides("k", k)
+    # batch stride 50 * 128 + 4 elements: a sequence stride of 128 is fine,
+    # the batch stride is not
+    k = torch.zeros(2 * (50 * 128 + 4), dtype=torch.bfloat16).as_strided(
+        (2, 50, 2, 64), (50 * 128 + 4, 128, 64, 1))
+    with pytest.raises(ValueError, match="batch stride"):
+        flash_ops.tma_strides("k", k)
+
+
+def test_decode_check_aligned():
+    cache = torch.zeros(8, 2048, 16, 64, dtype=torch.bfloat16)
+    decode_ops.check_aligned("k", cache)
+    decode_ops.check_aligned("k", cache[:, 256:])  # the decode control's view
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_ops.check_aligned("k", _offset_view((2, 64, 2, 64),
+                                                   torch.float32, 1))
+    odd = torch.zeros(2 * 64 * 132, dtype=torch.float32).as_strided(
+        (2, 64, 2, 64), (64 * 132, 132, 64, 1))    # 528-byte rows: fine
+    decode_ops.check_aligned("k", odd)
+    odd = torch.zeros(2 * 64 * 130, dtype=torch.float32).as_strided(
+        (2, 64, 2, 64), (64 * 130, 130, 64, 1))    # 520-byte rows
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        decode_ops.check_aligned("k", odd)
+
+
+def test_decode_check_q():
+    q = torch.zeros(8, 1, 16, 64, dtype=torch.bfloat16)
+    decode_ops.check_q(q)
+    decode_ops.check_q(q[1:])                      # 2 KiB on: fine
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        decode_ops.check_q(_offset_view((2, 1, 16, 64), torch.bfloat16, 1))
+    # an odd batch stride puts every other row's q 2 bytes off
+    odd = torch.zeros(2 * 1025, dtype=torch.bfloat16).as_strided(
+        (2, 1, 16, 64), (1025, 1024, 64, 1))
+    with pytest.raises(ValueError, match="even batch stride"):
+        decode_ops.check_q(odd)
+    # f32 q is read one element at a time: any offset will do
+    decode_ops.check_q(_offset_view((2, 1, 16, 64), torch.float32, 1))
+
+
+@pytest.mark.parametrize("b,kvh,s,want", [
+    (8, 16, 2048, 3),       # Qwen's served decode: 384 blocks on 132 SMs
+    (8, 8, 2048, 5),        # Jamba's and Llama's: 320
+    (8, 1, 2048, 33),       # MQA: 264
+    (1, 1, 64, 2),          # capped by the cache's 32-row tiles
+    (1, 1, 1, 1),
+    (64, 16, 2048, 1),      # B KV alone fills the card
+])
+def test_decode_split_plan(b, kvh, s, want):
+    n = decode_ops.split_plan(b, kvh, s, sms=132)
+    assert n == want
+    assert b * kvh * n >= min(2 * 132, b * kvh * -(-s // decode_ops.TILE))
+
+
+# ---------------------------------------------------------------------------
+# The one rounding the bf16 flash kernel adds to the plain version's f32
+# arithmetic: P rounded to bf16 before P V, the row sums l taken in f32.
+def _flash_bf16_model(q, k, v, causal, window, bk):
+    """The bf16 kernel's arithmetic in plain PyTorch: f32 scores of the bf16
+    inputs, an online softmax over key tiles of ``bk`` in log2 units, P in
+    bf16 before P V, O / l rounded to bf16 (0 for a row that sees no
+    key)."""
+    _, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(h // kvh, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(h // kvh, 2).transpose(1, 2)
+    c = dh ** -0.5 * np.log2(np.e)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full(qf.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, sk, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        kpos = torch.arange(k0, min(k0 + bk, sk))[None, :]
+        ok = torch.ones(s.shape[-2:], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = s.masked_fill(~ok, float("-inf"))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        mu = torch.where(mn == float("-inf"), 0.0, mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(s * c - mu)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+        m = mn
+    out = torch.where(l > 0, o / l.clamp_min(1e-30), 0.0)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,kv,dh,bk", [(16, 16, 64, 128),   # Qwen's heads
+                                        (64, 8, 128, 64)])   # Jamba's
+@pytest.mark.parametrize("s,window,sharp", [(130, 0, 1.0), (257, 0, 1.0),
+                                            (257, 0, 4.0), (200, 100, 1.0)])
+def test_flash_bf16_p_rounding_stays_within_tolerance(h, kv, dh, bk, s,
+                                                      window, sharp):
+    """The model against the f32 oracle on the same bf16 inputs, by
+    chip_smoke.py's rule |diff| <= tol + tol |want| with tol =
+    ATTN_TOL[bf16] = 2e-2; ``sharp`` scales q so that the softmax is
+    peaked, where P's rounding weighs most."""
+    (_, q), (_, k), (_, v) = _inputs(s + h + dh, (1, s, h, dh),
+                                     (1, s, kv, dh), (1, s, kv, dh),
+                                     dtype="bfloat16")
+    q = (q.float() * sharp).to(torch.bfloat16)
+    got = _flash_bf16_model(q, k, v, True, window, bk).float()
+    want = attention_ref(q, k, v, causal=True, window=window).float()
+    oracle = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                           window=window)
+    tol = TOL["bfloat16"]
+    for ref in (want, oracle):
+        assert bool(((got - ref).abs() <= tol + tol * ref.abs()).all())
+    # the rounding is there: the model is not the plain version
+    assert float((got - want).abs().max()) > 0

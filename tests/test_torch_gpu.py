@@ -105,6 +105,25 @@ def _randn(gen, *shape, dtype):
     (1, 128, 512, 8, 8, 128, True, 0),        # Sq < Sk, end-aligned
     (2, 130, 130, 4, 4, 128, False, 0),       # non-causal
     (1, 256, 128, 2, 2, 64, True, 0),         # rows with no visible key
+    # the bf16 kernel's tile edges: 64-row query tiles, 128-key tiles at dh 64
+    (1, 63, 63, 8, 8, 64, True, 0),
+    (1, 64, 64, 8, 8, 64, True, 0),
+    (1, 65, 65, 8, 8, 64, True, 0),
+    (1, 127, 127, 8, 8, 64, True, 0),
+    (1, 128, 128, 8, 8, 64, True, 0),
+    (1, 129, 129, 8, 8, 64, True, 0),
+    (1, 255, 255, 8, 8, 64, True, 0),
+    # 64-key tiles at dh 128, a full grid (B 2 x 64 heads)
+    (2, 65, 65, 64, 8, 128, True, 0),
+    (2, 129, 129, 64, 8, 128, True, 0),
+    (2, 255, 255, 64, 8, 128, True, 0),
+    (1, 100, 612, 8, 8, 128, True, 0),        # ragged Sq < Sk
+    (1, 77, 301, 6, 3, 64, True, 0),
+    (1, 1000, 1000, 16, 16, 64, True, 256),   # window edges inside tiles
+    (1, 1000, 1000, 64, 8, 128, True, 256),
+    (1, 300, 300, 24, 8, 128, True, 0),       # rep 3
+    (1, 300, 300, 64, 8, 64, True, 0),        # rep 8
+    (1, 300, 300, 32, 1, 128, True, 0),       # rep 32
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
                                     window):
@@ -122,6 +141,9 @@ def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
     want = attention_ref(q, k, v, causal=causal, window=window)
     tol = ATTN_TOL[dt]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # no atomics: the same input gives the same bits
+    assert torch.equal(got, flash_ops.attention(q, k, v, causal=causal,
+                                                window=window))
 
 
 @pytest.mark.gpu
@@ -131,11 +153,20 @@ def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
     (1024, 24, 8, 128),         # Llama-3.2-3B's GQA
     (1024, 8, 1, 64),           # MQA
     (1024, 4, 2, 64),           # rep 2
+    (2048, 64, 8, 128),         # Jamba's (rep 8)
+    (1024, 32, 1, 128),         # rep 32
 ])
 def test_decode_kernel_matches_plain(dtype, s, h, kv, dh):
     _card()
     dt = getattr(torch, dtype)
-    lens = [0, 1, 255, 256, 257, s // 2 + 3, s - 1, s, s + 40]
+    # every length class of the device split: none, one key, a share
+    # boundary (visible keys a multiple of the splits times 64 rows, a
+    # multiple of either type's tile, then one more), S - 1, S, past S
+    sms = decode_ops.sm_count(torch.device("cuda"))
+    unit = decode_ops.split_plan(11, kv, s, sms) * 64   # bf16's tile
+    edge = unit * max(1, s // (2 * unit))
+    lens = [0, 1, 255, 256, 257, s // 2 + 3, s - 1, s, s + 40, edge - 1,
+            edge]
     b = len(lens)
     gen = torch.Generator(device="cuda").manual_seed(s + h)
     q = _randn(gen, b, 1, h, dh, dtype=dt)
