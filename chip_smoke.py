@@ -60,9 +60,13 @@ a window edge inside key tiles, rep 1, 3, 8 and 32, decode lengths of
 none, one key, a split-share boundary and S - 1 to past S; each twice,
 bitwise; the mLSTM kernel in f32 with its states: the
 served prefills from a fresh state, a carried nonzero state, S <= 256, S a
-multiple of 256, ragged S, head dims 32-512; the scan kernel on y and the
-final state: the served prefills, a carried nonzero state, S = 1, ragged
-S, bf16 and f32 inputs, B 2 at a narrow D, d_state 8).
+multiple of 256, ragged S, head dims 32-512, S at a 64-position chunk and
+one past it, more chunks than the kernel's workspace holds (two and three
+windows of 16), 65 chunks, q, k, v off a 16-byte boundary; the scan
+kernel on y and the final state: the served prefills, a carried nonzero
+state, S = 1, ragged S, bf16 and f32 inputs, B 2 at a narrow D, d_state
+8, S at a lane's 16 positions and a 64-position tile and one past each,
+an odd D).
 
 Any failure raises: no phase is caught.
 
@@ -183,6 +187,12 @@ MLSTM_TOL = (1e-4, 1e-4)
 # weights (42.1 GiB) fit the card
 JAMBA_ARCH = "jamba-1.5-large"
 JAMBA_F32_HELD = 2
+
+# H100 SXM's special-function units: 16 ex2 a clock on each of 132 SMs at
+# the 1.98 GHz boost clock (CUDA C programming guide, compute capability
+# 9.0, arithmetic instructions): the selective scan's exponentials have this
+# floor of their own beside its bound
+SFU_EX2_PER_S = 16 * 132 * 1.98e9
 
 # selective-scan kernel vs plain, f32, on y and the final state: the
 # tolerance of the reference's own test of the Pallas kernel
@@ -504,14 +514,23 @@ def mlstm_inputs(b: int, s: int, h: int, dh: int, state: str,
     return (q, k, v, li, lf), st
 
 
+def _off_boundary(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view_as(t).copy_(t)
+
+
 def check_mlstm(label: str, b: int, s: int, h: int, dh: int, state: str,
-                reps: int = 5) -> dict:
+                reps: int = 5, misaligned: bool = False) -> dict:
     """The mLSTM kernel against its plain version on one input, outputs and
-    final states; checks two calls bitwise; times kernel and plain version
-    on the card alone (:func:`device_ms`), and the kernel's calls with the
-    host's share (:func:`time_ms`).  No single PyTorch call computes the
-    mLSTM: no library time."""
+    final states (with ``misaligned``, q, k and v off a 16-byte boundary);
+    checks two calls bitwise; times kernel and plain version on the card
+    alone (:func:`device_ms`), and the kernel's calls with the host's share
+    (:func:`time_ms`).  No single PyTorch call computes the mLSTM: no
+    library time."""
     ins, st = mlstm_inputs(b, s, h, dh, state)
+    if misaligned:
+        ins = (*map(_off_boundary, ins[:3]), *ins[3:])
     out, fin = mlstm_ops.mlstm_kernel(*ins, st)
     again, again_fin = mlstm_ops.mlstm_kernel(*ins, st)
     torch.cuda.synchronize()
@@ -610,12 +629,14 @@ def check_mamba(label: str, b: int, s: int, d: int, n: int,
                          replays=1)
     bound_ms, bound_by = mamba_bound_ms(b, s, d, n, ins[4].element_size(),
                                         ins[5] is not None)
+    sfu_ms = b * s * d * n / SFU_EX2_PER_S * 1e3
     log(f"  {label:16s} u {_dname(u_dtype):8s} B={b} S={s} D={d} N={n} "
         f"state={state}: max_abs_err y {errs[0]:.3e}, h_last {errs[1]:.3e} "
         f"(rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}; "
         f"deterministic={same}; kernel {ms:.4f} ms (with the host "
         f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-        f"({bound_by}), x bound {ms / bound_ms:.1f}")
+        f"({bound_by}), x bound {ms / bound_ms:.1f}; the exponentials' SFU "
+        f"floor {sfu_ms:.6f} ms")
     if not ok:
         raise AssertionError(f"mamba_scan kernel disagrees with its plain "
                              f"version: {label} S={s} D={d} {state}")
@@ -735,6 +756,11 @@ SERVED = {ARCH: ({"flash_attention": flash_ops,
                         "flash_attention": flash_ops,
                         "decode_attention": decode_ops}, MAMBA_CONTROLS,
                        False)}
+
+# the __global__ functions each wrapper launches, by a part of their names
+KERNEL_EVENTS = {"flash_attention": ("flash_fwd",),
+                 "decode_attention": ("decode_partial", "decode_combine"),
+                 "mlstm": ("mlstm_",), "mamba_scan": ("mamba_scan_fwd",)}
 
 
 def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
@@ -887,7 +913,7 @@ def attention_phases() -> tuple:
 
 def _device_kind(name: str) -> str:
     return ("flash_fwd" if "flash_fwd" in name else
-            "mlstm_fwd" if "mlstm_fwd" in name else
+            "mlstm" if "mlstm_" in name else   # its four passes
             "mamba_scan_fwd" if "mamba_scan_fwd" in name else
             "decode_partial" if "decode_partial" in name else
             "decode_combine" if "decode_combine" in name else
@@ -904,12 +930,25 @@ def _device_time(prof) -> tuple:
     return len(on_dev), sum(by_kind.values()), by_kind
 
 
-def prefill_breakdown(p, cfg, req: Request) -> dict:
+def cuda_launches_per_call(prof, calls: dict) -> dict:
+    """Each wrapper's CUDA launches a call in a traced run: the device
+    events of its kernels (:data:`KERNEL_EVENTS`) over its calls in that
+    run (``calls``: wrapper name -> calls); None where the profiler
+    recorded no device events."""
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {w: (sum(any(k in nm for k in KERNEL_EVENTS[w]) for nm in names)
+                / c if names else None)
+            for w, c in calls.items() if c}
+
+
+def prefill_breakdown(p, cfg, req: Request, wrappers: dict) -> dict:
     """Where one prefill's time goes (B = 1): its wall time; the host-clock
     time of each block kind (its mixer: attn, mamba, mlstm, slstm) and each
     FFN kind (moe, dense ffn), each between two synchronisations (a second
-    run); the card's busy time by kernel kind and idle share (a third run,
-    under torch.profiler)."""
+    run); the card's busy time by kernel kind, its idle share and the CUDA
+    launches of each kernel wrapper's calls (a third run, under
+    torch.profiler)."""
     prompt = torch.as_tensor(req.prompt, device=DEV)[None]
     run = lambda: prefill(p, cfg, prompt, MAX_LEN, DEV)  # noqa: E731
     run()
@@ -955,18 +994,22 @@ def prefill_breakdown(p, cfg, req: Request) -> dict:
         run()
         torch.cuda.synchronize()
         timed_wall = time.perf_counter() - t0
+    calls = {w: -ops.launches for w, ops in wrappers.items()}
     t0 = time.perf_counter()
     with profile(activities=list(TRACE_ACTIVITIES)) as prof:
         run()
         torch.cuda.synchronize()
     traced_wall = time.perf_counter() - t0
+    calls = {w: n + wrappers[w].launches for w, n in calls.items()}
+    per_call = cuda_launches_per_call(prof, calls)
     n_ev, busy, by_kind = _device_time(prof)
     out = {"prompt": len(req.prompt), "wall_s": wall,
            "timed_wall_s": timed_wall, "block_s": by_block,
            "block_share": {k: v / timed_wall for k, v in by_block.items()},
            "traced_wall_s": traced_wall, "device_events": n_ev,
            "device_busy_s": busy, "device_s_by_kind": by_kind,
-           "idle_share": 1 - busy / traced_wall if n_ev else None}
+           "idle_share": 1 - busy / traced_wall if n_ev else None,
+           "cuda_launches_per_call": per_call}
     log(f"== one prefill of {len(req.prompt)} tokens: wall {wall:.6f} s; "
         f"blocks between synchronisations (run of {timed_wall:.6f} s): "
         + ", ".join(f"{k} {v:.6f} s ({v / timed_wall:.3f})"
@@ -974,7 +1017,8 @@ def prefill_breakdown(p, cfg, req: Request) -> dict:
         + (f"; traced: {n_ev} device events, busy {busy:.6f} s of "
            f"{traced_wall:.6f} s (idle share {1 - busy / traced_wall:.4f}), "
            f"by kind (s) {json.dumps(by_kind)}" if n_ev else
-           "; the profiler recorded no device events"))
+           "; the profiler recorded no device events")
+        + f"; CUDA launches a wrapper call {json.dumps(per_call)}")
     return out
 
 
@@ -1000,6 +1044,16 @@ def mlstm_phases() -> tuple:
     inst.append(check_mlstm("dh 64", 2, 256, 4, 64, "none"))
     inst.append(check_mlstm("dh 128", 2, 1000, 4, 128, "fresh"))
     inst.append(check_mlstm("S = 2", 1, 2, h, dh, "carried"))
+    # the kernel's edges: a chunk of 64 and one past it; more chunks than
+    # the workspace's 16 slots (two and three windows); one chunk past the
+    # gates pass's window of 64 chunks
+    inst.append(check_mlstm("S = 64", 1, 64, h, dh, "carried"))
+    inst.append(check_mlstm("S = 65", 1, 65, h, dh, "fresh"))
+    inst.append(check_mlstm("2 windows", 1, 1025, h, dh, "carried", reps=3))
+    inst.append(check_mlstm("3 windows", 1, 2100, h, dh, "none", reps=2))
+    inst.append(check_mlstm("65 chunks", 1, 4097, h, dh, "carried", reps=2))
+    inst.append(check_mlstm("q, k, v off 16 B", 1, 130, h, dh, "carried",
+                            misaligned=True))
     log("  no single PyTorch call computes the mLSTM: library time n/a")
     return inst, main
 
@@ -1027,6 +1081,13 @@ def mamba_phases() -> tuple:
     inst.append(check_mamba("B 2, narrow D", 2, 333, 96, n, torch.float32,
                             "carried"))
     inst.append(check_mamba("N 8", 2, 300, 512, 8, torch.float32, "none"))
+    # the kernel's edges: a lane's 16 positions, a tile of 64 and one past
+    # each; a D that is no multiple of the block's 64 channels, odd for bf16
+    inst.append(check_mamba("S = 16", 1, 16, d, n, bf16, "carried"))
+    inst.append(check_mamba("S = 17", 1, 17, d, n, bf16, "carried"))
+    inst.append(check_mamba("S = 64", 1, 64, d, n, bf16, "carried"))
+    inst.append(check_mamba("S = 65", 1, 65, d, n, bf16, "fresh"))
+    inst.append(check_mamba("odd D, bf16", 2, 130, 101, n, bf16, "carried"))
     log("  no single PyTorch call computes a selective scan: library time "
         "n/a")
     return inst, main
@@ -1107,7 +1168,7 @@ def serving_phases(arch: str) -> dict:
     log(f"  request 0: {len(reqs[0].prompt)} prompt tokens -> "
         f"{reqs[0].out_tokens[:8]}...")
     serving["prefill_breakdown"] = prefill_breakdown(
-        eng.params, cfg, max(reqs, key=lambda r: len(r.prompt)))
+        eng.params, cfg, max(reqs, key=lambda r: len(r.prompt)), wrappers)
 
     # a traced rerun of decode steps: the device's idle share
     log(f"== traced decode: {LANES} lanes admitted, {TRACED_STEPS} steps "
@@ -1116,10 +1177,14 @@ def serving_phases(arch: str) -> dict:
         r.max_new_tokens = TRACED_STEPS + 2
         eng.try_admit(r)
     before = eng.stats["decode_s"]
+    calls = {w: -ops.launches for w, ops in wrappers.items()}
     with profile(activities=list(TRACE_ACTIVITIES)) as prof:
         for _ in range(TRACED_STEPS):
             eng.step()
     traced_wall = eng.stats["decode_s"] - before
+    calls = {w: n + wrappers[w].launches for w, n in calls.items()}
+    serving["traced_cuda_launches_per_call"] = cuda_launches_per_call(
+        prof, calls)
     n_ev, busy, by_name = _device_time(prof)
     if n_ev:
         serving["traced_idle_share"] = 1 - busy / traced_wall
@@ -1129,7 +1194,8 @@ def serving_phases(arch: str) -> dict:
         log(f"  {n_ev} device events ({n_ev / TRACED_STEPS:.1f} per step); "
             f"device busy {busy:.6f} s of {traced_wall:.6f} s (idle share "
             f"{1 - busy / traced_wall:.4f}); by kind (s): "
-            f"{json.dumps(by_name)}")
+            f"{json.dumps(by_name)}; CUDA launches a wrapper call "
+            f"{json.dumps(serving['traced_cuda_launches_per_call'])}")
     else:
         log("  the profiler recorded no device events: device busy time "
             "not measured")
@@ -1419,19 +1485,25 @@ def main() -> int:
         "iters": main_shape["iters"],
     }]
     # `launches` counts wrapper calls on the serving paths, summed over the
-    # paths that run the kernel (`launches_by_path`); a decode call is two
-    # CUDA launches (split partials, combine), and `ms` is the device time
-    # of both; `x_bound` and `x_library` are `ms` over `bound_ms` and
-    # `library_ms` at the reported (served) shape
-    for name, inst, replaces, per_call in (
+    # paths that run the kernel (`launches_by_path`); a call may be several
+    # CUDA launches (`cuda_launches_per_call`, from the first serving path's
+    # traced prefill or decode that calls it), and `ms` is the device time
+    # of all of a call's; `x_bound` and `x_library` are `ms` over
+    # `bound_ms` and `library_ms` at the reported (served) shape
+    per_call: dict = {}
+    for res in served.values():
+        for traced in (res["prefill_breakdown"]["cuda_launches_per_call"],
+                       res.get("traced_cuda_launches_per_call", {})):
+            for name, n in traced.items():
+                per_call.setdefault(name, n)
+    for name, inst, replaces in (
             ("flash_attention", flash_main,
-             "src/repro/kernels/flash_attention/flash_attention.py:59", 1),
+             "src/repro/kernels/flash_attention/flash_attention.py:59"),
             ("decode_attention", decode_main,
-             "src/repro/kernels/decode_attention/decode_attention.py:58",
-             2),
-            ("mlstm", mlstm_main, "src/repro/kernels/mlstm/mlstm.py:73", 1),
+             "src/repro/kernels/decode_attention/decode_attention.py:58"),
+            ("mlstm", mlstm_main, "src/repro/kernels/mlstm/mlstm.py:73"),
             ("mamba_scan", mamba_main,
-             "src/repro/kernels/mamba_scan/mamba_scan.py:54", 1)):
+             "src/repro/kernels/mamba_scan/mamba_scan.py:54")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1441,7 +1513,7 @@ def main() -> int:
             **{k: inst[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "call_ms", "dtype", "shape")},
-            "cuda_launches_per_call": per_call})
+            "cuda_launches_per_call": per_call.get(name)})
     for entry in kernels:
         entry["x_bound"] = entry["ms"] / entry["bound_ms"]
         entry["x_library"] = (entry["ms"] / entry["library_ms"]

@@ -75,7 +75,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
-// ---- cp.async (16 bytes, L2 only) ------------------------------------------
+// ---- cp.async: 16 bytes through L2 only, 4 bytes through L1 and L2 ---------
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
@@ -95,6 +95,15 @@ __device__ __forceinline__ void cp_async_16_or_zero(void* dst, const void* src,
                                                     bool fill) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+// copies 4 bytes (L1 and L2), or writes 4 zero bytes when `fill` is false
+// (src unread): a gather or a transpose one element at a time
+__device__ __forceinline__ void cp_async_4_or_zero(void* dst, const void* src,
+                                                   bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(fill ? 4 : 0)
                : "memory");
 }
 

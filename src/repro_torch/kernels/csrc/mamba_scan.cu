@@ -28,22 +28,32 @@
 // the S x D outputs y written once in f32.  At the main path's B = 1,
 // S = 980, D = 16384, N = 16 that is ~2.6e8 exponentials, ~1.8e9 f32
 // operations in all (~0.027 ms at 67 TFLOP/s), against ~0.1 GB of bytes
-// (~0.029 ms at 3.35 TB/s): the two nearly meet.
+// (~0.029 ms at 3.35 TB/s): the two nearly meet.  The exponentials have a
+// floor of their own: the special-function units compute 16 a clock on an
+// SM, ~0.062 ms for 2.6e8 of them on 132 SMs at ~1.98 GHz.
 //
-// Design.  One thread per (batch row, channel d), its N states and its N
-// decay rates a[d, :] in registers, walking the positions in order: the
-// recurrence is sequential in t, and 16 independent chains per thread give
-// the instruction-level parallelism a lone warp per scheduler needs.  dt,
-// B and C of a tile of TS positions are shared by every channel of a row,
-// so a block of 128 channels stages them in shared memory, and each thread
-// stages its own u for the tile beside them; both are double-buffered
-// through registers: the next tile's loads are issued before this tile's
-// positions are walked, so the block waits on device memory once per
-// tile, not once per position.  The y stores of a warp are 32 consecutive
-// floats.  At D = 16384 and B = 1 that is 128 blocks of 128 threads on 132
-// SMs.  Every sum runs in a fixed order: repeated runs give the same bits.
-// A chunked parallel scan over S, or exp(dt a) built from fewer
-// exponentials, are for the fast version.
+// Design: the time axis supplies the parallelism, as in the Mamba authors'
+// kernel.  A block of 8 warps takes 64 channels and walks S in tiles of 64
+// positions.  A group of 4 lanes takes one channel, a lane 16 consecutive
+// positions of the tile (a warp: 8 channels).  For each state n the lane
+// forms its positions' (a, b) = (exp(dt a[d, n]), (dt B[n]) u), composes
+// them into one pair, the group scans its 4 pairs with
+// (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2) (two shuffle steps), the h
+// carried from the tile before enters through the exclusive prefix, and the
+// lane re-walks its positions, h = a h + b, y += C[n] h; the group's last
+// lane hands h to the next tile.  So each y_t takes one multiply-add per
+// state, the 16 positions of a lane independent: no position waits on a
+// 16-long chain.  One exponential per (position, channel, state), on the
+// special-function unit (ex2 of dt a log2 e).  dt B and C are shared by the
+// block's 64 channels: the group's 4 lanes read them as float4s from a
+// swizzled row (one wavefront, broadcast to the warp's 8 groups).  The next
+// tile (dt, the B and C rows, the u rows of the block's channels, bf16 or
+// f32 as they lie in device memory) arrives by cp.async while this tile is
+// computed, and is then transposed into the other of two stages, dt B formed
+// once and u widened to f32 there.  y goes back through shared memory as
+// coalesced rows.  Padded positions of the last tile have dt = 0, the
+// identity pair.  Every sum runs in a fixed order: repeated runs give the
+// same bits.  128 registers a thread, 2 blocks an SM.
 //
 // Plain C interface for ctypes: the entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -51,10 +61,73 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;   // channels per block
-constexpr int TS = 32;         // positions per staged tile
+using hopper::cp_async_16_or_zero;
+using hopper::cp_async_4_or_zero;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int L = 4;                   // lanes a channel (a group)
+constexpr int G = 32 / L;              // channels a warp
+constexpr int CH = WARPS * G;          // channels a block
+constexpr int K = 16;                  // consecutive positions a lane
+constexpr int TS = L * K;              // positions a tile
+constexpr int UP = TS + TS / 32 + 1;   // padded row of the u / y tile
+constexpr int BS = TS + 4;             // row of dt B and C in a stage
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// one stage: dt [TS], dt B and C [N][BS] (positions swizzled), u [CH][UP]
+template <int N>
+__host__ __device__ constexpr int stage_floats() {
+  return TS + 2 * N * BS + CH * UP;
+}
+
+// the next tile as it lies in device memory: dt [TS], B and C [TS][N],
+// u [TS][CH] (f32, or bf16 in the first half)
+template <int N>
+__host__ __device__ constexpr int raw_floats() {
+  return TS + 2 * TS * N + TS * CH;
+}
+
+template <int N>
+constexpr size_t smem_bytes() {
+  return (2 * stage_floats<N>() + raw_floats<N>() + N * CH) * sizeof(float);
+}
+
+// a lane's positions of the u / y tile, one extra float every 32
+__device__ __forceinline__ int pad(int t) { return t + (t >> 5); }
+
+// position t of a tile in the dt B and C rows: the 16-byte quads of every
+// other run of 32 positions swapped in pairs, so that the L lanes of a group
+// read L distinct bank quads (one wavefront; the G groups broadcast)
+__device__ __forceinline__ int swz(int t) { return t ^ (((t >> 5) & 1) << 2); }
+
+// lane j's K positions of a swizzled row
+__device__ __forceinline__ void load_row(float (&r)[K], const float* row,
+                                         int j) {
+  const int h = ((K * j) >> 5) & 1;
+#pragma unroll
+  for (int m = 0; m < K / 4; ++m) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(row + K * j + 4 * (m ^ h));
+    r[4 * m] = v.x;
+    r[4 * m + 1] = v.y;
+    r[4 * m + 2] = v.z;
+    r[4 * m + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -62,94 +135,174 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 
 template <int N, typename U>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 mamba_scan_fwd(const float* __restrict__ dt, const float* __restrict__ a,
                const float* __restrict__ bm, const float* __restrict__ cm,
                const U* __restrict__ u, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last, int s,
                int dim) {
-  constexpr int ROW = 2 * N + 1;                 // dt, B[0:N], C[0:N]
-  constexpr int PER = (TS * ROW + THREADS - 1) / THREADS;
-  __shared__ float st[2][TS * ROW];
-  __shared__ float su[2][TS][THREADS];
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + tid;
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem + 2 * stage_floats<N>();
+  U* raw_u = reinterpret_cast<U*>(raw + TS + 2 * TS * N);
+  float* a2s = raw + raw_floats<N>();          // [N][CH]: a log2 e
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / L, j = lane % L;    // group (channel), lane in it
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int c = warp * G + g, d = d0 + c;
   const bool live = d < dim;
   const long long row = static_cast<long long>(b) * s;
-  const float* dtb = dt + row;
-  const float* bmb = bm + row * N;
-  const float* cmb = cm + row * N;
-  const U* ub = u + row * dim + d;
-  float* yb = y + row * dim + d;
 
-  float ad[N], h[N];
-  const long long sd = (static_cast<long long>(b) * dim + d) * N;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    ad[n] = live ? a[static_cast<long long>(d) * N + n] : 0.f;
-    h[n] = (live && h0 != nullptr) ? h0[sd + n] : 0.f;
+  for (int e = tid; e < N * CH; e += THREADS) {
+    const int dd = d0 + e % CH;
+    a2s[e] = dd < dim ? a[static_cast<long long>(dd) * N + e / CH] * LOG2E
+                      : 0.f;
   }
+  // h of the lane's channel, carried from tile to tile (every lane of the
+  // group holds it)
+  float hc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    hc[n] = (live && h0 != nullptr)
+                ? h0[(static_cast<long long>(b) * dim + d) * N + n]
+                : 0.f;
 
-  // the next tile's staged values and u, loaded into registers while this
-  // tile's positions are walked
-  float nst[PER], nu[TS];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int t = e / ROW, c = e % ROW;
-      float v = 0.f;
-      if (e < TS * ROW && t0 + t < s) {
-        const long long p = t0 + t;
-        v = c == 0 ? dtb[p] : c <= N ? bmb[p * N + c - 1]
-                                     : cmb[p * N + c - 1 - N];
-      }
-      nst[i] = v;
+  // The next tile arrives by cp.async as it lies in device memory (dt, the
+  // B and C rows, the u rows of the block's channels), in flight while this
+  // tile is computed; then it is transposed into the other stage, dt B
+  // formed there once for every channel of the block, u widened to f32.
+  constexpr int Q4 = N / 4;                          // 16-byte pieces of a row
+  constexpr int UW = CH * sizeof(U) / 4;             // 4-byte pieces of a u row
+  constexpr int UPW = 4 / sizeof(U);                 // channels a piece
+  auto issue = [&](int t0) {
+    if (tid < TS) {
+      const bool ok = t0 + tid < s;
+      cp_async_4_or_zero(raw + tid, dt + row + t0 + (ok ? tid : 0), ok);
     }
-#pragma unroll
-    for (int t = 0; t < TS; ++t)
-      nu[t] = (live && t0 + t < s)
-                  ? to_f32(ub[static_cast<long long>(t0 + t) * dim])
-                  : 0.f;
+    for (int e = tid; e < TS * Q4; e += THREADS) {
+      const int t = e / Q4;
+      const bool ok = t0 + t < s;
+      const long long p = (row + t0 + (ok ? t : 0)) * N + 4 * (e % Q4);
+      cp_async_16_or_zero(raw + TS + 4 * e, bm + p, ok);
+      cp_async_16_or_zero(raw + TS + TS * N + 4 * e, cm + p, ok);
+    }
+    for (int e = tid; e < TS * UW; e += THREADS) {
+      const int t = e / UW, dd = d0 + UPW * (e % UW);
+      const bool ok = t0 + t < s && dd < dim;
+      const U* src = u + (row + t0 + (ok ? t : 0)) * dim + (ok ? dd : 0);
+      cp_async_4_or_zero(raw_u + UPW * e, src, ok);
+    }
+    cp_async_commit();
+  };
+  auto transpose = [&](int stg) {
+    float* base = smem + stg * stage_floats<N>();
+    if (tid < TS) base[tid] = raw[tid];
+    for (int e = tid; e < TS * Q4; e += THREADS) {
+      const int t = e / Q4, n = 4 * (e % Q4);
+      const float dtv = raw[t];
+      const float4 bv = *reinterpret_cast<const float4*>(raw + TS + 4 * e);
+      const float4 cv =
+          *reinterpret_cast<const float4*>(raw + TS + TS * N + 4 * e);
+      float* bs = base + TS + n * BS + swz(t);
+      float* cs = bs + N * BS;
+      bs[0] = dtv * bv.x; bs[BS] = dtv * bv.y;
+      bs[2 * BS] = dtv * bv.z; bs[3 * BS] = dtv * bv.w;
+      cs[0] = cv.x; cs[BS] = cv.y; cs[2 * BS] = cv.z; cs[3 * BS] = cv.w;
+    }
+    float* su = base + TS + 2 * N * BS;
+    for (int e = tid; e < TS * CH; e += THREADS)
+      su[(e % CH) * UP + pad(e / CH)] = to_f32(raw_u[e]);
   };
 
-  if (s > 0) fetch(0);
-  int buf = 0;
-  for (int t0 = 0; t0 < s; t0 += TS) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * THREADS;
-      if (e < TS * ROW) st[buf][e] = nst[i];
-    }
-#pragma unroll
-    for (int t = 0; t < TS; ++t) su[buf][t][tid] = nu[t];
+  if (s > 0) {
+    issue(0);
+    cp_async_wait<0>();
     __syncthreads();
-    if (t0 + TS < s) fetch(t0 + TS);
-    const int len = min(TS, s - t0);
-    if (live) {
-      const float* sp = st[buf];
-      for (int t = 0; t < len; ++t) {
-        const float* r = sp + t * ROW;
-        const float dtv = r[0];
-        const float uv = su[buf][t][tid];
-        float acc = 0.f;
+    transpose(0);
+    __syncthreads();
+  }
+  for (int t0 = 0, it = 0; t0 < s; t0 += TS, ++it) {
+    const int stg = it & 1;
+    const bool more = t0 + TS < s;
+    if (more) issue(t0 + TS);
+    const float* base = smem + stg * stage_floats<N>();
+    const float* bs = base + TS;
+    const float* cs = bs + N * BS;
+    float* urow = smem + stg * stage_floats<N>() + TS + 2 * N * BS + c * UP;
+    float dk[K], uk[K], yk[K];
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float abar = expf(dtv * ad[n]);
-          const float bbar = (dtv * r[1 + n]) * uv;
-          h[n] = abar * h[n] + bbar;
-          acc += h[n] * r[1 + N + n];
-        }
-        yb[static_cast<long long>(t0 + t) * dim] = acc;
-      }
+    for (int m = 0; m < K / 4; ++m) {
+      const float4 v = *reinterpret_cast<const float4*>(base + K * j + 4 * m);
+      dk[4 * m] = v.x;
+      dk[4 * m + 1] = v.y;
+      dk[4 * m + 2] = v.z;
+      dk[4 * m + 3] = v.w;
     }
-    buf ^= 1;
+#pragma unroll
+    for (int x = 0; x < K; ++x) {
+      uk[x] = urow[pad(K * j + x)];
+      yk[x] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float a2 = a2s[n * CH + c];
+      float ak[K], bk[K];
+      {
+        float bv[K];
+        load_row(bv, bs + n * BS, j);
+#pragma unroll
+        for (int x = 0; x < K; ++x) {
+          ak[x] = ex2(dk[x] * a2);
+          bk[x] = bv[x] * uk[x];
+        }
+      }
+      // the lane's K positions as one pair
+      float pa = ak[0], pb = bk[0];
+#pragma unroll
+      for (int x = 1; x < K; ++x) {
+        pb = fmaf(ak[x], pb, bk[x]);
+        pa *= ak[x];
+      }
+      // inclusive scan over the group's L lanes, the earlier pair first
+#pragma unroll
+      for (int off = 1; off < L; off <<= 1) {
+        const float oa = __shfl_up_sync(FULL, pa, off, L);
+        const float ob = __shfl_up_sync(FULL, pb, off, L);
+        if (j >= off) {
+          pb = fmaf(pa, ob, pb);
+          pa *= oa;
+        }
+      }
+      // h before the lane's first position: the lane before's end state
+      float hh = __shfl_up_sync(FULL, fmaf(pa, hc[n], pb), 1, L);
+      if (j == 0) hh = hc[n];
+      float cv[K];
+      load_row(cv, cs + n * BS, j);
+#pragma unroll
+      for (int x = 0; x < K; ++x) {
+        hh = fmaf(ak[x], hh, bk[x]);
+        yk[x] = fmaf(cv[x], hh, yk[x]);
+      }
+      hc[n] = __shfl_sync(FULL, hh, L - 1, L);   // h after the tile
+    }
+    // y over u in the group's own row
+#pragma unroll
+    for (int x = 0; x < K; ++x) urow[pad(K * j + x)] = yk[x];
+    if (more) cp_async_wait<0>();
+    __syncthreads();  // y is in place, the next tile has landed
+    if (more) transpose(stg ^ 1);
+    const float* sy = smem + stg * stage_floats<N>() + TS + 2 * N * BS;
+    for (int e = tid; e < TS * CH; e += THREADS) {
+      const int t = e / CH, dd = d0 + e % CH;
+      if (t0 + t < s && dd < dim)
+        y[(row + t0 + t) * dim + dd] = sy[(e % CH) * UP + pad(t)];
+    }
+    __syncthreads();  // the next stage is complete; the raw tile is free
   }
   if (live) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) h_last[sd + n] = h[n];
+    for (int n = 0; n < N; ++n)
+      if (n % L == j)
+        h_last[(static_cast<long long>(b) * dim + d) * N + n] = hc[n];
   }
 }
 
@@ -157,8 +310,13 @@ template <int N, typename U>
 int launch(const float* dt, const float* a, const float* bm,
            const float* cm, const void* u, const float* h0, float* y,
            float* h_last, int batch, int s, int dim, cudaStream_t stream) {
-  const dim3 grid((dim + THREADS - 1) / THREADS, batch);
-  mamba_scan_fwd<N, U><<<grid, THREADS, 0, stream>>>(
+  constexpr size_t smem = smem_bytes<N>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      mamba_scan_fwd<N, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((dim + CH - 1) / CH, batch);
+  mamba_scan_fwd<N, U><<<grid, THREADS, smem, stream>>>(
       dt, a, bm, cm, static_cast<const U*>(u), h0, y, h_last, s, dim);
   return static_cast<int>(cudaGetLastError());
 }

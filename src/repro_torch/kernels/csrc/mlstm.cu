@@ -37,326 +37,605 @@
 // so the f32 operations bound it (~0.061 ms at 67 TFLOP/s on the CUDA
 // cores), not the bytes (~0.012 ms).
 //
-// Design.  One head's C is 1 MB at dh 512, far beyond a block's 227 KB of
-// shared memory, so the state cannot sit in one block as it sits in the TPU
-// kernel's VMEM scratch.  One block of 256 threads per (value-column tile of
-// VT = min(dh, 64) columns, batch row x head) holds C[:, tile] in shared
-// memory (128 KB at dh 512; 196 KB in all) and n, and walks the chunks in
-// order:
-//   1. thread 0 scans the chunk's gates (running sum, running max, g, the
-//      floor, the inter-chunk and state coefficients) into shared memory;
-//   2. over slabs of min(dh, 64) columns of dh, it stages q (scaled) and k
-//      and accumulates the Q x Q scores and q C[:, tile] in registers,
-//      q . n in 64 threads;
-//   3. masks and weights the scores (W), sums each row for the
-//      denominator (warp shuffles), and writes out[:, tile] = (W v + inter
-//      q C) / den;
-//   4. over the slabs again, C[:, tile] = decay C + (coeff k)^T v and
-//      n = decay n + coeff k.
-// Each slab's loads are issued into registers while the previous slab is
-// being used, so the block does not wait on device memory between its
-// barriers.  Every block recomputes the scores and n of its head (8 tiles
-// at dh 512), so n is the same in every tile and only tile 0 writes it.
-// Every sum runs in a fixed order: repeated runs give the same bits.  At
-// B = 1, H = 4 only 32 blocks run on 132 SMs, all products on the CUDA
-// cores from shared memory; later versions: TF32 wgmma, the intra-chunk
-// scores in parallel over chunks, a separate state pass.
+// Design: four passes, each of which fills the card (the layout of the
+// xLSTM authors' chunkwise kernels: a recurrent pass writes the state at
+// every chunk boundary, a parallel pass computes every chunk's outputs).
+// At B = 1, H = 4, dh = 512, S = 980 (16 chunks of 64):
+//   A. gates, one block per (batch row, head): one warp per chunk takes the
+//      running sum of logf and the running max of logi - F as warp scans
+//      (two positions a lane), one thread carries m from chunk to chunk
+//      (a scalar a chunk), then every position gets g_t, m_t, e^{m_prev -
+//      g_t} and e^{src_t - g_last}, every chunk its decay, the state its
+//      final m and the pad floor's rescale;
+//   B. states, one block per 64 x 64 tile of C (256 blocks): it walks the
+//      chunks, C = decay C + (coeff k)^T v on the tile (k and v of the next
+//      chunk in flight by cp.async), and writes the state entering each
+//      chunk to a workspace slot; the blocks of the first column tile carry
+//      n; the final state, rescaled, goes out;
+//   S. scores, one block per (chunk, head, quarter of dh) (256 blocks):
+//      partial q k^T over its share of dh;
+//   C. outputs, one block per (chunk, head, 64 value columns) (512 blocks):
+//      W from the summed partial scores and the gates, its row sums,
+//      q C_{j-1} and q . n_{j-1} from the slot over slabs of dh, W v, and
+//      out = (W v + e^{m_prev - g_t} q C) / den.
+// Every product is a 64 x 64 tile in 128 threads, 4 x 8 outputs a thread
+// from float4 reads of shared memory, on the CUDA cores (f32: the kernel's
+// gate is 1e-4 of the plain version).  The workspace (per call: the gates,
+// the partial scores and up to SLOTS chunk states; ~68 MB at the main
+// path's shape) is the wrapper's; more than SLOTS chunks run as windows of
+// SLOTS, passes B, S and C once a window.  Every sum runs in a fixed order:
+// repeated runs give the same bits.
 //
 // Plain C interface for ctypes: the entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int Q = 64;          // positions per chunk
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int THREADS = TX * TY;
-constexpr int RPT = Q / TY;    // chunk rows per thread
-constexpr int CPT = Q / TX;    // score columns per thread
-constexpr int WP = Q + 1;      // padded row of W
-constexpr int NGATE = 6;       // src, g, m_t, inter, coeff, q.n
+using hopper::cp_async_16_or_zero;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
-// head-dim slab staged per step, and value columns per block
+constexpr int Q = 64;             // positions per chunk
+constexpr int SLOTS = 16;         // chunk states a window holds
+constexpr int NGATE = 5;          // per position: src, g, m_t, inter, coeff
+constexpr int GATE_THREADS = 256;
+constexpr int GATE_WINDOW = 64;    // chunks the gates pass holds at once
+constexpr int DK = 32;            // slab of dh staged per step (S and C)
+constexpr unsigned FULL = 0xffffffffu;
+
+int n_chunks(int s) { return (s + Q - 1) / Q; }
+// splits of dh in the scores pass: enough blocks to fill the card at dh 512
 template <int DH>
-struct Tile {
-  static constexpr int DK = DH < 64 ? DH : 64;
-  static constexpr int VT = DH < 64 ? DH : 64;
-  static constexpr int KP = DK + 1;  // padded slab row
-  static constexpr size_t floats = size_t(DH) * VT + DH + 2 * Q * KP +
-                                   size_t(Q) * VT + size_t(Q) * WP +
-                                   NGATE * Q + 4;
+__host__ __device__ constexpr int score_splits() {
+  return DH >= 256 ? DH / 128 : 1;
+}
+// per (batch row x head): NGATE x (padded positions), the chunks' decays,
+// the final rescale
+__host__ __device__ inline long long gate_stride(int nc) {
+  return static_cast<long long>(NGATE) * nc * Q + nc + 1;
+}
+
+struct Work {
+  float* gates;    // [B H][gate_stride]
+  float* scores;   // [window chunk][B H][split][Q][Q]
+  float* cs;       // [window chunk][B H][dh][dh]: C entering the chunk
+  float* ns;       // [window chunk][B H][dh]: n entering the chunk
+};
+
+long long round_up(long long x, long long m) { return (x + m - 1) / m * m; }
+
+// the workspace's floats, and its parts when `base` is given
+long long workspace_floats(int batch, int s, int h, int dh, int splits,
+                           float* base, Work* w) {
+  const int nc = n_chunks(s);
+  const int win = nc < SLOTS ? nc : SLOTS;
+  const long long bh = static_cast<long long>(batch) * h;
+  const long long g = round_up(bh * gate_stride(nc), 64);
+  const long long sc = static_cast<long long>(win) * bh * splits * Q * Q;
+  const long long cs = static_cast<long long>(win) * bh * dh * dh;
+  const long long ns = static_cast<long long>(win) * bh * dh;
+  if (w != nullptr) {
+    w->gates = base;
+    w->scores = base + g;
+    w->cs = w->scores + sc;
+    w->ns = w->cs + cs;
+  }
+  return g + sc + cs + ns;
+}
+
+// ---- a 64 x C tile product in (C / 8) x 16 threads --------------------------
+// Thread (ty, tx) holds rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 and
+// C/2 + 4 tx .. C/2 + 4 tx + 3 of the tile: its reads of A (k-major, [k][rows])
+// and B ([k][columns]) are float4s, the A reads of a warp broadcast, the B
+// reads of 8 lanes one 128-byte row.
+template <int C>
+__device__ __forceinline__ int col(int tx, int j) {
+  return (j < 4 ? 0 : C / 2) + 4 * tx + (j & 3);
+}
+
+template <int C>
+__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* a,
+                                         const float* b, int ty, int tx) {
+  const float4 av = *reinterpret_cast<const float4*>(a + 4 * ty);
+  const float4 b0 = *reinterpret_cast<const float4*>(b + 4 * tx);
+  const float4 b1 = *reinterpret_cast<const float4*>(b + C / 2 + 4 * tx);
+  const float ar[4] = {av.x, av.y, av.z, av.w};
+  const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// ---- A. gates ----------------------------------------------------------------
+__global__ void __launch_bounds__(GATE_THREADS)
+mlstm_gates(const float* __restrict__ gate_i, const float* __restrict__ gate_f,
+            const float* __restrict__ m0, float* __restrict__ m1,
+            float* __restrict__ gates, int s, int h, int nc, int pad_floor) {
+  // a window of GATE_WINDOW chunks at a time, so that S has no limit of
+  // shared memory
+  __shared__ float f_last[GATE_WINDOW];  // F at each chunk's last position
+  __shared__ float r_last[GATE_WINDOW];  // the running max there
+  __shared__ float m_prev[GATE_WINDOW];  // m entering each chunk
+  __shared__ float g_last[GATE_WINDOW];  // g at each chunk's last position
+  const int bh = blockIdx.x, b = bh / h, head = bh % h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s_pad = nc * Q;
+  float* gw = gates + bh * gate_stride(nc);
+  float* g_src = gw;              // logi_t - F_t
+  float* g_g = gw + s_pad;        // g_t (the running max until step 3)
+  float* g_mt = gw + 2 * s_pad;   // m_t = F_t + g_t (F_t until step 3)
+  float* g_inter = gw + 3 * s_pad;  // e^{m_prev - g_t}
+  float* g_coeff = gw + 4 * s_pad;  // e^{src_t - g_last}
+  float* g_decay = gw + 5 * s_pad;  // per chunk e^{m_prev - g_last}; rescale
+  const long long base = static_cast<long long>(b) * s * h + head;
+  const float* li = gate_i + base;
+  const float* lf = gate_f + base;
+  float mp = m0[bh];              // m entering the window (thread 0's)
+
+  for (int w0 = 0; w0 < nc; w0 += GATE_WINDOW) {
+    const int wn = min(nc - w0, GATE_WINDOW);
+    // 1. per chunk, one warp, two positions a lane: F by a warp scan of the
+    // lanes' pair sums, src = logi - F, and src's running max
+    for (int jw = warp; jw < wn; jw += GATE_THREADS / 32) {
+      const int j = w0 + jw;
+      const int t = j * Q + 2 * lane;
+      const bool ok0 = t < s, ok1 = t + 1 < s;
+      const float f0 = ok0 ? lf[static_cast<long long>(t) * h] : 0.f;
+      const float f1 = ok1 ? lf[static_cast<long long>(t + 1) * h] : 0.f;
+      const float i0 = ok0 ? li[static_cast<long long>(t) * h] : 0.f;
+      const float i1 = ok1 ? li[static_cast<long long>(t + 1) * h] : 0.f;
+      float sum = f0 + f1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(FULL, sum, off);
+        if (lane >= off) sum = o + sum;
+      }
+      float before = __shfl_up_sync(FULL, sum, 1);
+      if (lane == 0) before = 0.f;
+      const float F0 = before + f0;
+      const float F1 = F0 + f1;
+      const float s0 = i0 - F0, s1 = i1 - F1;
+      float run = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(FULL, run, off);
+        if (lane >= off) run = fmaxf(o, run);
+      }
+      float rb = __shfl_up_sync(FULL, run, 1);
+      if (lane == 0) rb = -INFINITY;
+      const float R0 = fmaxf(rb, s0), R1 = fmaxf(R0, s1);
+      g_src[t] = s0;
+      g_src[t + 1] = s1;
+      g_mt[t] = F0;
+      g_mt[t + 1] = F1;
+      g_g[t] = R0;
+      g_g[t + 1] = R1;
+      const int last = min(s, (j + 1) * Q) - 1;
+      if (t == last) {
+        f_last[jw] = F0;
+        r_last[jw] = R0;
+      } else if (t + 1 == last) {
+        f_last[jw] = F1;
+        r_last[jw] = R1;
+      }
+    }
+    __syncthreads();
+    // 2. m from chunk to chunk: one scalar a chunk
+    if (threadIdx.x == 0) {
+      for (int jw = 0; jw < wn; ++jw) {
+        const float gl = fmaxf(mp, r_last[jw]);
+        m_prev[jw] = mp;
+        g_last[jw] = gl;
+        g_decay[w0 + jw] = expf(mp - gl);
+        mp = f_last[jw] + gl;
+      }
+      if (w0 + wn == nc) {
+        // the reference's padding: m floored at 0, C and n rescaled to it
+        const float mo = pad_floor ? fmaxf(mp, 0.f) : mp;
+        g_decay[nc] = expf(mp - mo);
+        m1[bh] = mo;
+      }
+    }
+    __syncthreads();
+    // 3. per position (the next window's step 1 writes only f_last and
+    // r_last, which this step does not read)
+    for (int t = w0 * Q + threadIdx.x; t < (w0 + wn) * Q;
+         t += GATE_THREADS) {
+      const int jw = t / Q - w0;
+      if (t < s) {
+        const float mpj = m_prev[jw];
+        const float g = fmaxf(mpj, g_g[t]);
+        g_mt[t] = g_mt[t] + g;
+        g_g[t] = g;
+        g_inter[t] = expf(mpj - g);
+        g_coeff[t] = expf(g_src[t] - g_last[jw]);
+      } else {
+        g_src[t] = g_g[t] = g_mt[t] = g_inter[t] = g_coeff[t] = 0.f;
+      }
+    }
+  }
+}
+
+// ---- B. states ---------------------------------------------------------------
+template <int DH>
+struct StateTile {
+  static constexpr int T = DH < 64 ? DH : 64;   // tile of C, rows and columns
+  static constexpr int TX = T / 8;
+  static constexpr int THREADS = TX * (T / 4);
+  static constexpr size_t bytes = 2 * 2 * Q * T * sizeof(float);
+};
+
+template <int DH>
+__global__ void __launch_bounds__(StateTile<DH>::THREADS)
+mlstm_states(const float* __restrict__ k, const float* __restrict__ v,
+             const float* __restrict__ gates, const float* cin,
+             const float* nin, float* __restrict__ cs,
+             float* __restrict__ ns, float* c1, float* n1, int s, int h,
+             int nc, int j0, int jn, int last_window) {
+  constexpr int T = StateTile<DH>::T;
+  constexpr int TX = StateTile<DH>::TX;
+  constexpr int NT = StateTile<DH>::THREADS;
+  constexpr int T4 = T / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                // [2][Q][T]: coeff k, rows of C
+  float* vs = smem + 2 * Q * T;    // [2][Q][T]: v, columns of C
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
+  const int tiles = DH / T;
+  const int r0 = (blockIdx.x / tiles) * T, e0 = (blockIdx.x % tiles) * T;
+  const bool carries_n = e0 == 0;
+  const int bh = blockIdx.y, nbh = gridDim.y, b = bh / h, head = bh % h;
+  const float* gw = gates + bh * gate_stride(nc);
+  const float* coeff = gw + 4 * nc * Q;
+  const float* decay = gw + 5 * nc * Q;
+  const long long cbase = static_cast<long long>(bh) * DH * DH;
+
+  float cst[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      cst[i][j] = cin[cbase + static_cast<long long>(r0 + 4 * ty + i) * DH +
+                      e0 + col<T>(tx, j)];
+  float nst = (carries_n && tid < T) ? nin[bh * DH + r0 + tid] : 0.f;
+
+  auto load = [&](int j, int st) {
+    const int t0 = j * Q, len = min(Q, s - t0);
+    for (int e = tid; e < Q * T4; e += NT) {
+      const int u = e / T4, c = 4 * (e % T4);
+      const bool ok = u < len;
+      const long long row =
+          ((static_cast<long long>(b) * s + t0 + (ok ? u : 0)) * h + head) *
+          DH;
+      cp_async_16_or_zero(ks + (st * Q + u) * T + c, k + row + r0 + c, ok);
+      cp_async_16_or_zero(vs + (st * Q + u) * T + c, v + row + e0 + c, ok);
+    }
+    cp_async_commit();
+  };
+
+  load(j0, 0);
+  for (int j = j0; j < jn; ++j) {
+    const int jl = j - j0, st = jl & 1;
+    // the state entering chunk j, for the output pass
+    float* cslot = cs + (static_cast<long long>(jl) * nbh + bh) * DH * DH;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* row = cslot + static_cast<long long>(r0 + 4 * ty + i) * DH + e0;
+      *reinterpret_cast<float4*>(row + col<T>(tx, 0)) =
+          make_float4(cst[i][0], cst[i][1], cst[i][2], cst[i][3]);
+      *reinterpret_cast<float4*>(row + col<T>(tx, 4)) =
+          make_float4(cst[i][4], cst[i][5], cst[i][6], cst[i][7]);
+    }
+    if (carries_n && tid < T)
+      ns[(static_cast<long long>(jl) * nbh + bh) * DH + r0 + tid] = nst;
+    if (j + 1 < jn) {
+      load(j + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* kc = ks + st * Q * T;
+    const float* vc = vs + st * Q * T;
+    for (int e = tid; e < Q * T; e += NT) kc[e] *= coeff[j * Q + e / T];
+    __syncthreads();
+    float acc[4][8];
+    zero(acc);
+#pragma unroll 4
+    for (int u = 0; u < Q; ++u) fma_step<T>(acc, kc + u * T, vc + u * T, ty, tx);
+    const float dc = decay[j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) cst[i][jj] = dc * cst[i][jj] + acc[i][jj];
+    if (carries_n && tid < T) {
+      float a = 0.f;
+      for (int u = 0; u < Q; ++u) a += kc[u * T + tid];
+      nst = dc * nst + a;
+    }
+    __syncthreads();   // stage st is refilled by the next iteration's load
+  }
+  float rescale = 1.f;
+  if (last_window) rescale = decay[nc];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = c1 + cbase + static_cast<long long>(r0 + 4 * ty + i) * DH + e0;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) row[col<T>(tx, jj)] = cst[i][jj] * rescale;
+  }
+  if (carries_n && tid < T) n1[bh * DH + r0 + tid] = nst * rescale;
+}
+
+// ---- staging a 64-position slab of q or k, transposed: [d][position] --------
+// Each thread loads float4s along d (LOADS of them) into registers, and
+// stores them as columns of the slab once the slab before is used.
+template <int NT>
+struct Slab {
+  static constexpr int LOADS = Q * (DK / 4) / NT;
+  float4 r[LOADS];
+  __device__ __forceinline__ void fetch(const float* x, int b, int t0, int s,
+                                        int h, int head, int dh, int d0,
+                                        int tid) {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      const int e = tid + l * NT;
+      const int t = e % Q, d4 = e / Q;
+      r[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t0 + t < s)
+        r[l] = *reinterpret_cast<const float4*>(
+            x + ((static_cast<long long>(b) * s + t0 + t) * h + head) * dh +
+            d0 + 4 * d4);
+    }
+  }
+  __device__ __forceinline__ void store(float* dst, float mul, int tid) const {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      const int e = tid + l * NT;
+      const int t = e % Q, d4 = e / Q;
+      dst[(4 * d4 + 0) * Q + t] = r[l].x * mul;
+      dst[(4 * d4 + 1) * Q + t] = r[l].y * mul;
+      dst[(4 * d4 + 2) * Q + t] = r[l].z * mul;
+      dst[(4 * d4 + 3) * Q + t] = r[l].w * mul;
+    }
+  }
+};
+
+// ---- S. partial scores q k^T ------------------------------------------------
+constexpr int SCORE_THREADS = 128;
+
+template <int DH>
+__global__ void __launch_bounds__(SCORE_THREADS)
+mlstm_scores(const float* __restrict__ q, const float* __restrict__ k,
+             float* __restrict__ scores, int s, int h, int j0) {
+  constexpr int KS = score_splits<DH>();
+  constexpr int DS = DH / KS;        // dh per block
+  constexpr int NT = SCORE_THREADS;
+  __shared__ __align__(16) float qt[DK * Q];
+  __shared__ __align__(16) float kt[DK * Q];
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const int jl = blockIdx.x, bh = blockIdx.y, nbh = gridDim.y;
+  const int split = blockIdx.z, b = bh / h, head = bh % h;
+  const int t0 = (j0 + jl) * Q;
+  Slab<NT> pq, pk;
+  float acc[4][8];
+  zero(acc);
+  pq.fetch(q, b, t0, s, h, head, DH, split * DS, tid);
+  pk.fetch(k, b, t0, s, h, head, DH, split * DS, tid);
+  for (int d0 = 0; d0 < DS; d0 += DK) {
+    __syncthreads();   // the slab before is used
+    pq.store(qt, 1.f, tid);
+    pk.store(kt, 1.f, tid);
+    __syncthreads();
+    if (d0 + DK < DS) {
+      pq.fetch(q, b, t0, s, h, head, DH, split * DS + d0 + DK, tid);
+      pk.fetch(k, b, t0, s, h, head, DH, split * DS + d0 + DK, tid);
+    }
+#pragma unroll 8
+    for (int d = 0; d < DK; ++d) fma_step<Q>(acc, qt + d * Q, kt + d * Q, ty, tx);
+  }
+  float* out = scores +
+               ((static_cast<long long>(jl) * nbh + bh) * KS + split) * Q * Q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = out + (4 * ty + i) * Q;
+    *reinterpret_cast<float4*>(row + col<Q>(tx, 0)) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + col<Q>(tx, 4)) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// ---- C. outputs --------------------------------------------------------------
+template <int DH>
+struct OutTile {
+  static constexpr int T = DH < 64 ? DH : 64;   // value columns a block
+  static constexpr int TX = T / 8;
+  static constexpr int THREADS = TX * (Q / 4);
+  // q slab [DK][Q], C slab [DK][T], W [Q][Q] (u-major), v [Q][T], n slab,
+  // per row: src, g, inter, m_t, the W row sums, q . n
+  static constexpr size_t floats =
+      DK * Q + DK * T + Q * Q + Q * T + DK + 6 * Q;
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-mlstm_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ gate_i,
-          const float* __restrict__ gate_f, const float* __restrict__ c0,
-          const float* __restrict__ n0, const float* __restrict__ m0,
-          float* __restrict__ out, float* __restrict__ c1,
-          float* __restrict__ n1, float* __restrict__ m1, int s, int h,
-          int pad_floor, float scale) {
-  constexpr int DK = Tile<DH>::DK;
-  constexpr int VT = Tile<DH>::VT;
-  constexpr int KP = Tile<DH>::KP;
-  constexpr int VPT = VT / TX;            // value columns per thread
-  constexpr int SPT = DK / TY;            // state rows per thread and slab
-  constexpr int LPT = Q * DK / THREADS;   // slab elements each thread loads
-  extern __shared__ float smem[];
-  float* Cs = smem;                 // [DH][VT]: C[:, tile]
-  float* ns = Cs + DH * VT;         // [DH]
-  float* Qs = ns + DH;              // [Q][KP]: scaled q slab
-  float* Ks = Qs + Q * KP;          // [Q][KP]: k slab (coeff k in step 4)
-  float* Vs = Ks + Q * KP;          // [Q][VT]: v[:, tile]
-  float* Ws = Vs + Q * VT;          // [Q][WP]
-  float* src_s = Ws + Q * WP;       // logi_u - F_u
-  float* g_s = src_s + Q;           // g_t
-  float* mt_s = g_s + Q;            // m_t = F_t + g_t
-  float* inter_s = mt_s + Q;        // e^{m_prev - g_t}
-  float* coeff_s = inter_s + Q;     // e^{src_u - g_last}
-  float* qn_s = coeff_s + Q;        // q_t . n_prev (scaled q)
-  float* scal = qn_s + Q;           // decay, m_new
+__global__ void __launch_bounds__(OutTile<DH>::THREADS)
+mlstm_outputs(const float* __restrict__ q, const float* __restrict__ v,
+              const float* __restrict__ gates,
+              const float* __restrict__ scores, const float* __restrict__ cs,
+              const float* __restrict__ ns, float* __restrict__ out, int s,
+              int h, int nc, int j0, float scale) {
+  constexpr int T = OutTile<DH>::T;
+  constexpr int TX = OutTile<DH>::TX;
+  constexpr int NT = OutTile<DH>::THREADS;
+  constexpr int KS = score_splits<DH>();
+  constexpr int T4 = T / 4;
+  constexpr int CLOADS = DK * T4 / NT;   // float4s of the C slab a thread
+  constexpr int PAIRS = 2 * Q / NT;      // (row, half) items a thread
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                 // [DK][Q]: scaled q
+  float* csl = qt + DK * Q;         // [DK][T]: C_{j-1}[d0 .., e0 ..]
+  float* wt = csl + DK * T;         // [Q u][Q t]
+  float* vs = wt + Q * Q;           // [Q][T]
+  float* nsl = vs + Q * T;          // [DK]
+  float* src_s = nsl + DK;
+  float* g_s = src_s + Q;
+  float* inter_s = g_s + Q;
+  float* mt_s = inter_s + Q;
+  float* rs_s = mt_s + Q;           // sum_u W[t][u]
+  float* qn_s = rs_s + Q;           // scaled q_t . n_{j-1}
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
+  const int jl = blockIdx.x, j = j0 + jl;
+  const int bh = blockIdx.y, nbh = gridDim.y, b = bh / h, head = bh % h;
+  const int e0 = blockIdx.z * T;
+  const int t0 = j * Q, len = min(Q, s - t0);
+  const float* gw = gates + bh * gate_stride(nc);
+  const long long slot = static_cast<long long>(jl) * nbh + bh;
+  const float* cslot = cs + slot * DH * DH;
+  const float* nslot = ns + slot * DH;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / TX, tx = tid % TX;
-  const int bh = blockIdx.y;        // batch row * h + head
-  const int b = bh / h, head = bh % h;
-  const int e0 = blockIdx.x * VT;   // first value column of the tile
-  const long long row = static_cast<long long>(h) * DH;  // position stride
-  const long long base = (static_cast<long long>(b) * s * h + head) * DH;
-  const float* qb = q + base;
-  const float* kb = k + base;
-  const float* vb = v + base;
-  float* ob = out + base;
-  const float* lib = gate_i + static_cast<long long>(b) * s * h + head;
-  const float* lfb = gate_f + static_cast<long long>(b) * s * h + head;
-
-  const float* cb = c0 + static_cast<long long>(bh) * DH * DH;
-  for (int e = tid; e < DH * VT; e += THREADS) {
-    const int d = e / VT, c = e % VT;
-    Cs[e] = cb[static_cast<long long>(d) * DH + e0 + c];
+  // v of the chunk, in flight during everything up to W v
+  for (int e = tid; e < Q * T4; e += NT) {
+    const int u = e / T4, c = 4 * (e % T4);
+    const bool ok = u < len;
+    cp_async_16_or_zero(
+        vs + u * T + c,
+        v + ((static_cast<long long>(b) * s + t0 + (ok ? u : 0)) * h + head) *
+                DH + e0 + c,
+        ok);
   }
-  for (int d = tid; d < DH; d += THREADS)
-    ns[d] = n0[static_cast<long long>(bh) * DH + d];
-  float m_prev = m0[bh];
-
-  // the next slab of q and k, loaded into registers while this one is used
-  float pq[LPT], pk[LPT];
-  for (int t0 = 0; t0 < s; t0 += Q) {
-    const int len = min(Q, s - t0);
-    auto fetch = [&](int d0, bool with_q) {
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        const int e = tid + l * THREADS;
-        const int r = e / DK, c = e % DK;
-        const bool ok = r < len;
-        const long long off = (t0 + r) * row + d0 + c;
-        if (with_q) pq[l] = ok ? qb[off] * scale : 0.f;
-        pk[l] = ok ? kb[off] : 0.f;
-      }
-    };
-    __syncthreads();  // the previous chunk is done with every buffer
-    // gates of the chunk (staged in coeff_s / inter_s before the scan)
-    if (tid < Q) {
-      const bool ok = tid < len;
-      const long long gi = static_cast<long long>(t0 + tid) * h;
-      coeff_s[tid] = ok ? lib[gi] : 0.f;
-      inter_s[tid] = ok ? lfb[gi] : 0.f;
-    }
-    for (int e = tid; e < Q * VT; e += THREADS) {
-      const int r = e / VT, c = e % VT;
-      Vs[e] = r < len ? vb[(t0 + r) * row + e0 + c] : 0.f;
-    }
-
-    float sacc[RPT][CPT], qc[RPT][VPT], qn = 0.f;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) sacc[i][j] = 0.f;
-#pragma unroll
-      for (int j = 0; j < VPT; ++j) qc[i][j] = 0.f;
-    }
-    fetch(0, true);
-    for (int d0 = 0; d0 < DH; d0 += DK) {
-      __syncthreads();  // the previous slab is used
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        const int e = tid + l * THREADS;
-        Qs[(e / DK) * KP + e % DK] = pq[l];
-        Ks[(e / DK) * KP + e % DK] = pk[l];
-      }
-      __syncthreads();
-      if (d0 + DK < DH) fetch(d0 + DK, true);
-      if (d0 == 0 && tid == 0) {
-        // the chunk's stabiliser, sequentially, in the reference's form
-        float f = 0.f, run = -INFINITY, g = m_prev;
-        for (int t = 0; t < len; ++t) {
-          f += inter_s[t];                 // logf_t
-          const float sr = coeff_s[t] - f;  // logi_t - F_t
-          run = fmaxf(run, sr);
-          g = fmaxf(m_prev, run);
-          src_s[t] = sr;
-          g_s[t] = g;
-          mt_s[t] = f + g;
-        }
-        for (int t = 0; t < Q; ++t) {
-          const bool ok = t < len;
-          inter_s[t] = ok ? expf(m_prev - g_s[t]) : 0.f;
-          coeff_s[t] = ok ? expf(src_s[t] - g) : 0.f;
-          if (!ok) src_s[t] = g_s[t] = mt_s[t] = 0.f;
-        }
-        scal[0] = expf(m_prev - g);  // decay of the carried state
-        scal[1] = f + g;             // m at the chunk's end
-      }
-#pragma unroll 8
-      for (int d = 0; d < DK; ++d) {
-        float qv[RPT], kv[CPT], cv[VPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty + TY * i) * KP + d];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tx + TX * j) * KP + d];
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) cv[j] = Cs[(d0 + d) * VT + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-          for (int j = 0; j < CPT; ++j)
-            sacc[i][j] = fmaf(qv[i], kv[j], sacc[i][j]);
-#pragma unroll
-          for (int j = 0; j < VPT; ++j) qc[i][j] = fmaf(qv[i], cv[j], qc[i][j]);
-        }
-      }
-      if (tid < Q) {
-#pragma unroll 8
-        for (int d = 0; d < DK; ++d)
-          qn = fmaf(Qs[tid * KP + d], ns[d0 + d], qn);
-      }
-    }
-    if (tid < Q) qn_s[tid] = qn;
-    __syncthreads();  // gates, q.n visible; the slabs are used
-    fetch(0, false);  // k for the state, in flight during step 3
-
-    // W = scores x decay, masked; the denominators
-    float den[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + TY * i;
-      const float g = g_s[r];
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int u = tx + TX * j;
-        const float w =
-            (u <= r && r < len) ? sacc[i][j] * expf(src_s[u] - g) : 0.f;
-        Ws[r * WP + u] = w;
-        rs += w;
-      }
-      // the 16 threads of a row are 16 neighbouring lanes of one warp
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      den[i] = fmaxf(fabsf(rs + inter_s[r] * qn_s[r]), expf(-mt_s[r]));
-    }
-    __syncthreads();
-
-    {
-      float acc[RPT][VPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int u = 0; u < Q; ++u) {
-        float w[RPT], vv[VPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) w[i] = Ws[(ty + TY * i) * WP + u];
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) vv[j] = Vs[u * VT + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < VPT; ++j)
-            acc[i][j] = fmaf(w[i], vv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = ty + TY * i;
-        if (r >= len) continue;
-        const float inter = inter_s[r];
-        const float dn = den[i] + 1e-6f;
-#pragma unroll
-        for (int j = 0; j < VPT; ++j)
-          ob[(t0 + r) * row + e0 + tx + TX * j] =
-              (acc[i][j] + inter * qc[i][j]) / dn;
-      }
-    }
-
-    // the state at the chunk's end
-    const float decay = scal[0];
-    for (int d0 = 0; d0 < DH; d0 += DK) {
-      __syncthreads();  // Ks is free
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        const int e = tid + l * THREADS;
-        const int r = e / DK;
-        Ks[r * KP + e % DK] = coeff_s[r] * pk[l];
-      }
-      __syncthreads();
-      if (d0 + DK < DH) fetch(d0 + DK, false);
-      float acc[SPT][VPT];
-#pragma unroll
-      for (int i = 0; i < SPT; ++i)
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int u = 0; u < Q; ++u) {
-        float kx[SPT], vv[VPT];
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) kx[i] = Ks[u * KP + ty + TY * i];
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) vv[j] = Vs[u * VT + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < SPT; ++i)
-#pragma unroll
-          for (int j = 0; j < VPT; ++j)
-            acc[i][j] = fmaf(kx[i], vv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) {
-          float* cp = &Cs[(d0 + ty + TY * i) * VT + tx + TX * j];
-          *cp = decay * *cp + acc[i][j];
-        }
-      }
-      if (tid < DK) {
-        float a = 0.f;
-        for (int u = 0; u < Q; ++u) a += Ks[u * KP + tid];
-        ns[d0 + tid] = decay * ns[d0 + tid] + a;
-      }
-    }
-    m_prev = scal[1];
-  }
-
-  // the reference's padding: m floored at 0, C and n rescaled to it
-  float m_out = m_prev, rescale = 1.f;
-  if (pad_floor) {
-    m_out = fmaxf(m_prev, 0.f);
-    rescale = expf(m_prev - m_out);
+  cp_async_commit();
+  for (int t = tid; t < Q; t += NT) {
+    src_s[t] = gw[t0 + t];
+    g_s[t] = gw[nc * Q + t0 + t];
+    mt_s[t] = gw[2 * nc * Q + t0 + t];
+    inter_s[t] = gw[3 * nc * Q + t0 + t];
   }
   __syncthreads();
-  float* cob = c1 + static_cast<long long>(bh) * DH * DH;
-  for (int e = tid; e < DH * VT; e += THREADS) {
-    const int d = e / VT, c = e % VT;
-    cob[static_cast<long long>(d) * DH + e0 + c] = Cs[e] * rescale;
+
+  // W: the summed partial scores x scale, weighted and masked; two threads a
+  // row, 32 key positions each
+  const float* sc = scores + slot * KS * Q * Q;
+#pragma unroll
+  for (int p = 0; p < PAIRS; ++p) {
+    const int e = tid + p * NT;
+    const int t = e / 2, u0 = 32 * (e % 2);
+    const float g = g_s[t];
+    float rsum = 0.f;
+#pragma unroll 4
+    for (int u4 = 0; u4 < 32; u4 += 4) {
+      float4 acc = *reinterpret_cast<const float4*>(sc + t * Q + u0 + u4);
+#pragma unroll
+      for (int x = 1; x < KS; ++x) {
+        const float4 o = *reinterpret_cast<const float4*>(
+            sc + (x * Q + t) * Q + u0 + u4);
+        acc.x += o.x;
+        acc.y += o.y;
+        acc.z += o.z;
+        acc.w += o.w;
+      }
+      const float a4[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int u = u0 + u4 + c;
+        const float w = (u <= t && t < len)
+                            ? a4[c] * scale * expf(src_s[u] - g)
+                            : 0.f;
+        wt[u * Q + t] = w;
+        rsum += w;
+      }
+    }
+    rsum += __shfl_xor_sync(FULL, rsum, 1);
+    if ((e & 1) == 0) rs_s[t] = rsum;
   }
-  if (blockIdx.x == 0) {
-    for (int d = tid; d < DH; d += THREADS)
-      n1[static_cast<long long>(bh) * DH + d] = ns[d] * rescale;
-    if (tid == 0) m1[bh] = m_out;
+
+  // q C_{j-1} over slabs of dh, and q . n_{j-1}
+  float acc[4][8];
+  zero(acc);
+  float qn[PAIRS];
+#pragma unroll
+  for (int p = 0; p < PAIRS; ++p) qn[p] = 0.f;
+  Slab<NT> pq;
+  float4 pc[CLOADS];
+  auto fetch_c = [&](int d0) {
+#pragma unroll
+    for (int l = 0; l < CLOADS; ++l) {
+      const int e = tid + l * NT;
+      const int d = e / T4, c = 4 * (e % T4);
+      pc[l] = *reinterpret_cast<const float4*>(
+          cslot + static_cast<long long>(d0 + d) * DH + e0 + c);
+    }
+  };
+  pq.fetch(q, b, t0, s, h, head, DH, 0, tid);
+  fetch_c(0);
+  float pn = tid < DK ? nslot[tid] : 0.f;
+  for (int d0 = 0; d0 < DH; d0 += DK) {
+    __syncthreads();   // the slab before is used
+    pq.store(qt, scale, tid);
+#pragma unroll
+    for (int l = 0; l < CLOADS; ++l) {
+      const int e = tid + l * NT;
+      *reinterpret_cast<float4*>(csl + (e / T4) * T + 4 * (e % T4)) = pc[l];
+    }
+    if (tid < DK) nsl[tid] = pn;
+    __syncthreads();
+    if (d0 + DK < DH) {
+      pq.fetch(q, b, t0, s, h, head, DH, d0 + DK, tid);
+      fetch_c(d0 + DK);
+      if (tid < DK) pn = nslot[d0 + DK + tid];
+    }
+#pragma unroll 8
+    for (int d = 0; d < DK; ++d) fma_step<T>(acc, qt + d * Q, csl + d * T, ty, tx);
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      const int e = tid + p * NT;
+      const int t = e / 2, dd = (DK / 2) * (e % 2);
+#pragma unroll
+      for (int d = 0; d < DK / 2; ++d)
+        qn[p] = fmaf(qt[(dd + d) * Q + t], nsl[dd + d], qn[p]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < PAIRS; ++p) {
+    const int e = tid + p * NT;
+    const float x = qn[p] + __shfl_xor_sync(FULL, qn[p], 1);
+    if ((e & 1) == 0) qn_s[e / 2] = x;
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // v, W, the row sums and q . n are in place
+
+  float wv[4][8];
+  zero(wv);
+#pragma unroll 4
+  for (int u = 0; u < Q; ++u) fma_step<T>(wv, wt + u * Q, vs + u * T, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = 4 * ty + i;
+    if (t >= len) continue;
+    const float inter = inter_s[t];
+    const float den =
+        fmaxf(fabsf(rs_s[t] + inter * qn_s[t]), expf(-mt_s[t])) + 1e-6f;
+    float* row = out +
+                 ((static_cast<long long>(b) * s + t0 + t) * h + head) * DH +
+                 e0;
+    float o[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) o[jj] = (wv[i][jj] + inter * acc[i][jj]) / den;
+    *reinterpret_cast<float4*>(row + col<T>(tx, 0)) =
+        make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(row + col<T>(tx, 4)) =
+        make_float4(o[4], o[5], o[6], o[7]);
   }
 }
 
@@ -364,33 +643,75 @@ template <int DH>
 int launch(const float* q, const float* k, const float* v, const float* li,
            const float* lf, const float* c0, const float* n0,
            const float* m0, float* out, float* c1, float* n1, float* m1,
-           int batch, int s, int h, int pad_floor, float scale,
+           float* work, int batch, int s, int h, int pad_floor, float scale,
            cudaStream_t stream) {
-  const size_t smem = Tile<DH>::bytes;
+  constexpr int KS = score_splits<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      mlstm_states<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(StateTile<DH>::bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlstm_outputs<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(OutTile<DH>::bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(DH / Tile<DH>::VT, batch * h);
-  mlstm_fwd<DH><<<grid, THREADS, smem, stream>>>(
-      q, k, v, li, lf, c0, n0, m0, out, c1, n1, m1, s, h, pad_floor, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int nc = n_chunks(s), bh = batch * h;
+  Work w;
+  workspace_floats(batch, s, h, DH, KS, work, &w);
+  mlstm_gates<<<bh, GATE_THREADS, 0, stream>>>(
+      li, lf, m0, m1, w.gates, s, h, nc, pad_floor);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  constexpr int tiles = DH / StateTile<DH>::T;
+  for (int j0 = 0; j0 < nc; j0 += SLOTS) {
+    const int jn = nc < j0 + SLOTS ? nc : j0 + SLOTS;
+    const bool first = j0 == 0;
+    mlstm_states<DH><<<dim3(tiles * tiles, bh), StateTile<DH>::THREADS,
+                       StateTile<DH>::bytes, stream>>>(
+        k, v, w.gates, first ? c0 : c1, first ? n0 : n1, w.cs, w.ns, c1, n1,
+        s, h, nc, j0, jn, jn == nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    mlstm_scores<DH><<<dim3(jn - j0, bh, KS), SCORE_THREADS, 0, stream>>>(
+        q, k, w.scores, s, h, j0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    mlstm_outputs<DH><<<dim3(jn - j0, bh, tiles), OutTile<DH>::THREADS,
+                        OutTile<DH>::bytes, stream>>>(
+        q, v, w.gates, w.scores, w.cs, w.ns, out, s, h, nc, j0, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The workspace, in floats, that mlstm_chunkwise_f32 takes for this shape
+// (-1 for a head dim it does not take).
+long long mlstm_workspace_floats(int batch, int s, int h, int dh) {
+  switch (dh) {
+    case 32: return workspace_floats(batch, s, h, 32, score_splits<32>(),
+                                     nullptr, nullptr);
+    case 64: return workspace_floats(batch, s, h, 64, score_splits<64>(),
+                                     nullptr, nullptr);
+    case 128: return workspace_floats(batch, s, h, 128, score_splits<128>(),
+                                      nullptr, nullptr);
+    case 512: return workspace_floats(batch, s, h, 512, score_splits<512>(),
+                                      nullptr, nullptr);
+    default: return -1;
+  }
+}
+
 // q, k, v, out (B, S, H, dh), the gates logi, logf (B, S, H),
-// C (B, H, dh, dh), n (B, H, dh), m (B, H): contiguous float32.  S >= 2.
-// The outputs do not alias the inputs.
+// C (B, H, dh, dh), n (B, H, dh), m (B, H): contiguous float32, q, k, v
+// 16-byte aligned.  S >= 2.  `work`: mlstm_workspace_floats(...) floats,
+// 16-byte aligned, not used by another call in flight.  The outputs do not
+// alias the inputs.
 int mlstm_chunkwise_f32(const void* q, const void* k, const void* v,
                         const void* gate_i, const void* gate_f,
                         const void* c0, const void* n0, const void* m0,
-                        void* out, void* c1, void* n1, void* m1, int batch,
-                        int s, int h, int dh, int pad_floor, float scale,
-                        void* stream) {
+                        void* out, void* c1, void* n1, void* m1, void* work,
+                        int batch, int s, int h, int dh, int pad_floor,
+                        float scale, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (s < 2) return static_cast<int>(cudaErrorInvalidValue);
 #define MLSTM_ARGS                                                     \
@@ -399,8 +720,8 @@ int mlstm_chunkwise_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(gate_f), static_cast<const float*>(c0), \
       static_cast<const float*>(n0), static_cast<const float*>(m0),    \
       static_cast<float*>(out), static_cast<float*>(c1),               \
-      static_cast<float*>(n1), static_cast<float*>(m1), batch, s, h,   \
-      pad_floor, scale, st
+      static_cast<float*>(n1), static_cast<float*>(m1),                \
+      static_cast<float*>(work), batch, s, h, pad_floor, scale, st
   switch (dh) {
     case 32: return launch<32>(MLSTM_ARGS);
     case 64: return launch<64>(MLSTM_ARGS);

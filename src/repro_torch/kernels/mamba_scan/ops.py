@@ -6,8 +6,11 @@ The kernel (``kernels/csrc/mamba_scan.cu``) replaces the Pallas TPU kernel
 what the model runs (:func:`~.ref.selective_scan_ref`): the discretisation
 fused into the scan, so the ``(S, D, N)`` tensors never reach device
 memory, a state in and a state out.  It takes any S, B and D, d_state
-in :data:`D_STATES`, ``u`` in f32 or bf16.  ``launches`` counts the calls
-that ran the kernel; nothing else adds to it.
+in :data:`D_STATES`, ``u`` in f32 or bf16.  The kernel reads B and C rows
+by 16-byte copies and bf16 u as pairs of channels: B and C are taken as
+contiguous f32 and copied when they do not start on a 16-byte boundary (a
+new tensor does), and bf16 u with an odd D or address is widened to f32.
+``launches`` counts the calls that ran the kernel; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -80,8 +83,11 @@ def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
     if any(not t.is_contiguous() for t in (dt, a, u, *(() if h0 is None
                                                        else (h0,)))):
         raise ValueError("dt, a, u and h0 must be contiguous")
-    bmat = bmat.float().contiguous()
-    cmat = cmat.float().contiguous()
+    bmat, cmat = (m.float().contiguous() for m in (bmat, cmat))
+    bmat, cmat = (m.clone() if m.data_ptr() % 16 else m
+                  for m in (bmat, cmat))
+    if u.dtype == torch.bfloat16 and (d % 2 or u.data_ptr() % 4):
+        u = u.float()
     fn, err_str = _entry()
     y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=u.device)

@@ -7,8 +7,11 @@ and hands its final state to decode).  The kernel
 (``kernels/csrc/mlstm.cu``) replaces the Pallas TPU kernel
 ``mlstm_chunkwise_pallas`` (``repro/kernels/mlstm/mlstm.py``), which is the
 special case "zero state in, no state out", and is instantiated in f32 at
-head dims :data:`HEAD_DIMS`.  ``launches`` counts the calls that ran the
-kernel; nothing else adds to it.
+head dims :data:`HEAD_DIMS`.  A call makes several CUDA launches (its
+passes, ``mlstm.cu``) on a workspace allocated for the call.  The kernel
+reads q, k and v by 16-byte copies: one that does not start on a 16-byte
+boundary is copied first (a new tensor does).  ``launches`` counts the
+calls that ran the kernel, one a call; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -35,12 +38,14 @@ def reset_launches() -> None:
 def _entry():
     lib = _build.load("mlstm")
     fn = lib.mlstm_chunkwise_f32
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.mlstm_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.mlstm_workspace_floats.restype = ctypes.c_longlong
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.cuda_error_string
+    return fn, lib.mlstm_workspace_floats, lib.cuda_error_string
 
 
 def _zero_state(b: int, h: int, dh: int, device) -> tuple:
@@ -93,17 +98,20 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in ins:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     c0, n0, m0 = state
-    fn, err_str = _entry()
+    fn, work_floats, err_str = _entry()
     out = torch.empty_like(q)
     c1, n1, m1 = (torch.empty_like(t) for t in state)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        work = torch.empty(work_floats(b, s, h, dh), dtype=torch.float32,
+                           device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
                  logf.data_ptr(), c0.data_ptr(), n0.data_ptr(),
                  m0.data_ptr(), out.data_ptr(), c1.data_ptr(),
-                 n1.data_ptr(), m1.data_ptr(), b, s, h, dh, int(pads(s)),
-                 dh ** -0.5, stream)
+                 n1.data_ptr(), m1.data_ptr(), work.data_ptr(), b, s, h, dh,
+                 int(pads(s)), dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"mlstm kernel launch failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

@@ -1,6 +1,13 @@
 """The port's kernel build cache (``repro_torch.kernels._build``), without
 ``nvcc``: a library's cache key covers its source, the headers beside it
-and the flags, so an edited header rebuilds and nothing else does."""
+and the flags, so an edited header rebuilds and nothing else does.  And the
+package data: an installed port ships every source and every header a
+source includes."""
+import fnmatch
+import re
+import tomllib
+from pathlib import Path
+
 import pytest
 
 pytest.importorskip("torch")
@@ -61,3 +68,52 @@ def test_build_all_finds_the_cache_and_rebuilds_after_a_header_edit(
     (csrc / "h.cuh").write_text("// helpers, second version\n")
     with pytest.raises(RuntimeError, match="nvcc was called"):
         _build.build_all(["k"])
+
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+
+
+def _shipped(pyproject: Path) -> list:
+    """The package-data globs of ``repro_torch`` in ``pyproject``."""
+    with open(pyproject, "rb") as f:
+        cfg = tomllib.load(f)
+    return cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
+
+
+def _included(csrc: Path) -> set:
+    """Every file a ``csrc`` source or header includes with quotes, as a
+    path relative to the package."""
+    names = set()
+    for src in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]:
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(),
+                               flags=re.M):
+            names.add((src.parent / name).resolve().relative_to(PACKAGE))
+    return names
+
+
+def test_package_data_ships_every_included_header():
+    csrc = PACKAGE / "kernels" / "csrc"
+    globs = _shipped(ROOT / "pyproject.toml")
+    included = _included(csrc)
+    assert Path("kernels/csrc/hopper.cuh") in included
+    for rel in included:
+        assert (PACKAGE / rel).exists(), rel
+        assert any(fnmatch.fnmatch(rel.as_posix(), g) for g in globs), (
+            f"{rel} is included by a kernel source but no package-data glob "
+            f"of repro_torch ({globs}) ships it")
+    for src in csrc.glob("*.cu"):
+        rel = src.relative_to(PACKAGE).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+
+
+def test_package_data_check_fails_without_the_header_glob(tmp_path):
+    """The check above refuses a pyproject that ships the sources alone."""
+    text = (ROOT / "pyproject.toml").read_text()
+    old = tmp_path / "pyproject.toml"
+    old.write_text(re.sub(r'repro_torch = \[[^\]]*\]',
+                          'repro_torch = ["kernels/csrc/*.cu"]', text))
+    globs = _shipped(old)
+    missing = [rel for rel in _included(PACKAGE / "kernels" / "csrc")
+               if not any(fnmatch.fnmatch(rel.as_posix(), g) for g in globs)]
+    assert Path("kernels/csrc/hopper.cuh") in missing

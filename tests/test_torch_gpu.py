@@ -269,6 +269,13 @@ def _mlstm_inputs(gen, b, s, h, dh, state):
     (2, 1000, 8, 32, "fresh"),      # ragged
     (2, 300, 2, 128, "none"),
     (1, 2, 4, 64, "carried"),       # the shortest sequence it takes
+    (1, 980, 4, 512, "fresh"),      # the longest served prefill
+    (1, 64, 4, 512, "carried"),     # one 64-position chunk of the kernel
+    (1, 65, 4, 512, "fresh"),       # and one past it
+    (1, 1025, 4, 512, "carried"),   # 17 chunks: two windows of 16 slots
+    (1, 2100, 2, 128, "none"),      # three windows
+    (1, 4097, 2, 64, "carried"),    # 65 chunks: past the gates' window of 64
+    (1, 200_000, 1, 32, "fresh"),   # 3125 chunks
 ])
 def test_mlstm_kernel_matches_plain(b, s, h, dh, state):
     _card()
@@ -311,6 +318,23 @@ def test_mlstm_kernel_rejects_bad_input():
         mlstm_ops.mlstm_kernel(q, k, v, li, lf, (st[0][..., :32], *st[1:]))
     with pytest.raises(ValueError, match="logi, logf"):
         mlstm_ops.mlstm_kernel(q, k, v, li[:, :4], lf)
+
+
+@pytest.mark.gpu
+def test_mlstm_kernel_copies_misaligned_input():
+    """A q, k or v that does not start on a 16-byte boundary (the kernel's
+    copies are 16 bytes) is copied first: the same bits as aligned ones."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    (q, k, v, li, lf), st = _mlstm_inputs(gen, 1, 130, 2, 64, "carried")
+    want, wfin = mlstm_ops.mlstm_kernel(q, k, v, li, lf, st)
+    shifted = [torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t)
+               for t in (q, k, v)]
+    for s, t in zip(shifted, (q, k, v)):
+        s.copy_(t)
+    out, fin = mlstm_ops.mlstm_kernel(*shifted, li, lf, st)
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, w) for a, w in zip(fin, wfin))
 
 
 @pytest.mark.gpu
@@ -366,6 +390,12 @@ def _scan_inputs(gen, b, s, d, n, u_dtype, state):
     (1, 1, 16384, 16, "float32", "carried"),
     (2, 333, 96, 16, "float32", "carried"),    # ragged tiles, narrow D
     (2, 64, 256, 8, "float32", "none"),
+    (1, 980, 16384, 16, "float32", "carried"),  # the f32 path's prefill
+    (1, 16, 16384, 16, "bfloat16", "carried"),  # a lane's 16 positions
+    (1, 17, 16384, 16, "bfloat16", "carried"),
+    (1, 64, 16384, 16, "bfloat16", "carried"),  # a tile of 64
+    (1, 65, 16384, 16, "bfloat16", "none"),
+    (2, 130, 101, 16, "bfloat16", "carried"),   # odd D: u widened to f32
 ])
 def test_mamba_kernel_matches_plain(b, s, d, n, u_dtype, state):
     """y and the final state against the plain version, at the reference

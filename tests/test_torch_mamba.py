@@ -244,3 +244,71 @@ def test_prefill_of_one_token_takes_the_recurrence(cfgs, monkeypatch):
     assert calls == []
     MB.mamba_block(p, torch.ones(1, 2, cfg.d_model), cfg, state=st)
     assert calls == [1]
+
+
+# -- a model of the CUDA kernel's decomposition (kernels/csrc/mamba_scan.cu) -
+LANES, PER_LANE = 4, 16      # lanes a channel, consecutive positions a lane
+LOG2E = 1.4426950408889634
+
+
+def _kernel_scan(dt, a, bmat, cmat, u, h0=None):
+    """mamba_scan.cu's order of work in plain PyTorch (f32): tiles of
+    LANES x PER_LANE positions, h carried from tile to tile; in a tile each
+    lane composes its positions' (a, b) = (2^(dt a log2 e), (dt B) u) into
+    one pair, the lanes' pairs are scanned (Kogge-Stone, the earlier pair
+    first), the carried h enters through the exclusive prefix, and each lane
+    re-walks its positions, y += C h.  Padded positions are dt = 0."""
+    b, s = dt.shape
+    d, n = a.shape
+    ts = LANES * PER_LANE
+    h = torch.zeros((b, d, n)) if h0 is None else h0.clone()
+    a2 = a * LOG2E
+    ys = []
+    for t0 in range(0, s, ts):
+        ln = min(ts, s - t0)
+        padt = lambda x: torch.nn.functional.pad(  # noqa: E731
+            x[:, t0:t0 + ln].transpose(1, -1), (0, ts - ln)).transpose(1, -1)
+        dtt = torch.nn.functional.pad(dt[:, t0:t0 + ln], (0, ts - ln))
+        bt, ct, ut = padt(bmat), padt(cmat), padt(u)
+        ak = torch.exp2(dtt[:, :, None, None] * a2)              # (B, T, D, N)
+        bk = (dtt[..., None] * bt)[:, :, None, :] * ut[..., None]
+        lane = lambda x: x.reshape(b, LANES, PER_LANE, *x.shape[2:])  # noqa
+        ak, bk, ct = lane(ak), lane(bk), lane(ct)
+        pa, pb = ak[:, :, 0], bk[:, :, 0]
+        for x in range(1, PER_LANE):
+            pb = ak[:, :, x] * pb + bk[:, :, x]
+            pa = pa * ak[:, :, x]
+        off = 1
+        while off < LANES:
+            pb = torch.cat([pb[:, :off], pa[:, off:] * pb[:, :-off]
+                            + pb[:, off:]], dim=1)
+            pa = torch.cat([pa[:, :off], pa[:, off:] * pa[:, :-off]], dim=1)
+            off *= 2
+        end = pa * h[:, None] + pb
+        hh = torch.cat([h[:, None], end[:, :-1]], dim=1)        # (B, L, D, N)
+        y = torch.zeros((b, LANES, PER_LANE, d))
+        for x in range(PER_LANE):
+            hh = ak[:, :, x] * hh + bk[:, :, x]
+            y[:, :, x] = torch.einsum("bldn,bln->bld", hh, ct[:, :, x])
+        h = hh[:, -1]
+        ys.append(y.reshape(b, ts, d)[:, :ln])
+    return torch.cat(ys, dim=1), h
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 980])
+def test_kernel_decomposition_matches_the_plain_scan(s, carried):
+    """The kernel's composition over a lane's positions, a tile's lanes and
+    the tiles (S at a lane boundary, a 32-position boundary and a tile
+    boundary, each one past it, and the served 980) against
+    ``selective_scan_ref`` (one position at a time) at ``TOL``, the kernel's
+    bar; y and the final state, with and without a carried state."""
+    b, d, n = 2, 24, 16
+    dt, a, bmat, cmat, u = (_t(x) for x in _scan_inputs(s + 11, b, s, d, n))
+    h0 = (_t(np.random.default_rng(s).standard_normal((b, d, n),
+                                                      dtype=np.float32))
+          if carried else None)
+    want_y, want_h = selective_scan_ref(dt, a, bmat, cmat, u, h0)
+    y, h = _kernel_scan(dt, a, bmat, cmat, u, h0)
+    _close(y, want_y.numpy())
+    _close(h, want_h.numpy())

@@ -285,3 +285,126 @@ def test_prefill_of_one_token_takes_the_recurrence(cfgs, monkeypatch):
     X.mlstm_block(p, torch.cat([x, x], 1), cfg,
                   state=X.init_mlstm_state(cfg, 1, "cpu"))
     assert len(calls) == 1
+
+
+# -- a model of the CUDA kernel's passes (kernels/csrc/mlstm.cu) -------------
+Q = 64          # the kernel's chunk
+MLSTM_TOL = 1e-4   # the kernel against the plain version (chip_smoke.py)
+
+
+def _lane_scan_sum(x: torch.Tensor) -> torch.Tensor:
+    """The running sum of 64 values (last dim) in the order the gate pass's
+    warp takes it: each lane's pair sum, a Kogge-Stone scan of the 32 pair
+    sums (the earlier term first), then a lane's two positions from the
+    scan before it."""
+    f0, f1 = x[..., 0::2], x[..., 1::2]
+    pair = f0 + f1
+    for off in (1, 2, 4, 8, 16):
+        pair = torch.cat([pair[..., :off], pair[..., :-off] + pair[..., off:]],
+                         dim=-1)
+    before = torch.cat([torch.zeros_like(pair[..., :1]), pair[..., :-1]],
+                       dim=-1)
+    first = before + f0
+    return torch.stack([first, first + f1], dim=-1).flatten(-2)
+
+
+def _kernel_passes(q, k, v, logi, logf, state, pad_floor):
+    """mlstm.cu's passes in plain PyTorch, in the dtype of the inputs:
+    A. the gates of each 64-position chunk (running sum and max, the
+    stabiliser carried from chunk to chunk as one scalar); B. the state
+    entering every chunk; S and C. each chunk's outputs from its own q, k,
+    v and the state entering it alone."""
+    b, s, h, dh = q.shape
+    dt = q.dtype
+    nc = -(-s // Q)
+    pad = nc * Q - s
+    q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+               for x in (q, k, v))
+    li, lf = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (logi, logf))
+    scale = dh ** -0.5
+    if state is None:
+        c = torch.zeros((b, h, dh, dh), dtype=dt)
+        n = torch.zeros((b, h, dh), dtype=dt)
+        m = torch.full((b, h), -1e30, dtype=dt)
+    else:
+        c, n, m = state
+    # A. gates: (B, H, chunk, Q)
+    chunked = lambda x: x.reshape(b, nc, Q, h).permute(0, 3, 1, 2)  # noqa
+    f = _lane_scan_sum(chunked(lf))
+    src = chunked(li) - f
+    run = torch.cummax(src, dim=-1).values
+    m_prev, g_last, decay = [], [], []
+    for j in range(nc):
+        last = min(s, (j + 1) * Q) - 1 - j * Q
+        gl = torch.maximum(m, run[..., j, last])
+        m_prev.append(m)
+        g_last.append(gl)
+        decay.append(torch.exp(m - gl))
+        m = f[..., j, last] + gl
+    m_prev, g_last = torch.stack(m_prev, -1), torch.stack(g_last, -1)
+    g = torch.maximum(m_prev[..., None], run)
+    mt = f + g
+    inter = torch.exp(m_prev[..., None] - g)
+    coeff = torch.exp(src - g_last[..., None])
+    valid = (torch.arange(nc * Q) < s).reshape(nc, Q)
+    coeff = torch.where(valid, coeff, torch.zeros((), dtype=dt))
+    # B. the state entering each chunk, then the final state
+    rows = lambda x, j: x[:, j * Q:(j + 1) * Q].transpose(1, 2)  # noqa
+    c_in, n_in = [], []
+    for j in range(nc):
+        c_in.append(c)
+        n_in.append(n)
+        kc = coeff[..., j, :, None] * rows(k, j)          # (B, H, Q, dh)
+        c = decay[j][..., None, None] * c + kc.transpose(-1, -2) @ rows(v, j)
+        n = decay[j][..., None] * n + kc.sum(-2)
+    m_out = torch.clamp(m, min=0.0) if pad_floor else m
+    rescale = torch.exp(m - m_out)
+    final = (c * rescale[..., None, None], n * rescale[..., None], m_out)
+    # S and C. the outputs of each chunk
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    outs = []
+    for j in range(nc):
+        qj, kj, vj = rows(q, j), rows(k, j), rows(v, j)
+        w = (qj @ kj.transpose(-1, -2)) * scale * torch.exp(
+            src[..., j, None, :] - g[..., j, :, None])
+        w = torch.where(mask & valid[j][:, None], w, torch.zeros((), dtype=dt))
+        qs = qj * scale
+        den = torch.maximum(
+            torch.abs(w.sum(-1) + inter[..., j, :] * (qs @ n_in[j][..., None])
+                      [..., 0]),
+            torch.exp(-mt[..., j, :])) + 1e-6
+        o = (w @ vj + inter[..., j, :, None] * (qs @ c_in[j])) / den[..., None]
+        outs.append(o.transpose(1, 2))
+    return torch.cat(outs, dim=1)[:, :s], final
+
+
+@pytest.mark.parametrize("state", ["none", "fresh", "carried"])
+@pytest.mark.parametrize("s", [2, 63, 64, 65, 256, 257, 980, 1000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-5),
+                                       (torch.float32, MLSTM_TOL)])
+def test_kernel_passes_match_the_plain_version(s, state, dtype, tol):
+    """The kernel's decomposition (64-position chunks, gates by a lane
+    scan, the state entering each chunk, each chunk's outputs from that
+    state alone) against ``mlstm_chunkwise_ref`` (256-position chunks):
+    1e-5 with the model in f64, ``MLSTM_TOL`` in f32, the kernel's own type;
+    outputs and the final C, n, m, with the pad floor exactly where the
+    reference pads (S > 256 that 256 does not divide)."""
+    b, h, dh = 1, 2, 32
+    ins = _inputs(s, b, s, h, dh, scale=0.5)
+    st = _state(s + 3, b, h, dh, state)
+    want, want_fin = mlstm_chunkwise_ref(
+        *map(_t, ins), None if st is None else tuple(map(_t, st)))
+    cast = lambda x: torch.from_numpy(np.array(x)).to(dtype)  # noqa: E731
+    got, fin = _kernel_passes(*map(cast, ins),
+                              None if st is None else tuple(map(cast, st)),
+                              pads(s))
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    for a, w in zip(fin, want_fin):
+        torch.testing.assert_close(a.float(), w, rtol=tol, atol=tol)
+
+
+def test_lane_scan_sum_is_a_running_sum():
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, 64)).astype(np.float64))
+    torch.testing.assert_close(_lane_scan_sum(x), torch.cumsum(x, -1),
+                               rtol=1e-12, atol=1e-12)
