@@ -11,9 +11,11 @@ full size, each with the kernels' launch counts set to 0 just before it
 and read just after:
 
 1. Vermilion schedules built with ``normalize="saturate"`` (Sinkhorn on
-   the card), then a batched single-hop sweep whose data plane runs on the
-   card, with per-flow FCTs from the host credit replay; the card's result
-   is checked against the port's CPU run of the same schedules.  The
+   the card, one CUDA launch a call, counted from a traced schedule), then
+   a batched single-hop sweep whose data plane runs on the card, with
+   per-flow FCTs from the host credit replay; the card's result is checked
+   against the port's CPU run of the same schedules, and the card's
+   schedules must equal the CPU's.  The
    deployment: n = 256 ToRs, d_hat = 8 uplinks, k = 3, recfg_frac = 1/9,
    100 Gb/s links with 4.5 us slots; websearch traffic (DCTCP CDF),
    rack-permutation, at loads 0.15 / 0.3 / 0.45 / 0.6, 2000 slots, seed 1.
@@ -53,7 +55,12 @@ and read just after:
    experts so that they fit the card.
 
 Before the serving paths each kernel is held against its plain version at
-the main path's shapes and beside them (the attention kernels at Qwen's
+the main path's shapes and beside them (Sinkhorn also bit for bit against
+``sinkhorn_kernel_order``, the model of its cluster path's order, in f32
+at 20 and f64 at 200 iterations: n of 1 and 17, around its tile of 16
+rows and 32 columns, the largest n the one-cluster path takes and one past
+it, which takes two passes a round, iters 0 and 1 on both paths, the clamp
+and a NaN entry; the attention kernels at Qwen's
 and Jamba's head shapes and at the bf16 kernels' tile edges: Sq = Sk of
 63-255 around the 64-row query and 64- and 128-key tiles, ragged Sq < Sk,
 a window edge inside key tiles, rep 1, 3, 8 and 32, decode lengths of
@@ -113,7 +120,10 @@ from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref  # noqa: E402
 from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops  # noqa: E402
-from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref  # noqa: E402
+from repro_torch.kernels.sinkhorn.ref import (  # noqa: E402
+    sinkhorn_kernel_order,
+    sinkhorn_ref,
+)
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -285,37 +295,114 @@ def saturate_input(n: int, load: float) -> np.ndarray:
     return np.where(m <= 0, 1e-12, m)
 
 
-def check_kernel(m: torch.Tensor, iters: int, eps: float, reps: int,
-                 plain_reps: int) -> dict:
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, a NaN matching a NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def check_sinkhorn(label: str, m: torch.Tensor, iters: int, eps: float,
+                   reps: int) -> dict:
+    """The Sinkhorn kernel against its plain version on one input (within
+    :data:`TOL`, NaN where it has NaN) and, on the cluster path, against
+    ``sinkhorn_kernel_order`` (the CPU model of its order) bit for bit;
+    two calls bitwise; the kernel timed on the card alone
+    (:func:`device_ms`) and with the host's share (:func:`time_ms`), the
+    plain version on the card alone."""
     n, dtype = m.shape[0], m.dtype
+    var, cluster, threads = sinkhorn_ops.plan(n, dtype)
     got = sinkhorn_ops.sinkhorn_kernel(m, iters=iters, eps=eps)
+    again = sinkhorn_ops.sinkhorn_kernel(m, iters=iters, eps=eps)
     torch.cuda.synchronize()
     want = sinkhorn_ref(m, iters=iters, eps=eps)
-    again = sinkhorn_ops.sinkhorn_kernel(m, iters=iters, eps=eps)
-    err = (got - want).abs()
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
     rtol, atol = TOL[dtype]
-    max_abs = float(err.max())
-    max_rel = float((err / want.abs()).max())
-    ok = bool((err <= atol + rtol * want.abs()).all())
-    same = bool(torch.equal(got, again))
-    ms = time_ms(lambda: sinkhorn_ops.sinkhorn_kernel(m, iters, eps), reps)
-    plain_ms = time_ms(lambda: sinkhorn_ref(m, iters, eps), plain_reps)
+    max_abs = float(err.max()) if err.numel() else 0.0
+    max_rel = float((err / want[fin].abs()).max()) if err.numel() else 0.0
+    ok = bool((err <= atol + rtol * want[fin].abs()).all()) and \
+        torch.equal(torch.isnan(got), torch.isnan(want))
+    same = _same_bits(got, again)
+    bits = (_same_bits(got.cpu(), sinkhorn_kernel_order(
+        m.cpu(), iters, eps, cluster)) if var == "cluster" else None)
+    call = lambda: sinkhorn_ops.sinkhorn_kernel(m, iters, eps)  # noqa: E731
+    ms = device_ms(call, reps)
+    call_ms = time_ms(call, reps)
+    plain_ms = device_ms(lambda: sinkhorn_ref(m, iters, eps), 1, warm=1,
+                         replays=1)
     bound_ms, bound_by = sinkhorn_bound_ms(n, iters, dtype)
-    name = str(dtype).replace("torch.", "")
-    log(f"  {name:8s} n={n:5d} iters={iters:3d}: max_abs_err={max_abs:.3e} "
+    name = _dname(dtype)
+    log(f"  {label:22s} {name:8s} n={n:5d} iters={iters:3d} {var} "
+        f"(C {cluster}, {threads} threads): max_abs_err={max_abs:.3e} "
         f"max_rel_err={max_rel:.3e} (rtol {rtol:g}, atol {atol:g}) "
-        f"{'ok' if ok else 'FAIL'}; deterministic={same}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by})")
+        f"{'ok' if ok else 'FAIL'}; bits equal to the kernel-order model: "
+        f"{bits}; deterministic={same}; kernel {ms:.4f} ms (with the host "
+        f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}), x bound {ms / bound_ms:.1f}")
     if not ok:
         raise AssertionError(f"sinkhorn kernel disagrees with its plain "
-                             f"version: {name} n={n}")
+                             f"version: {label} {name} n={n}")
+    if bits is False:
+        raise AssertionError(f"sinkhorn kernel's bits differ from "
+                             f"sinkhorn_kernel_order: {label} {name} n={n}")
     if not same:
         raise AssertionError(f"sinkhorn kernel is not deterministic: "
-                             f"{name} n={n}")
-    return {"dtype": name, "n": n, "iters": iters, "max_abs_err": max_abs,
-            "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+                             f"{label} {name} n={n}")
+    return {"label": label, "dtype": name, "n": n, "shape": [n, n],
+            "iters": iters, "variant": var, "cluster": cluster,
+            "threads": threads, "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "bitwise_vs_model": bits, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "x_bound": ms / bound_ms}
+
+
+def sinkhorn_phases() -> tuple:
+    """The Sinkhorn kernel against its plain version and its order's model
+    at the main path's instance (f64, n = 256, 200 iterations, the
+    saturate input) and beside it: f32 at 20 iterations, n from 1 to 1024;
+    the largest n the cluster path takes and one past it (two passes) in
+    both types; iters 0 and 1 on both paths; the clamp; a NaN entry.
+    Returns (instances, the main path's)."""
+    log("== sinkhorn kernel vs plain PyTorch version on the card")
+    f32, f64 = torch.float32, torch.float64
+    top = {d: sinkhorn_ops.max_cluster_n(d) for d in (f32, f64)}
+    log(f"  cluster size {sinkhorn_ops.cluster_size()}; the cluster path "
+        f"takes n <= {top[f32]} (f32), <= {top[f64]} (f64), larger n two "
+        f"passes a round")
+    rng = np.random.default_rng(SEED)
+
+    def rand(n: int, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(rng.random((n, n)) + 0.01).to(DEV, dtype)
+
+    inst = []
+    for n in (64, 250, 256, 512, 1024, 1, 17, top[f32], top[f32] + 1):
+        inst.append(check_sinkhorn("random", rand(n, f32), 20, 1e-12,
+                                   reps=50 if n <= top[f32] else 10))
+    for n in (250, 256):
+        m = torch.from_numpy(saturate_input(n, 0.3)).to(DEV)
+        inst.append(check_sinkhorn("saturate input", m, 200, 0.0, reps=20))
+    main = inst[-1]                         # n = 256, iters 200: saturate
+    for n in (1, 17, top[f64], top[f64] + 1):
+        inst.append(check_sinkhorn("random", rand(n, f64), 200, 0.0,
+                                   reps=20 if n <= top[f64] else 3))
+    for n in (250, top[f64] + 1):           # both paths
+        for iters in (0, 1):
+            inst.append(check_sinkhorn(f"iters {iters}", rand(n, f64), iters,
+                                       0.0, reps=10))
+    z = torch.zeros(40, 40, device=DEV)
+    z[:5] = rand(40, f32)[:5]
+    z[7, 3] = -2.0
+    inst.append(check_sinkhorn("clamp at 0.25", z, 3, 0.25, reps=10))
+    for n, dtype in ((64, f64), (top[f32] + 1, f32)):
+        m = rand(n, dtype)
+        m[7, 9] = float("nan")
+        inst.append(check_sinkhorn("a NaN entry", m, 5, 0.0, reps=5))
+    paths = {v: sum(i["variant"] == v for i in inst)
+             for v in ("cluster", "two_pass")}
+    log(f"  instances by path: {json.dumps(paths)}")
+    log("  no single PyTorch call computes Sinkhorn: library time n/a")
+    return inst, main
 
 
 def _dname(dtype: torch.dtype) -> str:
@@ -758,7 +845,8 @@ SERVED = {ARCH: ({"flash_attention": flash_ops,
                        False)}
 
 # the __global__ functions each wrapper launches, by a part of their names
-KERNEL_EVENTS = {"flash_attention": ("flash_fwd",),
+KERNEL_EVENTS = {"sinkhorn": ("sinkhorn_",),
+                 "flash_attention": ("flash_fwd",),
                  "decode_attention": ("decode_partial", "decode_combine"),
                  "mlstm": ("mlstm_",), "mamba_scan": ("mamba_scan_fwd",)}
 
@@ -1330,21 +1418,7 @@ def main() -> int:
             log(f"    {line}")
 
     # -- 2. each kernel against its plain version --------------------------
-    log("== sinkhorn kernel vs plain PyTorch version on the card")
-    rng = np.random.default_rng(SEED)
-    f32 = []
-    for n in (64, 250, 256, 512, 1024):
-        m = torch.from_numpy(rng.random((n, n)) + 0.01).to(
-            "cuda", torch.float32)
-        f32.append(check_kernel(m, iters=20, eps=1e-12, reps=50,
-                                plain_reps=10))
-    f64 = []
-    for n in (250, 256):
-        m = torch.from_numpy(saturate_input(n, 0.3)).to("cuda")
-        f64.append(check_kernel(m, iters=200, eps=0.0, reps=20,
-                                plain_reps=5))
-    main_shape = f64[-1]                    # n = 256, iters 200: saturate
-    log("  no single PyTorch call computes Sinkhorn: library time n/a")
+    sinkhorn, main_shape = sinkhorn_phases()
 
     # -- 3. the main path at full size --------------------------------------
     log(f"== main path: n={N}, d_hat={D_HAT}, k={K}, loads {LOADS}, "
@@ -1374,6 +1448,20 @@ def main() -> int:
     if launches != len(LOADS):
         raise AssertionError(f"main path launched the sinkhorn kernel "
                              f"{launches} times (expected {len(LOADS)})")
+    # one schedule's saturate, traced: the kernel's CUDA launches a call
+    calls = -sinkhorn_ops.launches
+    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        vermilion_schedule(wls[0].demand_matrix(), k=K, d_hat=D_HAT,
+                           recfg_frac=RECFG, normalize="saturate")
+        torch.cuda.synchronize()
+    calls += sinkhorn_ops.launches
+    sinkhorn_per_call = cuda_launches_per_call(
+        prof, {"sinkhorn": calls})["sinkhorn"]
+    log(f"  traced schedule: {calls} sinkhorn call(s), CUDA launches a "
+        f"call {sinkhorn_per_call} ({main_shape['variant']} path)")
+    if sinkhorn_per_call not in (None, 1.0):
+        raise AssertionError(f"a main-path sinkhorn call made "
+                             f"{sinkhorn_per_call} CUDA launches (expected 1)")
     for r in rows:
         res = r.result
         fin = np.isfinite(res.fct_slots)
@@ -1421,6 +1509,9 @@ def main() -> int:
     log(f"  schedules rebuilt on the CPU in "
         f"{time.perf_counter() - t0:.3f} s; perms equal to the card's: "
         f"{same}")
+    if not all(same):
+        raise AssertionError(f"schedules built on the card differ from the "
+                             f"CPU's: perms equal {same}")
 
     # -- 5. a traced rerun: where the data plane's time goes on the card ---
     log("== traced rerun of the card sweep (torch.profiler)")
@@ -1461,7 +1552,7 @@ def main() -> int:
 
     # -- 6. results -----------------------------------------------------------
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
-    log(f"f32 instances: {json.dumps(f32)}")
+    log(f"sinkhorn instances: {json.dumps(sinkhorn)}")
     log(f"flash instances: {json.dumps(flash)}")
     log(f"decode instances: {json.dumps(decode)}")
     log(f"mlstm instances: {json.dumps(mlstm)}")
@@ -1474,22 +1565,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sinkhorn.cu",
         "replaces": "src/repro/kernels/sinkhorn/sinkhorn.py:39",
         "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "dtype": main_shape["dtype"],
-        "n": main_shape["n"],
-        "iters": main_shape["iters"],
+        **{k: main_shape[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "dtype", "shape", "iters", "variant",
+            "cluster")},
+        "cuda_launches_per_call": sinkhorn_per_call,
     }]
-    # `launches` counts wrapper calls on the serving paths, summed over the
-    # paths that run the kernel (`launches_by_path`); a call may be several
-    # CUDA launches (`cuda_launches_per_call`, from the first serving path's
-    # traced prefill or decode that calls it), and `ms` is the device time
-    # of all of a call's; `x_bound` and `x_library` are `ms` over
-    # `bound_ms` and `library_ms` at the reported (served) shape
+    # sinkhorn's `launches` counts wrapper calls on the sweep's main path,
+    # its `cuda_launches_per_call` those of one traced schedule; for the
+    # others `launches` counts wrapper calls on the serving paths, summed
+    # over the paths that run the kernel (`launches_by_path`); a call may be
+    # several CUDA launches (`cuda_launches_per_call`, from the first
+    # serving path's traced prefill or decode that calls it), and `ms` is
+    # the device time of all of a call's; `x_bound` and `x_library` are
+    # `ms` over `bound_ms` and `library_ms` at the reported (served) shape
     per_call: dict = {}
     for res in served.values():
         for traced in (res["prefill_breakdown"]["cuda_launches_per_call"],

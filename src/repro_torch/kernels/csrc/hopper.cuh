@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads, cp.async 16-byte copies, warp-level bf16 `mma.sync` with
+// stores into another block of a cluster (`mapa`, `st.async`), TMA tile
+// loads, cp.async 16-byte copies, warp-level bf16 `mma.sync` with
 // `ldmatrix`, and bf16 `wgmma` with its shared-memory descriptors.
 // Header-only; every function is inline PTX.
 //
@@ -59,6 +60,35 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > (1LL << 36)) __trap();
   }
+}
+
+// ---- thread-block clusters -----------------------------------------------
+// the shared::cluster address of `p`'s counterpart in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// stores a value at a shared::cluster address (another block's shared
+// memory) and counts its bytes as transactions of that block's mbarrier;
+// a thread of that block that has waited on the phase (mbar_wait) reads
+// it, as it reads what a TMA load brought
+__device__ __forceinline__ void st_async(uint32_t addr, double v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b64 "
+      "[%0], %1, [%2];\n"
+      :: "r"(addr), "l"(__double_as_longlong(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+      "[%0], %1, [%2];\n"
+      :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
 }
 
 // ---- TMA -------------------------------------------------------------------

@@ -5,8 +5,10 @@ test skips.  Whether a card is present is decided inside each test.
 
 Tolerances: Sinkhorn f32 rtol 1e-5 / atol 1e-6, as tests/test_kernels.py
 holds the Pallas kernel (reduction order only), f64 rtol 1e-12 over 200
-iterations; attention f32 2e-5 and bf16 2e-2, as tests/test_kernels.py
-holds the Pallas attention kernels; mLSTM f32 rtol 1e-4 / atol 1e-4 on the
+iterations, and its cluster path bit for bit against
+``sinkhorn_kernel_order``, the CPU model of its order; attention f32 2e-5
+and bf16 2e-2, as tests/test_kernels.py holds the Pallas attention
+kernels; mLSTM f32 rtol 1e-4 / atol 1e-4 on the
 outputs and the final states (the kernel's chunks are 64 positions, the
 plain version's 256, so its sums and exponent arguments are grouped
 differently); the selective scan rtol 1e-4 / atol 1e-4 on ``y`` and the
@@ -30,7 +32,8 @@ from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
-from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref
+from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
+                                              sinkhorn_ref)
 from repro_torch.models import decode_step, init_params, prefill, serve_params
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -48,7 +51,11 @@ def _card():
     (64, "float32", 20, 1e-5, 1e-6),
     (250, "float32", 20, 1e-5, 1e-6),
     (512, "float32", 20, 1e-5, 1e-6),
+    (1024, "float32", 20, 1e-5, 1e-6),      # two passes a round
+    (1, "float32", 20, 1e-5, 1e-6),
     (256, "float64", 200, 1e-12, 0.0),
+    (17, "float64", 200, 1e-12, 0.0),
+    (250, "float64", 200, 1e-12, 0.0),
 ])
 def test_sinkhorn_kernel_matches_plain(n, dtype, iters, rtol, atol):
     _card()
@@ -64,6 +71,105 @@ def test_sinkhorn_kernel_matches_plain(n, dtype, iters, rtol, atol):
                                rtol=rtol, atol=atol)
     # fixed-order reductions: the same input gives the same bits
     assert torch.equal(got, ops.sinkhorn(m, iters=iters, device="cuda"))
+
+
+SINKHORN_ITERS = {"float32": (20, 1e-12), "float64": (200, 0.0)}
+
+
+def _sinkhorn_input(n, dtype):
+    return torch.from_numpy(np.random.default_rng(n).random((n, n)) + 0.01).to(
+        "cuda", getattr(torch, dtype))
+
+
+def _same_bits(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype", [
+    (1, "float64"), (17, "float64"), (250, "float64"), (256, "float64"),
+    ("top", "float64"), (17, "float32"), (256, "float32"), (512, "float32"),
+    ("top", "float32"),
+])
+def test_sinkhorn_kernel_equals_its_order_model(n, dtype):
+    """The cluster path, bit for bit against the CPU model of its order."""
+    _card()
+    dt = getattr(torch, dtype)
+    n = ops.max_cluster_n(dt) if n == "top" else n
+    assert ops.variant(n, dt) == "cluster"
+    iters, eps = SINKHORN_ITERS[dtype]
+    m = _sinkhorn_input(n, dtype)
+    got = ops.sinkhorn_kernel(m, iters, eps).cpu()
+    assert torch.equal(got, sinkhorn_kernel_order(m.cpu(), iters, eps,
+                                                  ops.cluster_size()))
+
+
+@pytest.mark.gpu
+def test_sinkhorn_kernel_cluster_size_and_reach():
+    _card()
+    c = ops.cluster_size()
+    assert c in (8, 16)
+    top = {d: ops.max_cluster_n(d) for d in (torch.float32, torch.float64)}
+    assert top == ({torch.float32: 736, torch.float64: 512} if c == 16 else
+                   {torch.float32: 384, torch.float64: 384})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sinkhorn_kernel_two_passes_past_the_cluster(dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    top = ops.max_cluster_n(dt)
+    assert ops.plan(top, dt)[0] == "cluster"
+    assert ops.plan(top + 1, dt) == ("two_pass", ops.cluster_size(), 0)
+    iters, eps = SINKHORN_ITERS[dtype]
+    rtol, atol = (1e-5, 1e-6) if dtype == "float32" else (1e-12, 0.0)
+    m = _sinkhorn_input(top + 1, dtype)
+    got = ops.sinkhorn_kernel(m, iters, eps)
+    torch.testing.assert_close(got, sinkhorn_ref(m, iters, eps), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(got, ops.sinkhorn_kernel(m, iters, eps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["cluster", "two_pass"])
+@pytest.mark.parametrize("case", ["iters0", "iters1", "nan"])
+def test_sinkhorn_kernel_edges(path, case):
+    _card()
+    n = 250 if path == "cluster" else ops.max_cluster_n(torch.float64) + 1
+    m = _sinkhorn_input(n, "float64")
+    iters, eps = {"iters0": (0, 0.5), "iters1": (1, 0.0),
+                  "nan": (5, 0.0)}[case]
+    if case == "nan":
+        m[7, 9] = float("nan")
+    assert ops.variant(n, torch.float64) == path
+    got = ops.sinkhorn_kernel(m, iters, eps)
+    want = sinkhorn_ref(m, iters, eps)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0.0,
+                               equal_nan=True)
+    if case != "iters1":
+        assert _same_bits(got, want)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_kernel_is_one_launch():
+    """The main path's instance is one CUDA launch a call."""
+    _card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m = _sinkhorn_input(256, "float64")
+    ops.sinkhorn_kernel(m, 200, 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.sinkhorn_kernel(m, 200, 0.0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler recorded no device events")
+    assert len(names) == 1 and "sinkhorn_cluster" in names[0]
 
 
 @pytest.mark.gpu
