@@ -19,6 +19,25 @@ and read just after:
    deployment: n = 256 ToRs, d_hat = 8 uplinks, k = 3, recfg_frac = 1/9,
    100 Gb/s links with 4.5 us slots; websearch traffic (DCTCP CDF),
    rack-permutation, at loads 0.15 / 0.3 / 0.45 / 0.6, 2000 slots, seed 1.
+1b. The adaptive control loop (``run_adaptive``, Appendix A closed:
+   estimation each epoch, per-node schedules, a collision-resolved fabric
+   plan, one data-plane run on the card for the whole batch, the host
+   credit replay), every schedule ``normalize="saturate"`` through the
+   Sinkhorn kernel.  Grid (a): the sweep's fabric under phase-shifting
+   websearch traffic (permutation -> uniform -> dlrm every 2000 slots),
+   load 0.5, 6000 slots in epochs of 500; oracle and stale (the phase
+   train's rates), oblivious, adaptive at EWMA weights 0.1 / 0.3 / 0.5 /
+   0.9, complete gathers.  Grid (b): ``run_disagreement``'s sizes (n = 16,
+   d_hat = 4, epochs of 250), gathers of 15 / 8 / 4 / 2 steps under the
+   drop / lowest / receiver arbiters, whose partial views put zero rows
+   through the kernel.  Each grid runs with the sanitizer; its Sinkhorn
+   launches must equal the saturate calls that ran, and its rows those of
+   the port's CPU run of the same cases: the compiled control trajectory
+   (``plan_digest``), counters and epoch arrays exactly, FCTs within the
+   sweep's bar, utilization within rtol 1e-5; full gathers never
+   disagree, 2-step gathers lose capacity.  A traced rerun of grid (a),
+   without the host's credit replay, reads the slot loop's idle share and
+   the kernel's device time.
 2. Serving: ``ServeEngine`` with Qwen1.5-0.5B at full width and depth
    (24 layers, d_model 1024, 16 heads, vocab 151,936) on seeded random
    weights, bf16, 8 lanes of 2048 positions, 16 requests with prompts of
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -102,9 +122,19 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import schedule as schedule_mod  # noqa: E402
+from repro_torch.core import simulator as sim_mod  # noqa: E402
+from repro_torch.core import traffic as traffic_mod  # noqa: E402
+from repro_torch.core.estimation import (  # noqa: E402
+    TrafficEstimator,
+    estimate_all_views,
+)
 from repro_torch.core.schedule import vermilion_schedule  # noqa: E402
 from repro_torch.core.simulator import (  # noqa: E402
+    AdaptiveCase,
     SweepCase,
+    phase_shifting_workload,
+    run_adaptive,
     run_sweep,
     websearch_workload,
 )
@@ -150,6 +180,26 @@ TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 0.0)}
 # one slot in a varying order; the drain reconciliation absorbs most such
 # ulp residues, not every one
 FCT_MAX_DIFF_FRAC, FCT_MAX_DIFF_SLOTS = 1e-3, 1.0
+
+# the adaptive loop, grid (a): the sweep's fabric in closed loop under
+# phase-shifting traffic (permutation -> uniform -> dlrm every 2000 slots,
+# benchmarks/adaptive_bench.py's phase train) at load 0.5, 6000 slots in
+# epochs of 500; oracle and stale from the phase train's rates,
+# oblivious, and the adaptive loop at four EWMA weights, all with a
+# complete gather, every schedule Sinkhorn-saturated
+ADAPTIVE_LOAD, ADAPTIVE_HORIZON, ADAPTIVE_SHIFT = 0.5, 6000, 2000
+ADAPTIVE_EPOCH = 500
+ADAPTIVE_PHASES = ("permutation", "uniform", "dlrm")
+ADAPTIVE_ALPHAS = (0.1, 0.3, 0.5, 0.9)
+# grid (b): run_disagreement's sizes (adaptive_bench.py), every partial
+# gather under the three static arbiters, saturated: zero rows of the
+# partial views go through the kernel
+DISAGREE_N, DISAGREE_D_HAT, DISAGREE_EPOCH = 16, 4, 250
+DISAGREE_STEPS = (15, 8, 4, 2)
+DISAGREE_COLLISIONS = ("drop", "lowest", "receiver")
+# card vs CPU utilization, whole run and per epoch
+UTIL_RTOL = 1e-5
+SHORT_FLOW_BITS = 100e3 * 8          # flows up to 100 KB
 
 TRACE_ACTIVITIES = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 
@@ -295,6 +345,18 @@ def saturate_input(n: int, load: float) -> np.ndarray:
     return np.where(m <= 0, 1e-12, m)
 
 
+def partial_view_input(n: int) -> np.ndarray:
+    """What ``saturate`` hands the kernel from a 2-step gather's view in
+    the adaptive loop (grid (b)'s n): n - 3 of its rows all zero, clamped
+    to 1e-12."""
+    period = np.random.default_rng(SEED).gamma(0.6, 1e8, size=(n, n))
+    np.fill_diagonal(period, 0.0)
+    views = estimate_all_views(period, TrafficEstimator.fleet(n, alpha=0.5),
+                               K, BITS_PER_SLOT, steps=2)
+    m = views.view(n // 2)
+    return np.where(m <= 0, 1e-12, m)
+
+
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bitwise equal, a NaN matching a NaN."""
     return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
@@ -360,7 +422,8 @@ def check_sinkhorn(label: str, m: torch.Tensor, iters: int, eps: float,
 def sinkhorn_phases() -> tuple:
     """The Sinkhorn kernel against its plain version and its order's model
     at the main path's instance (f64, n = 256, 200 iterations, the
-    saturate input) and beside it: f32 at 20 iterations, n from 1 to 1024;
+    saturate input) and beside it: a 2-step gather's view (zero rows
+    clamped) at grid (b)'s n; f32 at 20 iterations, n from 1 to 1024;
     the largest n the cluster path takes and one past it (two passes) in
     both types; iters 0 and 1 on both paths; the clamp; a NaN entry.
     Returns (instances, the main path's)."""
@@ -383,6 +446,8 @@ def sinkhorn_phases() -> tuple:
         m = torch.from_numpy(saturate_input(n, 0.3)).to(DEV)
         inst.append(check_sinkhorn("saturate input", m, 200, 0.0, reps=20))
     main = inst[-1]                         # n = 256, iters 200: saturate
+    inst.append(check_sinkhorn("partial view", torch.from_numpy(
+        partial_view_input(DISAGREE_N)).to(DEV), 200, 0.0, reps=20))
     for n in (1, 17, top[f64], top[f64] + 1):
         inst.append(check_sinkhorn("random", rand(n, f64), 200, 0.0,
                                    reps=20 if n <= top[f64] else 3))
@@ -1393,6 +1458,255 @@ def serving_phases(arch: str) -> dict:
     return serving
 
 
+def adaptive_grid_a() -> list:
+    """Grid (a): oracle and stale (the phase train's rates as
+    ``oracle_demand``, as ``adaptive_bench.build_cases`` builds them),
+    oblivious, and adaptive at each of :data:`ADAPTIVE_ALPHAS`."""
+    wl = phase_shifting_workload(
+        N, ADAPTIVE_LOAD, ADAPTIVE_HORIZON, BITS_PER_SLOT, d_hat=D_HAT,
+        seed=SEED, phases=ADAPTIVE_PHASES, shift_period=ADAPTIVE_SHIFT)
+    mats = traffic_mod.phase_train(N, ADAPTIVE_PHASES, seed=SEED)
+    n_epochs = -(-ADAPTIVE_HORIZON // ADAPTIVE_EPOCH)
+    oracle = np.stack([
+        mats[(e * ADAPTIVE_EPOCH // ADAPTIVE_SHIFT) % len(mats)]
+        for e in range(n_epochs)])
+    common = dict(wl=wl, epoch_slots=ADAPTIVE_EPOCH, k=K, d_hat=D_HAT,
+                  recfg_frac=RECFG, seed=SEED, normalize="saturate",
+                  method="euler")
+    cases = [AdaptiveCase(policy="oracle", oracle_demand=oracle,
+                          label="oracle", **common),
+             AdaptiveCase(policy="stale", oracle_demand=oracle,
+                          label="stale", **common),
+             AdaptiveCase(policy="oblivious", label="oblivious", **common)]
+    cases += [AdaptiveCase(policy="adaptive", alpha=a,
+                           label=f"adaptive-a{a}", **common)
+              for a in ADAPTIVE_ALPHAS]
+    return cases
+
+
+def adaptive_grid_b() -> list:
+    """Grid (b): ``run_disagreement``'s staleness x arbiter grid."""
+    wl = phase_shifting_workload(
+        DISAGREE_N, ADAPTIVE_LOAD, ADAPTIVE_HORIZON, BITS_PER_SLOT,
+        d_hat=DISAGREE_D_HAT, seed=SEED, phases=ADAPTIVE_PHASES,
+        shift_period=ADAPTIVE_SHIFT)
+    return [AdaptiveCase(wl=wl, epoch_slots=DISAGREE_EPOCH,
+                         policy="adaptive", k=K, d_hat=DISAGREE_D_HAT,
+                         recfg_frac=RECFG, seed=SEED, alpha=0.5,
+                         gather_steps=st, collision=c, normalize="saturate",
+                         label=f"steps{st}-{c}",
+                         meta={"gather_steps": st, "collision": c})
+            for c in DISAGREE_COLLISIONS for st in DISAGREE_STEPS]
+
+
+def counting_saturate(calls: list):
+    """``saturate`` as the schedules call it, adding one to ``calls[0]``
+    for each call that hands the Sinkhorn projection a matrix (an all-zero
+    one returns before it)."""
+    inner = schedule_mod.saturate
+
+    def counted(m, iters=200, device=None):
+        if not (np.asarray(m) <= 0).all():
+            calls[0] += 1
+        return inner(m, iters=iters, device=device)
+    return swapped(schedule_mod, "saturate", counted)
+
+
+def first_divergence(case, dev) -> str:
+    """Where ``case``'s control trajectory built on ``dev`` first parts
+    from the CPU's: the first slot whose plan differs, its epoch, and the
+    matrix (that epoch's estimate or oracle rate) whose schedule it
+    installs."""
+    plans = [sim_mod._compile_adaptive_plan(case, BITS_PER_SLOT,
+                                            sched_cache={}, device=d)
+             for d in (dev, "cpu")]
+    a, b = (p["plan_ids"] for p in plans)
+    reg = [p["registry"] for p in plans]
+    for slot in range(len(a)):
+        (pa, ca), (pb, cb) = reg[0][a[slot]], reg[1][b[slot]]
+        if not (np.array_equal(pa, pb) and np.array_equal(ca, cb)):
+            epoch = slot // case.epoch_slots
+            return (f"{case.label}: first differing slot {slot}, epoch "
+                    f"{epoch} (the schedule built from epoch "
+                    f"{epoch if case.policy == 'oracle' else epoch - 1}'s "
+                    f"{'oracle rate' if case.policy == 'oracle' else 'estimate'})")
+    return f"{case.label}: plans equal slot by slot"
+
+
+def compare_adaptive(rows: list, rows_cpu: list) -> list:
+    """The card's rows against the CPU's: the names of the cases whose
+    compiled trajectory (``plan_digest``) differs.  Every other gate
+    raises."""
+    parted = []
+    for a, b in zip(rows, rows_cpu):
+        if a.plan_digest != b.plan_digest:
+            parted.append(a.label)
+            continue
+        for f in ("recomputes", "stale_slots", "dark_slots",
+                  "schedule_groups_max"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{a.label}: {f} {getattr(a, f)} on "
+                                     f"the card, {getattr(b, f)} on the CPU")
+        for f in ("epoch_estimate_tv", "epoch_disagreement",
+                  "epoch_collision_loss"):
+            if not np.array_equal(getattr(a, f), getattr(b, f),
+                                  equal_nan=True):
+                raise AssertionError(f"{a.label}: {f} differs from the "
+                                     "CPU's")
+        ra, rb = a.result, b.result
+        fa, fb = ra.fct_slots, rb.fct_slots
+        differ = ~((fa == fb) | (np.isnan(fa) & np.isnan(fb)))
+        n_diff = int(differ.sum())
+        max_diff = float(np.abs(fa[differ] - fb[differ]).max()) \
+            if n_diff else 0.0
+        rel = abs(ra.utilization - rb.utilization) / rb.utilization
+        ep_rel = float(np.max(np.abs(a.epoch_utilization
+                                     - b.epoch_utilization)
+                              / np.maximum(b.epoch_utilization, 1e-300)))
+        log(f"  {a.label}: card vs CPU: trajectory equal, util rel diff "
+            f"{rel:.3e} (epochs {ep_rel:.3e}); FCTs differ on {n_diff} of "
+            f"{len(fa)} flows, by at most {max_diff} slots")
+        if rel > UTIL_RTOL or ep_rel > UTIL_RTOL:
+            raise AssertionError(f"{a.label}: utilization differs by "
+                                 f"{max(rel, ep_rel):.3e} (rtol {UTIL_RTOL})")
+        if n_diff > FCT_MAX_DIFF_FRAC * len(fa) \
+                or max_diff > FCT_MAX_DIFF_SLOTS:
+            raise AssertionError(f"{a.label}: FCTs differ on {n_diff} flows "
+                                 f"by up to {max_diff} slots")
+    return parted
+
+
+def adaptive_grid(name: str, cases: list) -> dict:
+    """One grid: run on the card with the sanitizer, Sinkhorn launches
+    counted from 0 against the saturate calls that ran; the CPU's run of
+    the same cases; the gates; the numbers."""
+    log(f"== adaptive loop, grid ({name}): n={cases[0].wl.n}, "
+        f"d_hat={cases[0].d_hat}, {cases[0].wl.horizon} slots, epochs of "
+        f"{cases[0].epoch_slots}, {len(cases)} cases, "
+        f"{cases[0].wl.num_flows} flows a case, normalize=saturate")
+    timings: dict = {}
+    calls = [0]
+    sinkhorn_ops.reset_launches()
+    t0 = time.perf_counter()
+    with counting_saturate(calls):
+        rows = run_adaptive(cases, BITS_PER_SLOT, device=DEV, sanitize=True,
+                            timings=timings)
+    wall = time.perf_counter() - t0
+    launches = sinkhorn_ops.launches
+    log(f"  run_adaptive on the card {wall:.6f} s; saturate calls "
+        f"{calls[0]}, sinkhorn launches {launches}")
+    if launches != calls[0]:
+        raise AssertionError(f"grid ({name}) launched the sinkhorn kernel "
+                             f"{launches} times for {calls[0]} saturate "
+                             "calls")
+    for key, val in timings.items():
+        log(f"  phase {key}: {val:.6f}" if key != "slots"
+            else f"  slots served {val}")
+    per_slot_us = timings["device_loop_s"] / timings["slots"] * 1e6
+    log(f"  device slot loop: {per_slot_us:.3f} us per slot")
+    for r in rows:
+        res = r.result
+        if not np.isfinite(res.fct_slots).any() \
+                or not np.isfinite(res.utilization):
+            raise AssertionError(f"{r.label}: no finite result")
+        log(f"  {r.label}: util {res.utilization:.6f}, completed "
+            f"{res.completed_frac:.6f}, short-flow FCT p99 "
+            f"{res.fct_percentile(99, short_cutoff=SHORT_FLOW_BITS):.3f} "
+            f"slots, recomputes {r.recomputes}, groups max "
+            f"{r.schedule_groups_max}, collision loss "
+            f"{r.collision_lost_bits:.6e} b, construction_s "
+            f"{r.construction_s:.6f}")
+    by_policy: dict = {}
+    for r in rows:
+        by_policy.setdefault(r.policy, []).append(r)
+    policies = {}
+    for pol, rs in by_policy.items():
+        policies[pol] = {
+            "util": float(np.mean([r.result.utilization for r in rs])),
+            "short_p99": float(np.mean([r.result.fct_percentile(
+                99, short_cutoff=SHORT_FLOW_BITS) for r in rs])),
+            "recomputes": [r.recomputes for r in rs]}
+        log(f"  policy {pol}: mean util {policies[pol]['util']:.6f}, "
+            f"short-flow FCT p99 {policies[pol]['short_p99']:.3f} slots, "
+            f"recomputes {policies[pol]['recomputes']}")
+
+    t0 = time.perf_counter()
+    rows_cpu = run_adaptive(cases, BITS_PER_SLOT, device="cpu",
+                            sanitize=True)
+    log(f"  the same cases on the CPU {time.perf_counter() - t0:.6f} s")
+    parted = compare_adaptive(rows, rows_cpu)
+    for i, r in enumerate(rows):
+        if r.label in parted:
+            log(f"  trajectory parts from the CPU's: "
+                f"{first_divergence(cases[i], DEV)}")
+    if parted:
+        raise AssertionError(f"grid ({name}): the card's control "
+                             f"trajectories differ from the CPU's: {parted}")
+    return {"rows": rows, "launches": launches, "saturate_calls": calls[0],
+            "wall_s": wall, "timings": timings, "us_per_slot": per_slot_us,
+            "policies": policies,
+            "construction_s": {r.label: r.construction_s for r in rows}}
+
+
+def replay_skipped(credit, order, bucket, p_pid, tx, drained, H):
+    """``_replay_credit`` without the ledger: the per-slot tx in f64 and no
+    FCTs, for a rerun that reads only the device's trace."""
+    return np.asarray(tx, np.float64)
+
+
+def adaptive_phases() -> dict:
+    """Grids (a) and (b) on the card against the CPU, then a traced rerun
+    of grid (a) without the host's credit replay: the device's idle share
+    in the slot loop and the Sinkhorn kernel's device time in the control
+    plane.  Returns each grid's numbers without its rows."""
+    grid_a = adaptive_grid_a()
+    res_a = adaptive_grid("a", grid_a)
+    res_b = adaptive_grid("b", adaptive_grid_b())
+    for r in res_b.pop("rows"):
+        st = r.meta["gather_steps"]
+        if st == DISAGREE_N - 1 and np.any(r.epoch_disagreement != 0.0):
+            raise AssertionError(f"{r.label}: a full gather disagrees")
+        if st == 2 and not r.collision_lost_bits > 0:
+            raise AssertionError(f"{r.label}: a 2-step gather lost no "
+                                 "capacity to collisions")
+    log("  grid (b): full gathers never disagree, every 2-step gather "
+        "loses capacity to collisions")
+    del res_a["rows"]
+
+    log("== traced rerun of grid (a) on the card (torch.profiler; no "
+        "credit replay)")
+    traced: dict = {}
+    t0 = time.perf_counter()
+    with swapped(sim_mod, "_replay_credit", replay_skipped), \
+            profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        run_adaptive(grid_a, BITS_PER_SLOT, device=DEV, timings=traced)
+    traced_s = time.perf_counter() - t0
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    sink = [e for e in on_dev if "sinkhorn_" in e.name]
+    copies = [e for e in on_dev if e.name.startswith(("Memcpy", "Memset"))]
+    plane = [e for e in on_dev if "sinkhorn_" not in e.name
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    trace = {"traced_s": traced_s, "timings": traced}
+    if on_dev:
+        busy = sum(e.time_range.elapsed_us() for e in plane) / 1e6
+        sink_s = sum(e.time_range.elapsed_us() for e in sink) / 1e6
+        copy = sum(e.time_range.elapsed_us() for e in copies) / 1e6
+        idle = 1 - busy / traced["device_loop_s"]
+        trace.update(plane_kernels=len(plane), plane_busy_s=busy,
+                     idle_share=idle, sinkhorn_kernels=len(sink),
+                     sinkhorn_s=sink_s, copies_s=copy)
+        log(f"  traced run {traced_s:.6f} s: control {traced['control_s']:.6f} "
+            f"s, of it {len(sink)} sinkhorn kernels {sink_s:.6f} s on the "
+            f"card; data plane {len(plane)} kernels "
+            f"({len(plane) / traced['slots']:.3f} per slot), device busy "
+            f"{busy:.6f} s of the {traced['device_loop_s']:.6f} s loop "
+            f"(idle share {idle:.4f}); copies {copy:.6f} s")
+    else:
+        log("  the profiler recorded no device events: device busy time "
+            "not measured")
+    return {"a": res_a, "b": res_b, "trace": trace}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1537,6 +1851,10 @@ def main() -> int:
         log("  the profiler recorded no device events: device busy time "
             "not measured")
 
+    # -- 5a. the adaptive loop: grids (a) and (b) on the card --------------
+    adaptive = adaptive_phases()
+    gc.collect()
+
     # -- 5b. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
@@ -1559,21 +1877,28 @@ def main() -> int:
     log(f"mamba_scan instances: {json.dumps(mamba)}")
     for arch, res in served.items():
         log(f"serving {arch}: {json.dumps(res)}")
+    log("adaptive: " + json.dumps(adaptive))
+    sinkhorn_by_path = {"sweep": launches,
+                        "adaptive_a": adaptive["a"]["launches"],
+                        "adaptive_b": adaptive["b"]["launches"]}
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sinkhorn.cu",
         "replaces": "src/repro/kernels/sinkhorn/sinkhorn.py:39",
-        "launches": launches,
+        "launches": sum(sinkhorn_by_path.values()),
+        "launches_by_path": sinkhorn_by_path,
         **{k: main_shape[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "dtype", "shape", "iters", "variant",
             "cluster")},
         "cuda_launches_per_call": sinkhorn_per_call,
     }]
-    # sinkhorn's `launches` counts wrapper calls on the sweep's main path,
-    # its `cuda_launches_per_call` those of one traced schedule; for the
-    # others `launches` counts wrapper calls on the serving paths, summed
+    # sinkhorn's `launches` counts wrapper calls on the sweep's schedules
+    # and the two adaptive grids, each read between its own resets
+    # (`launches_by_path`), its `cuda_launches_per_call` those of one traced
+    # schedule; for the others `launches` counts wrapper calls on the
+    # serving paths, summed
     # over the paths that run the kernel (`launches_by_path`); a call may be
     # several CUDA launches (`cuda_launches_per_call`, from the first
     # serving path's traced prefill or decode that calls it), and `ms` is

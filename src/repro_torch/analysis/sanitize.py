@@ -1,18 +1,25 @@
 """Runtime simulation sanitizer of the port: per-run contract checks.
 
 The port's copy of the parts of ``repro.analysis.sanitize`` that the
-single-hop sweep uses.  Enabled with ``REPRO_SANITIZE=1`` (read at call
-time) or explicitly via ``run_sweep(..., sanitize=True)``.  Checks only
+single-hop sweep and the adaptive loop use.  Enabled with
+``REPRO_SANITIZE=1`` (read at call time) or explicitly via
+``run_sweep(..., sanitize=True)`` / ``run_adaptive(..., sanitize=True)``.  Checks only
 *observe* state the engine already holds — a sanitized run is
 bit-identical to an unsanitized one.
 
 Contracts:
 
 * **Bit conservation** — injected bits = delivered + still-queued.
-* **Schedule validity** — every ``Schedule.perms`` row is a permutation.
+* **Schedule validity** — every ``Schedule.perms`` row is a permutation,
+  and every installed per-slot circuit set is a partial matching
+  post-arbitration: per-source and per-destination capacity within
+  ``d_hat * bits_per_slot * (1 - recfg_frac)``, no self-loops.
+* **Disagreement-accounting closure** — a merged per-node plan's
+  ``lost[s]`` (capacity lost to output-port collisions) never exceeds the
+  capacity of that slot's contested traffic-carrying claims.
 * **Flow-credit closure** — bits credited to flows by the processor-
   sharing tracker match the bits the data plane delivered.
-* **Shape/dtype contracts** — on workloads.
+* **Shape/dtype contracts** — on workloads and ring views.
 
 ``rtol`` covers float64 host engines, ``rtol32`` the float32 data plane.
 """
@@ -143,6 +150,95 @@ class Sanitizer:
         if not (0.0 <= sched.recfg_frac < 1.0):
             self._fail(name, f"recfg_frac must be in [0, 1) "
                              f"(got {sched.recfg_frac})")
+
+    def check_views(self, views) -> None:
+        """Ring-AllGather output contract (``estimate_all_views``): boolean
+        square ownership mask with every node holding its own row, finite
+        nonnegative dequantized rows of matching shape."""
+        self._ran("views")
+        name = "views"
+        have, rows = views.have, views.rows
+        if have.dtype != np.bool_ or have.ndim != 2 \
+                or have.shape[0] != have.shape[1]:
+            self._fail(name, f"have must be a square bool mask "
+                             f"(got {have.dtype} {have.shape})")
+        if rows.shape[0] != have.shape[0]:
+            self._fail(name, f"rows/have node counts differ: "
+                             f"{rows.shape[0]} != {have.shape[0]}")
+        if not np.diagonal(have).all():
+            self._fail(name, "every node must hold its own row from slot 0 "
+                             "(have diagonal contains False)")
+        if not np.isfinite(rows).all() or (rows < 0).any():
+            self._fail(name, "dequantized rows must be finite and >= 0 "
+                             "(quantizer ticks cannot go negative)")
+
+    # -- partial-matching / plan validity -----------------------------------
+
+    def check_support(self, src: np.ndarray, dst: np.ndarray,
+                      cap: np.ndarray, n: int, d_hat: int, w: float,
+                      label: str = "support") -> None:
+        """One slot's circuit set is a partial matching post-arbitration:
+        capacities nonnegative, no self-loops, and per-source / per-
+        destination totals within ``d_hat * w`` (w = per-circuit bits after
+        the reconfiguration guard band)."""
+        self._ran("support")
+        name = label
+        if (cap < 0).any():
+            self._fail(name, "negative circuit capacity")
+        if (src == dst).any():
+            self._fail(name, "self-loop circuit in the served support "
+                             "(self-loops must be dropped pre-merge)")
+        budget = d_hat * w
+        tol = self._tol(budget)
+        per_src = np.bincount(src, weights=cap, minlength=n)
+        per_dst = np.bincount(dst, weights=cap, minlength=n)
+        if per_src.max(initial=0.0) > budget + tol:
+            self._fail(name, f"source port over-committed: "
+                             f"{per_src.max():.6g} > d_hat*w = {budget:.6g} "
+                             "(slot support is not a partial matching)")
+        if per_dst.max(initial=0.0) > budget + tol:
+            self._fail(name, f"output port over-claimed: "
+                             f"{per_dst.max():.6g} > d_hat*w = {budget:.6g} "
+                             "(collision resolution must leave one winner)")
+
+    def check_plan_pairs(self, pid: np.ndarray, cap: np.ndarray, n: int,
+                         d_hat: int, w: float,
+                         label: str = "plan") -> None:
+        """:meth:`check_support` for flattened ``src * n + dst`` pair ids
+        (the sparse engines' native plan format)."""
+        self.check_support(pid // n, pid % n, cap, n, d_hat, w, label=label)
+
+    def check_fabric_plan(self, fp, n: int, d_hat: int, w: float) -> None:
+        """A merged (collision-resolved) circuit plan: every slot a partial
+        matching, loss accounting nonnegative and — when the plan carries
+        per-slot contested-claim counts — closed: ``lost[s]`` can never
+        exceed the capacity of slot s's contested traffic-carrying claims
+        (arbitration recovers claims, it never invents loss)."""
+        self._ran("fabric_plan")
+        name = f"fabric_plan:g{fp.groups}"
+        if len(fp.plans) != fp.n_slots:
+            self._fail(name, f"plan length != n_slots ({fp.n_slots})")
+        if len(fp.lost) != fp.n_slots:
+            self._fail(name, f"lost length != n_slots ({fp.n_slots})")
+        if not (0.0 <= fp.disagreement <= 1.0):
+            self._fail(name, f"disagreement {fp.disagreement} not in [0, 1]")
+        if (fp.lost < 0).any():
+            self._fail(name, "negative collision loss")
+        for s, (pid, cap) in enumerate(fp.plans):
+            self.check_plan_pairs(pid, cap, n, d_hat, w,
+                                  label=f"{name}:slot{s}")
+        bound = fp.contested * w
+        tol = self._tol(float(bound.max(initial=0.0)))
+        if (fp.lost > bound + tol).any():
+            s = int(np.argmax(fp.lost - bound))
+            self._fail(name, f"slot {s} collision loss {fp.lost[s]:.6g} "
+                             f"exceeds its contested-claim capacity "
+                             f"{bound[s]:.6g} — disagreement accounting "
+                             "does not close")
+        if fp.groups == 1:
+            if fp.disagreement != 0.0 or fp.lost.any():
+                self._fail(name, "a consistent fabric (one schedule) must "
+                                 "have zero disagreement and zero loss")
 
     # -- conservation / closure ---------------------------------------------
 

@@ -1,5 +1,5 @@
-"""Carry schedules, workloads and model parameters across from the JAX
-package.
+"""Carry schedules, workloads, adaptive cases and model parameters across
+from the JAX package.
 
 Duck-typed: any object with the reference's fields converts, so the port
 never imports ``repro``.  The tests use it to run both packages on the
@@ -13,10 +13,11 @@ import numpy as np
 import torch
 
 from .core.schedule import Schedule
-from .core.simulator import Workload
+from .core.simulator import AdaptiveCase, Workload
 from .models.transformer import check_supported
 
-__all__ = ["params_from", "schedule_from", "workload_from"]
+__all__ = ["adaptive_case_from", "params_from", "schedule_from",
+           "workload_from"]
 
 
 def schedule_from(s) -> Schedule:
@@ -35,6 +36,35 @@ def workload_from(wl) -> Workload:
                     size=np.array(wl.size, dtype=np.float64),
                     arrival=np.array(wl.arrival, dtype=np.int64),
                     n=int(wl.n), horizon=int(wl.horizon))
+
+
+def adaptive_case_from(case, wl: Workload | None = None) -> AdaptiveCase:
+    """The port's :class:`AdaptiveCase` with ``case``'s fields, its
+    ``oracle_demand`` as f64.  ``wl`` is the port's copy of ``case.wl``
+    (default: a new one): pass one copy for every case that shares a
+    workload, since the loop's caches key on the workload object, as the
+    reference's do.  A case's ``faults`` is carried as it is (the port's
+    loop rejects a case that has any)."""
+    od = case.oracle_demand
+    return AdaptiveCase(
+        wl=workload_from(case.wl) if wl is None else wl,
+        epoch_slots=int(case.epoch_slots), policy=str(case.policy),
+        k=int(case.k), d_hat=int(case.d_hat),
+        recfg_frac=float(case.recfg_frac), alpha=float(case.alpha),
+        gather_steps=(None if case.gather_steps is None
+                      else int(case.gather_steps)),
+        collision=str(case.collision), normalize=str(case.normalize),
+        seed=int(case.seed),
+        oracle_demand=(None if od is None
+                       else np.array(od, dtype=np.float64)),
+        construction_slots=case.construction_slots,
+        slot_seconds=float(case.slot_seconds), method=str(case.method),
+        reconfig_penalty_slots=int(case.reconfig_penalty_slots),
+        faults=case.faults,
+        activation_jitter_slots=int(case.activation_jitter_slots),
+        repair=bool(case.repair),
+        swap_tv_threshold=float(case.swap_tv_threshold),
+        label=str(case.label), meta=dict(case.meta))
 
 
 def params_from(jax_params, cfg) -> dict:

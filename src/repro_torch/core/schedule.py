@@ -5,11 +5,12 @@ slot duration on d_hat parallel port planes.  The *emulated graph* (paper
 §2.1 / Appendix B) is the time-collapsed capacity matrix over one period.
 
 The port's counterpart of ``repro.core.schedule``: the :class:`Schedule`
-container, Algorithm 1 (``vermilion_*``) and the oblivious and greedy
-baselines.  Construction stays on the host (rounding, Euler / Hopcroft-Karp
-decomposition), except the Sinkhorn projection of ``normalize="saturate"``,
-which runs on ``device`` (``None``: the card) through
-:func:`repro_torch.core.traffic.saturate`.
+container, Algorithm 1 (``vermilion_*``), the per-node control plane of
+the adaptive loop (``per_node_schedules`` and the merge helpers) and the
+oblivious and greedy baselines.  Construction stays on the host
+(rounding, Euler / Hopcroft-Karp decomposition), except the Sinkhorn
+projection of ``normalize="saturate"``, which runs on ``device``
+(``None``: the card) through :func:`repro_torch.core.traffic.saturate`.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ __all__ = [
     "vermilion_emulated_topologies",
     "vermilion_schedule",
     "vermilion_schedules",
+    "per_node_schedules",
+    "effective_perms",
+    "planes_changed",
+    "schedule_disagreement",
     "spread_matchings",
     "oblivious_schedule",
     "greedy_matching_schedule",
@@ -370,6 +375,121 @@ def vermilion_schedules(
         )
         for perms in perms_all
     ]
+
+
+# ---------------------------------------------------------------------------
+# Per-node control plane (Appendix A under a partial gather)
+# ---------------------------------------------------------------------------
+
+def per_node_schedules(
+    views,
+    k: int = 3,
+    d_hat: int = 1,
+    recfg_frac: float = 0.0,
+    seed: int = 0,
+    spread: bool = True,
+    normalize: str = "hose",
+    method: str = "euler",
+    unique: tuple[np.ndarray, np.ndarray] | None = None,
+    device=None,
+) -> tuple[list[Schedule], np.ndarray]:
+    """Each ToR's next schedule from *its own* assembled matrix.
+
+    ``views`` is a :class:`repro_torch.core.estimation.RingViews`
+    (dequantized rows + ownership mask).  Appendix A has every node run
+    ``generateSchedule`` locally on whatever matrix it assembled; identical
+    views are deduplicated before construction (two nodes holding the same
+    set of nonzero rows compute the same schedule), so a *complete* gather
+    builds exactly one schedule — bit-identical to the single-leader path —
+    while a partial gather builds up to n.  All schedules share the same
+    ``(T, n_slots, d_hat)`` footprint (k*n matchings regardless of the
+    view, including all-zero views, which degenerate to the traffic-
+    oblivious residual plus random padding), so their port planes line up
+    slot-for-slot and :func:`effective_perms` can merge them.
+
+    Every unique view uses the *same* ``seed``: nodes derandomize the
+    configuration model from shared epoch state, not per-node entropy —
+    and two nodes with equal views must emit equal schedules for the
+    dedup to be faithful.
+
+    Returns ``(schedules, owner)`` with ``owner[i]`` the index into
+    ``schedules`` of node i's plan.  ``unique`` optionally passes a
+    precomputed ``views.unique()`` result so callers that already
+    deduplicated (e.g. for the estimate-error metric) don't pay twice.
+    ``device`` is where ``normalize="saturate"`` projects each unique view
+    (``None``: the card), one Sinkhorn kernel call per view.
+    """
+    masks, owner = views.unique() if unique is None else unique
+    scheds = vermilion_schedules(
+        [views.rows * masks[g][:, None] for g in range(masks.shape[0])],
+        k=k, d_hat=d_hat, recfg_frac=recfg_frac, seed=seed, spread=spread,
+        normalize=normalize, method=method, device=device)
+    return scheds, owner
+
+
+def effective_perms(
+    schedules: list[Schedule], owner: np.ndarray
+) -> np.ndarray:
+    """The fabric's *actual* port configuration when each input port
+    follows its own node's plan: ``eff[t, i]`` is the output port node i
+    tunes its plane-t transmitter to, i.e. ``schedules[owner[i]].perms[t,
+    i]``.  Under disagreement the rows are generally *not* permutations —
+    that contention is exactly what :func:`schedule_disagreement` measures
+    and the simulator's collision resolution charges for.
+    """
+    base = schedules[0]
+    n = base.n
+    if len(owner) != n:
+        raise ValueError(f"owner must map all {n} nodes (got {len(owner)})")
+    for s in schedules[1:]:
+        if s.T != base.T or s.n != n or s.d_hat != base.d_hat:
+            raise ValueError(
+                "per-node schedules must share (T, n, d_hat) to be merged: "
+                f"{(s.T, s.n, s.d_hat)} != {(base.T, base.n, base.d_hat)}")
+    perms = np.stack([s.perms for s in schedules])       # (G, T, n)
+    return perms[np.asarray(owner), :, np.arange(n)].T   # (T, n)
+
+
+def planes_changed(
+    old_eff: np.ndarray, new_eff: np.ndarray, d_hat: int
+) -> np.ndarray:
+    """Which port planes a schedule swap actually retunes.
+
+    Plane p executes the matching subsequence ``eff[p::d_hat]``; a swap
+    only forces plane p through the reconfiguration dark window when that
+    subsequence differs between the outgoing and incoming effective
+    plans.  Returns a (d_hat,) bool mask.  Plans with different periods
+    (e.g. an oblivious T = n-1 plan replaced by a vermilion T = k*n one)
+    retune everything: all True.  Phase alignment at the swap slot is
+    deliberately ignored — a plane whose matching *cycle* is unchanged
+    keeps serving through the swap even if the swap shifts its phase,
+    matching the fabric model where retuning (not re-phasing) costs the
+    dark window.
+    """
+    if old_eff.shape != new_eff.shape:
+        return np.ones(d_hat, dtype=bool)
+    changed = np.zeros(d_hat, dtype=bool)
+    for p in range(d_hat):
+        changed[p] = not np.array_equal(old_eff[p::d_hat],
+                                        new_eff[p::d_hat])
+    return changed
+
+
+def schedule_disagreement(
+    schedules: list[Schedule], owner: np.ndarray
+) -> float:
+    """Fraction of (matching, input-port) assignments that are contested:
+    the input claims an output port some other input of the same matching
+    also claims, so the row is not a matching there.  0.0 iff every
+    matching of the merged plan is conflict-free — in particular whenever
+    all nodes share one schedule (each row is then a permutation).
+    """
+    eff = effective_perms(schedules, owner)
+    t_count, n = eff.shape
+    claims = np.bincount(
+        (np.arange(t_count)[:, None] * n + eff).reshape(-1),
+        minlength=t_count * n).reshape(t_count, n)
+    return float((claims[np.arange(t_count)[:, None], eff] > 1).mean())
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Flow-level timeslot simulator of the port: the batched single-hop sweep.
+"""Flow-level timeslot simulator of the port: the batched single-hop sweep
+and the adaptive control loop.
 
 The port's counterpart of the single-hop path of ``repro.core.simulator``
-(``run_sweep(..., backend="jax")``): per (src, dst) virtual output queues,
-FIFO within a queue, transmissions paused during reconfiguration (the
+(``run_sweep(..., backend="jax")`` and ``run_adaptive(...,
+backend="jax")``): per (src, dst) virtual output queues, FIFO within a
+queue, transmissions paused during reconfiguration (the
 ``1 - recfg_frac`` capacity factor), processor-sharing flow completion.
 
 A sweep is three layers:
@@ -22,12 +24,27 @@ A sweep is three layers:
    reconciliation (``drained`` flags + ``_F32_DRAIN_REL``), which gives
    per-flow FCTs.
 
-The host ledger (workloads, ``SimResult``, ``_CreditState``) is the port's
-own copy of the reference's.  Two-hop modes (``rotorlb`` / ``vlb``) and
-fault injection are not ported yet and raise ``NotImplementedError``.
+:func:`run_adaptive` (see :class:`AdaptiveCase`) closes the paper's
+Appendix-A loop on top of the same two lower layers.  The epoch counters
+that drive its control plane accumulate *arrivals* only, so the host
+replays the whole control trajectory before any serving
+(:func:`_compile_adaptive_plan`: fleet EWMA, quantized ring gather,
+per-node schedules, collision-resolved fabric plans, construction and
+reconfiguration charging) and emits, per slot, an index into a registry of
+circuit plans; the batch's plans are laid out as per-case column blocks
+and served in one :func:`singlehop` run on ``device``.  Under
+``normalize="saturate"`` every schedule the loop builds projects through
+the Sinkhorn kernel on ``device``.
+
+The host ledger (workloads, ``SimResult``, ``_CreditState``) and the
+control plane are the port's own copies of the reference's.  Two-hop modes
+(``rotorlb`` / ``vlb``), fault injection, the repair loop,
+``collision="fullest"`` and activation jitter are not ported yet and raise
+before any case runs; the aggregate plane is not ported.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field
 
@@ -36,15 +53,28 @@ import torch
 
 from ..analysis.sanitize import make_sanitizer
 from ..device import DATA_DTYPE, resolve_device
-from .schedule import Schedule
+from .estimation import TrafficEstimator, estimate_all_views
+from .schedule import (
+    Schedule,
+    effective_perms,
+    oblivious_schedule,
+    per_node_schedules,
+    planes_changed,
+    vermilion_schedule,
+)
+from .traffic import phase_train
 
 __all__ = [
     "Workload",
     "websearch_workload",
+    "phase_shifting_workload",
     "SimResult",
     "SweepCase",
     "SweepRow",
+    "AdaptiveCase",
+    "AdaptiveRow",
     "run_sweep",
+    "run_adaptive",
     "singlehop",
     "WEBSEARCH_CDF",
 ]
@@ -139,6 +169,64 @@ def websearch_workload(
         horizon=horizon,
     )
 
+
+
+def phase_shifting_workload(
+    n: int,
+    load: float,
+    horizon: int,
+    bits_per_slot: float,
+    d_hat: int = 1,
+    seed: int = 0,
+    phases: tuple[str, ...] = ("permutation", "uniform", "dlrm"),
+    shift_period: int | None = None,
+) -> Workload:
+    """Non-stationary websearch traffic: the destination pattern follows a
+    phase train (see :func:`repro_torch.core.traffic.phase_train`),
+    shifting every ``shift_period`` slots (default: the horizon split
+    evenly across the phases, cycling if it is longer).
+
+    Within a phase with hose-normalized demand matrix ``m``, node ``s``
+    opens Poisson flow arrivals at ``load * rowsum(m)[s]`` of its egress
+    capacity (``d_hat * bits_per_slot``/slot), websearch flow sizes, and
+    destinations drawn from ``m[s]``'s profile — so the *offered* matrix of
+    each phase tracks its demand matrix while flow-level burstiness stays.
+    """
+    rng = np.random.default_rng(seed)
+    mean_size = float(np.mean(_sample_websearch(rng, 20000)))
+    if shift_period is None:
+        shift_period = -(-horizon // len(phases))
+    if shift_period <= 0:
+        raise ValueError("shift_period must be positive")
+    mats = phase_train(n, tuple(phases), seed=seed)
+    srcs, dsts, sizes, arrs = [], [], [], []
+    for t0 in range(0, horizon, shift_period):
+        t1 = min(t0 + shift_period, horizon)
+        m = mats[(t0 // shift_period) % len(mats)]
+        row_tot = m.sum(axis=1)
+        for s in range(n):
+            if row_tot[s] <= 0:
+                continue
+            lam = load * d_hat * bits_per_slot * row_tot[s] / mean_size
+            kf = int(rng.poisson(lam * (t1 - t0)))
+            if kf == 0:
+                continue
+            srcs.append(np.full(kf, s))
+            arrs.append(rng.integers(t0, t1, size=kf))
+            sizes.append(_sample_websearch(rng, kf))
+            dsts.append(rng.choice(n, size=kf, p=m[s] / row_tot[s]))
+    if not srcs:
+        srcs, dsts = [np.empty(0, np.int64)], [np.empty(0, np.int64)]
+        sizes, arrs = [np.empty(0)], [np.empty(0, np.int64)]
+    order = np.argsort(np.concatenate(arrs), kind="stable")
+    return Workload(
+        src=np.concatenate(srcs)[order].astype(np.int64),
+        dst=np.concatenate(dsts)[order].astype(np.int64),
+        size=np.concatenate(sizes)[order],
+        arrival=np.concatenate(arrs)[order].astype(np.int64),
+        n=n,
+        horizon=horizon,
+    )
 
 
 @dataclass
@@ -540,6 +628,58 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _lapper(timings: dict | None):
+    """A ``lap(key)`` that adds the wall seconds since the previous lap
+    (or since this call) to ``timings[key]``; a no-op sink when
+    ``timings`` is None."""
+    last = [time.perf_counter()]
+
+    def lap(key: str) -> None:
+        now = time.perf_counter()
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + now - last[0]
+        last[0] = now
+    return lap
+
+
+def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
+           p_cap: np.ndarray, dev: torch.device, lap, timings: dict | None):
+    """Serve the ``(H, Jtot)`` plan ``p_pid`` / ``p_cap`` (int64 global
+    pair ids, f32 capacities; case b's pairs offset by ``b * n * n``) to
+    the flows of ``wls`` on ``dev`` and replay the delivered amounts
+    through the f64 credit ledger.  Returns (f_off, fct, credit, tx64,
+    voq): flow offsets per case, per-flow FCTs, the ledger, the per-slot
+    tx in f64 and the final VOQ on the host."""
+    n = wls[0].n
+    H = p_pid.shape[0]
+    f_off, fct, credit, order, bucket, apid, asz = _singlehop_flows(
+        wls, n, horizons, H)
+    lap("layout_s")
+
+    # the plan, the arrival list and the VOQ go up once
+    d_pid = torch.from_numpy(p_pid).to(dev)
+    d_cap = torch.from_numpy(p_cap).to(dev)
+    d_apid = torch.from_numpy(apid).to(dev)
+    d_asz = torch.from_numpy(asz).to(dev)
+    voq = torch.zeros(len(wls) * n * n, dtype=DATA_DTYPE, device=dev)
+    tx = torch.empty(p_pid.shape, dtype=DATA_DTYPE, device=dev)
+    drained = torch.empty(p_pid.shape, dtype=torch.bool, device=dev)
+    _sync(dev)
+    lap("upload_s")
+    singlehop(voq, d_apid, d_asz, bucket, d_pid, d_cap, tx, drained)
+    _sync(dev)
+    lap("device_loop_s")
+    tx_h = tx.cpu().numpy()
+    dr_h = drained.cpu().numpy()
+    voq_h = voq.cpu().numpy()
+    lap("download_s")
+    if timings is not None:
+        timings["slots"] = timings.get("slots", 0) + H
+    tx64 = _replay_credit(credit, order, bucket, p_pid, tx_h, dr_h, H)
+    lap("replay_s")
+    return f_off, fct, credit, tx64, voq_h
+
+
 def _singlehop_batch(
     cases: list[tuple[Schedule, Workload]], bits_per_slot: float,
     dev: torch.device, san=None, timings: dict | None = None,
@@ -549,16 +689,7 @@ def _singlehop_batch(
     ``dev`` and the host replays the delivered amounts through the exact
     f64 processor-sharing credit ledger.  ``timings``, if given, receives
     the wall seconds of each phase (accumulated over batches)."""
-    t_phase = time.perf_counter()
-
-    def lap(key: str) -> None:
-        nonlocal t_phase
-        now = time.perf_counter()
-        if timings is not None:
-            timings[key] = timings.get(key, 0.0) + now - t_phase
-        t_phase = now
-
-    B = len(cases)
+    lap = _lapper(timings)
     n = cases[0][1].n
     for sched, wl in cases:
         if wl.n != n:
@@ -584,31 +715,8 @@ def _singlehop_batch(
         h_b = int(horizons[b])
         p_pid[:, offs[b]:offs[b + 1]] = ppid[ps]
         p_cap[:h_b, offs[b]:offs[b + 1]] = pcap[ps[:h_b]]
-    f_off, fct, credit, order, bucket, apid, asz = _singlehop_flows(
-        [wl for _, wl in cases], n, horizons, H)
-    lap("layout_s")
-
-    # the padded plan, the arrival list and the VOQ go up once
-    d_pid = torch.from_numpy(p_pid).to(dev)
-    d_cap = torch.from_numpy(p_cap).to(dev)
-    d_apid = torch.from_numpy(apid).to(dev)
-    d_asz = torch.from_numpy(asz).to(dev)
-    voq = torch.zeros(B * n * n, dtype=DATA_DTYPE, device=dev)
-    tx = torch.empty((H, Jtot), dtype=DATA_DTYPE, device=dev)
-    drained = torch.empty((H, Jtot), dtype=torch.bool, device=dev)
-    _sync(dev)
-    lap("upload_s")
-    singlehop(voq, d_apid, d_asz, bucket, d_pid, d_cap, tx, drained)
-    _sync(dev)
-    lap("device_loop_s")
-    tx_h = tx.cpu().numpy()
-    dr_h = drained.cpu().numpy()
-    voq_h = voq.cpu().numpy()
-    lap("download_s")
-    if timings is not None:
-        timings["slots"] = timings.get("slots", 0) + H
-    tx64 = _replay_credit(credit, order, bucket, p_pid, tx_h, dr_h, H)
-    lap("replay_s")
+    f_off, fct, credit, tx64, voq_h = _serve(
+        [wl for _, wl in cases], horizons, p_pid, p_cap, dev, lap, timings)
 
     results = []
     for b, (sched, wl) in enumerate(cases):
@@ -708,13 +816,13 @@ def run_sweep(
             raise NotImplementedError(
                 f"cases[{i}] ({c.label!r}): mode {c.mode!r} is not ported "
                 "to repro_torch yet — the two-hop data planes are ROADMAP "
-                "queue 1 ('aggregate and two-hop data planes')")
+                "queue 1, item 2 ('aggregate and two-hop data planes')")
         if c.faults:
             raise NotImplementedError(
                 f"cases[{i}] ({c.label!r}): fault injection is not "
                 "implemented in repro_torch — its data plane has no "
-                "per-slot fault mask (ROADMAP queue 1, the numpy engine's "
-                "features)")
+                "per-slot fault mask (ROADMAP queue 1, item 4, the numpy "
+                "engine's features)")
     dev = resolve_device(device)
     san = make_sanitizer(sanitize)
     groups: dict[int, list[int]] = {}
@@ -730,4 +838,848 @@ def run_sweep(
         for i, r in zip(idxs, results):
             rows[i] = SweepRow(label=cases[i].label, mode=cases[i].mode,
                                result=r, meta=dict(cases[i].meta), sim_s=dt)
+    return rows  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Adaptive epoch-driven scheduling (closed estimation -> schedule loop)
+# ---------------------------------------------------------------------------
+
+_POLICIES = ("adaptive", "oracle", "stale", "oblivious")
+_COLLISIONS = ("drop", "lowest", "receiver", "fullest")
+# the arbiters whose winners _fabric_plan can precompute
+_STATIC_COLLISIONS = ("drop", "lowest", "receiver")
+
+
+@dataclass(frozen=True)
+class _FabricPlan:
+    """The fabric's merged per-slot circuit plan when every input port
+    follows its own node's schedule, with output-port collisions already
+    resolved.  ``plans[s]`` is the period-slot-s ``(pair_id, capacity)``
+    support the data plane serves; ``lost[s]`` the capacity (bits) that
+    slot loses to contention; ``disagreement`` the contested fraction of
+    (matching, port) claims (see ``schedule_disagreement``).  A consistent
+    fabric (one schedule) has zero loss and zero disagreement and its
+    plans are byte-identical to ``Schedule.slot_circuits``.
+
+    ``contested[s]`` counts slot s's contested traffic-carrying claims
+    (src != dst inputs whose output port at least one other input also
+    claims) — the capacity ``contested * w`` bounds ``lost`` from above
+    for every arbitration policy, which is the disagreement-accounting
+    closure the sanitizer enforces.
+
+    ``eff``/``nonself``/``win`` carry the raw (T, n) claim structure so
+    partially-dark planes can rebuild any slot's support from first
+    principles: ``eff[t, i]`` the port input i is tuned to, ``win`` the
+    statically-arbitrated winners; row t runs on plane ``t % d_hat``."""
+
+    plans: list
+    n_slots: int
+    disagreement: float
+    lost: np.ndarray
+    groups: int
+    contested: np.ndarray
+    eff: np.ndarray                    # (T, n) effective port claims
+    nonself: np.ndarray                # (T, n) claim would carry traffic
+    win: np.ndarray                    # (T, n) statically arbitrated winners
+    w: float                           # bits per circuit-slot after guard
+
+
+def _fabric_plan(
+    scheds: list[Schedule],
+    owner: np.ndarray,
+    bits_per_slot: float,
+    collision: str,
+) -> _FabricPlan:
+    """Merge per-node schedules into the fabric's effective circuit plan.
+
+    With one schedule (all nodes agree) this is exactly the consistent
+    plan of ``Schedule.slot_circuits``.  With several, each input port i is
+    configured by *its own* node's matching row, so a merged row is
+    generally not a permutation: two or more inputs can claim the same
+    output port of the same plane.  ``collision`` picks the data-plane
+    resolution:
+
+      * ``"drop"``     — every contested claim is lost (an optical
+        receiver locked by two carriers recovers neither); the
+        pessimistic, arbitration-free fabric.
+      * ``"lowest"``   — the lowest-index input wins the port (a fixed-
+        priority electrical arbiter); deterministic but unfair.
+      * ``"receiver"`` — receiver-plane arbitration with rotating
+        priority: matching t's port grants the contender whose index is
+        next at/after ``t mod n``, spreading wins evenly over a period.
+
+    Self-loop claims (the configuration model allows them) contend for
+    the output port like any other claim but never carry traffic —
+    matching the consistent path, where self-loops are dropped from the
+    circuit support.  Lost capacity counts only claims that would have
+    carried traffic (src != dst) had the port not been contested.
+
+    The reference's queue-aware ``"fullest"`` cannot be precomputed (its
+    winners depend on per-slot VOQ depth); it is not ported and raises.
+    """
+    if collision not in _STATIC_COLLISIONS:
+        raise ValueError(f"collision must be one of {_STATIC_COLLISIONS} "
+                         f"(got {collision!r})")
+    if len(scheds) == 1:
+        sched = scheds[0]
+        n = sched.n
+        plans = [(at * n + v, cap)
+                 for at, v, cap in sched.slot_circuits(bits_per_slot)]
+        perms = sched.perms
+        return _FabricPlan(plans=plans, n_slots=sched.n_slots,
+                           disagreement=0.0,
+                           lost=np.zeros(sched.n_slots), groups=1,
+                           contested=np.zeros(sched.n_slots),
+                           eff=perms, nonself=perms != np.arange(n)[None, :],
+                           win=np.ones(perms.shape, dtype=bool),
+                           w=bits_per_slot * (1.0 - sched.recfg_frac))
+
+    base = scheds[0]
+    n, T, d_hat, n_slots = base.n, base.T, base.d_hat, base.n_slots
+    for s in scheds[1:]:
+        # effective_perms (below) checks the (T, n, d_hat) footprint;
+        # capacity pricing additionally needs one reconfiguration fraction
+        if s.recfg_frac != base.recfg_frac:
+            raise ValueError(
+                "per-node schedules must share recfg_frac to be merged: "
+                f"{s.recfg_frac} != {base.recfg_frac}")
+    eff = effective_perms(scheds, owner)                 # (T, n)
+    w = bits_per_slot * (1.0 - base.recfg_frac)
+    src = np.arange(n)
+    kf = (np.arange(T)[:, None] * n + eff).reshape(-1)   # claim key (t, v)
+    claims = np.bincount(kf, minlength=T * n)
+    contested = (claims[kf] > 1).reshape(T, n)
+    nonself = eff != src[None, :]
+    slot_of = np.arange(T) // d_hat
+    # same claim counting as schedule_disagreement(scheds, owner), reused
+    contested_n = np.bincount(
+        slot_of, weights=(nonself & contested).sum(axis=1),
+        minlength=n_slots)
+
+    if collision == "drop":
+        win = ~contested
+    else:
+        if collision == "lowest":
+            order = np.argsort(kf, kind="stable")        # src asc per claim
+        else:  # receiver: rotating priority (t mod n) over source index
+            prio = (src[None, :] - np.arange(T)[:, None] % n) % n
+            order = np.lexsort((prio.reshape(-1), kf))
+        ks = kf[order]
+        first = np.r_[True, ks[1:] != ks[:-1]]
+        win = np.zeros(T * n, dtype=bool)
+        win[order[first]] = True
+        win = win.reshape(T, n)
+
+    live = win & nonself
+    lost = np.bincount(slot_of, weights=(nonself & ~live).sum(axis=1) * w,
+                       minlength=n_slots)
+
+    t_idx, s_idx = np.nonzero(live)
+    key = slot_of[t_idx] * (n * n) + s_idx * n + eff[t_idx, s_idx]
+    upid, inv = np.unique(key, return_inverse=True)
+    cap = np.bincount(inv, weights=np.full(len(key), w))
+    bounds = np.searchsorted(upid // (n * n), np.arange(n_slots + 1))
+    pid_u = upid % (n * n)
+    plans = [(pid_u[bounds[s]:bounds[s + 1]], cap[bounds[s]:bounds[s + 1]])
+             for s in range(n_slots)]
+    return _FabricPlan(plans=plans, n_slots=n_slots,
+                       disagreement=float(contested.mean()),
+                       lost=lost, groups=len(scheds),
+                       contested=contested_n,
+                       eff=eff, nonself=nonself, win=win, w=w)
+
+
+def _quantizer_unit(
+    epoch_slots: int, k: int, d_hat: int, bits_per_slot: float
+) -> float:
+    """Quantization unit for an epoch's VOQ byte counters.
+
+    A1's quantizer clips at 65535 ticks; raw epoch totals reach
+    ``epoch_slots * d_hat`` slot-equivalents, which for long epochs would
+    saturate silently and flatten the estimate toward uniform.  Coarsen the
+    unit just enough that one epoch at line rate stays representable —
+    the schedule is scale-invariant, so resolution is all that changes.
+    """
+    full_ticks = epoch_slots * d_hat * k / (k - 1)
+    return bits_per_slot * max(1.0, full_ticks / 65535.0)
+
+
+@dataclass(frozen=True)
+class AdaptiveCase:
+    """One closed-loop simulation case for :func:`run_adaptive`; the
+    port's copy of the reference's ``AdaptiveCase``, with the same fields
+    and checks.
+
+    ``policy``:
+      * ``"adaptive"``  — cold-start on the oblivious round-robin, then at
+        every epoch boundary run the Appendix-A estimation round over the
+        epoch's VOQ byte counters and hot-swap to the recomputed
+        ``vermilion_schedule``.
+      * ``"oracle"``    — clairvoyant: recompute each epoch from the *next*
+        epoch's true offered matrix (upper bound for any estimator).
+      * ``"stale"``     — the oracle schedule of epoch 0, never recomputed
+        (what an open control loop actually ships).
+      * ``"oblivious"`` — round-robin baseline, never recomputed.
+
+    ``gather_steps``: AllGather slots executed per estimation round; fewer
+    than ``n - 1`` models a partial (mid-phase-failure) gather, under
+    which every node swaps to the schedule of *its own* view (identical
+    views deduplicated) and the data plane serves the merged port
+    configuration with output-port contention resolved per ``collision``
+    (``"drop"``, ``"lowest"`` or ``"receiver"``; see ``_fabric_plan``).
+
+    ``oracle_demand``: optional (n_epochs, n, n) true demand-*rate*
+    matrices for the oracle/stale policies; without it they fall back to
+    each epoch's realized offered matrix.
+
+    ``construction_slots`` charges schedule construction: a recomputed
+    schedule only takes effect that many slots into the epoch, the
+    previous one serving in the interim; ``"measured"`` charges each
+    recompute its wall-clock construction time at ``slot_seconds`` a slot
+    (so its trajectory differs run to run).  ``reconfig_penalty_slots``
+    darkens the planes a swap retunes (``planes_changed``) for that many
+    slots.  ``swap_tv_threshold`` > 0 skips a recompute while the
+    normalized estimate stays within that total-variation distance of the
+    last installed one.  ``normalize="saturate"`` projects every estimate
+    through the Sinkhorn kernel on the run's device.
+
+    ``faults``, ``activation_jitter_slots`` and ``repair`` are accepted
+    for the reference's shape; :func:`run_adaptive` rejects a case that
+    sets them (ROADMAP queue 1, item 4).
+    """
+
+    wl: Workload
+    epoch_slots: int
+    policy: str = "adaptive"
+    k: int = 3
+    d_hat: int = 1
+    recfg_frac: float = 0.0
+    alpha: float = 0.3                # EWMA weight of the newest epoch
+    gather_steps: int | None = None
+    collision: str = "drop"
+    normalize: str = "hose"
+    seed: int = 0
+    oracle_demand: np.ndarray | None = None
+    construction_slots: int | str = 0
+    slot_seconds: float = 4.5e-6
+    method: str = "euler"
+    reconfig_penalty_slots: int = 0
+    faults: object | None = None
+    activation_jitter_slots: int = 0
+    repair: bool = False
+    swap_tv_threshold: float = 0.0
+    label: str = ""
+    meta: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.policy not in _POLICIES:
+            raise ValueError(f"policy must be one of {_POLICIES} "
+                             f"(got {self.policy!r})")
+        if not isinstance(self.epoch_slots, (int, np.integer)) \
+                or self.epoch_slots < 1:
+            raise ValueError(f"epoch_slots must be an int >= 1 "
+                             f"(got {self.epoch_slots!r})")
+        if self.collision not in _COLLISIONS:
+            raise ValueError(f"collision must be one of {_COLLISIONS} "
+                             f"(got {self.collision!r})")
+        cs = self.construction_slots
+        if cs != "measured" and not (isinstance(cs, (int, np.integer))
+                                     and cs >= 0):
+            raise ValueError(
+                "construction_slots must be a nonnegative int or "
+                f"'measured' (got {cs!r})")
+        if self.slot_seconds <= 0:
+            raise ValueError(f"slot_seconds must be positive "
+                             f"(got {self.slot_seconds!r})")
+        if not isinstance(self.reconfig_penalty_slots, (int, np.integer)) \
+                or self.reconfig_penalty_slots < 0:
+            raise ValueError(
+                "reconfig_penalty_slots must be a nonnegative int "
+                f"(got {self.reconfig_penalty_slots!r})")
+        gs = self.gather_steps
+        if gs is not None and not (0 <= gs <= self.wl.n - 1):
+            raise ValueError(
+                f"gather_steps must be in [0, n - 1] = [0, {self.wl.n - 1}] "
+                f"— a ring AllGather finishes in n - 1 steps (got {gs!r})")
+        if not isinstance(self.activation_jitter_slots, (int, np.integer)) \
+                or self.activation_jitter_slots < 0:
+            raise ValueError(
+                "activation_jitter_slots must be a nonnegative int "
+                f"(got {self.activation_jitter_slots!r})")
+        if self.swap_tv_threshold < 0:
+            raise ValueError(f"swap_tv_threshold must be nonnegative "
+                             f"(got {self.swap_tv_threshold!r})")
+        if self.repair and self.policy != "adaptive":
+            raise ValueError(
+                "repair requires policy='adaptive' (the other policies "
+                f"never recompute; got policy={self.policy!r})")
+
+
+@dataclass
+class AdaptiveRow:
+    label: str
+    policy: str
+    result: SimResult
+    epoch_utilization: np.ndarray   # (n_epochs,) delivered / epoch capacity
+    epoch_estimate_tv: np.ndarray   # (n_epochs,) estimate-vs-truth total-
+                                    # variation distance (nan if no estimate)
+    recomputes: int                 # schedule recomputations performed
+    sim_s: float
+    meta: dict
+    stale_slots: int = 0            # slots served by an outdated schedule
+                                    # while construction was still running
+    construction_s: float = 0.0     # wall-clock spent constructing schedules
+                                    # (summed over all unique per-node views)
+    dark_slots: int = 0             # slots lost to reconfiguration darkness
+    epoch_disagreement: np.ndarray = None   # type: ignore[assignment]
+                                    # (n_epochs,) contested fraction of the
+                                    # installed plan's (matching, port)
+                                    # claims, time-weighted over the epoch
+    epoch_collision_loss: np.ndarray = None  # type: ignore[assignment]
+                                    # (n_epochs,) fraction of the epoch's
+                                    # fabric capacity lost to collisions
+    collision_lost_bits: float = 0.0  # total capacity lost to collisions
+    schedule_groups_max: int = 1    # most distinct per-node schedules that
+                                    # were ever live at once
+    dark_plane_slots: float = 0.0   # plane-slots dark to reconfiguration
+    plan_digest: str = ""           # SHA-1 of the compiled control
+                                    # trajectory (per-slot plan ids and the
+                                    # circuit registry): equal digests, equal
+                                    # served plans
+
+
+def _check_adaptive_supported(case: AdaptiveCase, i: int) -> None:
+    """Raise for AdaptiveCase features the port's loop cannot express
+    (they need per-slot host decisions inside the serving loop), as the
+    reference's jax backend does: fault injection ``NotImplementedError``,
+    the repair loop, ``collision="fullest"`` and activation jitter
+    ``ValueError``."""
+    if case.faults:
+        raise NotImplementedError(
+            f"cases[{i}] ({case.label!r}): fault injection is not "
+            "implemented in repro_torch — it requires per-slot host "
+            "decisions the data plane cannot replay (the reference runs it "
+            "on its numpy backend; ROADMAP queue 1, item 4)")
+    reason = None
+    if case.repair:
+        reason = "the repair loop (repair=True)"
+    elif case.collision == "fullest":
+        reason = "queue-aware arbitration (collision='fullest')"
+    elif case.activation_jitter_slots > 0:
+        reason = "per-node activation jitter"
+    if reason is not None:
+        raise ValueError(
+            f"cases[{i}] ({case.label!r}): {reason} is not supported by "
+            "repro_torch's run_adaptive — it requires per-slot host "
+            "decisions the data plane cannot replay (the reference's numpy "
+            "backend only; ROADMAP queue 1, item 4)")
+
+
+def _compile_adaptive_plan(case: AdaptiveCase, bits_per_slot: float,
+                           san=None, sched_cache: dict | None = None,
+                           device=None):
+    """Host-side replay of the adaptive control loop WITHOUT serving.
+
+    The epoch counters that drive the control plane accumulate *arrival*
+    bits only — never served bits — so the whole control trajectory
+    (fleet EWMA → quantized ring gather → per-node schedules →
+    collision-resolved fabric plans → construction charging → activation
+    dark windows → churn hysteresis) is computable before any serving
+    happens.  The port of the reference's ``_compile_adaptive_plan``,
+    decision for decision: one ``np.add.at`` over the epoch's
+    stable-ordered arrival slice builds the counters, and the estimation
+    round is the f64 :func:`estimate_all_views`.  Emits, per slot, an index
+    into a registry of ``(pair_id, capacity)`` circuit plans; registry id
+    0 is the empty plan (fully-dark slots).  Schedules are built with
+    ``device`` (where ``normalize="saturate"`` projects).
+
+    ``sched_cache`` (shared across a batch) memoizes schedule
+    *construction* on the exact estimator inputs, so a grid that varies
+    only the collision policy pays construction once; the (cheap,
+    collision-specific) ``_fabric_plan`` merge always runs.  Disabled for
+    ``construction_slots="measured"``, where the charge is the actual
+    wall-clock of a fresh construction.
+    """
+    wl, n = case.wl, case.wl.n
+    E, H = case.epoch_slots, wl.horizon
+    n_epochs = -(-H // E)
+    cs = case.construction_slots
+    measured = cs == "measured"
+    if measured:
+        sched_cache = None
+    penalty = int(case.reconfig_penalty_slots)
+    if san is not None:
+        san.set_context(f"case={case.label}")
+        san.check_workload(wl)
+    san_w = bits_per_slot * (1.0 - case.recfg_frac)
+
+    f_size = wl.size.astype(np.float64)
+    valid = wl.arrival < H
+    order = np.argsort(wl.arrival, kind="stable")
+    order = order[valid[order]]
+    bucket = np.searchsorted(wl.arrival[order], np.arange(H + 1))
+
+    true_epoch = np.zeros((n_epochs, n, n))  # lint: allow-dense
+    np.add.at(true_epoch,
+              (wl.arrival[order] // E, wl.src[order], wl.dst[order]),
+              f_size[order])
+    oracle_m = case.oracle_demand
+    if oracle_m is not None and oracle_m.shape != (n_epochs, n, n):
+        raise ValueError(
+            f"oracle_demand shape {oracle_m.shape} != {(n_epochs, n, n)}")
+    if oracle_m is None:
+        oracle_m = true_epoch / E
+
+    fleet = TrafficEstimator.fleet(n, alpha=case.alpha)
+    q_unit = _quantizer_unit(E, case.k, case.d_hat, bits_per_slot)
+
+    construction_s = 0.0
+    last_construction = 0.0
+    cache_key_base = (case.k, case.d_hat, case.recfg_frac, case.normalize,
+                      case.method)
+
+    def consistent_plan(sched: Schedule) -> _FabricPlan:
+        fp = _fabric_plan([sched], np.zeros(n, dtype=np.int64),
+                          bits_per_slot, case.collision)
+        if san is not None:
+            san.check_schedule(sched)
+            san.check_fabric_plan(fp, n, sched.d_hat, san_w)
+        return fp
+
+    def vsched(m: np.ndarray, seed: int) -> Schedule:
+        nonlocal construction_s, last_construction
+        key = None
+        if sched_cache is not None:
+            key = ("v", m.tobytes(), seed) + cache_key_base
+            hit = sched_cache.get(key)
+            if hit is not None:
+                s, dt = hit
+                last_construction = dt
+                construction_s += dt
+                return s
+        t0 = time.perf_counter()
+        s = vermilion_schedule(
+            m, k=case.k, d_hat=case.d_hat, recfg_frac=case.recfg_frac,
+            seed=seed, normalize=case.normalize, method=case.method,
+            device=device)
+        last_construction = time.perf_counter() - t0
+        construction_s += last_construction
+        if key is not None:
+            sched_cache[key] = (s, last_construction)
+        return s
+
+    def vsched_per_node(views, seed: int, unique) -> _FabricPlan:
+        nonlocal construction_s, last_construction
+        masks, owner = unique
+        hit = None
+        if sched_cache is not None:
+            key = ("pn", views.rows.tobytes(), masks.tobytes(),
+                   owner.tobytes(), seed) + cache_key_base
+            hit = sched_cache.get(key)
+        if hit is not None:
+            scheds, sowner, dt = hit
+        else:
+            t0 = time.perf_counter()
+            scheds, sowner = per_node_schedules(
+                views, k=case.k, d_hat=case.d_hat,
+                recfg_frac=case.recfg_frac, seed=seed,
+                normalize=case.normalize, method=case.method, unique=unique,
+                device=device)
+            dt = time.perf_counter() - t0
+            if sched_cache is not None:
+                sched_cache[key] = (scheds, sowner, dt)
+        construction_s += dt
+        # the fabric waits for one local construction: every ToR builds
+        # only its own schedule, all concurrently
+        last_construction = dt / len(scheds)
+        fp = _fabric_plan(scheds, sowner, bits_per_slot, case.collision)
+        if san is not None:
+            for s in scheds:
+                san.check_schedule(s)
+            san.check_fabric_plan(fp, n, case.d_hat, san_w)
+        return fp
+
+    if case.policy in ("oracle", "stale"):
+        fp = consistent_plan(vsched(oracle_m[0], case.seed))
+    else:
+        fp = consistent_plan(oblivious_schedule(n, d_hat=case.d_hat,
+                                                recfg_frac=case.recfg_frac))
+    sched_t0 = 0
+    pending: tuple[int, _FabricPlan] | None = None
+
+    est_tv = np.full(n_epochs, np.nan)
+    dis_slot = np.zeros(H)
+    coll_slot = np.zeros(H)
+    plan_ids = np.zeros(H, dtype=np.int32)
+    registry: list[tuple[np.ndarray, np.ndarray]] = [
+        (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float64))]
+    memo: dict[tuple, int] = {}
+    keep_alive: list = [fp]        # plans are memo-keyed by id(); pin them
+    recomputes = 0
+    stale_slots = 0
+    dark_slots = 0
+    dark_plane_slots = 0.0
+    groups_max = 1
+    plane_dark_until = np.zeros(case.d_hat, dtype=np.int64)
+    counters = np.zeros((n, n))
+    last_est: np.ndarray | None = None
+
+    def activate(new_fp: _FabricPlan, s: int) -> None:
+        nonlocal fp, sched_t0, groups_max
+        if penalty:
+            ch = planes_changed(fp.eff, new_fp.eff, case.d_hat)
+            plane_dark_until[ch] = s + penalty
+        fp, sched_t0 = new_fp, s
+        keep_alive.append(new_fp)
+        groups_max = max(groups_max, new_fp.groups)
+
+    slot = 0
+    while slot < H:
+        if pending is not None and slot >= pending[0]:
+            swap_fp = pending[1]
+            pending = None
+            activate(swap_fp, slot)
+        if slot and slot % E == 0:
+            epoch = slot // E
+            if san is not None:
+                san.set_context(
+                    f"case={case.label} epoch={epoch} slot={slot}")
+            swap = None
+            if case.policy == "adaptive":
+                # the estimation round and its TV-accuracy metric are
+                # collision-independent, so a grid varying only the
+                # data-plane resolution computes each epoch's views once
+                # (keyed per epoch: the fleet EWMA is stateful, so a case
+                # either hits every epoch of a cached trajectory or
+                # replays the whole chain itself)
+                ctl_key = None
+                ctl = None
+                if sched_cache is not None and san is None:
+                    ctl_key = ("ctl", id(wl), epoch, case.gather_steps,
+                               case.alpha, E, case.seed) + cache_key_base
+                    ctl = sched_cache.get(ctl_key)
+                if ctl is None:
+                    counters[:] = 0.0
+                    seg = order[bucket[(epoch - 1) * E]:bucket[epoch * E]]
+                    np.add.at(counters, (wl.src[seg], wl.dst[seg]),
+                              f_size[seg])
+                    views = estimate_all_views(
+                        counters, fleet, case.k, q_unit,
+                        steps=case.gather_steps)
+                    if san is not None:
+                        san.check_views(views)
+                    t = true_epoch[epoch - 1]
+                    masks, owner = views.unique()
+                    counts = np.bincount(owner, minlength=masks.shape[0])
+                    t_sum = t.sum()
+                    tn = t / t_sum if t_sum > 0 else None
+                    nonempty = (masks @ views.rows.sum(axis=1)) > 0
+                    tvs, wts = [], []
+                    for g in range(masks.shape[0]):
+                        if tn is not None and nonempty[g]:
+                            est_g = views.rows * masks[g][:, None]
+                            tvs.append(0.5 * np.abs(
+                                est_g / est_g.sum() - tn).sum())
+                            wts.append(counts[g])
+                    tv_val = (float(np.average(tvs, weights=wts))
+                              if tvs else None)
+                    if ctl_key is not None:
+                        sched_cache[ctl_key] = (views, masks, owner, tv_val)
+                else:
+                    views, masks, owner, tv_val = ctl
+                if tv_val is not None:
+                    est_tv[epoch - 1] = tv_val
+                build = views.rows.sum() > 0
+                if build and case.swap_tv_threshold > 0.0:
+                    # no repair state on this path: the churn test reads
+                    # the estimate alone
+                    cur = views.rows / views.rows.sum()
+                    if (last_est is not None
+                            and 0.5 * np.abs(cur - last_est).sum()
+                            < case.swap_tv_threshold):
+                        build = False
+                    else:
+                        last_est = cur
+                if build:
+                    swap = vsched_per_node(views, case.seed + epoch,
+                                           (masks, owner))
+            elif case.policy == "oracle":
+                if oracle_m[epoch].sum() > 0:
+                    swap = consistent_plan(
+                        vsched(oracle_m[epoch], case.seed + epoch))
+            if swap is not None:
+                recomputes += 1
+                charge = (int(np.ceil(last_construction
+                                      / case.slot_seconds))
+                          if measured else int(cs))
+                if charge == 0:
+                    pending = None
+                    activate(swap, slot)
+                else:
+                    pending = (slot + charge, swap)
+        # per-slot state (fabric, pending status, per-plane darkness) is
+        # constant until the next control event, so the whole run of slots
+        # up to it is classified and filled in one vectorized pass
+        nxt = min(H, (slot // E + 1) * E)
+        if pending is not None:
+            nxt = min(nxt, int(pending[0]))
+        for t in plane_dark_until:
+            if slot < t < nxt:
+                nxt = int(t)
+        seg = np.arange(slot, nxt)
+        if pending is not None:
+            stale_slots += nxt - slot
+
+        dark = plane_dark_until > slot
+        if dark.all():                 # plan id 0: fully-dark, serve nothing
+            dark_slots += nxt - slot
+            dark_plane_slots += float(dark.sum()) * (nxt - slot)
+            slot = nxt
+            continue
+        ps_arr = (seg - sched_t0) % fp.n_slots
+        ids_u = np.zeros(fp.n_slots, dtype=np.int32)
+        if not dark.any():
+            # fast path: the precomputed period-slot plans
+            dis_slot[seg] = fp.disagreement
+            coll_slot[seg] = fp.lost[ps_arr]
+            for p in np.unique(ps_arr):
+                key = (id(fp), int(p))
+                idx = memo.get(key)
+                if idx is None:
+                    idx = memo[key] = len(registry)
+                    registry.append(fp.plans[int(p)])
+                ids_u[p] = idx
+            plan_ids[seg] = ids_u[ps_arr]
+            slot = nxt
+            continue
+        # partially-dark slots: rebuild from raw claims with the statically
+        # arbitrated winners
+        dark_plane_slots += float(dark.sum()) * (nxt - slot)
+        dis_slot[seg] = fp.disagreement
+        dl = case.d_hat
+        coll_u = np.zeros(fp.n_slots)
+        for p in np.unique(ps_arr):
+            lo = int(p) * dl
+            hi = min(lo + dl, fp.eff.shape[0])
+            rows_e = fp.eff[lo:hi]
+            live = (plane_dark_until[:hi - lo] <= slot)[:, None]
+            nonself = fp.nonself[lo:hi]
+            win = fp.win[lo:hi]
+            coll_u[p] = float((nonself & live & ~win).sum()) * fp.w
+            key = (id(fp), lo, live.tobytes())
+            idx = memo.get(key)
+            if idx is None:
+                served = win & nonself & live
+                srr, sii = np.nonzero(served)
+                if srr.size:
+                    spid, inv = np.unique(sii * n + rows_e[srr, sii],
+                                          return_inverse=True)
+                    scap = np.bincount(inv).astype(np.float64) * fp.w
+                else:
+                    spid = np.empty(0, dtype=np.int64)
+                    scap = np.empty(0, dtype=np.float64)
+                idx = memo[key] = len(registry)
+                registry.append((spid, scap))
+            ids_u[p] = idx
+        coll_slot[seg] = coll_u[ps_arr]
+        plan_ids[seg] = ids_u[ps_arr]
+        slot = nxt
+
+    if san is not None:
+        san.set_context(None)
+    return {
+        "registry": registry, "plan_ids": plan_ids,
+        "dis_slot": dis_slot, "coll_slot": coll_slot, "est_tv": est_tv,
+        "recomputes": recomputes, "stale_slots": stale_slots,
+        "dark_slots": dark_slots, "dark_plane_slots": dark_plane_slots,
+        "groups_max": groups_max, "construction_s": construction_s,
+        "n_epochs": n_epochs, "keep_alive": keep_alive,
+    }
+
+
+def _plan_digest(cp: dict) -> str:
+    """SHA-1 of a compiled trajectory's per-slot plan ids and registry."""
+    hsh = hashlib.sha1(cp["plan_ids"].tobytes())
+    for spid_l, scap_l in cp["registry"]:
+        hsh.update(spid_l.tobytes())
+        hsh.update(scap_l.tobytes())
+    return hsh.hexdigest()
+
+
+def _run_adaptive_batch(
+    cases: list[AdaptiveCase], bits_per_slot: float, dev: torch.device,
+    san=None, timings: dict | None = None,
+) -> list[AdaptiveRow]:
+    """One batch of same-n cases: compile every case's control trajectory
+    on the host (:func:`_compile_adaptive_plan`, construction shared
+    across cases through the batch's schedule cache), lay the per-slot
+    circuit plans out as per-case column blocks of one ``(H, Jtot)`` plan,
+    serve it in ONE :func:`singlehop` run on ``dev``, and recover exact
+    per-flow FCTs through the host credit replay.  The port of the
+    reference's ``_run_adaptive_batch_jax``, without its shape padding
+    (the slot loop compiles nothing)."""
+    lap = _lapper(timings)
+    B = len(cases)
+    n = cases[0].wl.n
+    horizons = np.array([c.wl.horizon for c in cases], dtype=np.int64)
+    H = int(horizons.max())
+    sched_cache: dict = {}
+    compiled = [_compile_adaptive_plan(c, bits_per_slot, san=san,
+                                       sched_cache=sched_cache, device=dev)
+                for c in cases]
+    lap("control_s")
+    digests = [_plan_digest(cp) for cp in compiled]
+
+    # cases whose compiled data plane is byte-identical (same workload
+    # object, horizon and per-slot circuit plan) have identical device
+    # dynamics and identical per-flow FCTs, so they are served and
+    # replayed once — e.g. the complete-gather case under every collision
+    # mode.  Disabled under the sanitizer so its per-case
+    # conservation/closure ledgers stay 1:1.
+    rep_of = list(range(B))
+    if san is None:
+        seen: dict = {}
+        for b, case in enumerate(cases):
+            key = (id(case.wl), int(horizons[b]), digests[b])
+            rep_of[b] = seen.setdefault(key, b)
+    reps = sorted(set(rep_of))
+    uidx = {b: u for u, b in enumerate(reps)}
+
+    col_offs = [0]
+    for b in reps:
+        max_j = max((len(p[0]) for p in compiled[b]["registry"]), default=0)
+        col_offs.append(col_offs[-1] + -(-max(max_j, 1) // _PAD_J) * _PAD_J)
+    Jtot = col_offs[-1]
+    p_pid = np.zeros((H, Jtot), dtype=np.int64)
+    p_cap = np.zeros((H, Jtot), dtype=np.float32)
+    for u, b in enumerate(reps):
+        cp = compiled[b]
+        base = u * n * n
+        cols = slice(col_offs[u], col_offs[u + 1])
+        jc = col_offs[u + 1] - col_offs[u]
+        reg = cp["registry"]
+        # padded entries and rows past the case's horizon: pair id `base`
+        # (pair (0, 0), never a circuit) at zero capacity, exact no-ops
+        ent_pid = np.full((len(reg), jc), base, dtype=np.int64)
+        ent_cap = np.zeros((len(reg), jc), dtype=np.float32)
+        for i, (spid_l, scap_l) in enumerate(reg):
+            ent_pid[i, :len(spid_l)] = base + spid_l
+            ent_cap[i, :len(spid_l)] = scap_l
+        h_b = int(horizons[b])
+        p_pid[:h_b, cols] = ent_pid[cp["plan_ids"]]
+        p_cap[:h_b, cols] = ent_cap[cp["plan_ids"]]
+        p_pid[h_b:, cols] = base
+    f_off, fct, credit, tx64, voq_h = _serve(
+        [cases[b].wl for b in reps], horizons[reps], p_pid, p_cap, dev, lap,
+        timings)
+    voq64 = np.asarray(voq_h, np.float64)
+
+    rows = []
+    for b, (case, cp) in enumerate(zip(cases, compiled)):
+        wl, E = case.wl, case.epoch_slots
+        h_b = int(horizons[b])
+        n_epochs = cp["n_epochs"]
+        u = uidx[rep_of[b]]
+        cols = slice(col_offs[u], col_offs[u + 1])
+        # strictly sequential per-epoch accumulation (np.add.at, not
+        # reduceat: reduceat's pairwise float reduction drifts ~1 ulp from
+        # the reference loop's slot-by-slot `+=`)
+        ep_idx = np.arange(h_b) // E
+        per_slot = tx64[:h_b, cols].sum(axis=1)
+        delivered_ep = np.zeros(n_epochs)
+        np.add.at(delivered_ep, ep_idx, per_slot)
+        dis_ep = np.zeros(n_epochs)
+        np.add.at(dis_ep, ep_idx, cp["dis_slot"])
+        coll_ep = np.zeros(n_epochs)
+        np.add.at(coll_ep, ep_idx, cp["coll_slot"])
+        ep_len = np.minimum(E, h_b - E * np.arange(n_epochs))
+        ep_cap = ep_len * n * case.d_hat * bits_per_slot
+        ideal = h_b * n * case.d_hat * bits_per_slot
+        delivered = float(delivered_ep.sum())
+        offered = float(wl.size[wl.arrival < h_b].sum())
+        if san is not None:
+            queued = float(voq64[u * n * n:(u + 1) * n * n].sum())
+            san.check_conservation(
+                offered, delivered, queued,
+                label=f"{dev.type}:adaptive{b}:conservation", float32=True)
+        result = SimResult(
+            fct_slots=fct[f_off[u]:f_off[u + 1]],
+            flow_size=wl.size,
+            utilization=delivered / ideal,
+            delivered_bits=delivered,
+            offered_bits=offered,
+        )
+        rows.append(AdaptiveRow(
+            label=case.label, policy=case.policy, result=result,
+            epoch_utilization=delivered_ep / ep_cap,
+            epoch_estimate_tv=cp["est_tv"],
+            recomputes=cp["recomputes"], sim_s=0.0, meta=dict(case.meta),
+            stale_slots=cp["stale_slots"],
+            construction_s=cp["construction_s"],
+            dark_slots=cp["dark_slots"],
+            epoch_disagreement=dis_ep / ep_len,
+            epoch_collision_loss=coll_ep / ep_cap,
+            collision_lost_bits=float(coll_ep.sum()),
+            schedule_groups_max=cp["groups_max"],
+            dark_plane_slots=cp["dark_plane_slots"],
+            plan_digest=digests[b]))
+    if san is not None:
+        rem, completed = credit.remaining_active()
+        san.check_credit_closure(
+            sum(r.result.offered_bits for r in rows),
+            sum(r.result.delivered_bits for r in rows), rem, completed,
+            label=f"{dev.type}:adaptive:credit", float32=True)
+        lap("sanitize_s")
+    return rows
+
+
+def run_adaptive(
+    cases: list[AdaptiveCase],
+    bits_per_slot: float,
+    device=None,
+    sanitize: bool | None = None,
+    timings: dict | None = None,
+) -> list[AdaptiveRow]:
+    """Closed-loop epoch-driven simulation of each case (see
+    :class:`AdaptiveCase`); results come back in input order.  The port of
+    ``run_adaptive(..., backend="jax")``.
+
+    Cases batch by node count.  Each batch's control plane (estimation →
+    per-node schedules → collision-resolved plans → activation and dark
+    windows) is replayed on the host exactly; its schedules project on
+    ``device`` under ``normalize="saturate"``; the resulting per-slot
+    circuit plans of every case are served in one data-plane run on
+    ``device`` (``None``: the card; ``"cpu"``: the same PyTorch ops on the
+    CPU), with per-flow FCTs from the host's f64 credit replay.
+
+    Cases the port cannot express raise before any case runs:
+    ``NotImplementedError`` for fault injection, ``ValueError`` for
+    ``repair=True``, ``collision="fullest"`` and activation jitter.
+
+    ``sanitize``: run the :mod:`repro_torch.analysis.sanitize` contract
+    checks on every case (default: the ``REPRO_SANITIZE`` env var);
+    results are bit-identical either way.  ``timings``: a dict that
+    receives the wall seconds of each phase — ``control_s`` (the host
+    control plane, schedule construction included), then the sweep's
+    ``layout_s``, ``upload_s``, ``device_loop_s``, ``download_s``,
+    ``replay_s`` and ``sanitize_s`` — and the number of slots served.
+    """
+    for i, case in enumerate(cases):
+        _check_adaptive_supported(case, i)
+    dev = resolve_device(device)
+    san = make_sanitizer(sanitize)
+    groups: dict[int, list[int]] = {}
+    for i, case in enumerate(cases):
+        groups.setdefault(case.wl.n, []).append(i)
+    rows: list[AdaptiveRow | None] = [None] * len(cases)
+    for idxs in groups.values():
+        t0 = time.perf_counter()
+        batch_rows = _run_adaptive_batch([cases[i] for i in idxs],
+                                         bits_per_slot, dev, san=san,
+                                         timings=timings)
+        dt = (time.perf_counter() - t0) / len(idxs)
+        for i, row in zip(idxs, batch_rows):
+            row.sim_s = dt
+            rows[i] = row
     return rows  # type: ignore[return-value]

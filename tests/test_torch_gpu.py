@@ -15,7 +15,11 @@ differently); the selective scan rtol 1e-4 / atol 1e-4 on ``y`` and the
 final state, as tests/test_kernels.py holds the Pallas kernel; the served
 models' logits, kernels against plain versions, within 2e-2 of the
 largest logit (bf16), 1e-3 for the narrow Jamba in f32 (its router is
-discontinuous: bf16 roundings would flip expert choices).
+discontinuous: bf16 roundings would flip expert choices).  The adaptive
+loop on the card against its CPU run: the same compiled control
+trajectory and counters exactly, FCTs differing on at most 0.1 % of flows
+by at most 1 slot (CUDA ``index_add_``'s order of same-slot arrivals),
+utilization rtol 1e-5; the fleet estimation ops' ticks equal to the CPU's.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
+from repro_torch.core import estimation, schedule, simulator
+from repro_torch.core.traffic import saturate
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -573,3 +579,107 @@ def test_served_jamba_kernels_match_plain():
     assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
     assert mamba_ops.launches - m0 == 3 * kinds.count("mamba")
     assert flash_ops.launches - f0 == 3 * kinds.count("attn")
+
+
+# ---------------------------------------------------------------------------
+# The adaptive loop and the estimation ops on the card
+# ---------------------------------------------------------------------------
+
+BPS = 100e9 * 4.5e-6
+
+
+def _disagreement_cases(steps):
+    """benchmarks/adaptive_bench.py run_disagreement's sizes under
+    ``drop``, saturated."""
+    wl = simulator.phase_shifting_workload(16, 0.5, 6000, BPS, d_hat=4,
+                                           seed=1, shift_period=2000)
+    return [simulator.AdaptiveCase(
+        wl=wl, epoch_slots=250, policy="adaptive", d_hat=4, recfg_frac=1 / 9,
+        seed=1, alpha=0.5, gather_steps=s, collision="drop",
+        normalize="saturate", label=f"steps{s}") for s in steps]
+
+
+@pytest.mark.gpu
+def test_adaptive_loop_on_card_matches_cpu(monkeypatch):
+    """Gathers of 15 and 2 steps: every saturate is one kernel launch, the
+    control trajectory is the CPU's, the data plane within the sweep's
+    bar; a full gather never disagrees, a 2-step one loses capacity."""
+    _card()
+    cases = _disagreement_cases((15, 2))
+    calls = [0]
+    inner = schedule.saturate
+
+    def counted(m, iters=200, device=None):
+        calls[0] += not (np.asarray(m) <= 0).all()   # else no projection
+        return inner(m, iters=iters, device=device)
+
+    monkeypatch.setattr(schedule, "saturate", counted)
+    ops.reset_launches()
+    rows = simulator.run_adaptive(cases, BPS, device="cuda", sanitize=True)
+    assert ops.launches == calls[0] > 0
+    rows_cpu = simulator.run_adaptive(cases, BPS, device="cpu",
+                                      sanitize=True)
+    for a, b in zip(rows, rows_cpu):
+        assert a.plan_digest == b.plan_digest, a.label
+        for f in ("recomputes", "stale_slots", "dark_slots",
+                  "schedule_groups_max"):
+            assert getattr(a, f) == getattr(b, f), f
+        for f in ("epoch_estimate_tv", "epoch_disagreement",
+                  "epoch_collision_loss"):
+            assert np.array_equal(getattr(a, f), getattr(b, f),
+                                  equal_nan=True), f
+        fa, fb = a.result.fct_slots, b.result.fct_slots
+        differ = fa != fb
+        assert differ.sum() <= 1e-3 * len(fa)
+        assert not differ.any() or np.abs(fa - fb)[differ].max() <= 1.0
+        assert np.isclose(a.result.utilization, b.result.utilization,
+                          rtol=1e-5)
+        assert np.allclose(a.epoch_utilization, b.epoch_utilization,
+                           rtol=1e-5, atol=0.0)
+    assert np.all(rows[0].epoch_disagreement == 0.0)
+    assert rows[1].collision_lost_bits > 0 and rows[1].schedule_groups_max > 1
+
+
+@pytest.mark.gpu
+def test_sinkhorn_kernel_on_a_partial_view():
+    """A partial gather's view has all-zero rows; saturate clamps them to
+    1e-12 before the kernel, which must then equal its order's model bit
+    for bit, through the wrapper and through saturate."""
+    _card()
+    n = 16
+    rng = np.random.default_rng(3)
+    period = rng.gamma(0.6, 1e8, size=(n, n))
+    np.fill_diagonal(period, 0.0)
+    views = estimation.estimate_all_views(
+        period, estimation.TrafficEstimator.fleet(n, alpha=0.5), 3, BPS,
+        steps=2)
+    m = views.view(5)
+    assert (m.sum(axis=1) == 0).sum() == n - 3
+    clamped = torch.from_numpy(np.where(m <= 0, 1e-12, m))
+    want = sinkhorn_kernel_order(clamped, 200, 0.0, ops.cluster_size())
+    got = ops.sinkhorn_kernel(clamped.cuda(), 200, 0.0).cpu()
+    assert torch.equal(got, want)
+    assert np.array_equal(saturate(m, device="cuda"), want.numpy())
+
+
+@pytest.mark.gpu
+def test_fleet_update_quantize_on_card_matches_cpu():
+    _card()
+    n, k = 64, 3
+    rng = np.random.default_rng(9)
+    ewma = {d: np.zeros((n, n), np.float32) for d in ("cuda", "cpu")}
+    for _ in range(4):
+        period = rng.gamma(0.7, 250 * BPS, size=(n, n))
+        period[0, 1] = 1e14
+        out = {d: estimation.fleet_update_quantize(ewma[d], period, 0.3, k,
+                                                   BPS, device=d)
+               for d in ("cuda", "cpu")}
+        (e_c, q_c), (e_h, q_h) = out["cuda"], out["cpu"]
+        assert q_c.device.type == "cuda" and q_c.dtype == torch.uint16
+        assert e_c.dtype == torch.float32
+        assert torch.equal(q_c.cpu(), q_h) and q_h[0, 1] == 65535
+        torch.testing.assert_close(e_c.cpu(), e_h, rtol=1e-6, atol=0.0)
+        ewma = {"cuda": e_c, "cpu": e_h}
+    deq = estimation.dequantize_device(q_c, k, BPS)
+    assert deq.device.type == "cuda"
+    assert torch.equal(deq.cpu(), estimation.dequantize_device(q_h, k, BPS))
