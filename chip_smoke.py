@@ -19,6 +19,22 @@ and read just after:
    deployment: n = 256 ToRs, d_hat = 8 uplinks, k = 3, recfg_frac = 1/9,
    100 Gb/s links with 4.5 us slots; websearch traffic (DCTCP CDF),
    rack-permutation, at loads 0.15 / 0.3 / 0.45 / 0.6, 2000 slots, seed 1.
+   Beside each Vermilion row the sweep carries RotorNet's (``rotorlb``)
+   and pure VLB's (``vlb``) rows on the oblivious round-robin, as
+   ``benchmarks/fct_bench.py`` builds them: one two-hop batch of 8
+   cases, which at n = 256 takes the reference's dense, aggregate-only
+   route (utilization, delivered bits, ``avg_hops``; FCTs all inf).  The
+   same 8 cases forced through the sparse formulation must match the
+   dense within rtol 1e-3; the CPU run holds the card's two-hop
+   aggregates to rtol 1e-4.  Traced reruns of the single-hop and the
+   two-hop batch read each data plane's device events a slot and idle
+   share.
+1a. The n = 64 grid of ``fct_bench.timing_table`` (d_hat = 4, load 0.6,
+   1500 slots, seed 1): Vermilion (one Sinkhorn launch), rotorlb and vlb,
+   whose batch takes ``twohop_fct`` and so has per-flow FCTs, gated
+   against the CPU run like the sweep's; ``simulate_aggregate`` on the
+   Vermilion schedule, card against CPU (per-slot delivered rtol 1e-5,
+   final VOQ within 1e-3 bits); a traced rerun of the two-hop batch.
 1b. The adaptive control loop (``run_adaptive``, Appendix A closed:
    estimation each epoch, per-node schedules, a collision-resolved fabric
    plan, one data-plane run on the card for the whole batch, the host
@@ -129,13 +145,17 @@ from repro_torch.core.estimation import (  # noqa: E402
     TrafficEstimator,
     estimate_all_views,
 )
-from repro_torch.core.schedule import vermilion_schedule  # noqa: E402
+from repro_torch.core.schedule import (  # noqa: E402
+    oblivious_schedule,
+    vermilion_schedule,
+)
 from repro_torch.core.simulator import (  # noqa: E402
     AdaptiveCase,
     SweepCase,
     phase_shifting_workload,
     run_adaptive,
     run_sweep,
+    simulate_aggregate,
     websearch_workload,
 )
 from repro_torch.kernels import _build  # noqa: E402
@@ -180,6 +200,22 @@ TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 0.0)}
 # one slot in a varying order; the drain reconciliation absorbs most such
 # ulp residues, not every one
 FCT_MAX_DIFF_FRAC, FCT_MAX_DIFF_SLOTS = 1e-3, 1.0
+
+# the sweep's baselines beside Vermilion, as benchmarks/fct_bench.py's
+# build_grid sets them: RotorNet (direct hop + VLB offload) and pure VLB
+# on the oblivious round-robin
+TWOHOP_MODES = ("rotorlb", "vlb")
+# two-hop aggregates (delivered bits, utilization, avg_hops): card vs CPU
+# in one formulation; sparse vs dense, the reference's own bar between
+# formulations (tests/test_simulator.py)
+TWOHOP_RTOL, SPARSE_RTOL = 1e-4, 1e-3
+# the n = 64 grid: fct_bench.timing_table's deployment (n = 64, d_hat =
+# 4, load 0.6, 1500 slots, seed 1), where the two-hop batch takes the
+# twohop_fct route (per-flow FCTs), and the aggregate plane on its
+# Vermilion schedule: card vs CPU per-slot delivered rtol 1e-5, final VOQ
+# within 1e-3 bits
+N64, D_HAT64, LOAD64, HORIZON64 = 64, 4, 0.6, 1500
+AGG_RTOL, AGG_VOQ_ATOL = 1e-5, 1e-3
 
 # the adaptive loop, grid (a): the sweep's fabric in closed loop under
 # phase-shifting traffic (permutation -> uniform -> dlrm every 2000 slots,
@@ -1512,6 +1548,14 @@ def counting_saturate(calls: list):
     return swapped(schedule_mod, "saturate", counted)
 
 
+def fct_diff(fa: np.ndarray, fb: np.ndarray) -> tuple:
+    """(flows whose FCTs differ, the largest difference in slots)."""
+    differ = ~((fa == fb) | (np.isnan(fa) & np.isnan(fb)))
+    n_diff = int(differ.sum())
+    return n_diff, (float(np.abs(fa[differ] - fb[differ]).max())
+                    if n_diff else 0.0)
+
+
 def first_divergence(case, dev) -> str:
     """Where ``case``'s control trajectory built on ``dev`` first parts
     from the CPU's: the first slot whose plan differs, its epoch, and the
@@ -1554,11 +1598,8 @@ def compare_adaptive(rows: list, rows_cpu: list) -> list:
                 raise AssertionError(f"{a.label}: {f} differs from the "
                                      "CPU's")
         ra, rb = a.result, b.result
-        fa, fb = ra.fct_slots, rb.fct_slots
-        differ = ~((fa == fb) | (np.isnan(fa) & np.isnan(fb)))
-        n_diff = int(differ.sum())
-        max_diff = float(np.abs(fa[differ] - fb[differ]).max()) \
-            if n_diff else 0.0
+        fa = ra.fct_slots
+        n_diff, max_diff = fct_diff(fa, rb.fct_slots)
         rel = abs(ra.utilization - rb.utilization) / rb.utilization
         ep_rel = float(np.max(np.abs(a.epoch_utilization
                                      - b.epoch_utilization)
@@ -1707,6 +1748,185 @@ def adaptive_phases() -> dict:
     return {"a": res_a, "b": res_b, "trace": trace}
 
 
+def check_sweep_rows(rows: list, twohop_fcts: bool) -> None:
+    """Each sweep row is finite and sane: single-hop rows, and two-hop
+    rows where their route keeps per-flow FCTs (``twohop_fcts``), have
+    finite FCTs; aggregate-only two-hop rows have FCTs all inf, as in the
+    reference; two-hop rows average at least one hop, vlb's at least
+    rotorlb's on the same load."""
+    hops = {}
+    for r in rows:
+        res = r.result
+        fin = np.isfinite(res.fct_slots)
+        if not (np.isfinite(res.utilization) and res.utilization > 0):
+            raise AssertionError(f"{r.label}: no finite utilization")
+        if r.mode == "single_hop" or twohop_fcts:
+            if not fin.any():
+                raise AssertionError(f"{r.label}: no finite FCT")
+        elif fin.any():
+            raise AssertionError(f"{r.label}: an aggregate-only route "
+                                 "gave finite FCTs")
+        if r.mode != "single_hop":
+            if not res.avg_hops >= 1.0:
+                raise AssertionError(f"{r.label}: avg_hops {res.avg_hops}")
+            hops[(r.meta["load"], r.mode)] = res.avg_hops
+        log(f"  {r.label}: util {res.utilization:.6f}, delivered "
+            f"{res.delivered_bits:.6e} b of {res.offered_bits:.6e}, "
+            f"avg_hops {res.avg_hops:.6f}, completed "
+            f"{res.completed_frac:.6f}, FCT p50 "
+            f"{res.fct_percentile(50):.3f} p99 {res.fct_percentile(99):.3f} "
+            f"slots")
+    for (load, mode), h in hops.items():
+        if mode == "vlb" and h < hops.get((load, "rotorlb"), 1.0):
+            raise AssertionError(f"vlb@{load}: avg_hops {h} below "
+                                 f"rotorlb's {hops[(load, 'rotorlb')]}")
+
+
+def compare_sweep(rows: list, rows_cpu: list) -> None:
+    """The card's sweep rows against the port's CPU run of the same
+    cases: delivered bits, utilization and avg_hops within rtol 1e-5
+    (single-hop) or ``TWOHOP_RTOL`` (two-hop), FCTs within the sweep's
+    bar."""
+    for a, b in zip(rows, rows_cpu):
+        ra, rb = a.result, b.result
+        rtol = 1e-5 if a.mode == "single_hop" else TWOHOP_RTOL
+        rel = max(abs(getattr(ra, f) - getattr(rb, f)) / abs(getattr(rb, f))
+                  for f in ("delivered_bits", "utilization", "avg_hops"))
+        n_diff, max_diff = fct_diff(ra.fct_slots, rb.fct_slots)
+        log(f"  {a.label}: aggregates rel diff {rel:.3e}; FCTs differ on "
+            f"{n_diff} of {len(ra.fct_slots)} flows, by at most {max_diff} "
+            f"slots")
+        if rel > rtol:
+            raise AssertionError(f"{a.label}: aggregates differ by "
+                                 f"{rel:.3e} (rtol {rtol})")
+        if n_diff > FCT_MAX_DIFF_FRAC * len(ra.fct_slots) \
+                or max_diff > FCT_MAX_DIFF_SLOTS:
+            raise AssertionError(f"{a.label}: FCTs differ on {n_diff} flows "
+                                 f"by up to {max_diff} slots")
+
+
+def log_batches(timings: dict) -> None:
+    """Each batch's route, cases, slots and slot loop of a run_sweep."""
+    for bt in timings["batches"]:
+        log(f"  batch {bt['route']}: {bt['cases']} cases, {bt['slots']} "
+            f"slots, layout {bt['layout_s']:.6f} s, device loop "
+            f"{bt['device_loop_s']:.6f} s "
+            f"({bt['device_loop_s'] / bt['slots'] * 1e6:.3f} us per slot)"
+            + (f", replay {bt['replay_s']:.6f} s" if "replay_s" in bt
+               else ""))
+
+
+def traced_sweep(label: str, cases: list) -> dict:
+    """A rerun of ``cases`` through ``run_sweep`` on the card under
+    torch.profiler: the data plane's device events a slot, its slot loop
+    (traced) and the loop's idle share."""
+    log(f"== traced rerun of the card sweep, {label} (torch.profiler)")
+    traced: dict = {}
+    t0 = time.perf_counter()
+    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        run_sweep(cases, BITS_PER_SLOT, device=DEV, timings=traced)
+    traced_s = time.perf_counter() - t0
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in on_dev if e.name.startswith(("Memcpy", "Memset"))]
+    kern = [e for e in on_dev if not e.name.startswith(("Memcpy", "Memset"))]
+    loop = traced["device_loop_s"]
+    out = {"traced_s": traced_s, "device_loop_s": loop,
+           "slots": traced["slots"],
+           "us_per_slot": loop / traced["slots"] * 1e6}
+    log(f"  traced sweep {traced_s:.6f} s; traced device loop {loop:.6f} s "
+        f"({out['us_per_slot']:.3f} us per slot)")
+    if kern:
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+        copy = sum(e.time_range.elapsed_us() for e in copies) / 1e6
+        out.update(kernels=len(kern),
+                   events_per_slot=len(kern) / traced["slots"],
+                   busy_s=busy, idle_share=1 - busy / loop, copies_s=copy)
+        log(f"  data plane: {len(kern)} kernels "
+            f"({out['events_per_slot']:.3f} per slot), device busy "
+            f"{busy:.6f} s of the {loop:.6f} s loop (idle share "
+            f"{out['idle_share']:.4f}); copies {copy:.6f} s")
+    else:
+        log("  the profiler recorded no device events: device busy time "
+            "not measured")
+    return out
+
+
+def sweep_n64_phases() -> dict:
+    """The n = 64 grid: Vermilion (one Sinkhorn launch, counted from 0),
+    rotorlb and vlb in one ``run_sweep`` on the card, the two-hop batch
+    through ``twohop_fct`` with per-flow FCTs; the port's CPU run of the
+    same cases; ``simulate_aggregate`` on the Vermilion schedule, card
+    against CPU; a traced rerun of the two-hop batch."""
+    log(f"== n={N64} grid: d_hat={D_HAT64}, load {LOAD64}, {HORIZON64} "
+        f"slots, seed {SEED}: vermilion, {', '.join(TWOHOP_MODES)}")
+    sinkhorn_ops.reset_launches()
+    wl = websearch_workload(N64, LOAD64, HORIZON64, BITS_PER_SLOT,
+                            d_hat=D_HAT64, seed=SEED)
+    sv = vermilion_schedule(wl.demand_matrix(), k=K, d_hat=D_HAT64,
+                            recfg_frac=RECFG, normalize="saturate")
+    so = oblivious_schedule(N64, d_hat=D_HAT64, recfg_frac=RECFG)
+    meta = {"load": LOAD64}
+    cases = [SweepCase(sv, wl, "single_hop", "vermilion", meta)]
+    cases += [SweepCase(so, wl, m, m, meta) for m in TWOHOP_MODES]
+    timings: dict = {}
+    t0 = time.perf_counter()
+    rows = run_sweep(cases, BITS_PER_SLOT, device=DEV, sanitize=True,
+                     timings=timings)
+    wall = time.perf_counter() - t0
+    launches = sinkhorn_ops.launches
+    log(f"  run_sweep on the card {wall:.6f} s, flows {wl.num_flows}, "
+        f"sinkhorn launches {launches}")
+    if launches != 1:
+        raise AssertionError(f"the n={N64} grid launched the sinkhorn "
+                             f"kernel {launches} times (expected 1)")
+    log_batches(timings)
+    routes = [(bt["route"], bt["cases"]) for bt in timings["batches"]]
+    if routes != [("singlehop", 1), ("twohop_fct", len(TWOHOP_MODES))]:
+        raise AssertionError(f"the n={N64} grid ran the batches {routes}")
+    check_sweep_rows(rows, twohop_fcts=True)
+    t0 = time.perf_counter()
+    rows_cpu = run_sweep(cases, BITS_PER_SLOT, device="cpu", sanitize=True)
+    cpu_s = time.perf_counter() - t0
+    log(f"  the same cases on the CPU {cpu_s:.6f} s")
+    compare_sweep(rows, rows_cpu)
+
+    log(f"== aggregate plane: simulate_aggregate on the n={N64} Vermilion "
+        f"schedule, {HORIZON64} x {N64} x {N64} arrivals")
+    arr = wl.arrival_matrix()
+    t0 = time.perf_counter()
+    d_card, voq_card = simulate_aggregate(sv, arr, BITS_PER_SLOT, device=DEV)
+    agg_s = time.perf_counter() - t0
+    d_cpu, voq_cpu = simulate_aggregate(sv, arr, BITS_PER_SLOT, device="cpu")
+    rel = float(np.max(np.abs(d_card - d_cpu)
+                       / np.maximum(np.abs(d_cpu), 1e-300)))
+    voq_diff = float(np.abs(voq_card - voq_cpu).max())
+    sweep_rel = abs(float(d_card.sum(dtype=np.float64))
+                    - rows[0].result.delivered_bits) \
+        / rows[0].result.delivered_bits
+    log(f"  card {agg_s:.6f} s ({agg_s / HORIZON64 * 1e6:.3f} us per slot "
+        f"with upload and download); delivered {d_card.sum():.6e} b, per "
+        f"slot rel diff to the CPU {rel:.3e}, final VOQ max |diff| "
+        f"{voq_diff:.3e} b; total vs the single-hop sweep's {sweep_rel:.3e}")
+    if not np.allclose(d_card, d_cpu, rtol=AGG_RTOL, atol=0.0):
+        raise AssertionError(f"simulate_aggregate: per-slot delivered "
+                             f"differs from the CPU's by {rel:.3e}")
+    if voq_diff > AGG_VOQ_ATOL:
+        raise AssertionError(f"simulate_aggregate: final VOQ differs from "
+                             f"the CPU's by {voq_diff:.3e} bits")
+    trace = traced_sweep(f"n={N64} two-hop ({routes[1][0]})", cases[1:])
+    return {"launches": launches, "wall_s": wall, "cpu_s": cpu_s,
+            "timings": {k: v for k, v in timings.items() if k != "batches"},
+            "batches": timings["batches"], "trace": trace,
+            "rows": {r.label: {"util": r.result.utilization,
+                               "avg_hops": r.result.avg_hops,
+                               "completed": r.result.completed_frac,
+                               "fct_p99": r.result.fct_percentile(99)}
+                     for r in rows},
+            "aggregate": {"wall_s": agg_s, "slot_rel_diff": rel,
+                          "voq_max_diff": voq_diff,
+                          "vs_sweep_rel": sweep_rel}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1748,9 +1968,17 @@ def main() -> int:
                                  recfg_frac=RECFG, normalize="saturate")
               for wl in wls]
     phases["schedules_s"] = time.perf_counter() - t0
-    cases = [SweepCase(s, wl, "single_hop", f"vermilion@{load}",
-                       {"load": load})
-             for s, wl, load in zip(scheds, wls, LOADS)]
+    obl = oblivious_schedule(N, d_hat=D_HAT, recfg_frac=RECFG)
+    # fct_bench.build_grid's order: each load's Vermilion row, then its
+    # baselines on the oblivious schedule
+    cases = []
+    for s, wl, load in zip(scheds, wls, LOADS):
+        cases.append(SweepCase(s, wl, "single_hop", f"vermilion@{load}",
+                               {"load": load}))
+        cases += [SweepCase(obl, wl, m, f"{m}@{load}", {"load": load})
+                  for m in TWOHOP_MODES]
+    single = [c for c in cases if c.mode == "single_hop"]
+    twohop = [c for c in cases if c.mode != "single_hop"]
     timings: dict = {}
     t0 = time.perf_counter()
     rows = run_sweep(cases, BITS_PER_SLOT, device="cuda", sanitize=True,
@@ -1758,10 +1986,16 @@ def main() -> int:
     phases["sweep_s"] = time.perf_counter() - t0
     launches = sinkhorn_ops.launches
     flows = sum(wl.num_flows for wl in wls)
-    log(f"  flows {flows}, sinkhorn launches {launches}")
+    log(f"  {len(rows)} rows, flows {flows} a system, sinkhorn launches "
+        f"{launches}")
     if launches != len(LOADS):
         raise AssertionError(f"main path launched the sinkhorn kernel "
                              f"{launches} times (expected {len(LOADS)})")
+    # the reference's route at this size: twohop_dense, aggregate-only
+    route = sim_mod._twohop_route(len(twohop), N, HORIZON)
+    routes = [(bt["route"], bt["cases"]) for bt in timings["batches"]]
+    if routes != [("singlehop", len(single)), (route, len(twohop))]:
+        raise AssertionError(f"main path ran the batches {routes}")
     # one schedule's saturate, traced: the kernel's CUDA launches a call
     calls = -sinkhorn_ops.launches
     with profile(activities=list(TRACE_ACTIVITIES)) as prof:
@@ -1776,44 +2010,51 @@ def main() -> int:
     if sinkhorn_per_call not in (None, 1.0):
         raise AssertionError(f"a main-path sinkhorn call made "
                              f"{sinkhorn_per_call} CUDA launches (expected 1)")
-    for r in rows:
-        res = r.result
-        fin = np.isfinite(res.fct_slots)
-        if not fin.any() or not np.isfinite(res.utilization):
-            raise AssertionError(f"{r.label}: no finite result")
-        log(f"  {r.label}: util {res.utilization:.6f}, delivered "
-            f"{res.delivered_bits:.6e} b of {res.offered_bits:.6e}, "
-            f"completed {res.completed_frac:.6f}, FCT p50 "
-            f"{res.fct_percentile(50):.3f} p99 {res.fct_percentile(99):.3f} "
-            f"slots")
-    per_slot_us = timings["device_loop_s"] / timings["slots"] * 1e6
+    check_sweep_rows(rows, twohop_fcts=route == "twohop_fct")
     for key, val in {**phases, **timings}.items():
-        log(f"  phase {key}: {val:.6f}" if key != "slots"
-            else f"  slots served {val}")
-    log(f"  device slot loop: {per_slot_us:.3f} us per slot")
+        if key != "batches":
+            log(f"  phase {key}: {val:.6f}" if key != "slots"
+                else f"  slots served {val}")
+    log_batches(timings)
+    per_slot_us = {bt["route"]: bt["device_loop_s"] / bt["slots"] * 1e6
+                   for bt in timings["batches"]}
+
+    # -- 3a. the two-hop batch through the sparse formulation --------------
+    log(f"== the {len(twohop)} two-hop cases forced through twohop_sparse "
+        f"on the card")
+    sparse_t: dict = {}
+    t0 = time.perf_counter()
+    sparse = sim_mod._twohop_batch([(c.sched, c.wl) for c in twohop],
+                                   BITS_PER_SLOT, [c.mode for c in twohop],
+                                   torch.device(DEV), kernel="sparse",
+                                   timings=sparse_t)
+    phases["sparse_s"] = time.perf_counter() - t0
+    per_slot_us["twohop_sparse"] = (sparse_t["device_loop_s"]
+                                    / sparse_t["slots"] * 1e6)
+    log(f"  sparse batch {phases['sparse_s']:.6f} s: layout "
+        f"{sparse_t['layout_s']:.6f} s, device loop "
+        f"{sparse_t['device_loop_s']:.6f} s "
+        f"({per_slot_us['twohop_sparse']:.3f} us per slot)")
+    dense = {r.label: r.result for r in rows if r.mode != "single_hop"}
+    for c, r in zip(twohop, sparse):
+        d = dense[c.label]
+        rel = max(abs(getattr(r, f) - getattr(d, f)) / abs(getattr(d, f))
+                  for f in ("delivered_bits", "utilization", "avg_hops"))
+        log(f"  {c.label}: sparse vs dense aggregates rel diff {rel:.3e}")
+        if rel > SPARSE_RTOL or np.isfinite(r.fct_slots).any():
+            raise AssertionError(f"{c.label}: the sparse formulation "
+                                 f"differs from the dense by {rel:.3e} "
+                                 f"(rtol {SPARSE_RTOL})")
 
     # -- 4. the card's result against the port's CPU run -------------------
     log("== card vs CPU on the same schedules")
     t0 = time.perf_counter()
-    rows_cpu = run_sweep(cases, BITS_PER_SLOT, device="cpu", sanitize=True)
+    cpu_t: dict = {}
+    rows_cpu = run_sweep(cases, BITS_PER_SLOT, device="cpu", sanitize=True,
+                         timings=cpu_t)
     log(f"  CPU sweep {time.perf_counter() - t0:.3f} s")
-    for a, b in zip(rows, rows_cpu):
-        ra, rb = a.result, b.result
-        rel = abs(ra.delivered_bits - rb.delivered_bits) / rb.delivered_bits
-        fa, fb = ra.fct_slots, rb.fct_slots
-        differ = ~((fa == fb) | (np.isnan(fa) & np.isnan(fb)))
-        n_diff = int(differ.sum())
-        max_diff = float(np.abs(fa[differ] - fb[differ]).max()) \
-            if n_diff else 0.0
-        log(f"  {a.label}: delivered rel diff {rel:.3e}; FCTs differ on "
-            f"{n_diff} of {len(fa)} flows, by at most {max_diff} slots")
-        if rel > 1e-5:
-            raise AssertionError(f"{a.label}: delivered bits differ by "
-                                 f"{rel:.3e} (rtol 1e-5)")
-        if n_diff > FCT_MAX_DIFF_FRAC * len(fa) \
-                or max_diff > FCT_MAX_DIFF_SLOTS:
-            raise AssertionError(f"{a.label}: FCTs differ on {n_diff} flows "
-                                 f"by up to {max_diff} slots")
+    log_batches(cpu_t)
+    compare_sweep(rows, rows_cpu)
     t0 = time.perf_counter()
     scheds_cpu = [vermilion_schedule(wl.demand_matrix(), k=K, d_hat=D_HAT,
                                      recfg_frac=RECFG, normalize="saturate",
@@ -1827,35 +2068,19 @@ def main() -> int:
         raise AssertionError(f"schedules built on the card differ from the "
                              f"CPU's: perms equal {same}")
 
-    # -- 5. a traced rerun: where the data plane's time goes on the card ---
-    log("== traced rerun of the card sweep (torch.profiler)")
-    traced: dict = {}
-    t0 = time.perf_counter()
-    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
-        run_sweep(cases, BITS_PER_SLOT, device="cuda", timings=traced)
-    traced_s = time.perf_counter() - t0
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = [e for e in on_dev if e.name.startswith(("Memcpy", "Memset"))]
-    kern = [e for e in on_dev if not e.name.startswith(("Memcpy", "Memset"))]
-    log(f"  traced sweep {traced_s:.6f} s (untraced {phases['sweep_s']:.6f} "
-        f"s); traced device loop {traced['device_loop_s']:.6f} s")
-    if kern:
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
-        copy = sum(e.time_range.elapsed_us() for e in copies) / 1e6
-        log(f"  data plane: {len(kern)} kernels "
-            f"({len(kern) / traced['slots']:.3f} per slot), device busy "
-            f"{busy:.6f} s of the {traced['device_loop_s']:.6f} s loop "
-            f"(idle share {1 - busy / traced['device_loop_s']:.4f}); "
-            f"copies {copy:.6f} s")
-    else:
-        log("  the profiler recorded no device events: device busy time "
-            "not measured")
+    # -- 5. traced reruns: where each data plane's time goes on the card ---
+    traces = {"singlehop": traced_sweep("single-hop", single),
+              route: traced_sweep(f"two-hop ({route})", twohop)}
 
-    # -- 5a. the adaptive loop: grids (a) and (b) on the card --------------
+    # -- 5a. the n = 64 grid: per-flow two-hop FCTs, the aggregate plane ---
+    n64 = sweep_n64_phases()
+    gc.collect()
+
+    # -- 5b. the adaptive loop: grids (a) and (b) on the card --------------
     adaptive = adaptive_phases()
     gc.collect()
 
-    # -- 5b. the attention, mLSTM and scan kernels; the serving paths -------
+    # -- 5c. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
@@ -1878,7 +2103,10 @@ def main() -> int:
     for arch, res in served.items():
         log(f"serving {arch}: {json.dumps(res)}")
     log("adaptive: " + json.dumps(adaptive))
-    sinkhorn_by_path = {"sweep": launches,
+    log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
+                                "phases": phases}))
+    log("sweep_n64: " + json.dumps(n64))
+    sinkhorn_by_path = {"sweep": launches, "sweep_n64": n64["launches"],
                         "adaptive_a": adaptive["a"]["launches"],
                         "adaptive_b": adaptive["b"]["launches"]}
     kernels = [{

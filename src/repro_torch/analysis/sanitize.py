@@ -240,6 +240,30 @@ class Sanitizer:
                 self._fail(name, "a consistent fabric (one schedule) must "
                                  "have zero disagreement and zero loss")
 
+    def check_caps_dense(self, caps: np.ndarray, d_hat: int, w: float,
+                         label: str = "caps") -> None:
+        """Dense ``(n_slots, n, n)`` per-slot capacity LUT contract (the
+        dense engines): nonnegative, zero diagonal, per-source and per-
+        destination slot totals within ``d_hat * w``."""
+        self._ran("caps_dense")
+        name = label
+        if caps.ndim != 3 or caps.shape[1] != caps.shape[2]:
+            self._fail(name, f"expected (n_slots, n, n) caps "
+                             f"(got {caps.shape})")
+        if (caps < 0).any():
+            self._fail(name, "negative capacity")
+        n = caps.shape[1]
+        if caps[:, np.arange(n), np.arange(n)].any():
+            self._fail(name, "self-loop capacity on the served support")
+        budget = d_hat * w
+        tol = self._tol(budget)
+        if caps.sum(axis=2).max(initial=0.0) > budget + tol:
+            self._fail(name, "source port over-committed in a slot "
+                             "(not a partial matching)")
+        if caps.sum(axis=1).max(initial=0.0) > budget + tol:
+            self._fail(name, "output port over-claimed in a slot "
+                             "(not a partial matching)")
+
     # -- conservation / closure ---------------------------------------------
 
     def check_conservation(self, injected: float, delivered: float,

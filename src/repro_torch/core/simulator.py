@@ -1,13 +1,14 @@
-"""Flow-level timeslot simulator of the port: the batched single-hop sweep
-and the adaptive control loop.
+"""Flow-level timeslot simulator of the port: the batched sweep (single-hop
+and two-hop), the aggregate plane and the adaptive control loop.
 
-The port's counterpart of the single-hop path of ``repro.core.simulator``
-(``run_sweep(..., backend="jax")`` and ``run_adaptive(...,
-backend="jax")``): per (src, dst) virtual output queues, FIFO within a
-queue, transmissions paused during reconfiguration (the
-``1 - recfg_frac`` capacity factor), processor-sharing flow completion.
+The port's counterpart of the device paths of ``repro.core.simulator``
+(``run_sweep(..., backend="jax")``, ``simulate_aggregate_jax`` and
+``run_adaptive(..., backend="jax")``): per (src, dst) virtual output
+queues, FIFO within a queue, transmissions paused during reconfiguration
+(the ``1 - recfg_frac`` capacity factor), processor-sharing flow
+completion.
 
-A sweep is three layers:
+A single-hop sweep is three layers:
 
 1. **Host layout.**  The cases' padded per-slot circuit plans
    (``Schedule.slot_circuits_padded``) are laid side by side into one
@@ -36,11 +37,19 @@ and served in one :func:`singlehop` run on ``device``.  Under
 ``normalize="saturate"`` every schedule the loop builds projects through
 the Sinkhorn kernel on ``device``.
 
+Two-hop sweeps (``rotorlb``: RotorNet's direct hop plus VLB offload;
+``vlb``: every bit through a relay) run the same three layers on dense
+per-slot capacity matrices (:func:`_twohop_batch`): the relay data plane
+in one of three formulations, chosen as the reference chooses
+(:func:`twohop_fct`, with per-flow FCTs from the credit replay, at small
+n; :func:`twohop_dense` or :func:`twohop_sparse`, aggregates only,
+beyond).  :func:`simulate_aggregate` serves dense per-slot arrivals
+through :func:`agg`.
+
 The host ledger (workloads, ``SimResult``, ``_CreditState``) and the
-control plane are the port's own copies of the reference's.  Two-hop modes
-(``rotorlb`` / ``vlb``), fault injection, the repair loop,
-``collision="fullest"`` and activation jitter are not ported yet and raise
-before any case runs; the aggregate plane is not ported.
+control plane are the port's own copies of the reference's.  Fault
+injection, the repair loop, ``collision="fullest"`` and activation jitter
+are not ported yet and raise before any case runs.
 """
 from __future__ import annotations
 
@@ -75,6 +84,7 @@ __all__ = [
     "AdaptiveRow",
     "run_sweep",
     "run_adaptive",
+    "simulate_aggregate",
     "singlehop",
     "WEBSEARCH_CDF",
 ]
@@ -561,12 +571,12 @@ def singlehop(voq: torch.Tensor, arr_pid: torch.Tensor,
     return voq
 
 
-def _singlehop_flows(wls: list[Workload], n: int, horizons: np.ndarray,
-                     H: int):
-    """Concatenated flow state and the arrival list of the whole batch:
-    flat global pair ids ``(case * n + src) * n + dst``; flows that arrive
-    within their case's horizon, sorted by arrival slot (stable), with
-    per-slot bounds ``bucket`` (slot h's arrivals are
+def _batch_flows(wls: list[Workload], n: int, horizons: np.ndarray,
+                 H: int):
+    """Concatenated flow state and the arrival list of a batch, single-hop
+    or two-hop: flat global pair ids ``(case * n + src) * n + dst``; flows
+    that arrive within their case's horizon, sorted by arrival slot
+    (stable), with per-slot bounds ``bucket`` (slot h's arrivals are
     ``order[bucket[h]:bucket[h + 1]]``).  Returns
     (f_off, fct, credit, order, bucket, apid, asz)."""
     f_off = np.concatenate(
@@ -652,7 +662,7 @@ def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
     tx in f64 and the final VOQ on the host."""
     n = wls[0].n
     H = p_pid.shape[0]
-    f_off, fct, credit, order, bucket, apid, asz = _singlehop_flows(
+    f_off, fct, credit, order, bucket, apid, asz = _batch_flows(
         wls, n, horizons, H)
     lap("layout_s")
 
@@ -751,6 +761,486 @@ def _singlehop_batch(
 
 
 # ---------------------------------------------------------------------------
+# Aggregate and two-hop data planes
+# ---------------------------------------------------------------------------
+
+# Water-fill completion-boundary forgiveness for the pro-rata relay replay
+# (no per-pair drain observation there): scaled by the pair's cumulative
+# water level, since that is where credited-amount rounding accumulates.
+_F32_LEVEL_REL = 1e-6
+
+# The two-hop FCT step carries the full per-(at, src, dst) relay
+# attribution tensor (B, n, n, n) and emits per-slot (B, n, n) delivered
+# matrices — affordable at small n only.  Beyond these bounds the two-hop
+# path stays aggregate-only (fct_slots all inf), as in the reference.
+_TWOHOP_FCT_MAX_N = 64
+
+# The reference pads the horizon to a multiple of this for its jit cache
+# and sizes the FCT bound on the padded horizon.  The port pads nothing,
+# but it computes the same padded horizon, so every batch takes the
+# reference's route (and keeps or loses its FCTs as there).
+_PAD_H = 128
+
+# Dense (one batched matrix product over the full (B, n, n) relay-bucket
+# matrix) vs sparse (circuit-support gathers + index_add_) crossover: the
+# reference's, by n.
+_TWOHOP_DENSE_MAX_N = 256
+
+_JEPS = 1e-12
+
+
+def _pad_to(x: int, q: int) -> int:
+    return max(q, -(-x // q) * q)
+
+
+def _twohop_fct_ok(B: int, n: int, H_pad: int) -> bool:
+    return n <= _TWOHOP_FCT_MAX_N and H_pad * B * n * n * 4 <= (1 << 27)
+
+
+def _twohop_route(B: int, n: int, H: int, kernel: str | None = None) -> str:
+    """The step a two-hop batch of ``B`` cases, ``n`` nodes and ``H``
+    slots runs: ``"twohop_fct"`` (per-flow FCTs) where the attribution
+    tensor fits, else ``"twohop_dense"`` up to ``_TWOHOP_DENSE_MAX_N``
+    nodes and ``"twohop_sparse"`` beyond; ``kernel`` (``"dense"`` or
+    ``"sparse"``) forces an aggregate-only formulation.  The reference's
+    choice in ``_twohop_batch_jax``."""
+    if kernel is None:
+        if _twohop_fct_ok(B, n, _pad_to(H, _PAD_H)):
+            return "twohop_fct"
+        kernel = "dense" if n <= _TWOHOP_DENSE_MAX_N else "sparse"
+    if kernel not in ("dense", "sparse"):
+        raise ValueError(f"kernel must be 'dense' or 'sparse' "
+                         f"(got {kernel!r})")
+    return f"twohop_{kernel}"
+
+
+def agg(voq: torch.Tensor, caps: torch.Tensor, cap_idx: torch.Tensor,
+        arr: torch.Tensor, delivered: torch.Tensor) -> torch.Tensor:
+    """Serve ``H = arr.shape[0]`` slots of the aggregate single-hop plane.
+
+    The port of the reference's ``agg`` scan, one Python iteration per
+    slot: ``voq`` is the ``(B, n, n)`` f32 queue carry, updated in place
+    and returned; slot ``h`` adds the dense arrivals ``arr[h]``, serves
+    ``min(voq, caps[cap_idx[h]])`` and writes the bits served per case
+    into ``delivered[h]``."""
+    for h in range(arr.shape[0]):
+        voq.add_(arr[h])
+        tx = torch.minimum(voq, caps[cap_idx[h]])
+        voq.sub_(tx)
+        torch.sum(tx, dim=(1, 2), out=delivered[h])
+    return voq
+
+
+def simulate_aggregate(sched: Schedule, arrivals: np.ndarray,
+                       bits_per_slot: float, device=None):
+    """Single-hop aggregate dynamics of ``sched`` on ``device`` (``None``:
+    the card; ``"cpu"``: the same PyTorch ops on the CPU).  The port of
+    ``simulate_aggregate_jax``; returns ``(delivered_per_slot,
+    final_voq)`` as f32 numpy arrays.
+
+    ``arrivals``: ``(horizon, n, n)`` bits arriving per slot, uploaded
+    once; the per-slot delivered bits and the final VOQ are read back
+    once."""
+    dev = resolve_device(device)
+    arrivals = np.asarray(arrivals, dtype=np.float32)
+    horizon = arrivals.shape[0]
+    caps = sched.capacity_per_slot(bits_per_slot).astype(np.float32)
+    cap_idx = (np.arange(horizon) % caps.shape[0]).reshape(horizon, 1)
+    voq = torch.zeros((1, sched.n, sched.n), dtype=DATA_DTYPE, device=dev)
+    delivered = torch.empty((horizon, 1), dtype=DATA_DTYPE, device=dev)
+    agg(voq, torch.from_numpy(caps).to(dev),
+        torch.from_numpy(cap_idx).to(dev),
+        torch.from_numpy(arrivals).to(dev).unsqueeze(1), delivered)
+    return delivered[:, 0].cpu().numpy(), voq[0].cpu().numpy()
+
+
+# The two-hop steps below serve in f32 like the reference's scans.  The
+# dense step's batched product and the FCT step's sums rely on full f32
+# arithmetic on the card: TF32 must stay off for f32 matrix products
+# (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+
+def _arrive(voq_flat: torch.Tensor, arr_pid: torch.Tensor,
+            arr_size: torch.Tensor, arr_bounds: np.ndarray, h: int) -> None:
+    a, b = int(arr_bounds[h]), int(arr_bounds[h + 1])
+    if b > a:
+        voq_flat.index_add_(0, arr_pid[a:b], arr_size[a:b])
+
+
+def _offload_shares(cap: torch.Tensor, voq: torch.Tensor):
+    """The proportional spray of the leftover capacity: per (case, node
+    u), ``send_u = min(leftover, queue)``, each circuit's share ``ls`` of
+    the leftover and each destination's share ``qs`` of the queue."""
+    leftover = cap.sum(dim=2)
+    queue = voq.sum(dim=2)
+    send_u = torch.minimum(leftover, queue)
+    ls = torch.where(leftover[:, :, None] > _JEPS,
+                     cap / leftover.clamp_min(_JEPS)[:, :, None], 0.0)
+    qs = torch.where(queue[:, :, None] > _JEPS,
+                     voq / queue.clamp_min(_JEPS)[:, :, None], 0.0)
+    return send_u, ls, qs
+
+
+def twohop_dense(voq: torch.Tensor, relay: torch.Tensor, caps: torch.Tensor,
+                 cap_idx: torch.Tensor, arr_pid: torch.Tensor,
+                 arr_size: torch.Tensor, arr_bounds: np.ndarray,
+                 direct: torch.Tensor, delivered: torch.Tensor,
+                 second: torch.Tensor) -> None:
+    """Serve ``H = cap_idx.shape[0]`` slots of the two-hop relay plane in
+    its dense formulation.
+
+    The port of the reference's ``twohop_dense`` scan, one Python
+    iteration per slot.  ``voq`` and ``relay`` are the ``(B, n, n)`` f32
+    carries (``relay[b, at, dst]``: bits waiting at relay ``at`` for
+    ``dst``), updated in place.  Slot ``h`` scatters its arrivals (flat
+    pair ids, as :func:`singlehop`), then on ``caps[cap_idx[h]]`` drains
+    the relays first, serves the direct hop (masked by ``direct`` for
+    vlb), and sprays the leftover capacity into the relays in proportion
+    (``moved = (send_u ls)^T @ qs``), bits whose relay is their
+    destination landing at once.  It writes the bits delivered and the
+    second-hop bits per case into ``delivered[h]`` and ``second[h]``."""
+    n = voq.shape[1]
+    offdiag = 1.0 - torch.eye(n, dtype=voq.dtype, device=voq.device)
+    voq_flat = voq.view(-1)
+    for h in range(cap_idx.shape[0]):
+        _arrive(voq_flat, arr_pid, arr_size, arr_bounds, h)
+        cap = caps[cap_idx[h]]
+        # priority 1: second-hop relay traffic (at u, destined v)
+        send1 = torch.minimum(relay, cap)
+        relay.sub_(send1)
+        torch.sum(send1, dim=(1, 2), out=second[h])
+        cap.sub_(send1)
+        tx = torch.minimum(voq, cap).mul_(direct)   # vlb: no direct hop
+        voq.sub_(tx)
+        torch.add(second[h], tx.sum(dim=(1, 2)), out=delivered[h])
+        cap.sub_(tx)
+        # moved[b, v, d] = sum_u send_u * link_share[u, v] * q_share[u, d]
+        send_u, ls, qs = _offload_shares(cap, voq)
+        moved = torch.bmm((send_u[:, :, None] * ls).transpose(1, 2), qs)
+        voq.sub_(send_u[:, :, None] * qs).clamp_min_(0.0)
+        # bits whose relay node IS the destination arrive at once
+        delivered[h].add_(moved.diagonal(dim1=1, dim2=2).sum(dim=1))
+        relay.add_(moved.mul_(offdiag))
+
+
+def twohop_fct(voq: torch.Tensor, relay3: torch.Tensor, caps: torch.Tensor,
+               cap_idx: torch.Tensor, arr_pid: torch.Tensor,
+               arr_size: torch.Tensor, arr_bounds: np.ndarray,
+               direct: torch.Tensor, dp: torch.Tensor,
+               second: torch.Tensor) -> None:
+    """Serve ``H = cap_idx.shape[0]`` slots of the two-hop relay plane,
+    keeping the per-source attribution that per-flow FCTs need.
+
+    The port of the reference's ``twohop_fct`` scan: ``relay3[b, at, src,
+    dst]`` carries whose bits sit in each relay bucket; relay drains and
+    offload sprays are proportional within a bucket.  Slot ``h`` writes
+    the ``(B, n, n)`` bits delivered per (src, dst) into ``dp[h]`` and
+    the second-hop bits per case into ``second[h]``."""
+    n = voq.shape[1]
+    offdiag = 1.0 - torch.eye(n, dtype=voq.dtype, device=voq.device)
+    voq_flat = voq.view(-1)
+    for h in range(cap_idx.shape[0]):
+        _arrive(voq_flat, arr_pid, arr_size, arr_bounds, h)
+        cap = caps[cap_idx[h]]
+        # priority 1: drain relay buckets, attributed pro-rata to src
+        tot = relay3.sum(dim=2)                      # [b, at, dst] totals
+        send1 = torch.minimum(tot, cap)
+        frac = torch.where(tot > _JEPS, send1 / tot.clamp_min(_JEPS), 0.0)
+        out = dp[h]
+        torch.sum(relay3 * frac[:, :, None, :], dim=1, out=out)
+        relay3.mul_((1.0 - frac)[:, :, None, :])
+        torch.sum(send1, dim=(1, 2), out=second[h])
+        cap.sub_(send1)
+        # direct hop (vlb cases masked), already (src, dst) resolved
+        tx = torch.minimum(voq, cap).mul_(direct)
+        voq.sub_(tx)
+        out.add_(tx)
+        cap.sub_(tx)
+        # offload leftover capacity into relays, keeping src labels:
+        # moved[b, u, v, d] = send_u * link_share[u, v] * q_share[u, d]
+        send_u, ls, qs = _offload_shares(cap, voq)
+        moved = (send_u[:, :, None] * ls)[:, :, :, None] * qs[:, :, None, :]
+        voq.sub_(send_u[:, :, None] * qs).clamp_min_(0.0)
+        # bits whose relay node IS the destination arrive at once,
+        # delivered for (src = u, dst = v)
+        out.add_(moved.diagonal(dim1=2, dim2=3))
+        # relay bucket at v gains src-u bits destined d
+        relay3.add_(moved.mul_(offdiag).transpose(1, 2))
+
+
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int):
+    return x.new_zeros(num).index_add_(0, seg, x)
+
+
+def twohop_sparse(voq: torch.Tensor, relay: torch.Tensor,
+                  caps: torch.Tensor, cap_idx: torch.Tensor,
+                  arr_pid: torch.Tensor, arr_size: torch.Tensor,
+                  arr_bounds: np.ndarray, plan_idx: np.ndarray,
+                  plan_bounds: np.ndarray, plan: dict,
+                  direct: torch.Tensor, delivered: torch.Tensor,
+                  second: torch.Tensor) -> None:
+    """Serve ``H = cap_idx.shape[0]`` slots of the two-hop relay plane in
+    its sparse formulation: relay drain and offload touch only the
+    circuit support.
+
+    The port of the reference's ``twohop_sparse`` scan (``segment_sum``
+    as ``index_add_``, ``take_along_axis`` as ``gather``).  ``relay`` is
+    the ``(B n, n)`` carry ``relay[b n + at, dst]``.  Slot ``h`` runs on
+    support plan ``p = plan_idx[h]``: entries ``plan_bounds[p]`` to
+    ``plan_bounds[p + 1]`` of the flat arrays ``plan["pf"]`` (pair id
+    ``(b n + at) n + v``), ``"row"`` (``b n + at``), ``"v"``, ``"b"`` and
+    ``"bv"`` (``b n + v``) — the reference's plan rows without their
+    padding, whose entries are exact no-ops there."""
+    B, n = voq.shape[0], voq.shape[1]
+    voq_flat = voq.view(-1)
+    voq3 = voq.view(B * n, n)
+    relay_flat = relay.view(-1)
+    for h in range(cap_idx.shape[0]):
+        _arrive(voq_flat, arr_pid, arr_size, arr_bounds, h)
+        cap = caps[cap_idx[h]]
+        cap3 = cap.view(B * n, n)
+        cap_flat = cap.view(-1)
+        p = int(plan_idx[h])
+        lo, hi = int(plan_bounds[p]), int(plan_bounds[p + 1])
+        pf, row, v, b, bv = (plan[k][lo:hi]
+                             for k in ("pf", "row", "v", "b", "bv"))
+        # priority 1: drain relayed bits over the support circuits (a
+        # plan holds each support pair once)
+        rs = relay_flat[pf]
+        cap_j = cap_flat[pf]
+        send1 = torch.minimum(rs, cap_j)
+        relay_flat[pf] = rs - send1
+        cap_flat[pf] = cap_j - send1
+        second[h].zero_().index_add_(0, b, send1)
+        # direct hop (vlb cases masked)
+        tx = torch.minimum(voq, cap).mul_(direct)
+        voq.sub_(tx)
+        torch.add(second[h], tx.sum(dim=(1, 2)), out=delivered[h])
+        cap.sub_(tx)
+        # offload leftover capacity, support rows only
+        leftover = cap3.sum(dim=1)
+        queue = voq3.sum(dim=1)
+        send_u = torch.minimum(leftover, queue)
+        lo_j = leftover[row]
+        ls = torch.where(lo_j > _JEPS,
+                         cap_flat[pf] / lo_j.clamp_min(_JEPS), 0.0)
+        coeff = send_u[row] * ls
+        q_j = queue[row]
+        qs = torch.where((q_j > _JEPS)[:, None],
+                         voq3[row] / q_j.clamp_min(_JEPS)[:, None], 0.0)
+        moved = coeff[:, None] * qs                 # (J, n) over dst
+        dec = _segment_sum(coeff, row, B * n)
+        scale = torch.where(queue > _JEPS,
+                            dec / queue.clamp_min(_JEPS), 0.0)
+        voq3.sub_(voq3 * scale[:, None]).clamp_min_(0.0)
+        # bits whose relay node IS the destination arrive at once
+        dd = moved.gather(1, v[:, None])[:, 0]
+        delivered[h].add_(_segment_sum(dd, b, B))
+        moved.scatter_(1, v[:, None], 0.0)
+        relay.index_add_(0, bv, moved)          # -> bucket [(b, at v), dst]
+
+
+class _SupportPlans:
+    """Per-slot circuit-support plans of a two-hop batch (the port's copy
+    of the reference's, for the sparse step).
+
+    Per (case, period slot), the <= n*d_hat (at, dst) pairs with nonzero
+    capacity; relay drain/fill only ever touches these rows (everything
+    else is an exact multiply-by-one / add-zero), so the per-slot relay
+    work is O(n^2 d_hat), not O(n^3).  The merged plan of a slot depends
+    only on ``slot % ns_b`` per case (the residue tuple :meth:`key`), so
+    plans are memoized on that tuple."""
+
+    _CAT = ("pf", "row", "v", "b", "bv")
+
+    def __init__(self, caps_list: list[np.ndarray], n: int):
+        self.ns = [c.shape[0] for c in caps_list]
+        self.per_case: list[list[dict]] = []
+        for b, caps in enumerate(caps_list):
+            plans = []
+            for ps in range(caps.shape[0]):
+                at, v = np.nonzero(caps[ps])  # lex-sorted by (at, v)
+                row = b * n + at
+                plans.append({"pf": row * n + v, "row": row, "v": v,
+                              "b": np.full(len(at), b), "bv": b * n + v})
+            self.per_case.append(plans)
+        self._memo: dict[tuple, dict] = {}
+
+    def key(self, slot: int) -> tuple:
+        return tuple(slot % p for p in self.ns)
+
+    def plan(self, slot: int) -> dict:
+        key = self.key(slot)
+        plan = self._memo.get(key)
+        if plan is not None:
+            return plan
+        sd = [self.per_case[b][key[b]] for b in range(len(self.per_case))]
+        plan = {k: np.concatenate([d[k] for d in sd]) for k in self._CAT}
+        if len(self._memo) < 1024:  # bound memory for long aperiodic batches
+            self._memo[key] = plan
+        return plan
+
+
+def _support_lut(caps_list: list[np.ndarray], n: int, H: int):
+    """The sparse step's plan table: each distinct residue tuple's merged
+    support once, as flat int64 arrays with per-plan bounds, and the plan
+    each slot runs.  Returns (plan_idx, plan_bounds, plan)."""
+    plans = _SupportPlans(caps_list, n)
+    keys: dict[tuple, int] = {}
+    plan_idx = np.zeros(H, dtype=np.int64)
+    plan_list: list[dict] = []
+    for slot in range(H):
+        key = plans.key(slot)
+        pi = keys.get(key)
+        if pi is None:
+            pi = keys[key] = len(plan_list)
+            plan_list.append(plans.plan(slot))
+        plan_idx[slot] = pi
+    plan_bounds = np.concatenate(
+        [[0], np.cumsum([len(p["v"]) for p in plan_list])]).astype(np.int64)
+    plan = {k: np.concatenate([p[k] for p in plan_list]).astype(np.int64)
+            for k in _SupportPlans._CAT}
+    return plan_idx, plan_bounds, plan
+
+
+def _twohop_batch(
+    cases: list[tuple[Schedule, Workload]], bits_per_slot: float,
+    modes: list[str], dev: torch.device, kernel: str | None = None,
+    san=None, timings: dict | None = None,
+) -> list[SimResult]:
+    """Two-hop (rotorlb / vlb, mixed freely) relay dynamics for a batch of
+    same-n cases on ``dev``: the port of the reference's
+    ``_twohop_batch_jax``.
+
+    The route is the reference's (:func:`_twohop_route`): where the
+    per-(at, src, dst) attribution tensor fits, :func:`twohop_fct` emits
+    per-slot delivered (src, dst) matrices and the host replays them
+    through the exact f64 credit ledger, so ``fct_slots`` are real;
+    otherwise :func:`twohop_dense` (``n <= _TWOHOP_DENSE_MAX_N``) or
+    :func:`twohop_sparse` give aggregates only (utilization, delivered
+    bits, ``avg_hops``; ``fct_slots`` all inf).  ``kernel`` forces
+    ``"dense"`` or ``"sparse"``.  Everything is uploaded once and read
+    back once; ``timings``, if given, receives the wall seconds of each
+    phase, as :func:`_singlehop_batch`'s."""
+    for m in modes:
+        if m not in ("rotorlb", "vlb"):
+            raise ValueError(f"not a two-hop mode: {m}")
+    lap = _lapper(timings)
+    B = len(cases)
+    n = cases[0][1].n
+    for sched, wl in cases:
+        if wl.n != n:
+            raise ValueError("all workloads in a batch must share n")
+        if sched.n != n:
+            raise ValueError("schedule/workload size mismatch")
+    horizons = np.array([wl.horizon for _, wl in cases], dtype=np.int64)
+    H = int(horizons.max())
+    route = _twohop_route(B, n, H, kernel)
+
+    # the capacity LUT: every case's period slots, then one zero matrix
+    # that each case's slots past its horizon index
+    caps_list = [sched.capacity_per_slot(bits_per_slot)
+                 for sched, _ in cases]
+    ns = np.array([c.shape[0] for c in caps_list], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(ns)])
+    caps_flat = np.concatenate(
+        caps_list + [np.zeros((1, n, n))]).astype(np.float32)
+    slots = np.arange(H)[:, None]
+    cap_idx = np.where(slots < horizons[None, :],
+                       offs[None, :-1] + slots % ns[None, :], offs[-1])
+    f_off, fct, credit, order, bucket, apid, asz = _batch_flows(
+        [wl for _, wl in cases], n, horizons, H)
+    direct = np.array([m != "vlb" for m in modes],
+                      dtype=np.float32).reshape(B, 1, 1)
+    if route == "twohop_sparse":
+        plan_idx, plan_bounds, plan = _support_lut(caps_list, n, H)
+    lap("layout_s")
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    args = (up(caps_flat), up(cap_idx), up(apid), up(asz), bucket)
+    d_direct = up(direct)
+    voq = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)
+    second = torch.empty((H, B), dtype=DATA_DTYPE, device=dev)
+    if route == "twohop_fct":
+        relay = torch.zeros((B, n, n, n), dtype=DATA_DTYPE, device=dev)
+        out = torch.empty((H, B, n, n), dtype=DATA_DTYPE, device=dev)
+    else:
+        relay = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)
+        out = torch.empty((H, B), dtype=DATA_DTYPE, device=dev)
+    if route == "twohop_sparse":
+        relay = relay.view(B * n, n)
+        plan = {k: up(a) for k, a in plan.items()}
+    _sync(dev)
+    lap("upload_s")
+    if route == "twohop_fct":
+        twohop_fct(voq, relay, *args, d_direct, out, second)
+    elif route == "twohop_dense":
+        twohop_dense(voq, relay, *args, d_direct, out, second)
+    else:
+        twohop_sparse(voq, relay, *args, plan_idx, plan_bounds, plan,
+                      d_direct, out, second)
+    _sync(dev)
+    lap("device_loop_s")
+    out64 = np.asarray(out.cpu().numpy(), np.float64)
+    second64 = np.asarray(second.cpu().numpy(), np.float64)
+    voq64 = np.asarray(voq.cpu().numpy(), np.float64)
+    relay64 = np.asarray(relay.cpu().numpy(), np.float64)
+    lap("download_s")
+    if timings is not None:
+        timings["slots"] = timings.get("slots", 0) + H
+
+    if route == "twohop_fct":
+        # per-flow FCTs: the per-slot delivered (src, dst) matrices through
+        # the exact f64 ledger, with the pro-rata replay's level slack
+        for slot in range(H):
+            newf = order[bucket[slot]:bucket[slot + 1]]
+            if newf.size:
+                credit.arrive(newf)
+            credit.credit(out64[slot].reshape(-1), slot,
+                          drain_rel=_F32_DRAIN_REL, level_rel=_F32_LEVEL_REL)
+        lap("replay_s")
+        delivered = [float(out64[:, b].sum()) for b in range(B)]
+    else:
+        delivered = out64.sum(axis=0)
+    sec = second64.sum(axis=0)
+    results = []
+    for b, (sched, wl) in enumerate(cases):
+        d = float(delivered[b])
+        results.append(SimResult(
+            # aggregate-only routes never credit: their FCTs stay all inf
+            fct_slots=fct[f_off[b]:f_off[b + 1]],
+            flow_size=wl.size,
+            utilization=d / (wl.horizon * n * sched.d_hat * bits_per_slot),
+            delivered_bits=d,
+            offered_bits=float(wl.size[wl.arrival < wl.horizon].sum()),
+            avg_hops=1.0 + float(sec[b]) / max(d, 1e-9),
+        ))
+    if san is not None:
+        # relay-queued bits close each case's conservation ledger
+        relay_queued = relay64.reshape(B, -1).sum(axis=1)
+        for b, (sched, wl) in enumerate(cases):
+            san.check_workload(wl)
+            san.check_schedule(sched)
+            san.check_caps_dense(
+                caps_list[b], sched.d_hat,
+                bits_per_slot * (1.0 - sched.recfg_frac),
+                label=f"{dev.type}:case{b}:caps")
+            san.check_conservation(
+                results[b].offered_bits, results[b].delivered_bits,
+                float(voq64[b].sum()) + float(relay_queued[b]),
+                label=f"{dev.type}:case{b}:conservation", float32=True)
+        if route == "twohop_fct":
+            rem, completed = credit.remaining_active()
+            san.check_credit_closure(
+                sum(r.offered_bits for r in results),
+                sum(r.delivered_bits for r in results), rem, completed,
+                label=f"{dev.type}:twohop_fct:credit", float32=True)
+        lap("sanitize_s")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Sweep API
 # ---------------------------------------------------------------------------
 
@@ -758,9 +1248,11 @@ def _singlehop_batch(
 class SweepCase:
     """One (schedule, workload, mode) point of a sweep grid.
 
-    Only ``mode="single_hop"`` runs in the port so far; ``faults`` is
-    accepted for the reference's shape but must be empty (see
-    :func:`run_sweep`).  An unknown mode raises ``ValueError`` at
+    ``mode``: ``"single_hop"`` (circuits carry their own pair's traffic),
+    ``"rotorlb"`` (RotorNet: direct hop, then two-hop VLB offload of the
+    leftover capacity) or ``"vlb"`` (every bit through a relay).
+    ``faults`` is accepted for the reference's shape but must be empty
+    (see :func:`run_sweep`).  An unknown mode raises ``ValueError`` at
     construction."""
     sched: Schedule
     wl: Workload
@@ -791,32 +1283,34 @@ def run_sweep(
     sanitize: bool | None = None,
     timings: dict | None = None,
 ) -> list[SweepRow]:
-    """Evaluate a grid of single-hop simulation cases; results come back in
-    input order.
+    """Evaluate a grid of simulation cases; results come back in input
+    order.  The port of ``run_sweep(..., backend="jax")``.
 
-    Cases batch by node count: each batch's data plane runs on ``device``
-    (``None``: the card; ``"cpu"``: the same PyTorch ops on the CPU) and
-    its per-flow FCTs come from the host's exact f64 credit replay — the
-    port of ``run_sweep(..., backend="jax")``.
+    Cases batch by node count and by single-hop or two-hop mode (``rotorlb``
+    and ``vlb`` mix freely in one batch); each batch's data plane runs on
+    ``device`` (``None``: the card; ``"cpu"``: the same PyTorch ops on the
+    CPU).  Single-hop batches get per-flow FCTs from the host's exact f64
+    credit replay; two-hop batches take the reference's route
+    (:func:`_twohop_batch`): per-flow FCTs where the relay attribution
+    tensor fits (small n and horizon), else aggregates only, with
+    ``fct_slots`` all inf.
 
     ``sanitize``: run the :mod:`repro_torch.analysis.sanitize` contract
     checks on every batch (default: the ``REPRO_SANITIZE`` env var);
     results are bit-identical either way.  ``timings``: a dict that
-    receives the wall seconds of each phase (``layout_s``, ``upload_s``,
-    ``device_loop_s``, ``download_s``, ``replay_s``, ``sanitize_s``) and
-    the number of slots served.
+    receives the wall seconds of each phase summed over the batches
+    (``layout_s``, ``upload_s``, ``device_loop_s``, ``download_s``,
+    ``replay_s``, ``sanitize_s``), the number of slots served, and under
+    ``"batches"`` one dict per batch: its ``route`` (``"singlehop"``,
+    ``"twohop_fct"``, ``"twohop_dense"`` or ``"twohop_sparse"``), its
+    number of ``cases`` and its own phase seconds and slots.
 
-    Two-hop modes and fault injection are not ported yet: such a case
-    raises ``NotImplementedError`` before any case runs.
+    Fault injection is not ported yet: such a case raises
+    ``NotImplementedError`` before any case runs.
     """
     for i, c in enumerate(cases):
         if c.mode not in _MODES:
             raise ValueError(c.mode)
-        if c.mode != "single_hop":
-            raise NotImplementedError(
-                f"cases[{i}] ({c.label!r}): mode {c.mode!r} is not ported "
-                "to repro_torch yet — the two-hop data planes are ROADMAP "
-                "queue 1, item 2 ('aggregate and two-hop data planes')")
         if c.faults:
             raise NotImplementedError(
                 f"cases[{i}] ({c.label!r}): fault injection is not "
@@ -825,16 +1319,30 @@ def run_sweep(
                 "engine's features)")
     dev = resolve_device(device)
     san = make_sanitizer(sanitize)
-    groups: dict[int, list[int]] = {}
+    groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(cases):
-        groups.setdefault(c.wl.n, []).append(i)
+        groups.setdefault((c.wl.n, c.mode == "single_hop"), []).append(i)
     rows: list[SweepRow | None] = [None] * len(cases)
-    for idxs in groups.values():
+    for (n, single), idxs in groups.items():
         batch = [(cases[i].sched, cases[i].wl) for i in idxs]
+        bt = None if timings is None else {}
         t0 = time.perf_counter()
-        results = _singlehop_batch(batch, bits_per_slot, dev, san=san,
-                                   timings=timings)
+        if single:
+            route = "singlehop"
+            results = _singlehop_batch(batch, bits_per_slot, dev, san=san,
+                                       timings=bt)
+        else:
+            route = _twohop_route(len(idxs), n,
+                                  max(wl.horizon for _, wl in batch))
+            results = _twohop_batch(batch, bits_per_slot,
+                                    [cases[i].mode for i in idxs], dev,
+                                    san=san, timings=bt)
         dt = (time.perf_counter() - t0) / len(idxs)
+        if bt is not None:
+            for key, val in bt.items():
+                timings[key] = timings.get(key, 0) + val
+            timings.setdefault("batches", []).append(
+                dict(bt, route=route, cases=len(idxs)))
         for i, r in zip(idxs, results):
             rows[i] = SweepRow(label=cases[i].label, mode=cases[i].mode,
                                result=r, meta=dict(cases[i].meta), sim_s=dt)

@@ -1,7 +1,9 @@
 """repro_torch kernels on the card (marker ``gpu``): each CUDA kernel
 against its plain PyTorch version.  Needs no jax, so it runs on a machine
 with a card and PyTorch alone (``pytest -m gpu``); without a card every
-test skips.  Whether a card is present is decided inside each test.
+marked test skips (the one unmarked test checks that the entry points
+refuse to run without a card).  Whether a card is present is decided
+inside each test.
 
 Tolerances: Sinkhorn f32 rtol 1e-5 / atol 1e-6, as tests/test_kernels.py
 holds the Pallas kernel (reduction order only), f64 rtol 1e-12 over 200
@@ -20,6 +22,9 @@ loop on the card against its CPU run: the same compiled control
 trajectory and counters exactly, FCTs differing on at most 0.1 % of flows
 by at most 1 slot (CUDA ``index_add_``'s order of same-slot arrivals),
 utilization rtol 1e-5; the fleet estimation ops' ticks equal to the CPU's.
+The two-hop routes on the card against the CPU: aggregates (delivered
+bits, utilization, avg_hops) rtol 1e-4, FCTs within the sweep's bar;
+``simulate_aggregate`` per slot rtol 1e-5, final VOQ within 1e-3 bits.
 """
 import numpy as np
 import pytest
@@ -683,3 +688,88 @@ def test_fleet_update_quantize_on_card_matches_cpu():
     deq = estimation.dequantize_device(q_c, k, BPS)
     assert deq.device.type == "cuda"
     assert torch.equal(deq.cpu(), estimation.dequantize_device(q_h, k, BPS))
+
+
+def _twohop_batch(n, horizon=300):
+    """A rotorlb and a vlb case of two horizons on one oblivious schedule."""
+    s = schedule.oblivious_schedule(n, d_hat=2, recfg_frac=1 / 9)
+    wls = [simulator.websearch_workload(n, 0.6, h, BPS, d_hat=2, seed=seed)
+           for h, seed in ((horizon // 2, 2), (horizon, 3))]
+    return [(s, wl) for wl in wls], ["rotorlb", "vlb"]
+
+
+def _assert_card_matches_cpu(card, cpu):
+    for a, b in zip(card, cpu):
+        for f in ("delivered_bits", "utilization", "avg_hops"):
+            assert np.isclose(getattr(a, f), getattr(b, f), rtol=1e-4), f
+        fa, fb = a.fct_slots, b.fct_slots
+        differ = fa != fb
+        assert differ.sum() <= 1e-3 * len(fa)
+        assert not differ.any() or np.abs(fa - fb)[differ].max() <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kernel", [(8, None), (12, None), (16, "dense"),
+                                      (12, "sparse")])
+def test_twohop_routes_on_card_match_cpu(n, kernel):
+    """Each two-hop route on the card against the same ops on the CPU,
+    sanitized: aggregates rtol 1e-4, FCTs within the sweep's bar (the
+    twohop_fct route's are finite, the others' all inf)."""
+    _card()
+    from repro_torch.analysis.sanitize import make_sanitizer
+
+    cases, modes = _twohop_batch(n)
+    rows = {d: simulator._twohop_batch(cases, BPS, modes, torch.device(d),
+                                       kernel=kernel,
+                                       san=make_sanitizer(True))
+            for d in ("cuda", "cpu")}
+    _assert_card_matches_cpu(rows["cuda"], rows["cpu"])
+    fct = simulator._twohop_route(2, n, 300, kernel) == "twohop_fct"
+    assert fct == (kernel is None)
+    for r in rows["cuda"]:
+        assert np.isfinite(r.fct_slots).any() == fct
+        assert r.delivered_bits > 0 and r.avg_hops > 1.0
+
+
+@pytest.mark.gpu
+def test_twohop_sweep_on_card_matches_cpu():
+    """run_sweep's mixed grid (single_hop + rotorlb + vlb) on the card."""
+    _card()
+    cases, modes = _twohop_batch(16, horizon=400)
+    sweep = [simulator.SweepCase(s, wl, m, m) for (s, wl), m in
+             zip(cases, modes)]
+    sweep.append(simulator.SweepCase(cases[1][0], cases[1][1], "single_hop"))
+    rows = {d: simulator.run_sweep(sweep, BPS, device=d, sanitize=True)
+            for d in ("cuda", "cpu")}
+    _assert_card_matches_cpu([r.result for r in rows["cuda"]],
+                             [r.result for r in rows["cpu"]])
+
+
+@pytest.mark.gpu
+def test_simulate_aggregate_on_card_matches_cpu():
+    _card()
+    wl = simulator.websearch_workload(16, 0.5, 400, BPS, d_hat=4, seed=5)
+    s = schedule.vermilion_schedule(wl.demand_matrix(), k=3, d_hat=4,
+                                    recfg_frac=1 / 9)
+    arr = wl.arrival_matrix()
+    (d_c, voq_c), (d_h, voq_h) = (
+        simulator.simulate_aggregate(s, arr, BPS, device=d)
+        for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(d_c, d_h, rtol=1e-5, atol=0.0)
+    np.testing.assert_allclose(voq_c, voq_h, rtol=0.0, atol=1e-3)
+    assert d_c.sum() > 0
+
+
+def test_twohop_sweep_needs_a_card_unless_cpu(monkeypatch):
+    """No card: two-hop run_sweep and simulate_aggregate raise by default
+    and never fall back to the CPU (runs without a card too)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cases, modes = _twohop_batch(6, horizon=60)
+    sweep = [simulator.SweepCase(s, wl, m) for (s, wl), m in
+             zip(cases, modes)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulator.run_sweep(sweep, BPS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulator.simulate_aggregate(cases[0][0], np.zeros((4, 6, 6)), BPS)
+    rows = simulator.run_sweep(sweep, BPS, device="cpu")
+    assert all(r.result.avg_hops > 1.0 for r in rows)

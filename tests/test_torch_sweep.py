@@ -2,7 +2,8 @@
 on the same objects (carried across by ``repro_torch.convert``): the
 single-hop parity cases of tests/test_jax_parity.py, the data plane step
 against the JAX ``singlehop`` scan, the sanitizer, the device policy, and
-the import boundary of the port.
+the import boundary of the port (the two-hop cases are in
+tests/test_torch_twohop.py).
 
 Bars: FCT arrays equal exactly; delivered bits within rtol 1e-5 (the
 reference's own parity bar).  On the CPU the data plane reproduces the
@@ -122,7 +123,7 @@ def test_data_plane_matches_jax_scan():
     voq_j, (tx_j, dr_j) = ref_sim._jax_fns()["singlehop"](
         np.zeros(n * n, np.float32), apid_j, asz_j, p_pid, p_cap)
 
-    *_, bucket_t, apid, asz = simulator._singlehop_flows(
+    *_, bucket_t, apid, asz = simulator._batch_flows(
         [convert.workload_from(wl)], n, hz, H)
     assert np.array_equal(bucket_t, bucket)
     voq = torch.zeros(n * n, dtype=torch.float32)
@@ -161,13 +162,9 @@ def test_sanitizer_catches_a_broken_schedule():
                             device="cpu", sanitize=True)
 
 
-def test_unported_modes_and_faults_raise():
+def test_faults_and_unknown_modes_raise():
     case = _vermilion_case(n=8, horizon=50)
     s, wl = convert.schedule_from(case.sched), convert.workload_from(case.wl)
-    for mode in ("rotorlb", "vlb"):
-        with pytest.raises(NotImplementedError, match="two-hop"):
-            simulator.run_sweep([simulator.SweepCase(s, wl, mode)], BPS,
-                                device="cpu")
     with pytest.raises(NotImplementedError, match="fault injection"):
         simulator.run_sweep([simulator.SweepCase(s, wl, faults=[object()])],
                             BPS, device="cpu")
