@@ -54,6 +54,25 @@ and read just after:
    disagree, 2-step gathers lose capacity.  A traced rerun of grid (a),
    without the host's credit replay, reads the slot loop's idle share and
    the kernel's device time.
+1c. The paper's throughput analysis (``throughput_phases``), at the
+   reference benchmarks' own sizes, each card path with the Sinkhorn count
+   set to 0 just before it and read just after: Fig. 7's table (n = 16,
+   d_hat = 4, eight demands, oblivious multi-hop LP and single-hop,
+   Vermilion at k 3 and 6, every entry at or above Theorem 3) and its
+   flow-level cross-check (ring, skew-0.5, uniform over 800 slots: each
+   demand's saturate schedule, ``rotorlb`` and single-hop on the
+   oblivious one, one ``run_sweep`` on the card, held to the CPU run at
+   the sweep's bar); Fig. 8 (k 2-8, n 8-48; every minimum at or above
+   the bound); the sweep's four n = 256 saturate schedules certified on
+   the card (checks C1-C7 pass, theta at or above the quantized bound),
+   the CI's two golden certificates and the saturate golden through
+   ``python -m repro_torch.analysis.certify``, each equal to the CPU's
+   certificate (theta rtol 1e-9); BvN on the Theorem-1 input at n 6 and
+   16 (ideal BvN serves it fully; decomposition equal to the CPU's,
+   lambdas within 1e-9) beside the quantized strawman's and Vermilion's
+   throughput at 3n slots; the interconnect pricing of every registry
+   architecture and its drain through saturate schedules over 30,000
+   slots, one ``run_sweep`` on the card, held to the CPU run.
 2. Serving: ``ServeEngine`` with Qwen1.5-0.5B at full width and depth
    (24 layers, d_model 1024, 16 heads, vocab 151,936) on seeded random
    weights, bf16, 8 lanes of 2048 positions, 16 requests with prompts of
@@ -122,9 +141,11 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -137,6 +158,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import certify  # noqa: E402
+from repro_torch.benchmarks import bound_convergence  # noqa: E402
+from repro_torch.benchmarks import interconnect_bench  # noqa: E402
+from repro_torch.benchmarks import throughput_bench  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import schedule as schedule_mod  # noqa: E402
 from repro_torch.core import simulator as sim_mod  # noqa: E402
@@ -146,8 +171,16 @@ from repro_torch.core.estimation import (  # noqa: E402
     estimate_all_views,
 )
 from repro_torch.core.schedule import (  # noqa: E402
+    bvn_decompose,
+    bvn_schedule,
     oblivious_schedule,
     vermilion_schedule,
+)
+from repro_torch.core.throughput import (  # noqa: E402
+    quantized_theorem3_bound,
+    schedule_throughput,
+    theorem3_bound,
+    throughput_single_hop,
 )
 from repro_torch.core.simulator import (  # noqa: E402
     AdaptiveCase,
@@ -236,6 +269,32 @@ DISAGREE_COLLISIONS = ("drop", "lowest", "receiver")
 # card vs CPU utilization, whole run and per epoch
 UTIL_RTOL = 1e-5
 SHORT_FLOW_BITS = 100e3 * 8          # flows up to 100 KB
+
+# the throughput analysis, at the reference benchmarks' own sizes: Fig. 7
+# (benchmarks/throughput_bench.py: n = 16, d_hat = 4, k 3 and 6, the
+# flow-level cross-check over 800 slots), Fig. 8
+# (benchmarks/bound_convergence.py), the BvN strawman on
+# tests/test_throughput.py's Theorem-1 input at n 6 and 16, the CI's two
+# golden certificates (.github/workflows/ci.yml) and the saturate golden
+# of tests/test_ir_certify.py, and the interconnect drain
+# (benchmarks/interconnect_bench.py: 8 pods, 30,000 slots)
+FIG7_N, FIG7_D_HAT, FIG7_KS, FIG7_HORIZON = 16, 4, (3, 6), 800
+FIG7_DEMANDS = ("ring", "skew-0.5", "uniform")
+BVN_NS = (6, 16)
+DRAIN_HORIZON = 30000
+CERTIFY_GOLDENS = {
+    "ci-skewed": ["--case", "skewed", "--n", "16", "--k", "3", "--d-hat",
+                  "2", "--batch-check"],
+    "ci-websearch": ["--case", "websearch", "--n", "12", "--k", "3",
+                     "--d-hat", "4", "--recfg-frac", "0.1111"],
+    "saturate": ["--case", "skewed", "--n", "12", "--seed", "3", "--k", "3",
+                 "--d-hat", "2", "--recfg-frac", repr(1 / 9), "--normalize",
+                 "saturate", "--no-spread", "--batch-check"],
+}
+# card vs CPU: a saturate certificate's theta (min cap / demand of the
+# projected demand); BvN's lambdas (the projections differ in the last
+# bits: the card's is bit-equal to sinkhorn_kernel_order)
+THETA_RTOL, BVN_LAM_ATOL = 1e-9, 1e-9
 
 TRACE_ACTIVITIES = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 
@@ -393,6 +452,19 @@ def partial_view_input(n: int) -> np.ndarray:
     return np.where(m <= 0, 1e-12, m)
 
 
+def throughput_inputs() -> dict:
+    """What ``saturate`` hands the kernel on the throughput phase's paths
+    (nonpositive entries clamped to 1e-12): BvN's Theorem-1 input at n 6
+    and 16, the saturate golden certificate's demand at n 12, the
+    interconnect drain's step matrix at n 8, Fig. 7's ring at n 16."""
+    out = {f"bvn n={n}": traffic_mod.skewed(n, 0.5, seed=4) + 1e-6
+           for n in BVN_NS}
+    out["certify golden"] = certify.demand_case("skewed", 12, seed=3)
+    out["drain"] = interconnect_bench.step_matrix(get_config("mixtral-8x7b"))
+    out["fig7 ring"] = throughput_bench.demand_suite(FIG7_N)["ring"]
+    return {k: np.where(m <= 0, 1e-12, m) for k, m in out.items()}
+
+
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bitwise equal, a NaN matching a NaN."""
     return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
@@ -459,7 +531,8 @@ def sinkhorn_phases() -> tuple:
     """The Sinkhorn kernel against its plain version and its order's model
     at the main path's instance (f64, n = 256, 200 iterations, the
     saturate input) and beside it: a 2-step gather's view (zero rows
-    clamped) at grid (b)'s n; f32 at 20 iterations, n from 1 to 1024;
+    clamped) at grid (b)'s n; the throughput phase's inputs at n 6, 8, 12
+    and 16; f32 at 20 iterations, n from 1 to 1024;
     the largest n the cluster path takes and one past it (two passes) in
     both types; iters 0 and 1 on both paths; the clamp; a NaN entry.
     Returns (instances, the main path's)."""
@@ -484,6 +557,9 @@ def sinkhorn_phases() -> tuple:
     main = inst[-1]                         # n = 256, iters 200: saturate
     inst.append(check_sinkhorn("partial view", torch.from_numpy(
         partial_view_input(DISAGREE_N)).to(DEV), 200, 0.0, reps=20))
+    for label, m in throughput_inputs().items():
+        inst.append(check_sinkhorn(label, torch.from_numpy(m).to(DEV), 200,
+                                   0.0, reps=20))
     for n in (1, 17, top[f64], top[f64] + 1):
         inst.append(check_sinkhorn("random", rand(n, f64), 200, 0.0,
                                    reps=20 if n <= top[f64] else 3))
@@ -1927,6 +2003,272 @@ def sweep_n64_phases() -> dict:
                           "vs_sweep_rel": sweep_rel}}
 
 
+def certify_cli(argv: list, device: str) -> tuple:
+    """``python -m repro_torch.analysis.certify`` on ``argv`` with
+    ``--device``, in this process: (exit code, the certificate it wrote,
+    its report)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "cert.json"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = certify.main(argv + ["--device", device, "--json",
+                                      str(path)])
+        return rc, json.loads(path.read_text()), buf.getvalue()
+
+
+def certificate_diff(got: dict, want: dict, theta_rtol: float) -> str:
+    """Where two certificates differ ("" if nowhere): everything exactly,
+    theta within ``theta_rtol``."""
+    got, want = json.loads(json.dumps(got)), json.loads(json.dumps(want))
+    tg, tw = got["bounds"].pop("theta"), want["bounds"].pop("theta")
+    if got != want:
+        return "schedule, demand, bounds, checks or violations differ"
+    if abs(tg - tw) > theta_rtol * abs(tw):
+        return f"theta {tg!r} against {tw!r} (rtol {theta_rtol:g})"
+    return ""
+
+
+def expect_launches(path: str, got: int, want: int) -> None:
+    log(f"  {path}: {got} sinkhorn launches (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path} launched the sinkhorn kernel {got} "
+                             f"times (expected {want})")
+
+
+def term_slots(sched, perms: np.ndarray) -> np.ndarray:
+    """How many of ``sched``'s slots each BvN term's matching holds."""
+    return np.array([(sched.perms == p).all(axis=1).sum() for p in perms])
+
+
+def throughput_phases(scheds: list, wls: list) -> dict:
+    """The paper's throughput analysis on the port, each card path read
+    between its own resets of the Sinkhorn count: (a) Fig. 7's analytic
+    table (host) and (b) its flow-level cross-check (saturate schedules,
+    one ``run_sweep`` on the card) against the CPU run; (c) Fig. 8 (host);
+    (d) the main path's four n = 256 saturate schedules certified on the
+    card, the CI's two golden invocations and the saturate golden through
+    the CLI, each against the CPU's certificate; (e) BvN's Theorem 1 and
+    the quantized strawman, card against CPU; (f) the interconnect
+    pricing (host) and its flow-level drain on the card against the CPU
+    run.  Returns seconds by sub-phase, launches by path and the rows."""
+    log("== throughput analysis: Fig. 7 / 8, certificates, BvN, "
+        "interconnect pricing")
+    secs: dict = {}
+    launches: dict = {}
+    out: dict = {"seconds": secs, "launches": launches}
+    t_phase = time.perf_counter()
+
+    # (a) Fig. 7, analytic
+    t0 = time.perf_counter()
+    sinkhorn_ops.reset_launches()
+    rows = throughput_bench.run(n=FIG7_N, d_hat=FIG7_D_HAT, ks=FIG7_KS)
+    secs["fig7_analytic_s"] = time.perf_counter() - t0
+    cols = [f"vermilion_k{k}" for k in FIG7_KS] + [
+        "oblivious_multihop", "oblivious_singlehop"]
+    for r in rows:
+        log(f"  fig7 {r['demand']:12s} " + " ".join(
+            f"{c} {r[c]:.6f}" for c in cols)
+            + " " + " ".join(f"bound_k{k} {r[f'bound_k{k}']:.6f}"
+                             for k in FIG7_KS))
+        for k in FIG7_KS:
+            if r[f"vermilion_k{k}"] < r[f"bound_k{k}"] - 1e-9:
+                raise AssertionError(f"fig7 {r['demand']}: Vermilion at k "
+                                     f"{k} below Theorem 3")
+    out["fig7"] = [{c: r[c] for c in ["demand"] + cols} for r in rows]
+
+    # (b) Fig. 7, flow level: saturate schedules through the kernel
+    t0 = time.perf_counter()
+    cases = throughput_bench.simulated_cases(
+        FIG7_N, FIG7_D_HAT, FIG7_HORIZON, FIG7_DEMANDS, device=DEV)
+    sim = run_sweep(cases, throughput_bench.BITS_PER_SLOT, device=DEV,
+                    sanitize=True)
+    secs["fig7_sim_s"] = time.perf_counter() - t0
+    launches["throughput_fig7"] = sinkhorn_ops.launches
+    expect_launches("throughput_fig7", launches["throughput_fig7"],
+                    len(FIG7_DEMANDS))
+    t0 = time.perf_counter()
+    cases_cpu = throughput_bench.simulated_cases(
+        FIG7_N, FIG7_D_HAT, FIG7_HORIZON, FIG7_DEMANDS, device="cpu")
+    for a, b in zip(cases, cases_cpu):
+        if not np.array_equal(a.sched.perms, b.sched.perms):
+            raise AssertionError(f"{a.label}: the card's schedule differs "
+                                 f"from the CPU's")
+    sim_cpu = run_sweep(cases_cpu, throughput_bench.BITS_PER_SLOT,
+                        device="cpu", sanitize=True)
+    secs["fig7_sim_cpu_s"] = time.perf_counter() - t0
+    analytic = {r["demand"]: r for r in rows}
+    for r in sim:
+        res = r.result
+        demand, system = r.label.split("/")
+        theta = (analytic[demand]["vermilion_k3"] if system == "vermilion"
+                 else analytic[demand]["oblivious_multihop"]
+                 if system == "rotorlb"
+                 else analytic[demand]["oblivious_singlehop"])
+        log(f"  fig7 sim {r.label:24s} util {res.utilization:.6f} "
+            f"(analytic {theta:.6f}), completed {res.completed_frac:.6f}")
+    compare_sweep(sim, sim_cpu)
+    out["fig7_sim"] = [{"label": r.label, "util": r.result.utilization,
+                        "done": r.result.completed_frac} for r in sim]
+
+    # (c) Fig. 8: hose schedules, host only
+    t0 = time.perf_counter()
+    sinkhorn_ops.reset_launches()
+    fig8 = {"vs_k": bound_convergence.vs_k(),
+            "vs_n": bound_convergence.vs_n()}
+    secs["fig8_s"] = time.perf_counter() - t0
+    for key, rs in fig8.items():
+        for r in rs:
+            x = "k" if key == "vs_k" else "n"
+            log(f"  fig8 {key} {x}={r[x]:2d}: min {r['min']:.6f} mean "
+                f"{r['mean']:.6f} bound {r['bound']:.6f}")
+            if r["min"] < r["bound"] - 1e-9:
+                raise AssertionError(f"fig8 {key} {x}={r[x]}: below "
+                                     f"Theorem 3")
+    expect_launches("fig8 (hose)", sinkhorn_ops.launches, 0)
+    out["fig8"] = fig8
+
+    # (d) certificates: the main path's schedules and the CLI goldens
+    t0 = time.perf_counter()
+    sinkhorn_ops.reset_launches()
+    certs = [certify.certify_schedule(wl.demand_matrix(), s, device=DEV)
+             for s, wl in zip(scheds, wls)]
+    cli = {name: certify_cli(argv, DEV)
+           for name, argv in CERTIFY_GOLDENS.items()}
+    secs["certify_s"] = time.perf_counter() - t0
+    launches["certify"] = sinkhorn_ops.launches
+    # 2 a certificate (scaled and rounded demands); the saturate golden:
+    # its schedule 1, its certificate 2, batch parity 2 batched + 2 solo
+    expect_launches("certify", launches["certify"], 2 * len(scheds) + 7)
+    bound_q = quantized_theorem3_bound(K, D_HAT, N, RECFG)
+    for load, res in zip(LOADS, certs):
+        log(f"  certificate n={N} load {load}: theta {res.theta:.9f}, "
+            f"quantized bound {res.quantized_bound:.9f}, asymptotic "
+            f"{res.asymptotic_bound:.9f}; checks {res.checks}")
+        if not (res.ok and all(v == "pass" for v in res.checks.values())
+                and res.theta >= bound_q - 1e-9
+                and res.quantized_bound == bound_q):
+            raise AssertionError(f"certificate at load {load} fails: "
+                                 f"{res.violations}")
+    for name, (rc, cert, _) in cli.items():
+        log(f"  certify CLI {name}: exit {rc}, theta "
+            f"{cert['bounds']['theta']:.9f}, quantized bound "
+            f"{cert['bounds']['quantized_theorem3']:.9f}, checks "
+            f"{cert['checks']}")
+        if rc != 0 or cert["violations"]:
+            raise AssertionError(f"certify CLI {name} on the card: exit "
+                                 f"{rc}, {cert['violations']}")
+    t0 = time.perf_counter()
+    for load, s, wl, res in zip(LOADS, scheds, wls, certs):
+        cpu = certify.certify_schedule(wl.demand_matrix(), s, device="cpu")
+        diff = certificate_diff(res.certificate, cpu.certificate, THETA_RTOL)
+        log(f"  certificate load {load}: card vs CPU theta rel diff "
+            f"{abs(res.theta - cpu.theta) / cpu.theta:.3e}")
+        if diff:
+            raise AssertionError(f"certificate at load {load}: {diff}")
+    for name, argv in CERTIFY_GOLDENS.items():
+        rc, cert, _ = certify_cli(argv, "cpu")
+        rtol = THETA_RTOL if "saturate" in argv else 0.0
+        diff = certificate_diff(cli[name][1], cert, rtol)
+        if rc != 0 or diff:
+            raise AssertionError(f"certify CLI {name}: card vs CPU: exit "
+                                 f"{rc}, {diff}")
+    secs["certify_cpu_s"] = time.perf_counter() - t0
+    out["certificates"] = [res.certificate["bounds"] for res in certs]
+
+    # (e) BvN: Theorem 1 and the quantized strawman, card against CPU
+    t0 = time.perf_counter()
+    sinkhorn_ops.reset_launches()
+    bvn = {}
+    for n in BVN_NS:
+        m0 = traffic_mod.skewed(n, 0.5, seed=4) + 1e-6
+        m = traffic_mod.saturate(m0, device=DEV)
+        lams, perms = bvn_decompose(m, device=DEV)
+        bvn[n] = (m0, m, lams, perms, bvn_schedule(m0, device=DEV),
+                  vermilion_schedule(m0, k=K, normalize="saturate",
+                                     device=DEV))
+    secs["bvn_s"] = time.perf_counter() - t0
+    launches["bvn"] = sinkhorn_ops.launches
+    expect_launches("bvn", launches["bvn"], 4 * len(BVN_NS))
+    t0 = time.perf_counter()
+    out["bvn"] = []
+    for n, (m0, m, lams, perms, b, v) in bvn.items():
+        cap = np.zeros((n, n))
+        for lam, p in zip(lams, perms):
+            cap[np.arange(n), p] += lam
+        theta1 = throughput_single_hop(cap, m)
+        demand = m.copy()
+        np.fill_diagonal(demand, 0.0)
+        tb, tv = (schedule_throughput(x, demand) for x in (b, v))
+        lc, pc = bvn_decompose(m, device="cpu")
+        bc = bvn_schedule(m0, device="cpu")
+        lam_diff = (float(np.abs(lams - lc).max())
+                    if len(lams) == len(lc) else float("inf"))
+        slots, slots_cpu = term_slots(b, perms), term_slots(bc, perms)
+        log(f"  bvn n={n}: {len(lams)} terms (CPU {len(lc)}), lambdas "
+            f"sum {lams.sum():.12f}, card vs CPU max diff {lam_diff:.3e}; "
+            f"ideal BvN theta {theta1:.9f}; {3 * n} slots: BvN "
+            f"single-hop theta {tb:.6f}, Vermilion k={K} {tv:.6f}; "
+            f"quantized perms equal to the CPU's: "
+            f"{bool(np.array_equal(b.perms, bc.perms))}")
+        if theta1 < 1 - 1e-6:
+            raise AssertionError(f"bvn n={n}: Theorem 1 fails ({theta1})")
+        if not (len(lams) == len(lc) and np.array_equal(perms, pc)
+                and lam_diff <= BVN_LAM_ATOL):
+            raise AssertionError(f"bvn n={n}: the card's decomposition "
+                                 f"differs from the CPU's")
+        # the largest-remainder fill may break a tie of equal lambdas
+        # the other way: at most one slot a term, none lost
+        if not (b.T == bc.T == 3 * n and slots.sum() == slots_cpu.sum()
+                == 3 * n and np.abs(slots - slots_cpu).max() <= 1):
+            raise AssertionError(f"bvn n={n}: quantized slots {slots} "
+                                 f"against the CPU's {slots_cpu}")
+        out["bvn"].append({"n": n, "terms": len(lams), "theta_ideal": theta1,
+                           "theta_bvn": tb, "theta_vermilion": tv})
+    secs["bvn_cpu_s"] = time.perf_counter() - t0
+
+    # (f) interconnect pricing (host) and its drain on the card
+    t0 = time.perf_counter()
+    ic = interconnect_bench.run()
+    secs["interconnect_analytic_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sinkhorn_ops.reset_launches()
+    dcases = interconnect_bench.drain_cases(DRAIN_HORIZON, device=DEV)
+    drain = run_sweep(dcases, interconnect_bench.BITS_PER_SLOT, device=DEV)
+    secs["drain_s"] = time.perf_counter() - t0
+    launches["interconnect"] = sinkhorn_ops.launches
+    expect_launches("interconnect", launches["interconnect"], len(dcases))
+    t0 = time.perf_counter()
+    dcases_cpu = interconnect_bench.drain_cases(DRAIN_HORIZON, device="cpu")
+    for a, b in zip(dcases, dcases_cpu):
+        if not np.array_equal(a.sched.perms, b.sched.perms):
+            raise AssertionError(f"drain {a.label}: the card's schedule "
+                                 f"differs from the CPU's")
+    drain_cpu = run_sweep(dcases_cpu, interconnect_bench.BITS_PER_SLOT,
+                          device="cpu")
+    secs["drain_cpu_s"] = time.perf_counter() - t0
+    compare_sweep(drain, drain_cpu)
+    t_sim = {r["arch"]: r["t_sim"] for r in
+             interconnect_bench.drain_times(drain)}
+    for r in ic:
+        log(f"  interconnect {r['arch']:26s} vermilion "
+            f"{r['t_vermilion'] * 1e3:.6f} ms, oblivious "
+            f"{r['t_oblivious'] * 1e3:.6f}, oblivious single-hop "
+            f"{r['t_obl_singlehop'] * 1e3:.6f}, int8 "
+            f"{r['t_vermilion_int8'] * 1e3:.6f}, speedup "
+            f"{r['speedup']:.6f}x; drained on the card in "
+            f"{t_sim[r['arch']] * 1e3:.6f} ms")
+        if not np.isfinite(t_sim[r["arch"]]):
+            raise AssertionError(f"drain {r['arch']}: flows left at "
+                                 f"{DRAIN_HORIZON} slots")
+    out["interconnect"] = [{**{k: r[k] for k in (
+        "arch", "t_vermilion", "t_oblivious", "t_obl_singlehop",
+        "t_vermilion_int8", "speedup")}, "t_sim": t_sim[r["arch"]]}
+        for r in ic]
+    secs["phase_s"] = time.perf_counter() - t_phase
+    log("  seconds: " + json.dumps(secs))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2080,7 +2422,11 @@ def main() -> int:
     adaptive = adaptive_phases()
     gc.collect()
 
-    # -- 5c. the attention, mLSTM and scan kernels; the serving paths -------
+    # -- 5c. the throughput analysis on the sweep's schedules ---------------
+    throughput = throughput_phases(scheds, wls)
+    gc.collect()
+
+    # -- 5d. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
@@ -2106,9 +2452,11 @@ def main() -> int:
     log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
                                 "phases": phases}))
     log("sweep_n64: " + json.dumps(n64))
+    log("throughput: " + json.dumps(throughput))
     sinkhorn_by_path = {"sweep": launches, "sweep_n64": n64["launches"],
                         "adaptive_a": adaptive["a"]["launches"],
-                        "adaptive_b": adaptive["b"]["launches"]}
+                        "adaptive_b": adaptive["b"]["launches"],
+                        **throughput["launches"]}
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -2122,8 +2470,9 @@ def main() -> int:
             "cluster")},
         "cuda_launches_per_call": sinkhorn_per_call,
     }]
-    # sinkhorn's `launches` counts wrapper calls on the sweep's schedules
-    # and the two adaptive grids, each read between its own resets
+    # sinkhorn's `launches` counts wrapper calls on the sweep's schedules,
+    # the two adaptive grids and the throughput analysis's four card
+    # paths, each read between its own resets
     # (`launches_by_path`), its `cuda_launches_per_call` those of one traced
     # schedule; for the others `launches` counts wrapper calls on the
     # serving paths, summed

@@ -1,4 +1,6 @@
-"""Runtime contract checks of the port (see :mod:`.sanitize`)."""
+"""Analysis of the port: runtime contract checks (see :mod:`.sanitize`)
+and the static Theorem-3 certificate of a built schedule (see
+:mod:`.certify`, ``python -m repro_torch.analysis.certify``)."""
 from .sanitize import SanitizeError, Sanitizer, make_sanitizer, sanitize_enabled
 
 __all__ = [

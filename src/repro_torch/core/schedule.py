@@ -6,11 +6,12 @@ slot duration on d_hat parallel port planes.  The *emulated graph* (paper
 
 The port's counterpart of ``repro.core.schedule``: the :class:`Schedule`
 container, Algorithm 1 (``vermilion_*``), the per-node control plane of
-the adaptive loop (``per_node_schedules`` and the merge helpers) and the
-oblivious and greedy baselines.  Construction stays on the host
-(rounding, Euler / Hopcroft-Karp decomposition), except the Sinkhorn
-projection of ``normalize="saturate"``, which runs on ``device``
-(``None``: the card) through :func:`repro_torch.core.traffic.saturate`.
+the adaptive loop (``per_node_schedules`` and the merge helpers), the
+oblivious and greedy baselines and the BvN strawman (``bvn_*``).
+Construction stays on the host (rounding, Euler / Hopcroft-Karp
+decomposition), except the Sinkhorn projection of ``normalize="saturate"``
+and of BvN, which runs on ``device`` (``None``: the card) through
+:func:`repro_torch.core.traffic.saturate`.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from .matching import (
     decompose_matchings,
     decompose_matchings_euler,
     decompose_matchings_euler_batch,
+    extract_perfect_matching,
 )
 from .rounding import round_matrices
 from .traffic import hose_normalize, saturate
@@ -42,6 +44,9 @@ __all__ = [
     "spread_matchings",
     "oblivious_schedule",
     "greedy_matching_schedule",
+    "bvn_decompose",
+    "quantize_bvn",
+    "bvn_schedule",
 ]
 
 @dataclass(frozen=True)
@@ -529,3 +534,74 @@ def greedy_matching_schedule(
                     name="greedy")
 
 
+def bvn_decompose(
+    m: np.ndarray, tol: float = 1e-9, max_terms: int | None = None,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Birkhoff-von Neumann: doubly-stochastic m = sum_i lam_i P_i.
+
+    Returns (lams, perms). Up to (n-1)^2 + 1 terms.
+
+    ``saturate`` only Sinkhorn-*approximates* double stochasticity, so the
+    residual's support can lose its perfect matching once the remaining mass
+    is down to the projection slack.  Decomposition then terminates
+    gracefully (the leftover mass is below the Sinkhorn tolerance) instead
+    of raising.
+
+    ``device``: where the projection runs (``None``: the card; ``"cpu"``:
+    the plain version); the decomposition itself is host code.
+    """
+    m = saturate(np.asarray(m, dtype=np.float64), device=device)
+    n = m.shape[0]
+    resid = m.copy()
+    lams, perms = [], []
+    cap = max_terms or (n * n)
+    while resid.max() > tol and len(lams) < cap:
+        support = (resid > tol).astype(np.int64)
+        # regular-ish support: perfect matching exists for exactly doubly
+        # stochastic residuals (Birkhoff); near-doubly-stochastic ones can
+        # run dry once only projection slack remains
+        try:
+            perm = extract_perfect_matching(support * (n + 1))
+        except ValueError:
+            break
+        lam = float(resid[np.arange(n), perm].min())
+        if lam <= tol:
+            break
+        lams.append(lam)
+        perms.append(perm)
+        resid[np.arange(n), perm] -= lam
+    return np.asarray(lams), np.asarray(perms, dtype=np.int64)
+
+
+def quantize_bvn(
+    lams: np.ndarray, perms: np.ndarray, n_slots: int,
+    d_hat: int = 1, recfg_frac: float = 0.0,
+) -> Schedule:
+    """Time-quantize a variable-duration BvN schedule into ``n_slots`` fixed
+    slots (Appendix A, Q5) — the paper's strawman. Small-lambda matchings are
+    dropped or inflated to one slot, which is exactly the duty-cycle loss
+    Vermilion's rounding avoids."""
+    w = lams / lams.sum()
+    slots = np.floor(w * n_slots).astype(np.int64)
+    # largest-remainder fill to exactly n_slots
+    rem = w * n_slots - slots
+    need = n_slots - slots.sum()
+    if need > 0:
+        slots[np.argsort(-rem)[:need]] += 1
+    keep = slots > 0
+    out = np.repeat(np.arange(len(lams))[keep], slots[keep])
+    return Schedule(perms=perms[out], d_hat=d_hat, recfg_frac=recfg_frac,
+                    name="bvn-quantized")
+
+
+def bvn_schedule(
+    m: np.ndarray, n_slots: int | None = None,
+    d_hat: int = 1, recfg_frac: float = 0.0, device=None,
+) -> Schedule:
+    """:func:`bvn_decompose` (its projection on ``device``; ``None``: the
+    card), then :func:`quantize_bvn` into ``n_slots`` (default 3n)."""
+    lams, perms = bvn_decompose(m, device=device)
+    n = m.shape[0]
+    return quantize_bvn(lams, perms, n_slots or 3 * n,
+                        d_hat=d_hat, recfg_frac=recfg_frac)

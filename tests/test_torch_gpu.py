@@ -25,6 +25,10 @@ utilization rtol 1e-5; the fleet estimation ops' ticks equal to the CPU's.
 The two-hop routes on the card against the CPU: aggregates (delivered
 bits, utilization, avg_hops) rtol 1e-4, FCTs within the sweep's bar;
 ``simulate_aggregate`` per slot rtol 1e-5, final VOQ within 1e-3 bits.
+The throughput analysis on the card against the CPU: a saturate
+certificate's bounds, checks and violations exactly, theta rtol 1e-9; the
+BvN decomposition's perms exactly, lambdas within 1e-9; the interconnect
+drain within the sweep's bar.
 """
 import numpy as np
 import pytest
@@ -99,7 +103,8 @@ def _same_bits(a, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,dtype", [
-    (1, "float64"), (17, "float64"), (250, "float64"), (256, "float64"),
+    (1, "float64"), (6, "float64"), (8, "float64"), (10, "float64"),
+    (12, "float64"), (17, "float64"), (250, "float64"), (256, "float64"),
     ("top", "float64"), (17, "float32"), (256, "float32"), (512, "float32"),
     ("top", "float32"),
 ])
@@ -773,3 +778,108 @@ def test_twohop_sweep_needs_a_card_unless_cpu(monkeypatch):
         simulator.simulate_aggregate(cases[0][0], np.zeros((4, 6, 6)), BPS)
     rows = simulator.run_sweep(sweep, BPS, device="cpu")
     assert all(r.result.avg_hops > 1.0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_saturate_certificate_on_card_matches_cpu():
+    """A saturate schedule built and certified on the card: every check
+    passes, and the certificate is the CPU's (theta rtol 1e-9)."""
+    _card()
+    from repro_torch.analysis import certify
+
+    m = certify.demand_case("skewed", 12, seed=3)
+    kw = dict(k=3, d_hat=2, recfg_frac=1 / 9, normalize="saturate",
+              spread=False)
+    s = {d: schedule.vermilion_schedule(m, device=d, **kw)
+         for d in ("cuda", "cpu")}
+    assert np.array_equal(s["cuda"].perms, s["cpu"].perms)
+    before = ops.launches
+    res = certify.certify_schedule(m, s["cuda"], device="cuda")
+    assert ops.launches == before + 2          # scaled and rounded demands
+    cpu = certify.certify_schedule(m, s["cuda"], device="cpu")
+    assert res.ok and all(v == "pass" for v in res.checks.values())
+    assert res.theta >= res.quantized_bound - 1e-9
+    got, want = dict(res.certificate), dict(cpu.certificate)
+    tg, tw = got.pop("bounds"), want.pop("bounds")
+    assert got == want
+    assert tg["quantized_theorem3"] == tw["quantized_theorem3"]
+    assert tg["asymptotic_theorem3"] == tw["asymptotic_theorem3"]
+    assert tg["theta"] == pytest.approx(tw["theta"], rel=1e-9, abs=0.0)
+    mats = [certify.demand_case("skewed", 10, seed=i) for i in range(3)]
+    assert certify.batch_parity(mats, k=3, d_hat=2, normalize="saturate",
+                                device="cuda") == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [6, 16])
+def test_bvn_on_card_matches_cpu(n):
+    """Theorem 1 with the projection on the card; perms and term count
+    equal to the CPU's, lambdas within 1e-9."""
+    _card()
+    from repro_torch.core import traffic
+    from repro_torch.core.throughput import throughput_single_hop
+
+    m0 = traffic.skewed(n, 0.5, seed=4) + 1e-6
+    m = traffic.saturate(m0, device="cuda")
+    before = ops.launches
+    lams, perms = schedule.bvn_decompose(m, device="cuda")
+    assert ops.launches == before + 1
+    lc, pc = schedule.bvn_decompose(m, device="cpu")
+    assert len(lams) == len(lc) and np.array_equal(perms, pc)
+    np.testing.assert_allclose(lams, lc, rtol=0, atol=1e-9)
+    cap = np.zeros((n, n))
+    for lam, p in zip(lams, perms):
+        cap[np.arange(n), p] += lam
+    assert throughput_single_hop(cap, m) >= 1 - 1e-6
+    # the quantized strawman: equal lambdas (a skewed demand has ties)
+    # may take the largest-remainder fill's last slot the other way
+    b, bc = (schedule.bvn_schedule(m0, device=d) for d in ("cuda", "cpu"))
+    slots, slots_cpu = ([(s.perms == p).all(axis=1).sum() for p in perms]
+                        for s in (b, bc))
+    assert b.T == bc.T == sum(slots) == sum(slots_cpu) == 3 * n
+    assert np.abs(np.subtract(slots, slots_cpu)).max() <= 1
+
+
+@pytest.mark.gpu
+def test_interconnect_drain_on_card_matches_cpu():
+    """The interconnect drain (every arch's step matrix on its saturate
+    schedule, one single-hop batch) at a short horizon, card vs CPU."""
+    _card()
+    from repro_torch.benchmarks import interconnect_bench as ib
+
+    cases = {d: ib.drain_cases(horizon=3000, device=d)
+             for d in ("cuda", "cpu")}
+    for a, b in zip(cases["cuda"], cases["cpu"]):
+        assert np.array_equal(a.sched.perms, b.sched.perms), a.label
+    rows = {d: simulator.run_sweep(cases[d], ib.BITS_PER_SLOT, device=d,
+                                   sanitize=True) for d in ("cuda", "cpu")}
+    _assert_card_matches_cpu([r.result for r in rows["cuda"]],
+                             [r.result for r in rows["cpu"]])
+    assert any(np.isfinite(r.result.fct_slots).all() for r in rows["cuda"])
+
+
+def test_throughput_paths_need_a_card_unless_cpu(monkeypatch, tmp_path):
+    """No card: the BvN strawman, a saturate certificate and the certify
+    CLI raise by default and never fall back to the CPU (runs without a
+    card too); hose certificates do no device work."""
+    from repro_torch.analysis import certify
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = certify.demand_case("skewed", 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        schedule.bvn_decompose(m)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        schedule.bvn_schedule(m)
+    s = schedule.vermilion_schedule(m, k=3, d_hat=2, normalize="saturate",
+                                    device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        certify.certify_schedule(m, s)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        certify.main(["--case", "skewed", "--n", "8"])
+    assert certify.certify_schedule(m, s, device="cpu").ok
+    hose = schedule.vermilion_schedule(m, k=3, d_hat=2)
+    assert certify.certify_schedule(m, hose).ok
+    out = tmp_path / "cert.json"
+    assert certify.main(["--case", "skewed", "--n", "8", "--device", "cpu",
+                         "--json", str(out)]) == 0
+    assert out.exists()

@@ -190,7 +190,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "assert len(mods) >= 41, mods\n"
+        "assert len(mods) >= 58, mods\n"
+        "assert {'repro_torch.core.throughput', 'repro_torch.core.collectives',"
+        " 'repro_torch.analysis.certify'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
