@@ -73,6 +73,24 @@ and read just after:
    throughput at 3n slots; the interconnect pricing of every registry
    architecture and its drain through saturate schedules over 30,000
    slots, one ``run_sweep`` on the card, held to the CPU run.
+1d. Fault injection (``faults_phases``), each run on the card and on the
+   CPU: the sweep's deployment on its load-0.6 saturate schedule under
+   four scenarios in one batch, all firing at slot 600 (one plane down,
+   two ToRs failed, two ToRs drained, a port death plus a 200-slot link
+   flap), sanitized, FCTs within the sweep's bar and bits rtol 1e-5; the
+   drain loses no bits, the failure some.  ``run_faults`` as
+   ``benchmarks/adaptive_bench.py`` builds it (n = 16, d_hat = 4, load
+   0.95, 4500 slots, epochs of 150, faults at slot 1500: plane_down /
+   tor_fail / tor_drain x severity 1 / 2 x repair / blind / oblivious,
+   cut to its stationary train: 21 cases) with its headline on the card (one
+   plane down on the stationary train: the repair loop excises it and
+   recovers at or above the oblivious baseline, which stays above the
+   blind loop); grid (b)'s sizes under ``collision="fullest"`` at every
+   gather and one jittered activation window under ``receiver``, every
+   rebuild through the Sinkhorn kernel (launches counted).  The
+   degraded-service engine's rows equal the CPU's in trajectory,
+   counters and excisions, bits within rtol 1e-9, FCTs within the
+   sweep's bar.
 2. Serving: ``ServeEngine`` with Qwen1.5-0.5B at full width and depth
    (24 layers, d_model 1024, 16 heads, vocab 151,936) on seeded random
    weights, bf16, 8 lanes of 2048 positions, 16 requests with prompts of
@@ -139,6 +157,7 @@ without a card or outside a checkout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import io
@@ -163,6 +182,7 @@ from repro_torch.benchmarks import bound_convergence  # noqa: E402
 from repro_torch.benchmarks import interconnect_bench  # noqa: E402
 from repro_torch.benchmarks import throughput_bench  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import faults as faults_mod  # noqa: E402
 from repro_torch.core import schedule as schedule_mod  # noqa: E402
 from repro_torch.core import simulator as sim_mod  # noqa: E402
 from repro_torch.core import traffic as traffic_mod  # noqa: E402
@@ -295,6 +315,27 @@ CERTIFY_GOLDENS = {
 # projected demand); BvN's lambdas (the projections differ in the last
 # bits: the card's is bit-equal to sinkhorn_kernel_order)
 THETA_RTOL, BVN_LAM_ATOL = 1e-9, 1e-9
+
+# the faults phase: the sweep's deployment (its load-0.6 saturate
+# schedule) under four fault scenarios firing at slot 600 (a flap lasts 200
+# slots), card vs CPU bits rtol 1e-5 (the sweep's f32 VOQ);
+# benchmarks/adaptive_bench.py's run_faults grid as the repo builds it
+# (n = 16, d_hat = 4, load 0.95, 4500 slots, epochs of 150, faults at slot
+# 1500, dark windows of 40, hysteresis 0.3, the shifting train shifting
+# every 1500 slots); grid (b) under fullest and one jittered activation
+# window of 40 slots; the degraded-service engine (f64 VOQ) card vs CPU
+# bits rtol 1e-9
+FAULT_SLOT, FAULT_FLAP, SWEEP_FAULT_RTOL = 600, 200, 1e-5
+RF_N, RF_D_HAT, RF_LOAD, RF_HORIZON = 16, 4, 0.95, 4500
+RF_EPOCH, RF_SLOT, RF_PENALTY, RF_SWAP_TV, RF_SHIFT = 150, 1500, 40, 0.3, 1500
+RF_KINDS = ("plane_down", "tor_fail", "tor_drain")
+RF_SEVERITIES = (1, 2)
+# run_faults' stationary train only (21 cases): with the shifting train
+# too (42 cases) the phase took 204 s of the script on an NVIDIA H100
+# 80GB HBM3 at 700 W, over its ~120-s allowance (PERF.md section 4)
+RF_TRAINS = ("stationary",)
+JITTER_SLOTS = 40
+ENGINE_RTOL = 1e-9
 
 TRACE_ACTIVITIES = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 
@@ -2269,6 +2310,318 @@ def throughput_phases(scheds: list, wls: list) -> dict:
     return out
 
 
+# -- the faults phase: fault injection, repair, fullest and jitter ----------
+
+def faulted_sweep_cases(sched, wl) -> list:
+    """The sweep's deployment under four fault scenarios, each firing at
+    ``FAULT_SLOT``: one plane down, two ToRs failed, two ToRs drained, a
+    port death and a link flap."""
+    ev = faults_mod.FaultEvent
+    scenarios = {
+        "plane_down1": (ev(FAULT_SLOT, "plane_down", plane=0),),
+        "tor_fail2": tuple(ev(FAULT_SLOT, "tor_fail", node=x)
+                           for x in (0, 1)),
+        "tor_drain2": tuple(ev(FAULT_SLOT, "tor_drain", node=x)
+                            for x in (2, 3)),
+        "port_flap": (ev(FAULT_SLOT, "port_down", node=4, plane=1),
+                      ev(FAULT_SLOT, "link_flap", node=5, plane=2,
+                         duration=FAULT_FLAP)),
+    }
+    return [SweepCase(sched, wl, "single_hop", name, {"fault": name},
+                      faults=faults_mod.FaultSchedule(evs))
+            for name, evs in scenarios.items()]
+
+
+def compare_faulted_sweep(rows: list, rows_cpu: list) -> None:
+    """The card's faulted sweep rows against the CPU's: FCTs within the
+    sweep's bar, delivered and lost bits rtol 1e-5 (the f32 VOQ), refused
+    bits equal."""
+    for a, b in zip(rows, rows_cpu):
+        ra, rb = a.result, b.result
+        n_diff, max_diff = fct_diff(ra.fct_slots, rb.fct_slots)
+        rel = max(abs(getattr(ra, f) - getattr(rb, f))
+                  / max(abs(getattr(rb, f)), 1e-300)
+                  for f in ("delivered_bits", "fault_lost_bits"))
+        log(f"  {a.label}: card vs CPU: bits rel diff {rel:.3e}, refused "
+            f"equal {ra.fault_refused_bits == rb.fault_refused_bits}; "
+            f"FCTs differ on {n_diff} of {len(ra.fct_slots)} flows, by at "
+            f"most {max_diff} slots")
+        if rel > SWEEP_FAULT_RTOL \
+                or ra.fault_refused_bits != rb.fault_refused_bits:
+            raise AssertionError(f"{a.label}: faulted sweep bits differ "
+                                 f"from the CPU's by {rel:.3e}")
+        if n_diff > FCT_MAX_DIFF_FRAC * len(ra.fct_slots) \
+                or max_diff > FCT_MAX_DIFF_SLOTS:
+            raise AssertionError(f"{a.label}: FCTs differ on {n_diff} flows "
+                                 f"by up to {max_diff} slots")
+
+
+def run_faults_cases(trains: tuple) -> list:
+    """``benchmarks/adaptive_bench.py`` ``run_faults``' grid, built with
+    the port's classes: fault kind x severity (plus a fault-free run) x
+    repair / blind / oblivious, on each train."""
+    fault_epoch = RF_SLOT // RF_EPOCH
+    cases = []
+    for train in trains:
+        wl = phase_shifting_workload(
+            RF_N, RF_LOAD, RF_HORIZON, BITS_PER_SLOT, d_hat=RF_D_HAT,
+            seed=SEED,
+            phases=("uniform",) if train == "stationary" else ADAPTIVE_PHASES,
+            shift_period=RF_HORIZON if train == "stationary" else RF_SHIFT)
+        common = dict(wl=wl, epoch_slots=RF_EPOCH, d_hat=RF_D_HAT,
+                      recfg_frac=RECFG, seed=SEED,
+                      reconfig_penalty_slots=RF_PENALTY)
+        policies = (
+            ("repair", dict(policy="adaptive", repair=True,
+                            swap_tv_threshold=RF_SWAP_TV)),
+            ("blind", dict(policy="adaptive")),
+            ("oblivious", dict(policy="oblivious")),
+        )
+        scenarios = [("none", 0)] + [(k, s) for k in RF_KINDS
+                                     for s in RF_SEVERITIES]
+        for kind, sev in scenarios:
+            if sev == 0:
+                fs = None
+            elif kind == "plane_down":
+                fs = faults_mod.FaultSchedule(
+                    [faults_mod.FaultEvent(RF_SLOT, "plane_down", plane=p)
+                     for p in range(sev)])
+            else:
+                fs = faults_mod.FaultSchedule(
+                    [faults_mod.FaultEvent(RF_SLOT, kind, node=x)
+                     for x in range(sev)])
+            for pname, pkw in policies:
+                cases.append(AdaptiveCase(
+                    faults=fs, label=f"{train}-{kind}{sev}-{pname}",
+                    meta={"train": train, "fault": kind, "severity": sev,
+                          "policy": pname, "fault_epoch": fault_epoch},
+                    **pkw, **common))
+    return cases
+
+
+def post_fault_util(row) -> float:
+    """``run_faults``' recovery plateau: mean per-epoch utilization from
+    two epochs after the fault on."""
+    return float(row.epoch_utilization[row.meta["fault_epoch"] + 2:].mean())
+
+
+def compare_engine(rows: list, rows_cpu: list) -> dict:
+    """Adaptive rows on the card against the CPU's: trajectory digests,
+    counters and excisions equal; FCTs within the sweep's bar; bits and
+    epoch utilization within rtol 1e-9 on the degraded-service engine
+    (f64) and ``UTIL_RTOL`` on the compiled path (f32).  Returns the
+    worst differences."""
+    worst = {"fct_flows": 0, "fct_slots": 0.0, "bits_rel": 0.0}
+    for a, b in zip(rows, rows_cpu):
+        if a.plan_digest != b.plan_digest:
+            raise AssertionError(f"{a.label}: the card's trajectory differs "
+                                 "from the CPU's")
+        for f in ("recomputes", "stale_slots", "dark_slots",
+                  "dark_plane_slots", "schedule_groups_max",
+                  "excised_nodes", "excised_planes"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{a.label}: {f} {getattr(a, f)} on "
+                                     f"the card, {getattr(b, f)} on the CPU")
+        ra, rb = a.result, b.result
+        pairs = [(ra.delivered_bits, rb.delivered_bits),
+                 (ra.fault_lost_bits, rb.fault_lost_bits),
+                 (ra.fault_refused_bits, rb.fault_refused_bits),
+                 (a.collision_lost_bits, b.collision_lost_bits)]
+        pairs += list(zip(a.epoch_utilization, b.epoch_utilization))
+        rel = max(abs(x - y) / max(abs(y), 1e-300) for x, y in pairs)
+        rtol = ENGINE_RTOL if a.meta.get("engine") else UTIL_RTOL
+        n_diff, max_diff = fct_diff(ra.fct_slots, rb.fct_slots)
+        worst["fct_flows"] = max(worst["fct_flows"], n_diff)
+        worst["fct_slots"] = max(worst["fct_slots"], max_diff)
+        worst["bits_rel"] = max(worst["bits_rel"], rel)
+        if rel > rtol:
+            raise AssertionError(f"{a.label}: bits differ from the CPU's by "
+                                 f"{rel:.3e} (rtol {rtol})")
+        if n_diff > FCT_MAX_DIFF_FRAC * len(ra.fct_slots) \
+                or max_diff > FCT_MAX_DIFF_SLOTS:
+            raise AssertionError(f"{a.label}: FCTs differ on {n_diff} flows "
+                                 f"by up to {max_diff} slots")
+    return worst
+
+
+def engine_run(name: str, cases: list) -> dict:
+    """One adaptive grid on the card (sanitized, Sinkhorn launches counted
+    from 0 against the saturate calls that ran) and on the CPU, held to
+    :func:`compare_engine`; each row's ``meta["engine"]`` says whether it
+    took the degraded-service engine."""
+    cases = [dataclasses.replace(
+        c, meta=dict(c.meta, engine=sim_mod._degraded(c))) for c in cases]
+    n_engine = sum(c.meta["engine"] for c in cases)
+    log(f"== {name}: {len(cases)} cases ({n_engine} on the degraded-service "
+        f"engine), n={cases[0].wl.n}, d_hat={cases[0].d_hat}, "
+        f"{cases[0].wl.horizon} slots, epochs of {cases[0].epoch_slots}")
+    timings: dict = {}
+    calls = [0]
+    sinkhorn_ops.reset_launches()
+    t0 = time.perf_counter()
+    with counting_saturate(calls):
+        rows = run_adaptive(cases, BITS_PER_SLOT, device=DEV, sanitize=True,
+                            timings=timings)
+    wall = time.perf_counter() - t0
+    launches = sinkhorn_ops.launches
+    log(f"  run_adaptive on the card {wall:.6f} s; saturate calls "
+        f"{calls[0]}, sinkhorn launches {launches}")
+    if launches != calls[0]:
+        raise AssertionError(f"{name} launched the sinkhorn kernel "
+                             f"{launches} times for {calls[0]} saturate "
+                             "calls")
+    for key, val in timings.items():
+        log(f"  phase {key}: {val:.6f}" if isinstance(val, float)
+            else f"  {key}: {json.dumps(val)}")
+    t0 = time.perf_counter()
+    rows_cpu = run_adaptive(cases, BITS_PER_SLOT, device="cpu",
+                            sanitize=True)
+    cpu_s = time.perf_counter() - t0
+    worst = compare_engine(rows, rows_cpu)
+    log(f"  the same cases on the CPU {cpu_s:.6f} s; card vs CPU: "
+        f"trajectories, counters and excisions equal; FCTs differ on at "
+        f"most {worst['fct_flows']} flows of a case, by at most "
+        f"{worst['fct_slots']} slots; bits rel diff at most "
+        f"{worst['bits_rel']:.3e}")
+    for r in rows:
+        res = r.result
+        if not np.isfinite(res.utilization) or not res.utilization > 0:
+            raise AssertionError(f"{r.label}: no finite utilization")
+        log(f"  {r.label}: util {res.utilization:.6f}, completed "
+            f"{res.completed_frac:.6f}, lost {res.fault_lost_bits:.6e} b, "
+            f"refused {res.fault_refused_bits:.6e} b, excised nodes "
+            f"{r.excised_nodes} planes {r.excised_planes}, recomputes "
+            f"{r.recomputes}, collision loss {r.collision_lost_bits:.6e} b")
+    return {"rows": rows, "launches": launches, "saturate_calls": calls[0],
+            "wall_s": wall, "cpu_s": cpu_s, "timings": timings,
+            "engine_cases": n_engine, "worst": worst}
+
+
+def engine_numbers(res: dict) -> dict:
+    """The degraded-service engine's numbers from a run's
+    ``timings["degraded"]``: µs a slot (all its phases over its slots) and
+    of its device loop alone (host clock: the loop issues the slot's ops
+    and waits on nothing), the share of its slots served from claims (the
+    degraded path), epoch-boundary reads, replay seconds."""
+    t = res["timings"].get("degraded", {})
+    slots = max(t.get("slots", 0), 1)
+    total = sum(v for k, v in t.items() if k.endswith("_s"))
+    return {"slots": t.get("slots", 0), "us_per_slot": total / slots * 1e6,
+            "device_loop_us_per_slot": t.get("device_loop_s", 0.0)
+            / slots * 1e6,
+            "degraded_share": t.get("degraded_slots", 0) / slots,
+            "epoch_reads": t.get("epoch_reads", 0),
+            "replay_s": t.get("replay_s", 0.0),
+            "control_s": t.get("control_s", 0.0)}
+
+
+def faults_phases(sched, wl) -> dict:
+    """Fault injection on the card against the CPU: the sweep's deployment
+    under four fault scenarios; ``run_faults``' grid and its headline;
+    grid (b) under ``fullest`` and activation jitter.  Returns the
+    numbers, the Sinkhorn launches of the phase included."""
+    out: dict = {}
+    sinkhorn_ops.reset_launches()
+    launches = 0
+
+    # -- the sweep's deployment, four scenarios in one batch ---------------
+    cases = faulted_sweep_cases(sched, wl)
+    log(f"== faulted sweep: n={N}, d_hat={D_HAT}, load {LOADS[-1]}, "
+        f"{HORIZON} slots, faults at slot {FAULT_SLOT}, {len(cases)} cases")
+    timings: dict = {}
+    t0 = time.perf_counter()
+    rows = run_sweep(cases, BITS_PER_SLOT, device=DEV, sanitize=True,
+                     timings=timings)
+    sweep_s = time.perf_counter() - t0
+    launches += sinkhorn_ops.launches
+    log(f"  run_sweep on the card {sweep_s:.6f} s")
+    log_batches(timings)
+    t0 = time.perf_counter()
+    rows_cpu = run_sweep(cases, BITS_PER_SLOT, device="cpu", sanitize=True)
+    log(f"  the same cases on the CPU {time.perf_counter() - t0:.6f} s")
+    compare_faulted_sweep(rows, rows_cpu)
+    by = {r.label: r.result for r in rows}
+    for name, r in by.items():
+        log(f"  {name}: util {r.utilization:.6f}, completed "
+            f"{r.completed_frac:.6f}, lost {r.fault_lost_bits:.6e} b, "
+            f"refused {r.fault_refused_bits:.6e} b")
+    if by["tor_drain2"].fault_lost_bits != 0.0:
+        raise AssertionError("a drain lost bits")
+    if not by["tor_fail2"].fault_lost_bits > 0.0:
+        raise AssertionError("a ToR failure lost no bits")
+    out["sweep"] = {"wall_s": sweep_s, "timings": {
+        k: v for k, v in timings.items() if k != "batches"},
+        "util": {k: r.utilization for k, r in by.items()},
+        "lost": {k: r.fault_lost_bits for k, r in by.items()},
+        "refused": {k: r.fault_refused_bits for k, r in by.items()}}
+
+    # -- run_faults as the repo builds it, and its headline ----------------
+    sinkhorn_ops.reset_launches()
+    res = engine_run(f"run_faults (trains {', '.join(RF_TRAINS)})",
+                     run_faults_cases(RF_TRAINS))
+    launches += res["launches"]
+    rf = {r.label: r for r in res.pop("rows")}
+    rep, bli, obl = (post_fault_util(rf[f"stationary-plane_down1-{p}"])
+                     for p in ("repair", "blind", "oblivious"))
+    excised = rf["stationary-plane_down1-repair"].excised_planes
+    log(f"  headline: one plane down on the stationary train: post-fault "
+        f"util repair {rep:.6f} >= oblivious {obl:.6f} > blind {bli:.6f}; "
+        f"repair excised {excised} plane(s)")
+    if excised != 1 or not rep >= obl > bli:
+        raise AssertionError(f"run_faults' headline fails on the card: "
+                             f"excised {excised}, repair {rep}, oblivious "
+                             f"{obl}, blind {bli}")
+    for label, row in rf.items():
+        if "-tor_drain" in label and row.result.fault_lost_bits != 0.0:
+            raise AssertionError(f"{label}: a drain lost bits")
+    out["run_faults"] = {**res, "engine": engine_numbers(res),
+                         "headline": {"repair": rep, "oblivious": obl,
+                                      "blind": bli, "excised": excised},
+                         "post_fault_util": {k: post_fault_util(r)
+                                             for k, r in rf.items()}}
+
+    # -- grid (b) under the new arbiter, and activation jitter -------------
+    wl_b = phase_shifting_workload(
+        DISAGREE_N, ADAPTIVE_LOAD, ADAPTIVE_HORIZON, BITS_PER_SLOT,
+        d_hat=DISAGREE_D_HAT, seed=SEED, phases=ADAPTIVE_PHASES,
+        shift_period=ADAPTIVE_SHIFT)
+    common = dict(wl=wl_b, epoch_slots=DISAGREE_EPOCH, policy="adaptive",
+                  k=K, d_hat=DISAGREE_D_HAT, recfg_frac=RECFG, seed=SEED,
+                  alpha=0.5, normalize="saturate")
+    cases = [AdaptiveCase(gather_steps=st, collision="fullest",
+                          label=f"steps{st}-fullest", **common)
+             for st in DISAGREE_STEPS]
+    cases += [AdaptiveCase(gather_steps=DISAGREE_STEPS[-1], collision="drop",
+                           label=f"steps{DISAGREE_STEPS[-1]}-drop",
+                           **common),
+              AdaptiveCase(gather_steps=DISAGREE_N - 1, collision="receiver",
+                           activation_jitter_slots=JITTER_SLOTS,
+                           label=f"jitter{JITTER_SLOTS}-receiver", **common)]
+    res_b = engine_run("grid (b) under fullest and jitter", cases)
+    launches += res_b["launches"]
+    rb = {r.label: r for r in res_b.pop("rows")}
+    st = DISAGREE_STEPS[-1]
+    full, drop = rb[f"steps{st}-fullest"], rb[f"steps{st}-drop"]
+    log(f"  {st}-step gathers: fullest delivers "
+        f"{full.result.delivered_bits:.6e} b, drop "
+        f"{drop.result.delivered_bits:.6e} b")
+    if not full.result.delivered_bits > drop.result.delivered_bits:
+        raise AssertionError(f"fullest delivers no more than drop at {st} "
+                             "steps")
+    out["grid_b"] = {**res_b, "engine": engine_numbers(res_b),
+                     "util": {k: r.result.utilization
+                              for k, r in rb.items()}}
+    out["launches"] = launches
+    for name in ("run_faults", "grid_b"):
+        e = out[name]["engine"]
+        log(f"  engine on {name}: {e['slots']} slots, "
+            f"{e['us_per_slot']:.3f} us a slot (device loop "
+            f"{e['device_loop_us_per_slot']:.3f}), degraded share "
+            f"{e['degraded_share']:.4f}, epoch reads {e['epoch_reads']}, "
+            f"replay {e['replay_s']:.6f} s, control {e['control_s']:.6f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2426,7 +2779,14 @@ def main() -> int:
     throughput = throughput_phases(scheds, wls)
     gc.collect()
 
-    # -- 5d. the attention, mLSTM and scan kernels; the serving paths -------
+    # -- 5d. fault injection, repair, fullest and jitter ---------------------
+    t0 = time.perf_counter()
+    faults = faults_phases(scheds[-1], wls[-1])
+    faults["wall_s"] = time.perf_counter() - t0
+    log(f"  faults phase wall {faults['wall_s']:.1f} s")
+    gc.collect()
+
+    # -- 5e. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
@@ -2453,10 +2813,12 @@ def main() -> int:
                                 "phases": phases}))
     log("sweep_n64: " + json.dumps(n64))
     log("throughput: " + json.dumps(throughput))
+    log("faults: " + json.dumps(faults))
     sinkhorn_by_path = {"sweep": launches, "sweep_n64": n64["launches"],
                         "adaptive_a": adaptive["a"]["launches"],
                         "adaptive_b": adaptive["b"]["launches"],
-                        **throughput["launches"]}
+                        **throughput["launches"],
+                        "faults": faults["launches"]}
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -2471,8 +2833,8 @@ def main() -> int:
         "cuda_launches_per_call": sinkhorn_per_call,
     }]
     # sinkhorn's `launches` counts wrapper calls on the sweep's schedules,
-    # the two adaptive grids and the throughput analysis's four card
-    # paths, each read between its own resets
+    # the two adaptive grids, the throughput analysis's four card paths
+    # and the faults phase, each read between its own resets
     # (`launches_by_path`), its `cuda_launches_per_call` those of one traced
     # schedule; for the others `launches` counts wrapper calls on the
     # serving paths, summed

@@ -9,7 +9,8 @@ bit-identical to an unsanitized one.
 
 Contracts:
 
-* **Bit conservation** — injected bits = delivered + still-queued.
+* **Bit conservation** — injected bits = delivered + still-queued +
+  fault-lost (bits stranded by ``tor_fail``).
 * **Schedule validity** — every ``Schedule.perms`` row is a permutation,
   and every installed per-slot circuit set is a partial matching
   post-arbitration: per-source and per-destination capacity within
@@ -213,10 +214,12 @@ class Sanitizer:
         matching, loss accounting nonnegative and — when the plan carries
         per-slot contested-claim counts — closed: ``lost[s]`` can never
         exceed the capacity of slot s's contested traffic-carrying claims
-        (arbitration recovers claims, it never invents loss)."""
+        (arbitration recovers claims, it never invents loss).  Dynamic
+        plans (``fp.plans is None`` — queue-aware arbitration resolves
+        winners per served slot) skip the per-slot support checks."""
         self._ran("fabric_plan")
         name = f"fabric_plan:g{fp.groups}"
-        if len(fp.plans) != fp.n_slots:
+        if fp.plans is not None and len(fp.plans) != fp.n_slots:
             self._fail(name, f"plan length != n_slots ({fp.n_slots})")
         if len(fp.lost) != fp.n_slots:
             self._fail(name, f"lost length != n_slots ({fp.n_slots})")
@@ -224,7 +227,7 @@ class Sanitizer:
             self._fail(name, f"disagreement {fp.disagreement} not in [0, 1]")
         if (fp.lost < 0).any():
             self._fail(name, "negative collision loss")
-        for s, (pid, cap) in enumerate(fp.plans):
+        for s, (pid, cap) in enumerate(fp.plans or ()):
             self.check_plan_pairs(pid, cap, n, d_hat, w,
                                   label=f"{name}:slot{s}")
         bound = fp.contested * w
@@ -309,3 +312,17 @@ class Sanitizer:
                        f"remaining {remaining_active:.6g}) != delivered "
                        f"{delivered:.6g}")
 
+    def check_matrix(self, m: np.ndarray, n: int | None = None,
+                     label: str = "matrix", nonneg: bool = True) -> None:
+        """Square finite (optionally nonnegative) matrix contract for the
+        estimation/schedule entry points."""
+        self._ran("matrix")
+        m = np.asarray(m)
+        if m.ndim != 2 or m.shape[0] != m.shape[1]:
+            self._fail(label, f"expected a square matrix (got {m.shape})")
+        if n is not None and m.shape[0] != n:
+            self._fail(label, f"expected ({n}, {n}) (got {m.shape})")
+        if not np.isfinite(m).all():
+            self._fail(label, "non-finite entries")
+        if nonneg and (m < 0).any():
+            self._fail(label, "negative entries")

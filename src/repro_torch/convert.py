@@ -1,5 +1,5 @@
-"""Carry schedules, workloads, adaptive cases and model parameters across
-from the JAX package.
+"""Carry schedules, workloads, fault schedules, sweep and adaptive cases
+and model parameters across from the JAX package.
 
 Duck-typed: any object with the reference's fields converts, so the port
 never imports ``repro``.  The tests use it to run both packages on the
@@ -12,12 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.faults import FaultEvent, FaultSchedule
 from .core.schedule import Schedule
-from .core.simulator import AdaptiveCase, Workload
+from .core.simulator import AdaptiveCase, SweepCase, Workload
 from .models.transformer import check_supported
 
-__all__ = ["adaptive_case_from", "params_from", "schedule_from",
-           "workload_from"]
+__all__ = ["adaptive_case_from", "fault_schedule_from", "params_from",
+           "schedule_from", "sweep_case_from", "workload_from"]
 
 
 def schedule_from(s) -> Schedule:
@@ -38,13 +39,37 @@ def workload_from(wl) -> Workload:
                     n=int(wl.n), horizon=int(wl.horizon))
 
 
+def fault_schedule_from(fs) -> FaultSchedule | None:
+    """The port's :class:`FaultSchedule` with ``fs``'s events (slot, kind,
+    node, plane, duration), in order; None stays None."""
+    if fs is None:
+        return None
+    return FaultSchedule(tuple(
+        FaultEvent(slot=int(ev.slot), kind=str(ev.kind), node=int(ev.node),
+                   plane=int(ev.plane), duration=int(ev.duration))
+        for ev in fs.events))
+
+
+def sweep_case_from(case, sched: Schedule | None = None,
+                    wl: Workload | None = None) -> SweepCase:
+    """The port's :class:`SweepCase` with ``case``'s mode, label, meta and
+    ``faults`` (through :func:`fault_schedule_from`).  ``sched`` and
+    ``wl`` are the port's copies of ``case.sched`` and ``case.wl``
+    (default: new ones): pass one copy for every case that shares one."""
+    return SweepCase(
+        sched=schedule_from(case.sched) if sched is None else sched,
+        wl=workload_from(case.wl) if wl is None else wl,
+        mode=str(case.mode), label=str(case.label), meta=dict(case.meta),
+        faults=fault_schedule_from(case.faults))
+
+
 def adaptive_case_from(case, wl: Workload | None = None) -> AdaptiveCase:
     """The port's :class:`AdaptiveCase` with ``case``'s fields, its
-    ``oracle_demand`` as f64.  ``wl`` is the port's copy of ``case.wl``
+    ``oracle_demand`` as f64 and its ``faults`` through
+    :func:`fault_schedule_from`.  ``wl`` is the port's copy of ``case.wl``
     (default: a new one): pass one copy for every case that shares a
     workload, since the loop's caches key on the workload object, as the
-    reference's do.  A case's ``faults`` is carried as it is (the port's
-    loop rejects a case that has any)."""
+    reference's do."""
     od = case.oracle_demand
     return AdaptiveCase(
         wl=workload_from(case.wl) if wl is None else wl,
@@ -60,9 +85,10 @@ def adaptive_case_from(case, wl: Workload | None = None) -> AdaptiveCase:
         construction_slots=case.construction_slots,
         slot_seconds=float(case.slot_seconds), method=str(case.method),
         reconfig_penalty_slots=int(case.reconfig_penalty_slots),
-        faults=case.faults,
+        faults=fault_schedule_from(case.faults),
         activation_jitter_slots=int(case.activation_jitter_slots),
         repair=bool(case.repair),
+        repair_after_epochs=int(case.repair_after_epochs),
         swap_tv_threshold=float(case.swap_tv_threshold),
         label=str(case.label), meta=dict(case.meta))
 

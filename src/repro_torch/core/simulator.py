@@ -44,12 +44,25 @@ in one of three formulations, chosen as the reference chooses
 (:func:`twohop_fct`, with per-flow FCTs from the credit replay, at small
 n; :func:`twohop_dense` or :func:`twohop_sparse`, aggregates only,
 beyond).  :func:`simulate_aggregate` serves dense per-slot arrivals
-through :func:`agg`.
+through :func:`agg`; :func:`simulate` runs one case through the sweep's
+engines.
+
+The reference's numpy engine features run here too.  **Fault injection
+in the sweep** (``SweepCase.faults``, single-hop): the fault timeline
+depends on the slot alone, so the host replays it before serving
+(:func:`_fault_layout`): masked supports into the case's plan columns,
+refused arrivals out of the arrival list; :func:`singlehop` flushes the
+VOQ rows of failed ToRs on the card.  **The adaptive loop's faults,
+repair, ``collision="fullest"`` and activation jitter** read the data
+plane (NACKs from VOQ occupancy, winners by VOQ depth), so such a case
+runs on the degraded-service engine (:func:`_run_degraded_case`), one
+case at a time, epoch by epoch: the control plane on the host at each
+epoch boundary, each slot's flush, arrivals, arbitration
+(:func:`_resolve_slot_claims`), fault mask, NACK counters and serve on
+the card in f64, the credit replay on the host after the run.
 
 The host ledger (workloads, ``SimResult``, ``_CreditState``) and the
-control plane are the port's own copies of the reference's.  Fault
-injection, the repair loop, ``collision="fullest"`` and activation jitter
-are not ported yet and raise before any case runs.
+control plane are the port's own copies of the reference's.
 """
 from __future__ import annotations
 
@@ -63,6 +76,7 @@ import torch
 from ..analysis.sanitize import make_sanitizer
 from ..device import DATA_DTYPE, resolve_device
 from .estimation import TrafficEstimator, estimate_all_views
+from .faults import FaultSchedule, claims_fault_mask
 from .schedule import (
     Schedule,
     effective_perms,
@@ -82,6 +96,7 @@ __all__ = [
     "SweepRow",
     "AdaptiveCase",
     "AdaptiveRow",
+    "simulate",
     "run_sweep",
     "run_adaptive",
     "simulate_aggregate",
@@ -549,7 +564,9 @@ _F32_DRAIN_REL = 2e-5
 def singlehop(voq: torch.Tensor, arr_pid: torch.Tensor,
               arr_size: torch.Tensor, arr_bounds: np.ndarray,
               p_pid: torch.Tensor, p_cap: torch.Tensor,
-              tx: torch.Tensor, drained: torch.Tensor) -> torch.Tensor:
+              tx: torch.Tensor, drained: torch.Tensor,
+              flush: dict | None = None,
+              fault_lost: torch.Tensor | None = None) -> torch.Tensor:
     """Serve ``H = p_pid.shape[0]`` slots of the single-hop data plane.
 
     The port of the reference's ``singlehop`` scan, one Python iteration per
@@ -558,8 +575,20 @@ def singlehop(voq: torch.Tensor, arr_pid: torch.Tensor,
     ``arr_pid/arr_size[arr_bounds[h]:arr_bounds[h + 1]]``, gathers the
     queues of its plan row ``p_pid[h]``, serves ``min(q, p_cap[h])`` into
     ``tx[h]`` and flags ``drained[h]`` where the circuit emptied its queue.
-    Padded plan entries (zero capacity) are exact no-ops."""
+    Padded plan entries (zero capacity) are exact no-ops.
+
+    ``flush`` (fault injection) maps a slot to ``(rows, cases)``: the
+    ``(k, n)`` flat pair ids of the VOQ rows that the slot's ``tor_fail``
+    events strand (one row per failed node) and each row's case.  Before
+    the slot's arrivals, as in the reference's numpy engine, each row's
+    bits are summed in f64 into ``fault_lost[case]`` and the row is
+    zeroed."""
     for h in range(p_pid.shape[0]):
+        if flush and h in flush:
+            rows, cases = flush[h]
+            fault_lost.index_add_(
+                0, cases, voq[rows].to(fault_lost.dtype).sum(dim=1))
+            voq[rows.view(-1)] = 0.0
         a, b = int(arr_bounds[h]), int(arr_bounds[h + 1])
         if b > a:
             voq.index_add_(0, arr_pid[a:b], arr_size[a:b])
@@ -572,12 +601,14 @@ def singlehop(voq: torch.Tensor, arr_pid: torch.Tensor,
 
 
 def _batch_flows(wls: list[Workload], n: int, horizons: np.ndarray,
-                 H: int):
+                 H: int, refused: np.ndarray | None = None):
     """Concatenated flow state and the arrival list of a batch, single-hop
     or two-hop: flat global pair ids ``(case * n + src) * n + dst``; flows
     that arrive within their case's horizon, sorted by arrival slot
     (stable), with per-slot bounds ``bucket`` (slot h's arrivals are
-    ``order[bucket[h]:bucket[h + 1]]``).  Returns
+    ``order[bucket[h]:bucket[h + 1]]``).  ``refused`` (per concatenated
+    flow) leaves out the flows a fault refused at their ingress: they
+    never arrive, and their FCTs stay inf.  Returns
     (f_off, fct, credit, order, bucket, apid, asz)."""
     f_off = np.concatenate(
         [[0], np.cumsum([wl.num_flows for wl in wls])]).astype(np.int64)
@@ -592,6 +623,8 @@ def _batch_flows(wls: list[Workload], n: int, horizons: np.ndarray,
     fct = np.full(len(f_size), np.inf)
     credit = _CreditState(len(wls) * n * n, pid, f_size, f_arr, fct)
     valid = f_arr < horizons[f_item]
+    if refused is not None:
+        valid &= ~refused
     order = np.argsort(f_arr, kind="stable")
     order = order[valid[order]]
     bucket = np.searchsorted(f_arr[order], np.arange(H + 1))
@@ -653,17 +686,21 @@ def _lapper(timings: dict | None):
 
 
 def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
-           p_cap: np.ndarray, dev: torch.device, lap, timings: dict | None):
+           p_cap: np.ndarray, dev: torch.device, lap, timings: dict | None,
+           refused: np.ndarray | None = None, flush: dict | None = None):
     """Serve the ``(H, Jtot)`` plan ``p_pid`` / ``p_cap`` (int64 global
     pair ids, f32 capacities; case b's pairs offset by ``b * n * n``) to
     the flows of ``wls`` on ``dev`` and replay the delivered amounts
-    through the f64 credit ledger.  Returns (f_off, fct, credit, tx64,
-    voq): flow offsets per case, per-flow FCTs, the ledger, the per-slot
-    tx in f64 and the final VOQ on the host."""
+    through the f64 credit ledger.  ``refused`` and ``flush`` carry a
+    fault replay's refused flows and flushed VOQ rows (slot -> list of
+    ``(case, node)``; see :func:`_fault_layout`).  Returns (f_off, fct,
+    credit, tx64, voq, fault_lost): flow offsets per case, per-flow FCTs,
+    the ledger, the per-slot tx in f64, the final VOQ on the host and the
+    f64 bits each case's flushes stranded."""
     n = wls[0].n
     H = p_pid.shape[0]
     f_off, fct, credit, order, bucket, apid, asz = _batch_flows(
-        wls, n, horizons, H)
+        wls, n, horizons, H, refused=refused)
     lap("layout_s")
 
     # the plan, the arrival list and the VOQ go up once
@@ -674,32 +711,143 @@ def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
     voq = torch.zeros(len(wls) * n * n, dtype=DATA_DTYPE, device=dev)
     tx = torch.empty(p_pid.shape, dtype=DATA_DTYPE, device=dev)
     drained = torch.empty(p_pid.shape, dtype=torch.bool, device=dev)
+    fault_lost = torch.zeros(len(wls), dtype=torch.float64, device=dev)
+    d_flush = None
+    if flush:
+        d_flush = {}
+        for h, items in flush.items():
+            rows = np.array([(b * n + node) * n + np.arange(n)
+                             for b, node in items], dtype=np.int64)
+            cases = np.array([b for b, _ in items], dtype=np.int64)
+            d_flush[h] = (torch.from_numpy(rows).to(dev),
+                          torch.from_numpy(cases).to(dev))
     _sync(dev)
     lap("upload_s")
-    singlehop(voq, d_apid, d_asz, bucket, d_pid, d_cap, tx, drained)
+    singlehop(voq, d_apid, d_asz, bucket, d_pid, d_cap, tx, drained,
+              flush=d_flush, fault_lost=fault_lost)
     _sync(dev)
     lap("device_loop_s")
     tx_h = tx.cpu().numpy()
     dr_h = drained.cpu().numpy()
     voq_h = voq.cpu().numpy()
+    lost_h = fault_lost.cpu().numpy()
     lap("download_s")
     if timings is not None:
         timings["slots"] = timings.get("slots", 0) + H
     tx64 = _replay_credit(credit, order, bucket, p_pid, tx_h, dr_h, H)
     lap("replay_s")
-    return f_off, fct, credit, tx64, voq_h
+    return f_off, fct, credit, tx64, voq_h, lost_h
+
+
+def _fault_layout(cases: list[tuple[Schedule, Workload]], faults: list,
+                  bits_per_slot: float, p_pid: np.ndarray,
+                  p_cap: np.ndarray, offs: np.ndarray,
+                  horizons: np.ndarray, san=None):
+    """Replay each faulted case's :class:`FaultTimeline` on the host, over
+    every slot of the batch, before anything is served (the timeline
+    depends on the slot alone), as the reference's numpy engine advances
+    it slot by slot (``_simulate_batch_singlehop``).
+
+    From a case's first event on, its column block of the ``(H, Jtot)``
+    plan is rewritten in place with the masked support of each slot: the
+    period slot's matching block under ``claims_fault_mask`` with
+    self-loops dropped and parallel survivors accumulated (memoized per
+    (period slot, timeline version)), padded with pair ``(0, 0)`` at zero
+    capacity.  Returns ``(refused, flush)``: per concatenated flow,
+    whether its ingress was refusing injection at its arrival slot; and
+    slot -> ``[(case, node), ...]``, the nodes whose ``tor_fail`` strands
+    their VOQ rows at that slot, in the reference's order."""
+    n = cases[0][1].n
+    H = p_pid.shape[0]
+    src0 = np.arange(n)
+    flush: dict[int, list] = {}
+    refused = []
+    for b, ((sched, wl), fs) in enumerate(zip(cases, faults)):
+        if not fs:
+            refused.append(np.zeros(wl.num_flows, dtype=bool))
+            continue
+        tl = fs.compile(n, sched.d_hat)
+        base = b * n * n
+        cols = slice(int(offs[b]), int(offs[b + 1]))
+        jc = int(offs[b + 1] - offs[b])
+        w_b = bits_per_slot * (1.0 - sched.recfg_frac)
+        memo: dict[tuple, int] = {}
+        ent_pid: list[np.ndarray] = []
+        ent_cap: list[np.ndarray] = []
+        f_slots, f_ids = [], []
+        inj_slots, inj_states = [], []
+        version = 0
+        for slot in range(H):
+            for node in tl.advance(slot):
+                flush.setdefault(slot, []).append((b, int(node)))
+            if tl.clean:
+                continue
+            if tl.version != version:
+                version = tl.version
+                inj_slots.append(slot)
+                inj_states.append(tl.inject_ok.copy())
+            ps = slot % sched.n_slots
+            key = (ps, version)
+            idx = memo.get(key)
+            if idx is None:
+                blk = sched.perms[ps * sched.d_hat:(ps + 1) * sched.d_hat]
+                keep = claims_fault_mask(blk, tl.link_ok()) & (blk != src0)
+                cpid = (base + np.broadcast_to(src0, blk.shape) * n
+                        + blk)[keep]
+                upid, inv = np.unique(cpid, return_inverse=True)
+                cap = np.bincount(inv, weights=np.full(len(cpid), w_b),
+                                  minlength=len(upid))
+                if san is not None:
+                    san.check_plan_pairs(
+                        upid % (n * n), cap, n, sched.d_hat, w_b,
+                        label=f"singlehop:case{b}:slot{ps}:faulted")
+                row_p = np.full(jc, base, dtype=np.int64)
+                row_c = np.zeros(jc, dtype=np.float32)
+                row_p[:len(upid)] = upid
+                row_c[:len(upid)] = cap
+                idx = memo[key] = len(ent_pid)
+                ent_pid.append(row_p)
+                ent_cap.append(row_c)
+            f_slots.append(slot)
+            f_ids.append(idx)
+        if f_slots:
+            sl = np.asarray(f_slots)
+            ids = np.asarray(f_ids)
+            p_pid[sl, cols] = np.stack(ent_pid)[ids]
+            live = sl < horizons[b]
+            p_cap[sl[live], cols] = np.stack(ent_cap)[ids[live]]
+        # the ingress state each flow met at its arrival slot
+        ref_b = np.zeros(wl.num_flows, dtype=bool)
+        if inj_slots:
+            k = np.searchsorted(np.asarray(inj_slots), wl.arrival,
+                                side="right") - 1
+            states = np.stack(inj_states)
+            at = k >= 0
+            ref_b[at] = ~states[k[at], wl.src[at]]
+        refused.append(ref_b)
+    return np.concatenate(refused), flush
 
 
 def _singlehop_batch(
     cases: list[tuple[Schedule, Workload]], bits_per_slot: float,
     dev: torch.device, san=None, timings: dict | None = None,
+    faults: list | None = None,
 ) -> list[SimResult]:
     """Single-hop dynamics for a batch of same-n cases, with per-flow FCTs:
     the data plane serves the padded per-slot circuit plan in f32 on
     ``dev`` and the host replays the delivered amounts through the exact
     f64 processor-sharing credit ledger.  ``timings``, if given, receives
-    the wall seconds of each phase (accumulated over batches)."""
+    the wall seconds of each phase (accumulated over batches).
+
+    ``faults`` optionally carries one :class:`FaultSchedule` (or None) per
+    case: the host replays each timeline ahead of serving
+    (:func:`_fault_layout`), a case's plan stays the fault-free one until
+    its first event fires (bit-identical prefix), refused arrivals never
+    enter the fabric (``fault_refused_bits``, f64 in arrival order) and
+    the VOQ rows of failed ToRs are flushed on the card into
+    ``fault_lost_bits``."""
     lap = _lapper(timings)
+    B = len(cases)
     n = cases[0][1].n
     for sched, wl in cases:
         if wl.n != n:
@@ -725,8 +873,24 @@ def _singlehop_batch(
         h_b = int(horizons[b])
         p_pid[:, offs[b]:offs[b + 1]] = ppid[ps]
         p_cap[:h_b, offs[b]:offs[b + 1]] = pcap[ps[:h_b]]
-    f_off, fct, credit, tx64, voq_h = _serve(
-        [wl for _, wl in cases], horizons, p_pid, p_cap, dev, lap, timings)
+    wls = [wl for _, wl in cases]
+    refused = flush = None
+    fault_refused = np.zeros(B)
+    if faults is not None and any(faults):
+        refused, flush = _fault_layout(cases, faults, bits_per_slot, p_pid,
+                                       p_cap, offs, horizons, san=san)
+        # refused bits per case, added in the reference's order: by
+        # arrival slot, stable
+        f_item = np.concatenate([np.full(wl.num_flows, b, dtype=np.int64)
+                                 for b, wl in enumerate(wls)])
+        f_arr = np.concatenate([wl.arrival for wl in wls])
+        f_size = np.concatenate([wl.size for wl in wls]).astype(np.float64)
+        o = np.argsort(f_arr, kind="stable")
+        o = o[(refused & (f_arr < horizons[f_item]))[o]]
+        np.add.at(fault_refused, f_item[o], f_size[o])
+    f_off, fct, credit, tx64, voq_h, fault_lost = _serve(
+        wls, horizons, p_pid, p_cap, dev, lap, timings, refused=refused,
+        flush=flush)
 
     results = []
     for b, (sched, wl) in enumerate(cases):
@@ -741,6 +905,8 @@ def _singlehop_batch(
             delivered_bits=delivered,
             offered_bits=offered,
             avg_hops=1.0,
+            fault_lost_bits=float(fault_lost[b]),
+            fault_refused_bits=float(fault_refused[b]),
         ))
     if san is not None:
         voq64 = np.asarray(voq_h, np.float64)
@@ -748,12 +914,16 @@ def _singlehop_batch(
             san.check_workload(wl)
             san.check_schedule(sched)
             queued = float(voq64[b * n * n:(b + 1) * n * n].sum())
+            r = results[b]
             san.check_conservation(
-                results[b].offered_bits, results[b].delivered_bits, queued,
-                label=f"{dev.type}:case{b}:conservation", float32=True)
+                r.offered_bits - r.fault_refused_bits, r.delivered_bits,
+                queued, label=f"{dev.type}:case{b}:conservation",
+                float32=True, fault_lost=r.fault_lost_bits)
         rem, completed = credit.remaining_active()
+        # flushed bits stay on their never-completing flows, inside
+        # remaining_active: the closure needs no fault term
         san.check_credit_closure(
-            sum(r.offered_bits for r in results),
+            sum(r.offered_bits - r.fault_refused_bits for r in results),
             sum(r.delivered_bits for r in results), rem, completed,
             label=f"{dev.type}:singlehop:credit", float32=True)
         lap("sanitize_s")
@@ -1240,6 +1410,47 @@ def _twohop_batch(
     return results
 
 
+def simulate(
+    sched: Schedule,
+    wl: Workload,
+    bits_per_slot: float,
+    mode: str = "single_hop",
+    sanitize: bool | None = None,
+    faults: FaultSchedule | None = None,
+    device=None,
+) -> SimResult:
+    """Run ``wl`` over ``sched`` for ``wl.horizon`` slots on ``device``
+    (``None``: the card; ``"cpu"``: the same PyTorch ops on the CPU).  The
+    port of the reference's ``simulate``: single-hop through
+    :func:`_singlehop_batch`, ``rotorlb`` / ``vlb`` through
+    :func:`_twohop_batch` on the route :func:`run_sweep` takes.
+
+    ``sanitize``: run the :mod:`repro_torch.analysis.sanitize` contract
+    checks (default: the ``REPRO_SANITIZE`` env var).  ``faults``: an
+    optional :class:`FaultSchedule` of timed failure events (single_hop
+    mode only — the two-hop relay planes don't model per-circuit
+    failure); an empty schedule is bit-identical to passing None.
+    """
+    if mode not in _MODES:
+        raise ValueError(mode)
+    if faults:
+        if not isinstance(faults, FaultSchedule):
+            raise ValueError("faults must be a FaultSchedule "
+                             f"(got {type(faults).__name__})")
+        if mode != "single_hop":
+            raise ValueError(
+                "fault injection is only supported on the single_hop "
+                f"engine (got mode={mode!r})")
+        faults.validate(wl.n, sched.d_hat)
+    dev = resolve_device(device)
+    san = make_sanitizer(sanitize)
+    if mode == "single_hop":
+        return _singlehop_batch([(sched, wl)], bits_per_slot, dev, san=san,
+                                faults=[faults] if faults else None)[0]
+    return _twohop_batch([(sched, wl)], bits_per_slot, [mode], dev,
+                         san=san)[0]
+
+
 # ---------------------------------------------------------------------------
 # Sweep API
 # ---------------------------------------------------------------------------
@@ -1251,20 +1462,30 @@ class SweepCase:
     ``mode``: ``"single_hop"`` (circuits carry their own pair's traffic),
     ``"rotorlb"`` (RotorNet: direct hop, then two-hop VLB offload of the
     leftover capacity) or ``"vlb"`` (every bit through a relay).
-    ``faults`` is accepted for the reference's shape but must be empty
-    (see :func:`run_sweep`).  An unknown mode raises ``ValueError`` at
-    construction."""
+    ``faults`` optionally injects a timed :class:`FaultSchedule`
+    (single-hop cases only); an empty schedule behaves exactly like None.
+    Malformed cases — unknown mode, bad fault events — raise
+    ``ValueError`` at construction."""
     sched: Schedule
     wl: Workload
     mode: str = "single_hop"
     label: str = ""
     meta: dict = field(default_factory=dict)
-    faults: object | None = None
+    faults: FaultSchedule | None = None
 
     def __post_init__(self) -> None:
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES} "
                              f"(got {self.mode!r})")
+        if self.faults is not None:
+            if not isinstance(self.faults, FaultSchedule):
+                raise ValueError("faults must be a FaultSchedule "
+                                 f"(got {type(self.faults).__name__})")
+            if self.faults and self.mode != "single_hop":
+                raise ValueError(
+                    "fault injection is only supported on single_hop "
+                    f"cases (got mode={self.mode!r})")
+            self.faults.validate(self.wl.n, self.sched.d_hat)
 
 
 @dataclass
@@ -1305,18 +1526,15 @@ def run_sweep(
     ``"twohop_fct"``, ``"twohop_dense"`` or ``"twohop_sparse"``), its
     number of ``cases`` and its own phase seconds and slots.
 
-    Fault injection is not ported yet: such a case raises
-    ``NotImplementedError`` before any case runs.
+    Single-hop cases may carry ``faults`` (:class:`SweepCase`): the host
+    replays each timeline before serving, the masked plans and the
+    refused arrivals are laid out ahead, and the card flushes the VOQ rows
+    of failed ToRs (:func:`_singlehop_batch`); the reference runs these on
+    its numpy backend only.
     """
-    for i, c in enumerate(cases):
+    for c in cases:
         if c.mode not in _MODES:
             raise ValueError(c.mode)
-        if c.faults:
-            raise NotImplementedError(
-                f"cases[{i}] ({c.label!r}): fault injection is not "
-                "implemented in repro_torch — its data plane has no "
-                "per-slot fault mask (ROADMAP queue 1, item 4, the numpy "
-                "engine's features)")
     dev = resolve_device(device)
     san = make_sanitizer(sanitize)
     groups: dict[tuple, list[int]] = {}
@@ -1329,8 +1547,10 @@ def run_sweep(
         t0 = time.perf_counter()
         if single:
             route = "singlehop"
-            results = _singlehop_batch(batch, bits_per_slot, dev, san=san,
-                                       timings=bt)
+            batch_faults = [cases[i].faults for i in idxs]
+            results = _singlehop_batch(
+                batch, bits_per_slot, dev, san=san, timings=bt,
+                faults=batch_faults if any(batch_faults) else None)
         else:
             route = _twohop_route(len(idxs), n,
                                   max(wl.horizon for _, wl in batch))
@@ -1355,8 +1575,6 @@ def run_sweep(
 
 _POLICIES = ("adaptive", "oracle", "stale", "oblivious")
 _COLLISIONS = ("drop", "lowest", "receiver", "fullest")
-# the arbiters whose winners _fabric_plan can precompute
-_STATIC_COLLISIONS = ("drop", "lowest", "receiver")
 
 
 @dataclass(frozen=True)
@@ -1377,11 +1595,18 @@ class _FabricPlan:
     closure the sanitizer enforces.
 
     ``eff``/``nonself``/``win`` carry the raw (T, n) claim structure so
-    partially-dark planes can rebuild any slot's support from first
+    the degraded-service paths (fault masks, partially-dark planes, mixed
+    old/new activation) can rebuild any slot's support from first
     principles: ``eff[t, i]`` the port input i is tuned to, ``win`` the
-    statically-arbitrated winners; row t runs on plane ``t % d_hat``."""
+    statically-arbitrated winners.  ``win`` (and ``plans``) are ``None``
+    for queue-aware arbitration (``collision="fullest"`` under
+    disagreement), where winners depend on per-slot VOQ depth and the
+    engine resolves each served slot on the device
+    (:func:`_resolve_slot_claims`).  ``plane_map`` maps the plan's logical
+    plane rows to physical fabric planes — the identity except for
+    repaired schedules rebuilt over the surviving planes."""
 
-    plans: list
+    plans: list | None
     n_slots: int
     disagreement: float
     lost: np.ndarray
@@ -1389,8 +1614,9 @@ class _FabricPlan:
     contested: np.ndarray
     eff: np.ndarray                    # (T, n) effective port claims
     nonself: np.ndarray                # (T, n) claim would carry traffic
-    win: np.ndarray                    # (T, n) statically arbitrated winners
+    win: np.ndarray | None             # (T, n) static winners; None=dynamic
     w: float                           # bits per circuit-slot after guard
+    plane_map: np.ndarray | None = None
 
 
 def _fabric_plan(
@@ -1398,6 +1624,7 @@ def _fabric_plan(
     owner: np.ndarray,
     bits_per_slot: float,
     collision: str,
+    plane_map: np.ndarray | None = None,
 ) -> _FabricPlan:
     """Merge per-node schedules into the fabric's effective circuit plan.
 
@@ -1423,12 +1650,22 @@ def _fabric_plan(
     circuit support.  Lost capacity counts only claims that would have
     carried traffic (src != dst) had the port not been contested.
 
-    The reference's queue-aware ``"fullest"`` cannot be precomputed (its
-    winners depend on per-slot VOQ depth); it is not ported and raises.
+    ``"fullest"`` (queue-aware arbitration) cannot be precomputed — the
+    winner depends on per-slot VOQ depth — so under disagreement the
+    returned plan is *dynamic*: ``plans``/``win`` are None, ``lost`` is
+    zero (the engine charges collision loss per served slot via
+    :func:`_resolve_slot_claims`), and the static claim structure
+    (``eff``/``nonself``/``contested``/disagreement) is still carried.
+
+    ``plane_map`` records which physical planes the schedules' logical
+    plane rows occupy (identity by default) — repaired schedules rebuilt
+    over the surviving planes of a degraded fabric pass the survivors.
     """
-    if collision not in _STATIC_COLLISIONS:
-        raise ValueError(f"collision must be one of {_STATIC_COLLISIONS} "
+    if collision not in _COLLISIONS:
+        raise ValueError(f"collision must be one of {_COLLISIONS} "
                          f"(got {collision!r})")
+    if plane_map is None:
+        plane_map = np.arange(scheds[0].d_hat, dtype=np.int64)
     if len(scheds) == 1:
         sched = scheds[0]
         n = sched.n
@@ -1441,7 +1678,8 @@ def _fabric_plan(
                            contested=np.zeros(sched.n_slots),
                            eff=perms, nonself=perms != np.arange(n)[None, :],
                            win=np.ones(perms.shape, dtype=bool),
-                           w=bits_per_slot * (1.0 - sched.recfg_frac))
+                           w=bits_per_slot * (1.0 - sched.recfg_frac),
+                           plane_map=plane_map)
 
     base = scheds[0]
     n, T, d_hat, n_slots = base.n, base.T, base.d_hat, base.n_slots
@@ -1464,6 +1702,16 @@ def _fabric_plan(
     contested_n = np.bincount(
         slot_of, weights=(nonself & contested).sum(axis=1),
         minlength=n_slots)
+
+    if collision == "fullest":
+        # queue-aware winners are a per-slot function of VOQ state: the
+        # engine resolves each served slot and charges its loss there
+        return _FabricPlan(plans=None, n_slots=n_slots,
+                           disagreement=float(contested.mean()),
+                           lost=np.zeros(n_slots), groups=len(scheds),
+                           contested=contested_n,
+                           eff=eff, nonself=nonself, win=None, w=w,
+                           plane_map=plane_map)
 
     if collision == "drop":
         win = ~contested
@@ -1495,7 +1743,77 @@ def _fabric_plan(
                        disagreement=float(contested.mean()),
                        lost=lost, groups=len(scheds),
                        contested=contested_n,
-                       eff=eff, nonself=nonself, win=win, w=w)
+                       eff=eff, nonself=nonself, win=win, w=w,
+                       plane_map=plane_map)
+
+
+def _resolve_slot_claims(
+    claims: torch.Tensor,
+    valid: torch.Tensor,
+    planes: torch.Tensor,
+    rot: torch.Tensor,
+    collision: str,
+    voq: torch.Tensor,
+    n: int,
+    n_planes: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Arbitrate one slot's output-port contention on the claims' device,
+    at a fixed size: the port of the reference's ``_resolve_slot_claims``.
+
+    ``claims``/``valid``: (R, n) configured output ports and which of them
+    exist; ``planes``: (R,) the physical plane of each claim row —
+    contention groups by (physical plane, output port); ``rot``: (R,) the
+    rotating-priority base for ``"receiver"``; ``voq``: the flat (n^2)
+    queues ``"fullest"`` reads (src * n + dst); ``n_planes``: the number
+    of physical planes (default: read from ``planes``, which waits for
+    the device).  Each contention group's winner is the claim of least
+    priority, the reference's sort order: ``"lowest"`` the (row, input)
+    position, ``"receiver"`` ``(input - rot) mod n`` then position,
+    ``"fullest"`` the deepest VOQ toward the port then the input then the
+    row; ``"drop"`` loses every contested claim.  Group reductions are
+    ``scatter_reduce_`` over the ``n_planes * n`` (plane, port) groups
+    (invalid claims go to a spare group): no ``nonzero`` or ``unique``,
+    so the slot never waits on the host.  Self-loop claims contend but
+    never carry traffic.
+
+    Returns ``(win, lost)``: the (R, n) winner mask among valid claims,
+    and the 0-d count of traffic-carrying claims that lost."""
+    R = claims.shape[0]
+    dev = claims.device
+    if n_planes is None:
+        n_planes = int(planes.max()) + 1 if R else 1
+    G = n_planes * n
+    ii = torch.arange(n, device=dev).expand(R, n)
+    rr = torch.arange(R, device=dev)[:, None].expand(R, n)
+    key = torch.where(valid, planes[:, None] * n + claims,
+                      torch.full_like(claims, G)).reshape(-1)
+    if collision == "drop":
+        cnt = torch.zeros(G + 1, dtype=torch.int64, device=dev)
+        cnt.index_add_(0, key, torch.ones_like(key))
+        win = valid & (cnt[key] == 1).view(R, n)
+    else:
+        flat = (rr * n + ii).reshape(-1)      # the reference's scan order
+        if collision == "lowest":
+            prio = flat
+        elif collision == "receiver":
+            prio = (torch.remainder(ii - rot[:, None], n).reshape(-1)
+                    * (R * n) + flat)
+        elif collision == "fullest":
+            depth = voq[(ii * n + claims).reshape(-1)]
+            top = torch.full((G + 1,), -torch.inf, dtype=voq.dtype,
+                             device=dev)
+            top.scatter_reduce_(0, key, depth, "amax")
+            prio = torch.where(depth == top[key], (ii * R + rr).reshape(-1),
+                               R * n)
+        else:
+            raise ValueError(f"collision must be one of {_COLLISIONS} "
+                             f"(got {collision!r})")
+        least = torch.full((G + 1,), 2 * R * n * n, dtype=torch.int64,
+                           device=dev)
+        least.scatter_reduce_(0, key, prio, "amin")
+        win = valid & (prio == least[key]).view(R, n)
+    lost = (valid & ~win & (claims != ii)).sum()
+    return win, lost
 
 
 def _quantizer_unit(
@@ -1552,9 +1870,21 @@ class AdaptiveCase:
     last installed one.  ``normalize="saturate"`` projects every estimate
     through the Sinkhorn kernel on the run's device.
 
-    ``faults``, ``activation_jitter_slots`` and ``repair`` are accepted
-    for the reference's shape; :func:`run_adaptive` rejects a case that
-    sets them (ROADMAP queue 1, item 4).
+    ``faults``: an optional timed :class:`FaultSchedule` injected into the
+    run; an empty schedule is bit-identical to None.
+    ``activation_jitter_slots``: per-node asynchronous activation — each
+    ToR activates a newly-swapped schedule at its own slot, drawn
+    uniformly from the window after the swap (seeded from ``seed``); the
+    data plane serves the mixed old/new configuration, re-arbitrated per
+    slot under ``collision``.  ``collision="fullest"`` grants a contested
+    port to the input with the deepest VOQ toward it.  ``repair``
+    (``policy="adaptive"`` only) closes the detection/repair loop: the
+    control plane excises senders whose gather rows stay silent for
+    ``repair_after_epochs`` consecutive epochs and, from the data plane's
+    per-destination / per-plane NACK counters, dead receivers and dead
+    planes, then rebuilds on the surviving matrix and planes.  A case with
+    any of these four runs on the degraded-service engine
+    (:func:`_run_degraded_case`).
     """
 
     wl: Workload
@@ -1573,9 +1903,10 @@ class AdaptiveCase:
     slot_seconds: float = 4.5e-6
     method: str = "euler"
     reconfig_penalty_slots: int = 0
-    faults: object | None = None
+    faults: FaultSchedule | None = None
     activation_jitter_slots: int = 0
     repair: bool = False
+    repair_after_epochs: int = 2
     swap_tv_threshold: float = 0.0
     label: str = ""
     meta: dict = field(default_factory=dict)
@@ -1615,6 +1946,10 @@ class AdaptiveCase:
             raise ValueError(
                 "activation_jitter_slots must be a nonnegative int "
                 f"(got {self.activation_jitter_slots!r})")
+        if not isinstance(self.repair_after_epochs, (int, np.integer)) \
+                or self.repair_after_epochs < 1:
+            raise ValueError(f"repair_after_epochs must be an int >= 1 "
+                             f"(got {self.repair_after_epochs!r})")
         if self.swap_tv_threshold < 0:
             raise ValueError(f"swap_tv_threshold must be nonnegative "
                              f"(got {self.swap_tv_threshold!r})")
@@ -1622,6 +1957,11 @@ class AdaptiveCase:
             raise ValueError(
                 "repair requires policy='adaptive' (the other policies "
                 f"never recompute; got policy={self.policy!r})")
+        if self.faults is not None:
+            if not isinstance(self.faults, FaultSchedule):
+                raise ValueError("faults must be a FaultSchedule "
+                                 f"(got {type(self.faults).__name__})")
+            self.faults.validate(self.wl.n, self.d_hat)
 
 
 @dataclass
@@ -1651,37 +1991,15 @@ class AdaptiveRow:
     schedule_groups_max: int = 1    # most distinct per-node schedules that
                                     # were ever live at once
     dark_plane_slots: float = 0.0   # plane-slots dark to reconfiguration
-    plan_digest: str = ""           # SHA-1 of the compiled control
-                                    # trajectory (per-slot plan ids and the
-                                    # circuit registry): equal digests, equal
-                                    # served plans
-
-
-def _check_adaptive_supported(case: AdaptiveCase, i: int) -> None:
-    """Raise for AdaptiveCase features the port's loop cannot express
-    (they need per-slot host decisions inside the serving loop), as the
-    reference's jax backend does: fault injection ``NotImplementedError``,
-    the repair loop, ``collision="fullest"`` and activation jitter
-    ``ValueError``."""
-    if case.faults:
-        raise NotImplementedError(
-            f"cases[{i}] ({case.label!r}): fault injection is not "
-            "implemented in repro_torch — it requires per-slot host "
-            "decisions the data plane cannot replay (the reference runs it "
-            "on its numpy backend; ROADMAP queue 1, item 4)")
-    reason = None
-    if case.repair:
-        reason = "the repair loop (repair=True)"
-    elif case.collision == "fullest":
-        reason = "queue-aware arbitration (collision='fullest')"
-    elif case.activation_jitter_slots > 0:
-        reason = "per-node activation jitter"
-    if reason is not None:
-        raise ValueError(
-            f"cases[{i}] ({case.label!r}): {reason} is not supported by "
-            "repro_torch's run_adaptive — it requires per-slot host "
-            "decisions the data plane cannot replay (the reference's numpy "
-            "backend only; ROADMAP queue 1, item 4)")
+    fault_lost_bits: float = 0.0    # VOQ bits stranded by abrupt tor_fail
+    fault_refused_bits: float = 0.0  # arrivals refused at drained/dead ToRs
+    excised_nodes: int = 0          # ToRs the repair loop excised
+    excised_planes: int = 0         # planes the repair loop excised
+    plan_digest: str = ""           # SHA-1 of the control trajectory (the
+                                    # compiled path: per-slot plan ids and
+                                    # the circuit registry; the degraded
+                                    # engine: each slot's kind and claims):
+                                    # equal digests, equal served plans
 
 
 def _compile_adaptive_plan(case: AdaptiveCase, bits_per_slot: float,
@@ -2078,7 +2396,7 @@ def _run_adaptive_batch(
         p_pid[:h_b, cols] = ent_pid[cp["plan_ids"]]
         p_cap[:h_b, cols] = ent_cap[cp["plan_ids"]]
         p_pid[h_b:, cols] = base
-    f_off, fct, credit, tx64, voq_h = _serve(
+    f_off, fct, credit, tx64, voq_h, _ = _serve(
         [cases[b].wl for b in reps], horizons[reps], p_pid, p_cap, dev, lap,
         timings)
     voq64 = np.asarray(voq_h, np.float64)
@@ -2142,6 +2460,636 @@ def _run_adaptive_batch(
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Degraded-service engine: faults, repair, fullest arbitration, jitter
+# ---------------------------------------------------------------------------
+
+# slot kinds of the degraded-service engine: fully dark (serves nothing),
+# a precomputed plan (the historical fast path), claims with statically
+# arbitrated winners, claims arbitrated on the device each slot
+_DARK, _PLAN, _STATIC, _DYNAMIC = 0, 1, 2, 3
+
+
+def _degraded(case: AdaptiveCase) -> bool:
+    """Whether ``case`` needs the degraded-service engine: a data plane
+    that the host cannot lay out ahead of serving."""
+    return (bool(case.faults) or case.repair or case.collision == "fullest"
+            or case.activation_jitter_slots > 0)
+
+
+def _serve_claims(voq: torch.Tensor, pid: torch.Tensor, rows: torch.Tensor,
+                  served: torch.Tensor, w: float, earlier: torch.Tensor,
+                  tx_out: torch.Tensor, mem_out: torch.Tensor) -> None:
+    """Serve one slot's ``(R, n)`` circuit claims (``rows[r, i]`` the port
+    input i is tuned to on claim row r, ``pid = i * n + rows``), of which
+    ``served`` carry traffic: the reference's degraded-path serve at a
+    fixed size.  Each served pair's capacity is ``w`` times its number of
+    served claims; its first served claim in row order (``earlier[r', r,
+    0]``: r' < r) carries ``tx = min(q, cap)`` and is flagged in
+    ``mem_out``, the others carry nothing.  Writes the per-claim tx into
+    ``tx_out``."""
+    same = (rows[:, None, :] == rows[None, :, :]) & served[:, None, :]
+    member = served & ~(same & earlier).any(dim=0)
+    cap = same.sum(dim=0).to(voq.dtype) * w
+    q = voq[pid]
+    tx = torch.where(member, torch.minimum(q, cap), 0.0).view(-1)
+    voq.index_add_(0, pid.view(-1), tx, alpha=-1)
+    tx_out.copy_(tx)
+    mem_out.copy_(member.view(-1))
+
+
+def _count_nacks(nack: torch.Tensor, idx: torch.Tensor, voq: torch.Tensor,
+                 pid: torch.Tensor, served: torch.Tensor, ok: torch.Tensor,
+                 rxok: torch.Tensor) -> None:
+    """The repair loop's NACK counters on the device: a served claim whose
+    VOQ holds bits wants its circuit; it NACKs where the fault mask
+    (``ok``: both ends up) kills it.  ``nack`` holds ``[rx_want (n),
+    rx_nack (n), plane_want (d), plane_nack (d)]``; ``idx`` is the slot's
+    scatter index (per row its plane twice, then per claim its
+    destination twice), built on the host."""
+    wanting = served & (voq[pid] > 0.0)
+    vals = torch.cat([wanting.sum(dim=1), (wanting & ~ok).sum(dim=1),
+                      wanting.view(-1).long(),
+                      (wanting & ~rxok).view(-1).long()])
+    nack.index_add_(0, idx, vals)
+
+
+def _run_degraded_case(case: AdaptiveCase, bits_per_slot: float,
+                       dev: torch.device, san=None,
+                       timings: dict | None = None) -> AdaptiveRow:
+    """The port of the reference's ``_run_adaptive_case`` (its numpy
+    engine), for one case with faults, repair, ``collision="fullest"`` or
+    activation jitter.
+
+    Two of these features read the data plane — repair counts NACKs from
+    ``voq[pid] > 0`` on every served claim and decides excisions at each
+    epoch boundary; ``fullest`` picks winners by VOQ depth every slot — so
+    the trajectory cannot be compiled ahead.  The run goes one epoch at a
+    time.  At each epoch boundary the host runs the control plane
+    (estimation, views, excision, ``per_node_schedules`` over the
+    surviving planes, hysteresis, construction charge, per-plane dark
+    windows, jitter draws), then walks the epoch's slots as the reference
+    does, minus serving: it knows every slot's flushes, refusals, dark
+    planes, transition blocks and fault masks from the timeline, and lays
+    each slot out as fully dark, a plan of served pairs (the precomputed
+    fast path, or static winners under a known fault mask, whose pairs
+    the host derives as the reference does) or ``(R, n)`` claims whose
+    winners depend on the VOQ.  The epoch's layout goes up at once and
+    the device serves it slot by slot: flush, arrivals, arbitration
+    (:func:`_resolve_slot_claims`), NACK counters, the fault mask after
+    arbitration (a dead claim still jams its port), ``tx = min(q,
+    cap)``.  The VOQ is f64, as in the
+    reference: ``fullest``'s depth comparisons and repair's ``> 0`` tests
+    would flip near f32 drains.  The only reads inside the run are the
+    NACK counters at each epoch boundary of a repair case.  Each slot's
+    tx and its served pairs are recorded; after the run the host replays
+    them through the exact credit ledger, in the reference's order, and
+    sums the per-epoch books as the reference does."""
+    lap = _lapper(timings)
+    cs = case.construction_slots
+    measured = cs == "measured"
+    penalty = int(case.reconfig_penalty_slots)
+    wl, n = case.wl, case.wl.n
+    E, H = case.epoch_slots, wl.horizon
+    d_hat = case.d_hat
+    n_epochs = -(-H // E)
+    if san is not None:
+        san.set_context(f"case={case.label}")
+        san.check_workload(wl)
+    w = bits_per_slot * (1.0 - case.recfg_frac)
+
+    f_size = wl.size.astype(np.float64)
+    pid_f = (wl.src * n + wl.dst).astype(np.int64)
+    valid = wl.arrival < H
+    order = np.argsort(wl.arrival, kind="stable")
+    order = order[valid[order]]
+    bucket = np.searchsorted(wl.arrival[order], np.arange(H + 1))
+    accepted = np.ones(wl.num_flows, dtype=bool)
+
+    true_epoch = np.zeros((n_epochs, n, n))  # lint: allow-dense
+    np.add.at(true_epoch,
+              (wl.arrival[order] // E, wl.src[order], wl.dst[order]),
+              f_size[order])
+    oracle_m = case.oracle_demand
+    if oracle_m is not None and oracle_m.shape != (n_epochs, n, n):
+        raise ValueError(
+            f"oracle_demand shape {oracle_m.shape} != {(n_epochs, n, n)}")
+    if oracle_m is None:
+        oracle_m = true_epoch / E
+
+    counters = np.zeros((n, n))
+    fleet = TrafficEstimator.fleet(n, alpha=case.alpha)
+    q_unit = _quantizer_unit(E, case.k, d_hat, bits_per_slot)
+    construction_s = 0.0
+    last_construction = 0.0
+
+    def consistent_plan(sched: Schedule) -> _FabricPlan:
+        fp = _fabric_plan([sched], np.zeros(n, dtype=np.int64),
+                          bits_per_slot, case.collision)
+        if san is not None:
+            san.check_schedule(sched)
+            san.check_fabric_plan(fp, n, sched.d_hat, w)
+        return fp
+
+    def vsched(m: np.ndarray, seed: int) -> Schedule:
+        nonlocal construction_s, last_construction
+        t0 = time.perf_counter()
+        s = vermilion_schedule(
+            m, k=case.k, d_hat=d_hat, recfg_frac=case.recfg_frac,
+            seed=seed, normalize=case.normalize, method=case.method,
+            device=dev)
+        last_construction = time.perf_counter() - t0
+        construction_s += last_construction
+        return s
+
+    def vsched_per_node(views, seed: int, unique, dl: int | None = None,
+                        plane_map: np.ndarray | None = None) -> _FabricPlan:
+        nonlocal construction_s, last_construction
+        dh = d_hat if dl is None else dl
+        t0 = time.perf_counter()
+        scheds, owner = per_node_schedules(
+            views, k=case.k, d_hat=dh, recfg_frac=case.recfg_frac,
+            seed=seed, normalize=case.normalize, method=case.method,
+            unique=unique, device=dev)
+        dt = time.perf_counter() - t0
+        construction_s += dt
+        # every ToR builds only its own schedule, all concurrently
+        last_construction = dt / len(scheds)
+        fp = _fabric_plan(scheds, owner, bits_per_slot, case.collision,
+                          plane_map=plane_map)
+        if san is not None:
+            for s in scheds:
+                san.check_schedule(s)
+            san.check_fabric_plan(fp, n, dh, w)
+        return fp
+
+    if case.policy in ("oracle", "stale"):
+        fp = consistent_plan(vsched(oracle_m[0], case.seed))
+    else:
+        fp = consistent_plan(oblivious_schedule(n, d_hat=d_hat,
+                                                recfg_frac=case.recfg_frac))
+    sched_t0 = 0
+    pending: tuple[int, _FabricPlan] | None = None
+
+    est_tv = np.full(n_epochs, np.nan)
+    dis_ep = np.zeros(n_epochs)
+    coll_slot = np.zeros(H)          # host-known collision loss a slot
+    recomputes = stale_slots = dark_slots = 0
+    groups_max = 1
+    injected_cum = 0.0
+    injected_at = np.zeros(n_epochs)  # the sanitizer's ledger at each end
+
+    src0 = np.arange(n)
+    tl = case.faults.compile(n, d_hat) if case.faults else None
+    fault_refused = 0.0
+    plane_dark_until = np.zeros(d_hat, dtype=np.int64)
+    dark_plane_slots = 0.0
+    jit = int(case.activation_jitter_slots)
+    act_rng = np.random.default_rng([abs(int(case.seed)), 0xAC7])
+    transition: tuple[_FabricPlan, int, np.ndarray, int] | None = None
+    tx_silent = np.zeros(n, dtype=np.int64)
+    excised_tx = np.zeros(n, dtype=bool)
+    excised_rx = np.zeros(n, dtype=bool)
+    plane_alive = np.ones(d_hat, dtype=bool)
+    last_est: np.ndarray | None = None
+    last_sig: tuple | None = None
+    lok_memo: dict[int, np.ndarray] = {}
+    static_memo: dict[tuple, tuple] = {}   # the current plan's, by slot
+
+    def activate(new_fp: _FabricPlan, s: int) -> None:
+        nonlocal fp, sched_t0, transition, groups_max
+        if penalty:
+            om, nm = fp.plane_map, new_fp.plane_map
+            if fp.eff.shape != new_fp.eff.shape \
+                    or not np.array_equal(om, nm):
+                plane_dark_until[nm] = s + penalty   # everything retargets
+            else:
+                ch = planes_changed(fp.eff, new_fp.eff, len(nm))
+                plane_dark_until[nm[ch]] = s + penalty
+        if jit:
+            act = s + act_rng.integers(0, jit + 1, size=n)
+            transition = (fp, sched_t0, act, s + jit + 1)
+        fp, sched_t0 = new_fp, s
+        groups_max = max(groups_max, new_fp.groups)
+        static_memo.clear()
+
+    # device state: the f64 VOQ, the NACK counters, per-slot records
+    R = 2 * d_hat                    # claim rows: old + new generation
+    W = R * n
+    voq = torch.zeros(n * n, dtype=torch.float64, device=dev)
+    nack = torch.zeros(2 * n + 2 * d_hat, dtype=torch.int64, device=dev)
+    rec_tx = torch.zeros((H, W), dtype=torch.float64, device=dev)
+    rec_mem = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    lost_cnt = torch.zeros(H, dtype=torch.int64, device=dev)
+    snap = torch.zeros(n_epochs, dtype=torch.float64, device=dev)
+    earlier = (torch.arange(R, device=dev)[:, None]
+               < torch.arange(R, device=dev)[None, :])[:, :, None]
+    ii_d = torch.arange(n, device=dev)
+    flushed: list[torch.Tensor] = []
+    flush_at: list[int] = []
+    rec_pid = np.zeros((H, W), dtype=np.int64)
+    plan_mem = np.zeros((H, W), dtype=bool)
+    kinds = np.zeros(H, dtype=np.int8)
+    digest = hashlib.sha1()
+    epoch_reads = 0
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    lap("control_s")
+    for s0 in range(0, H, E):
+        s1 = min(H, s0 + E)
+        S = s1 - s0
+        # -- host: the control plane at the boundary, then the epoch's
+        # slots laid out as the reference walks them
+        p_pid = np.zeros((S, W), dtype=np.int64)
+        p_cap = np.zeros((S, W))
+        c_rows = np.broadcast_to(src0, (S, R, n)).copy()
+        c_mask = np.zeros((S, R, n), dtype=bool)  # static: served; dyn: valid
+        c_planes = np.zeros((S, R), dtype=np.int64)
+        c_rot = np.zeros((S, R), dtype=np.int64)
+        c_ok = np.ones((S, R, n), dtype=bool)
+        c_rxok = np.ones((S, R, n), dtype=bool)
+        faulty_s = np.zeros(S, dtype=bool)
+        flush_s: dict[int, np.ndarray] = {}
+        arr_s: list[np.ndarray] = []
+        for slot in range(s0, s1):
+            h = slot - s0
+            if pending is not None and slot >= pending[0]:
+                swap_fp = pending[1]
+                pending = None
+                activate(swap_fp, slot)
+            if slot and slot % E == 0:
+                epoch = slot // E
+                if san is not None:
+                    san.set_context(
+                        f"case={case.label} epoch={epoch} slot={slot}")
+                    injected_at[epoch - 1] = injected_cum
+                repair_now = case.repair and case.policy == "adaptive"
+                if repair_now:
+                    silent = counters.sum(axis=1) <= 0.0
+                    tx_silent[:] = np.where(silent, tx_silent + 1, 0)
+                    excised_tx |= tx_silent >= case.repair_after_epochs
+                    # the epoch's NACK counters: the run's one read
+                    c = nack.cpu().numpy().astype(np.float64)
+                    nack.zero_()
+                    epoch_reads += 1
+                    rx_want, rx_nack = c[:n], c[n:2 * n]
+                    plane_want = c[2 * n:2 * n + d_hat]
+                    plane_nack = c[2 * n + d_hat:]
+                    excised_rx |= (rx_want > 10) & (rx_nack > 0.9 * rx_want)
+                    plane_alive &= ~((plane_want > 10)
+                                     & (plane_nack > 0.9 * plane_want))
+                swap = None
+                if case.policy == "adaptive":
+                    views = estimate_all_views(
+                        counters, fleet, case.k, q_unit,
+                        steps=case.gather_steps)
+                    if san is not None:
+                        san.check_views(views)
+                    if repair_now and (excised_tx.any()
+                                       or excised_rx.any()):
+                        views = views.excise(excised_tx, excised_rx)
+                    t = true_epoch[epoch - 1]
+                    masks, owner = views.unique()
+                    counts = np.bincount(owner, minlength=masks.shape[0])
+                    t_sum = t.sum()
+                    tn = t / t_sum if t_sum > 0 else None
+                    nonempty = (masks @ views.rows.sum(axis=1)) > 0
+                    tvs, wts = [], []
+                    for g in range(masks.shape[0]):
+                        if tn is not None and nonempty[g]:
+                            est_g = views.rows * masks[g][:, None]
+                            tvs.append(0.5 * np.abs(
+                                est_g / est_g.sum() - tn).sum())
+                            wts.append(counts[g])
+                    if tvs:
+                        est_tv[epoch - 1] = float(
+                            np.average(tvs, weights=wts))
+                    build = views.rows.sum() > 0
+                    if build and case.swap_tv_threshold > 0.0:
+                        cur = views.rows / views.rows.sum()
+                        sig = (plane_alive.tobytes(), excised_tx.tobytes(),
+                               excised_rx.tobytes())
+                        if (last_est is not None and sig == last_sig
+                                and 0.5 * np.abs(cur - last_est).sum()
+                                < case.swap_tv_threshold):
+                            build = False
+                        else:
+                            last_est, last_sig = cur, sig
+                    if build:
+                        if repair_now and not plane_alive.all():
+                            dl = int(plane_alive.sum())
+                            if dl > 0:  # rebuild over the surviving planes
+                                swap = vsched_per_node(
+                                    views, case.seed + epoch, (masks, owner),
+                                    dl=dl,
+                                    plane_map=np.nonzero(plane_alive)[0])
+                        else:
+                            swap = vsched_per_node(views, case.seed + epoch,
+                                                   (masks, owner))
+                elif case.policy == "oracle":
+                    if oracle_m[epoch].sum() > 0:
+                        swap = consistent_plan(
+                            vsched(oracle_m[epoch], case.seed + epoch))
+                if swap is not None:
+                    recomputes += 1
+                    charge = (int(np.ceil(last_construction
+                                          / case.slot_seconds))
+                              if measured else int(cs))
+                    if charge == 0:
+                        pending = None
+                        activate(swap, slot)
+                    else:
+                        pending = (slot + charge, swap)
+                counters[:] = 0.0
+            if pending is not None:
+                stale_slots += 1
+
+            if tl is not None:
+                failed = tl.advance(slot)
+                if failed.size:
+                    flush_s[h] = failed
+            newf = order[bucket[slot]:bucket[slot + 1]]
+            if newf.size and tl is not None and not tl.clean:
+                ok = tl.inject_ok[wl.src[newf]]
+                if not ok.all():    # refused at the ingress
+                    fault_refused += float(f_size[newf[~ok]].sum())
+                    accepted[newf[~ok]] = False
+                    newf = newf[ok]
+            if newf.size:
+                arr_s.append(newf)
+                np.add.at(counters, (wl.src[newf], wl.dst[newf]),
+                          f_size[newf])
+                if san is not None:
+                    injected_cum += float(f_size[newf].sum())
+
+            dark = plane_dark_until[fp.plane_map] > slot
+            if dark.all():              # every plane retargeting
+                dark_slots += 1
+                dark_plane_slots += float(dark.sum())
+                continue                # kind _DARK
+            if transition is not None and slot >= transition[3]:
+                transition = None
+            faulty = tl is not None and not tl.clean
+            e = slot // E
+            dis_ep[e] += fp.disagreement
+            if (not faulty and transition is None and not dark.any()
+                    and fp.plans is not None):
+                # historical fast path: the precomputed period-slot plan
+                ps = (slot - sched_t0) % fp.n_slots
+                coll_slot[slot] = fp.lost[ps]
+                spid, scap = fp.plans[ps]
+                kinds[slot] = _PLAN
+                p_pid[h, :len(spid)] = spid
+                p_cap[h, :len(spid)] = scap
+                rec_pid[slot, :len(spid)] = spid
+                plan_mem[slot, :len(spid)] = True
+                continue
+            # degraded service: the slot from raw claims
+            dark_plane_slots += float(dark.sum())
+            if transition is None:
+                dl = len(fp.plane_map)
+                lo = ((slot - sched_t0) % fp.n_slots) * dl
+                hi = min(lo + dl, fp.eff.shape[0])
+                rows = fp.eff[lo:hi]
+                planes = fp.plane_map[:hi - lo]
+                live = (plane_dark_until[planes] <= slot)[:, None]
+                if fp.win is not None:   # static arbitration, precomputed
+                    win = fp.win[lo:hi]
+                    nonself = fp.nonself[lo:hi]
+                    coll_slot[slot] = float(
+                        (nonself & live & ~win).sum()) * fp.w
+                    kinds[slot] = _STATIC
+                    mask = win & nonself & live
+                else:                    # queue-aware: resolve on the card
+                    kinds[slot] = _DYNAMIC
+                    mask = np.broadcast_to(live, rows.shape)
+                    c_rot[h, :hi - lo] = (lo + np.arange(hi - lo)) % n
+            else:
+                # mixed old/new activation: each node serves its own
+                # generation, re-arbitrated per slot on the card
+                ofp, ot0, act, _ = transition
+                blocks = []
+                for p, t0 in ((ofp, ot0), (fp, sched_t0)):
+                    dlp = len(p.plane_map)
+                    lo = ((slot - t0) % p.n_slots) * dlp
+                    hi = min(lo + dlp, p.eff.shape[0])
+                    blocks.append((p.eff[lo:hi], p.plane_map[:hi - lo],
+                                   (lo + np.arange(hi - lo)) % n))
+                rows = np.vstack([b[0] for b in blocks])
+                planes = np.concatenate([b[1] for b in blocks])
+                c_rot[h, :len(rows)] = np.concatenate([b[2] for b in blocks])
+                gen_new = np.zeros(len(rows), dtype=bool)
+                gen_new[len(blocks[0][0]):] = True
+                on = act <= slot
+                mask = np.where(gen_new[:, None], on[None, :], ~on[None, :])
+                mask &= (plane_dark_until[planes] <= slot)[:, None]
+                kinds[slot] = _DYNAMIC
+            r = len(rows)
+            c_rows[h, :r] = rows
+            c_mask[h, :r] = mask
+            c_planes[h, :r] = planes
+            if faulty:               # fault masking after arbitration
+                faulty_s[h] = True
+                lok = lok_memo.get(tl.version)
+                if lok is None:
+                    lok = lok_memo[tl.version] = tl.link_ok()
+                rxok = lok[rows, planes[:, None]]
+                c_ok[h, :r] = lok.T[planes] & rxok
+                c_rxok[h, :r] = rxok
+            if kinds[slot] == _DYNAMIC:
+                rec_pid[slot] = (src0[None, :] * n + c_rows[h]).reshape(-1)
+                continue
+            # static winners and a known fault mask: the served pairs are
+            # the host's, laid out as a plan (the reference's unique
+            # pairs, capacity = served claims x w), memoized per period
+            # slot, dark planes and fault state
+            key = (lo, live.tobytes(), tl.version if faulty else -1)
+            plan = static_memo.get(key)
+            if plan is None:
+                srr, sii = np.nonzero(mask & c_ok[h, :r])
+                spid, inv = np.unique(sii * n + rows[srr, sii],
+                                      return_inverse=True)
+                plan = (spid, np.bincount(inv).astype(np.float64) * fp.w)
+                if len(static_memo) < 4096:
+                    static_memo[key] = plan
+            spid, scap = plan
+            p_pid[h, :len(spid)] = spid
+            p_cap[h, :len(spid)] = scap
+            rec_pid[slot, :len(spid)] = spid
+            plan_mem[slot, :len(spid)] = True
+        if san is not None and s1 == H:
+            injected_at[n_epochs - 1] = injected_cum
+        digest.update(kinds[s0:s1].tobytes())
+        digest.update(rec_pid[s0:s1].tobytes())
+        for a in (p_cap, c_mask, c_ok):
+            digest.update(a.tobytes())
+        lap("control_s")
+
+        # -- the epoch's layout goes up at once
+        newf = (np.concatenate(arr_s) if arr_s
+                else np.empty(0, dtype=np.int64))
+        a_bounds = np.searchsorted(wl.arrival[newf], np.arange(s0, s1 + 1))
+        d_apid, d_asz = up(pid_f[newf]), up(f_size[newf])
+        d_ppid, d_pcap = up(p_pid), up(p_cap)
+        d_rows, d_mask = up(c_rows), up(c_mask)
+        d_cpid = d_rows + (ii_d * n)[None, None, :]
+        d_planes, d_rot = up(c_planes), up(c_rot)
+        d_ok, d_rxok = up(c_ok), up(c_rxok)
+        if case.repair and faulty_s.any():
+            nidx = np.concatenate(
+                [2 * n + c_planes, 2 * n + d_hat + c_planes,
+                 c_rows.reshape(S, -1), n + c_rows.reshape(S, -1)], axis=1)
+            d_nidx = up(nidx)
+        lap("upload_s")
+
+        # -- the device serves the epoch slot by slot
+        for h in range(S):
+            g = s0 + h
+            if h in flush_s:            # abrupt death strands the VOQs
+                for f in flush_s[h]:
+                    row = voq[int(f) * n:(int(f) + 1) * n]
+                    flushed.append(row.clone())
+                    flush_at.append(g)
+                    row.zero_()
+            a, b = int(a_bounds[h]), int(a_bounds[h + 1])
+            if b > a:
+                voq.index_add_(0, d_apid[a:b], d_asz[a:b])
+            k = kinds[g]
+            if k == _DARK:
+                continue
+            if k != _DYNAMIC:
+                if k == _STATIC and faulty_s[h] and case.repair:
+                    _count_nacks(nack, d_nidx[h], voq, d_cpid[h], d_mask[h],
+                                 d_ok[h], d_rxok[h])
+                pp = d_ppid[h]
+                q = voq[pp]
+                t = torch.minimum(q, d_pcap[h], out=rec_tx[g])
+                voq.index_add_(0, pp, t, alpha=-1)
+                continue
+            rows, pidc = d_rows[h], d_cpid[h]
+            win, lost = _resolve_slot_claims(
+                rows, d_mask[h], d_planes[h], d_rot[h], case.collision, voq,
+                n, n_planes=d_hat)
+            lost_cnt[g] = lost
+            served = win & (rows != ii_d)
+            if faulty_s[h]:
+                if case.repair:
+                    _count_nacks(nack, d_nidx[h], voq, pidc, served,
+                                 d_ok[h], d_rxok[h])
+                served = served & d_ok[h]
+            _serve_claims(voq, pidc, rows, served, w, earlier,
+                          rec_tx[g], rec_mem[g])
+        if san is not None:
+            snap[s0 // E] = voq.sum()
+        lap("device_loop_s")
+
+    # -- the books: one read of the records, the credit replay
+    _sync(dev)
+    lap("device_loop_s")
+    tx_h = rec_tx.cpu().numpy()
+    mem_h = np.where((kinds == _DYNAMIC)[:, None], rec_mem.cpu().numpy(),
+                     plan_mem)
+    lost_h = lost_cnt.cpu().numpy()
+    voq_sum = snap.cpu().numpy()
+    voq_final = voq.cpu().numpy()
+    flush_h = [f.cpu().numpy() for f in flushed]
+    lap("download_s")
+    fault_lost = 0.0
+    lost_at = []                     # fault_lost after each flush
+    for row in flush_h:
+        fault_lost += float(row.sum())
+        lost_at.append(fault_lost)
+
+    fct = np.full(wl.num_flows, np.inf)
+    credit = _CreditState(n * n, pid_f, f_size, wl.arrival, fct)
+    order_acc = order[accepted[order]]
+    bucket_acc = np.searchsorted(wl.arrival[order_acc], np.arange(H + 1))
+    # each slot's served pairs in the reference's order (sorted pair ids),
+    # extracted in one pass: per-slot runs are contiguous
+    nz_row, nz_col = np.nonzero(mem_h)
+    pid_nz = rec_pid[nz_row, nz_col]
+    o = np.lexsort((pid_nz, nz_row))
+    pid_nz, tx_nz = pid_nz[o], tx_h[nz_row, nz_col][o]
+    bnd = np.concatenate([[0], np.cumsum(mem_h.sum(axis=1))])
+    per_slot = np.zeros(H)
+    for slot in range(H):
+        newf = order_acc[bucket_acc[slot]:bucket_acc[slot + 1]]
+        if newf.size:
+            credit.arrive(newf)
+        a, b = bnd[slot], bnd[slot + 1]
+        if a == b:
+            continue
+        tx = tx_nz[a:b]
+        per_slot[slot] = tx.sum()
+        credit.credit_pairs(pid_nz[a:b], tx, slot)
+    lap("replay_s")
+    dyn = kinds == _DYNAMIC
+    coll_slot[dyn] = lost_h[dyn] * w
+    ep_idx = np.arange(H) // E
+    delivered_ep = np.zeros(n_epochs)
+    np.add.at(delivered_ep, ep_idx, per_slot)
+    coll_ep = np.zeros(n_epochs)
+    np.add.at(coll_ep, ep_idx, coll_slot)
+
+    if san is not None:
+        # each epoch's ledger, closed at its end with the bits that the
+        # flushes before its end had stranded
+        lost_at = np.concatenate([[0.0], lost_at])
+        n_before = np.searchsorted(np.asarray(flush_at, dtype=np.int64),
+                                   E * np.arange(1, n_epochs))
+        for e in range(n_epochs - 1):
+            san.set_context(f"case={case.label} epoch={e + 1}")
+            san.check_conservation(
+                injected_at[e], float(delivered_ep[:e + 1].sum()),
+                float(voq_sum[e]), fault_lost=float(lost_at[n_before[e]]),
+                label=f"adaptive:epoch{e}:conservation")
+        delivered_all = float(delivered_ep.sum())
+        san.check_conservation(injected_cum, delivered_all,
+                               float(voq_final.sum()), fault_lost=fault_lost,
+                               label="adaptive:final:conservation")
+        rem, completed = credit.remaining_active()
+        san.check_credit_closure(injected_cum, delivered_all, rem,
+                                 completed, label="adaptive:credit")
+        san.set_context(None)
+        lap("sanitize_s")
+    if timings is not None:
+        timings["slots"] = timings.get("slots", 0) + H
+        timings["degraded_slots"] = (timings.get("degraded_slots", 0)
+                                     + int((kinds >= _STATIC).sum()))
+        timings["epoch_reads"] = timings.get("epoch_reads", 0) + epoch_reads
+
+    ep_len = np.minimum(E, H - E * np.arange(n_epochs))
+    ep_cap = ep_len * n * d_hat * bits_per_slot
+    ideal = H * n * d_hat * bits_per_slot
+    result = SimResult(
+        fct_slots=fct,
+        flow_size=wl.size,
+        utilization=float(delivered_ep.sum()) / ideal,
+        delivered_bits=float(delivered_ep.sum()),
+        offered_bits=float(wl.size[valid].sum()),
+        fault_lost_bits=fault_lost,
+        fault_refused_bits=fault_refused,
+    )
+    return AdaptiveRow(
+        label=case.label, policy=case.policy, result=result,
+        epoch_utilization=delivered_ep / ep_cap, epoch_estimate_tv=est_tv,
+        recomputes=recomputes, sim_s=0.0, meta=dict(case.meta),
+        stale_slots=stale_slots, construction_s=construction_s,
+        dark_slots=dark_slots,
+        epoch_disagreement=dis_ep / ep_len,
+        epoch_collision_loss=coll_ep / ep_cap,
+        collision_lost_bits=float(coll_ep.sum()),
+        schedule_groups_max=groups_max,
+        dark_plane_slots=dark_plane_slots,
+        fault_lost_bits=fault_lost,
+        fault_refused_bits=fault_refused,
+        excised_nodes=int((excised_tx | excised_rx).sum()),
+        excised_planes=int((~plane_alive).sum()),
+        plan_digest=digest.hexdigest())
+
+
 def run_adaptive(
     cases: list[AdaptiveCase],
     bits_per_slot: float,
@@ -2161,9 +3109,13 @@ def run_adaptive(
     ``device`` (``None``: the card; ``"cpu"``: the same PyTorch ops on the
     CPU), with per-flow FCTs from the host's f64 credit replay.
 
-    Cases the port cannot express raise before any case runs:
-    ``NotImplementedError`` for fault injection, ``ValueError`` for
-    ``repair=True``, ``collision="fullest"`` and activation jitter.
+    Cases with ``faults``, ``repair=True``, ``collision="fullest"`` or
+    activation jitter (the reference runs them on its numpy backend only)
+    run one at a time on the degraded-service engine
+    (:func:`_run_degraded_case`): the control plane on the host at each
+    epoch boundary, every slot's flush, arrivals, arbitration, fault mask,
+    NACK counters and serve on ``device`` in f64, the credit replay on the
+    host after the run.  Every other case keeps the compiled batch path.
 
     ``sanitize``: run the :mod:`repro_torch.analysis.sanitize` contract
     checks on every case (default: the ``REPRO_SANITIZE`` env var);
@@ -2171,16 +3123,26 @@ def run_adaptive(
     receives the wall seconds of each phase — ``control_s`` (the host
     control plane, schedule construction included), then the sweep's
     ``layout_s``, ``upload_s``, ``device_loop_s``, ``download_s``,
-    ``replay_s`` and ``sanitize_s`` — and the number of slots served.
+    ``replay_s`` and ``sanitize_s`` — and the number of slots served;
+    the degraded-service engine's cases report the same phases under
+    ``timings["degraded"]``, with ``degraded_slots`` (slots served from
+    claims rather than a precomputed plan) and ``epoch_reads`` (NACK
+    counter reads).
     """
-    for i, case in enumerate(cases):
-        _check_adaptive_supported(case, i)
     dev = resolve_device(device)
     san = make_sanitizer(sanitize)
     groups: dict[int, list[int]] = {}
-    for i, case in enumerate(cases):
-        groups.setdefault(case.wl.n, []).append(i)
     rows: list[AdaptiveRow | None] = [None] * len(cases)
+    for i, case in enumerate(cases):
+        if _degraded(case):
+            t0 = time.perf_counter()
+            rows[i] = _run_degraded_case(
+                case, bits_per_slot, dev, san=san,
+                timings=(None if timings is None
+                         else timings.setdefault("degraded", {})))
+            rows[i].sim_s = time.perf_counter() - t0
+        else:
+            groups.setdefault(case.wl.n, []).append(i)
     for idxs in groups.values():
         t0 = time.perf_counter()
         batch_rows = _run_adaptive_batch([cases[i] for i in idxs],

@@ -8,7 +8,7 @@ in/out physical degree).
 The port's copy of ``repro.core.traffic``.  The control plane is numpy
 (like the paper's), except :func:`saturate`, whose Sinkhorn projection runs
 through the CUDA kernel of :mod:`repro_torch.kernels.sinkhorn` on the card
-(or its plain version on the CPU, when asked for).
+(or numpy's own loop, the reference's, on the CPU, when asked for).
 """
 from __future__ import annotations
 
@@ -66,12 +66,21 @@ def saturate(m: np.ndarray, iters: int = 200, device=None) -> np.ndarray:
     :func:`repro_torch.kernels.sinkhorn.ops.sinkhorn` with ``eps=0``: the
     clamp of nonpositive entries to 1e-12 happens here, so the kernel's own
     clamp is the identity and the semantics are those of the reference.
+    On the CPU (``device="cpu"``) it divides by numpy's own row and column
+    sums, as the reference does, so the result equals the reference's bit
+    for bit: ties of equal entries that later steps break by their last
+    bits (BvN's largest-remainder fill) fall as they fall there.
     """
     dev = resolve_device(device)
     m = np.asarray(m, dtype=np.float64).copy()
     if (m <= 0).all():
         return m
     m = np.where(m <= 0, 1e-12, m)
+    if dev.type == "cpu":
+        for _ in range(iters):
+            m /= m.sum(axis=1, keepdims=True)
+            m /= m.sum(axis=0, keepdims=True)
+        return m
     return sinkhorn(m, iters=iters, eps=0.0, device=dev).cpu().numpy()
 
 

@@ -2,7 +2,8 @@
 ``run_adaptive(backend="jax")`` on the same cases (carried across by
 ``repro_torch.convert.adaptive_case_from``): the adaptive parity cases of
 tests/test_jax_parity.py, two ``normalize="saturate"`` cases, the
-compiled control trajectories, the rejections, the device policy, and the
+compiled control trajectories, the routing of the degraded-service
+features, the device policy, and the
 per-node schedule helpers.
 
 Bars: those of tests/test_jax_parity.py's ``_assert_adaptive_parity`` —
@@ -247,28 +248,40 @@ def test_sanitizer_checks_views_and_plans():
 # ---------------------------------------------------------------------------
 
 def test_unsupported_features_raise_before_any_case(monkeypatch):
+    """The features the compiled path cannot express (faults, repair,
+    ``fullest``, activation jitter) no longer raise: each such case runs
+    on the degraded-service engine, every other case of the grid on the
+    compiled batch path (tests/test_torch_faults.py holds the engine to
+    the reference's numpy engine)."""
     wl = _wl(51, horizon=300)
     pwl = convert.workload_from(wl)
     fs = FaultSchedule((FaultEvent(10, "plane_down", plane=0),))
     ok = ref_sim.AdaptiveCase(wl=wl, d_hat=3, epoch_slots=150, label="ok")
-    unsupported = [
-        (dict(faults=fs, label="faults"), NotImplementedError,
-         r"faults.*fault injection.*queue 1"),
-        (dict(repair=True, label="repair"), ValueError, "repair"),
-        (dict(collision="fullest", label="fullest"), ValueError, "fullest"),
-        (dict(activation_jitter_slots=3, label="jitter"), ValueError,
-         "jitter"),
-    ]
+    features = [dict(faults=fs, label="faults"),
+                dict(repair=True, label="repair"),
+                dict(collision="fullest", label="fullest"),
+                dict(activation_jitter_slots=3, label="jitter")]
+    degraded, compiled = [], []
+    engine, batch = simulator._run_degraded_case, simulator._run_adaptive_batch
 
-    def never(*a, **k):
-        raise AssertionError("a case ran before the rejection")
+    def spy_engine(case, *a, **k):
+        degraded.append(case.label)
+        return engine(case, *a, **k)
 
-    monkeypatch.setattr(simulator, "_run_adaptive_batch", never)
-    for kw, exc, match in unsupported:
+    def spy_batch(cases, *a, **k):
+        compiled.extend(c.label for c in cases)
+        return batch(cases, *a, **k)
+
+    monkeypatch.setattr(simulator, "_run_degraded_case", spy_engine)
+    monkeypatch.setattr(simulator, "_run_adaptive_batch", spy_batch)
+    for kw in features:
         bad = ref_sim.AdaptiveCase(wl=wl, d_hat=3, epoch_slots=150, **kw)
         cases = [convert.adaptive_case_from(c, pwl) for c in (ok, bad)]
-        with pytest.raises(exc, match=match):
-            simulator.run_adaptive(cases, BPS, device="cpu")
+        rows = simulator.run_adaptive(cases, BPS, device="cpu")
+        assert [r.label for r in rows] == ["ok", kw["label"]]
+        assert rows[1].result.utilization > 0.0
+    assert degraded == [kw["label"] for kw in features]
+    assert compiled == ["ok"] * len(features)
 
 
 def test_case_validation_matches_reference():
@@ -371,6 +384,7 @@ def test_fabric_plan_equals_reference(collision):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     for (p0, c0), (p1, c1) in zip(got.plans, want.plans):
         assert np.array_equal(p0, p1) and np.array_equal(c0, c1)
+    assert np.array_equal(got.plane_map, want.plane_map)
     Sanitizer().check_fabric_plan(got, 9, 3, BPS * (1 - RECFG))
     with pytest.raises(ValueError, match="collision"):
-        simulator._fabric_plan(scheds, owner, BPS, "fullest")
+        simulator._fabric_plan(scheds, owner, BPS, "coinflip")

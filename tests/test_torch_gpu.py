@@ -28,7 +28,10 @@ bits, utilization, avg_hops) rtol 1e-4, FCTs within the sweep's bar;
 The throughput analysis on the card against the CPU: a saturate
 certificate's bounds, checks and violations exactly, theta rtol 1e-9; the
 BvN decomposition's perms exactly, lambdas within 1e-9; the interconnect
-drain within the sweep's bar.
+drain within the sweep's bar.  Fault injection on the card against the
+CPU: the faulted sweep's FCTs within the sweep's bar, delivered and lost
+bits rtol 1e-5 (f32), refused bits equal; the degraded-service engine
+(f64): trajectory digests, counters and excisions equal, bits rtol 1e-9.
 """
 import numpy as np
 import pytest
@@ -36,7 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
-from repro_torch.core import estimation, schedule, simulator
+from repro_torch.core import estimation, faults, schedule, simulator
 from repro_torch.core.traffic import saturate
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -763,6 +766,97 @@ def test_simulate_aggregate_on_card_matches_cpu():
     np.testing.assert_allclose(d_c, d_h, rtol=1e-5, atol=0.0)
     np.testing.assert_allclose(voq_c, voq_h, rtol=0.0, atol=1e-3)
     assert d_c.sum() > 0
+
+
+def _fct_within_bar(fa, fb):
+    differ = fa != fb
+    assert differ.sum() <= 1e-3 * len(fa)
+    assert not differ.any() or np.abs(fa - fb)[differ].max() <= 1.0
+
+
+@pytest.mark.gpu
+def test_faulted_sweep_on_card_matches_cpu():
+    """A single-hop batch under a ToR failure, a drain, a plane outage
+    and a flap (and one clean case): the masked plans, refusals and
+    flushes on the card against the same ops on the CPU, sanitized."""
+    _card()
+    wl = simulator.phase_shifting_workload(12, 0.7, 900, BPS, d_hat=3,
+                                           seed=3, phases=("uniform",))
+    s = schedule.oblivious_schedule(12, d_hat=3, recfg_frac=1 / 9)
+    fs = faults.FaultSchedule((
+        faults.FaultEvent(200, "tor_fail", node=4),
+        faults.FaultEvent(250, "tor_drain", node=7),
+        faults.FaultEvent(100, "plane_down", plane=2),
+        faults.FaultEvent(300, "link_flap", node=1, plane=1, duration=50)))
+    cases = [simulator.SweepCase(s, wl, faults=fs, label="faulted"),
+             simulator.SweepCase(s, wl, label="clean")]
+    rows = {d: simulator.run_sweep(cases, BPS, device=d, sanitize=True)
+            for d in ("cuda", "cpu")}
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        ra, rb = a.result, b.result
+        _fct_within_bar(ra.fct_slots, rb.fct_slots)
+        for f in ("delivered_bits", "fault_lost_bits"):
+            assert np.isclose(getattr(ra, f), getattr(rb, f), rtol=1e-5), f
+        assert ra.fault_refused_bits == rb.fault_refused_bits
+    faulted = rows["cuda"][0].result
+    assert faulted.fault_lost_bits > 0 and faulted.fault_refused_bits > 0
+
+
+def _engine_rows_match(rows, rows_cpu):
+    for a, b in zip(rows, rows_cpu):
+        assert a.plan_digest == b.plan_digest, a.label
+        for f in ("recomputes", "stale_slots", "dark_slots",
+                  "schedule_groups_max", "excised_nodes", "excised_planes",
+                  "dark_plane_slots"):
+            assert getattr(a, f) == getattr(b, f), (a.label, f)
+        _fct_within_bar(a.result.fct_slots, b.result.fct_slots)
+        for f in ("delivered_bits", "fault_lost_bits", "fault_refused_bits"):
+            assert np.isclose(getattr(a.result, f), getattr(b.result, f),
+                              rtol=1e-9), (a.label, f)
+        assert np.isclose(a.collision_lost_bits, b.collision_lost_bits,
+                          rtol=1e-9)
+        assert np.allclose(a.epoch_utilization, b.epoch_utilization,
+                           rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["repair", "fullest"])
+def test_degraded_engine_on_card_matches_cpu(kind):
+    """The degraded-service engine (f64 VOQ) on the card against the CPU:
+    a repair case under a plane outage (the dead plane excised, NACK
+    counters read at each epoch boundary) and a partial-gather
+    ``fullest`` case (winners by VOQ depth on the card each slot):
+    trajectory digests, counters and excisions equal, bits rtol 1e-9,
+    FCTs within the sweep's bar."""
+    _card()
+    if kind == "repair":
+        wl = simulator.phase_shifting_workload(
+            12, 0.95, 2400, BPS, d_hat=3, seed=1, phases=("uniform",),
+            shift_period=2400)
+        case = simulator.AdaptiveCase(
+            wl, 150, "adaptive", d_hat=3, recfg_frac=1 / 9,
+            reconfig_penalty_slots=30, repair=True, swap_tv_threshold=0.3,
+            faults=faults.FaultSchedule(
+                (faults.FaultEvent(900, "plane_down", plane=0),)))
+    else:
+        wl = simulator.phase_shifting_workload(
+            12, 0.5, 1500, BPS, d_hat=2, seed=1,
+            phases=("permutation", "uniform"), shift_period=500)
+        case = simulator.AdaptiveCase(
+            wl, 150, "adaptive", d_hat=2, recfg_frac=1 / 9, alpha=0.5,
+            gather_steps=3, collision="fullest")
+    timings: dict = {}
+    rows = simulator.run_adaptive([case], BPS, device="cuda", sanitize=True,
+                                  timings=timings)
+    rows_cpu = simulator.run_adaptive([case], BPS, device="cpu",
+                                      sanitize=True)
+    _engine_rows_match(rows, rows_cpu)
+    if kind == "repair":
+        assert rows[0].excised_planes == 1
+        assert timings["degraded"]["epoch_reads"] == 15
+    else:
+        assert rows[0].collision_lost_bits > 0
+        assert timings["degraded"]["epoch_reads"] == 0
 
 
 def test_twohop_sweep_needs_a_card_unless_cpu(monkeypatch):

@@ -22,7 +22,7 @@ pytest.importorskip("jax")
 from repro.core import schedule as ref_schedule
 from repro.core import simulator as ref_sim
 from repro_torch import convert
-from repro_torch.core import simulator
+from repro_torch.core import faults, simulator
 from repro_torch.core.schedule import vermilion_schedule
 
 BPS = 100e9 * 4.5e-6
@@ -163,11 +163,17 @@ def test_sanitizer_catches_a_broken_schedule():
 
 
 def test_faults_and_unknown_modes_raise():
+    """Fault injection runs (tests/test_torch_faults.py); what the
+    reference rejects at construction the port rejects too: faults that
+    are not a FaultSchedule, faults on a two-hop case, an unknown mode."""
     case = _vermilion_case(n=8, horizon=50)
     s, wl = convert.schedule_from(case.sched), convert.workload_from(case.wl)
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        simulator.run_sweep([simulator.SweepCase(s, wl, faults=[object()])],
-                            BPS, device="cpu")
+    with pytest.raises(ValueError, match="FaultSchedule"):
+        simulator.SweepCase(s, wl, faults=[object()])
+    fs = faults.FaultSchedule((faults.FaultEvent(10, "plane_down",
+                                                 plane=0),))
+    with pytest.raises(ValueError, match="single_hop"):
+        simulator.SweepCase(s, wl, "rotorlb", faults=fs)
     with pytest.raises(ValueError):
         simulator.SweepCase(s, wl, "multi_hop")
 
@@ -190,9 +196,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "assert len(mods) >= 58, mods\n"
+        "assert len(mods) >= 59, mods\n"
         "assert {'repro_torch.core.throughput', 'repro_torch.core.collectives',"
-        " 'repro_torch.analysis.certify'} <= set(mods), mods\n"
+        " 'repro_torch.analysis.certify', 'repro_torch.core.faults'}"
+        " <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
