@@ -91,6 +91,19 @@ and read just after:
    degraded-service engine's rows equal the CPU's in trajectory,
    counters and excisions, bits within rtol 1e-9, FCTs within the
    sweep's bar.
+1e. The paper's evaluation drivers (``evaluation_phases``), each on the
+   card against the port's CPU run of the same driver: Fig. 5/6 as
+   ``repro_torch.benchmarks.fct_bench.run`` builds it at its defaults
+   (n = 16, d_hat = 4, 4000 slots, loads 0.05-0.7 in 6 steps; Vermilion
+   with one Sinkhorn launch a load, the greedy matching baseline,
+   rotorlb, vlb and single-hop on the oblivious round-robin: 30 rows, the
+   sweep's bars), its table logged; ``fct_bench.timing_table`` at n = 64
+   (3 launches), the CPU's and the card's times per group; the adaptive
+   suite's ``run`` (8 cases, the partial gather included),
+   ``run_epoch_tradeoff`` (12 cases) and ``run_charging`` (its
+   ``free-euler`` row gated; the clock-charged rows read), at the adaptive
+   loop's bars, with the reference's summary lines; Fig. 10's
+   ``schedule_time.run`` at n 16-256 (host only, 0 launches).
 2. Serving: ``ServeEngine`` with Qwen1.5-0.5B at full width and depth
    (24 layers, d_model 1024, 16 heads, vocab 151,936) on seeded random
    weights, bf16, 8 lanes of 2048 positions, 16 requests with prompts of
@@ -178,8 +191,11 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import certify  # noqa: E402
+from repro_torch.benchmarks import adaptive_bench  # noqa: E402
 from repro_torch.benchmarks import bound_convergence  # noqa: E402
+from repro_torch.benchmarks import fct_bench  # noqa: E402
 from repro_torch.benchmarks import interconnect_bench  # noqa: E402
+from repro_torch.benchmarks import schedule_time  # noqa: E402
 from repro_torch.benchmarks import throughput_bench  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import faults as faults_mod  # noqa: E402
@@ -319,17 +335,13 @@ THETA_RTOL, BVN_LAM_ATOL = 1e-9, 1e-9
 # the faults phase: the sweep's deployment (its load-0.6 saturate
 # schedule) under four fault scenarios firing at slot 600 (a flap lasts 200
 # slots), card vs CPU bits rtol 1e-5 (the sweep's f32 VOQ);
-# benchmarks/adaptive_bench.py's run_faults grid as the repo builds it
-# (n = 16, d_hat = 4, load 0.95, 4500 slots, epochs of 150, faults at slot
-# 1500, dark windows of 40, hysteresis 0.3, the shifting train shifting
-# every 1500 slots); grid (b) under fullest and one jittered activation
-# window of 40 slots; the degraded-service engine (f64 VOQ) card vs CPU
-# bits rtol 1e-9
+# benchmarks/adaptive_bench.py's run_faults grid, as the port's
+# adaptive_bench.faults_cases builds it (n = 16, d_hat = 4, load 0.95, 4500
+# slots, epochs of 150, faults at slot 1500, dark windows of 40, hysteresis
+# 0.3, the shifting train shifting every 1500 slots); grid (b) under
+# fullest and one jittered activation window of 40 slots; the
+# degraded-service engine (f64 VOQ) card vs CPU bits rtol 1e-9
 FAULT_SLOT, FAULT_FLAP, SWEEP_FAULT_RTOL = 600, 200, 1e-5
-RF_N, RF_D_HAT, RF_LOAD, RF_HORIZON = 16, 4, 0.95, 4500
-RF_EPOCH, RF_SLOT, RF_PENALTY, RF_SWAP_TV, RF_SHIFT = 150, 1500, 40, 0.3, 1500
-RF_KINDS = ("plane_down", "tor_fail", "tor_drain")
-RF_SEVERITIES = (1, 2)
 # run_faults' stationary train only (21 cases): with the shifting train
 # too (42 cases) the phase took 204 s of the script on an NVIDIA H100
 # 80GB HBM3 at 700 W, over its ~120-s allowance (PERF.md section 4)
@@ -2356,49 +2368,6 @@ def compare_faulted_sweep(rows: list, rows_cpu: list) -> None:
                                  f"by up to {max_diff} slots")
 
 
-def run_faults_cases(trains: tuple) -> list:
-    """``benchmarks/adaptive_bench.py`` ``run_faults``' grid, built with
-    the port's classes: fault kind x severity (plus a fault-free run) x
-    repair / blind / oblivious, on each train."""
-    fault_epoch = RF_SLOT // RF_EPOCH
-    cases = []
-    for train in trains:
-        wl = phase_shifting_workload(
-            RF_N, RF_LOAD, RF_HORIZON, BITS_PER_SLOT, d_hat=RF_D_HAT,
-            seed=SEED,
-            phases=("uniform",) if train == "stationary" else ADAPTIVE_PHASES,
-            shift_period=RF_HORIZON if train == "stationary" else RF_SHIFT)
-        common = dict(wl=wl, epoch_slots=RF_EPOCH, d_hat=RF_D_HAT,
-                      recfg_frac=RECFG, seed=SEED,
-                      reconfig_penalty_slots=RF_PENALTY)
-        policies = (
-            ("repair", dict(policy="adaptive", repair=True,
-                            swap_tv_threshold=RF_SWAP_TV)),
-            ("blind", dict(policy="adaptive")),
-            ("oblivious", dict(policy="oblivious")),
-        )
-        scenarios = [("none", 0)] + [(k, s) for k in RF_KINDS
-                                     for s in RF_SEVERITIES]
-        for kind, sev in scenarios:
-            if sev == 0:
-                fs = None
-            elif kind == "plane_down":
-                fs = faults_mod.FaultSchedule(
-                    [faults_mod.FaultEvent(RF_SLOT, "plane_down", plane=p)
-                     for p in range(sev)])
-            else:
-                fs = faults_mod.FaultSchedule(
-                    [faults_mod.FaultEvent(RF_SLOT, kind, node=x)
-                     for x in range(sev)])
-            for pname, pkw in policies:
-                cases.append(AdaptiveCase(
-                    faults=fs, label=f"{train}-{kind}{sev}-{pname}",
-                    meta={"train": train, "fault": kind, "severity": sev,
-                          "policy": pname, "fault_epoch": fault_epoch},
-                    **pkw, **common))
-    return cases
-
-
 def post_fault_util(row) -> float:
     """``run_faults``' recovery plateau: mean per-epoch utilization from
     two epochs after the fault on."""
@@ -2558,7 +2527,7 @@ def faults_phases(sched, wl) -> dict:
     # -- run_faults as the repo builds it, and its headline ----------------
     sinkhorn_ops.reset_launches()
     res = engine_run(f"run_faults (trains {', '.join(RF_TRAINS)})",
-                     run_faults_cases(RF_TRAINS))
+                     adaptive_bench.faults_cases(trains=RF_TRAINS))
     launches += res["launches"]
     rf = {r.label: r for r in res.pop("rows")}
     rep, bli, obl = (post_fault_util(rf[f"stationary-plane_down1-{p}"])
@@ -2619,6 +2588,158 @@ def faults_phases(sched, wl) -> dict:
             f"{e['device_loop_us_per_slot']:.3f}), degraded share "
             f"{e['degraded_share']:.4f}, epoch reads {e['epoch_reads']}, "
             f"replay {e['replay_s']:.6f} s, control {e['control_s']:.6f} s")
+    return out
+
+
+# -- the evaluation drivers: Fig. 5/6, the adaptive suite, Fig. 10 ---------
+
+# schedule_time.run's sizes here (host only; the harness run sweeps to n 512
+# with Hopcroft-Karp)
+EVAL_SCHED_NS = (16, 64, 128, 256)
+
+
+def log_fig5(rows: list) -> None:
+    """The Fig. 5/6 table, one line a (system, load)."""
+    for r in rows:
+        log(f"  fig5 {r['system']}@{r['load']}: p99 short {r['p99_short']} "
+            f"long {r['p99_long']} p50 short {r['p50_short']} slots, util "
+            f"{r['util']:.6f}, done {r['done']:.6f}, hops {r['hops']:.6f}")
+
+
+def log_adaptive_rows(name: str, rows: list) -> None:
+    for r in rows:
+        res = r.result
+        log(f"  {name} {r.label}: util {res.utilization:.6f}, completed "
+            f"{res.completed_frac:.6f}, p99 short "
+            f"{res.fct_percentile(99, short_cutoff=SHORT_FLOW_BITS)} slots, "
+            f"recomputes {r.recomputes}, stale slots {r.stale_slots}, dark "
+            f"slots {r.dark_slots}, groups max {r.schedule_groups_max}, "
+            f"construction_s {r.construction_s:.6f}")
+
+
+def evaluation_phases() -> dict:
+    """The paper's evaluation drivers (``repro_torch.benchmarks``) on the
+    card, each held against the port's CPU run of the same driver: (i)
+    ``fct_bench.run`` at its defaults (Fig. 5/6: n = 16, d_hat = 4, 4000
+    slots, 6 loads x 5 systems; one Sinkhorn launch a load); (ii)
+    ``fct_bench.timing_table`` at n = 64 (3 launches), its card and CPU
+    times; (iii) ``adaptive_bench.run`` at its defaults (8 cases, the
+    partial gather included), ``run_epoch_tradeoff`` (12 cases) and
+    ``run_charging`` (``free-euler`` gated; the clock-charged rows read);
+    (iv) ``schedule_time.run`` at :data:`EVAL_SCHED_NS` (host only).
+    Bars: the sweep's (``compare_sweep``) and the adaptive loop's
+    (``compare_adaptive``).  Returns the numbers, the phase's Sinkhorn
+    launches included."""
+    out: dict = {"seconds": {}}
+    secs = out["seconds"]
+    t_phase = time.perf_counter()
+
+    # -- (i) Fig. 5/6 at fct_bench's defaults ------------------------------
+    log(f"== evaluation (i): fct_bench.run, n=16, d_hat=4, 4000 slots, loads "
+        f"{fct_bench.LOADS}, 5 systems")
+    sinkhorn_ops.reset_launches()
+    rows: list = []
+    t0 = time.perf_counter()
+    fig5 = fct_bench.run(device=DEV, sweep_rows=rows)
+    secs["fig5_card_s"] = time.perf_counter() - t0
+    launches = sinkhorn_ops.launches
+    expect_launches("fct_bench.run", launches, len(fct_bench.LOADS))
+    if sorted({r["system"] for r in fig5}) != sorted(
+            ["vermilion", "greedy", "rotorlb", "vlb", "obl-singlehop"]):
+        raise AssertionError("the Fig. 5/6 grid lacks a system")
+    n_two = sum(r.mode != "single_hop" for r in rows)
+    check_sweep_rows(rows, twohop_fcts=sim_mod._twohop_route(
+        n_two, 16, 4000) == "twohop_fct")
+    rows_cpu: list = []
+    t0 = time.perf_counter()
+    fct_bench.run(device="cpu", sweep_rows=rows_cpu)
+    secs["fig5_cpu_s"] = time.perf_counter() - t0
+    compare_sweep(rows, rows_cpu)
+    log(f"  card {secs['fig5_card_s']:.6f} s, CPU {secs['fig5_cpu_s']:.6f} s")
+    log_fig5(fig5)
+    out["fig5"] = fig5
+
+    # -- (ii) the timing table at n = 64 -----------------------------------
+    log("== evaluation (ii): fct_bench.timing_table, n=64, d_hat=4, 1500 "
+        "slots, loads (0.05, 0.3, 0.6)")
+    sinkhorn_ops.reset_launches()
+    t0 = time.perf_counter()
+    tt = fct_bench.timing_table(device=DEV)
+    secs["timing_table_s"] = time.perf_counter() - t0
+    expect_launches("fct_bench.timing_table", sinkhorn_ops.launches, 3)
+    launches += sinkhorn_ops.launches
+    n_two = sum(r.mode != "single_hop" for r in tt["rows"]["card"])
+    check_sweep_rows(tt["rows"]["card"], twohop_fcts=sim_mod._twohop_route(
+        n_two, 64, 1500) == "twohop_fct")
+    compare_sweep(tt["rows"]["card"], tt["rows"]["cpu"])
+    for g, (c, t) in tt["groups"].items():
+        log(f"  timing {g}: CPU {c:.6f} s, card {t:.6f} s ({c / t:.3f}x)")
+    out["timing_table"] = tt["groups"]
+
+    # -- (iii) the adaptive suite: policies, tradeoff, charging ------------
+    sinkhorn_ops.reset_launches()
+    adaptive: dict = {}
+    for name, fn in (("run", adaptive_bench.run),
+                     ("tradeoff", adaptive_bench.run_epoch_tradeoff),
+                     ("charging", adaptive_bench.run_charging)):
+        log(f"== evaluation (iii): adaptive_bench.{fn.__name__}")
+        t0 = time.perf_counter()
+        rows = fn(device=DEV)
+        secs[f"adaptive_{name}_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_cpu = fn(device="cpu")
+        secs[f"adaptive_{name}_cpu_s"] = time.perf_counter() - t0
+        log(f"  card {secs[f'adaptive_{name}_card_s']:.6f} s, CPU "
+            f"{secs[f'adaptive_{name}_cpu_s']:.6f} s")
+        log_adaptive_rows(name, rows)
+        # the clock-charged rows follow each run's construction times
+        gated = [i for i, r in enumerate(rows)
+                 if name != "charging" or r.label == "free-euler"]
+        parted = compare_adaptive([rows[i] for i in gated],
+                                  [rows_cpu[i] for i in gated])
+        if parted:
+            raise AssertionError(f"adaptive_bench.{fn.__name__}: the card's "
+                                 f"trajectories differ from the CPU's: "
+                                 f"{parted}")
+        if name == "charging":
+            log_adaptive_rows("charging (CPU, read only)", rows_cpu[1:])
+        adaptive[name] = {r.label: {
+            "util": r.result.utilization, "recomputes": r.recomputes,
+            "stale_slots": r.stale_slots, "dark_slots": r.dark_slots,
+            "construction_s": r.construction_s} for r in rows}
+        if name == "run":
+            if "adaptive-gather4" not in adaptive[name]:
+                raise AssertionError("adaptive_bench.run lacks its partial "
+                                     "gather")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                adaptive_bench.print_summary(rows)
+            for line in buf.getvalue().splitlines():
+                if line.startswith("#"):
+                    log(f"  {line}")
+        if name == "tradeoff":
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                adaptive_bench.print_tradeoff(rows)
+            log(f"  {buf.getvalue().splitlines()[-1]}")
+    out["adaptive"] = adaptive
+
+    # -- (iv) Fig. 10: construction latency (host) -------------------------
+    log(f"== evaluation (iv): schedule_time.run, n {EVAL_SCHED_NS} (host)")
+    t0 = time.perf_counter()
+    sched_rows = schedule_time.run(ns=EVAL_SCHED_NS, device=DEV)
+    secs["schedule_time_s"] = time.perf_counter() - t0
+    expect_launches("adaptive_bench and schedule_time",
+                    sinkhorn_ops.launches, 0)
+    for r in sched_rows:
+        log(f"  fig10 n={r['n']}: euler end to end "
+            f"{r['end_to_end_euler_us']:.1f} us, hk "
+            f"{r.get('end_to_end_hk_us', float('nan')):.1f} us, speedup "
+            f"{r.get('speedup', float('nan')):.3f}")
+    out["fig10"] = sched_rows
+    out["launches"] = launches
+    secs["phase_s"] = time.perf_counter() - t_phase
+    log("  seconds: " + json.dumps(secs))
     return out
 
 
@@ -2786,7 +2907,11 @@ def main() -> int:
     log(f"  faults phase wall {faults['wall_s']:.1f} s")
     gc.collect()
 
-    # -- 5e. the attention, mLSTM and scan kernels; the serving paths -------
+    # -- 5e. the evaluation drivers: Fig. 5/6, the adaptive suite, Fig. 10 --
+    evaluation = evaluation_phases()
+    gc.collect()
+
+    # -- 5f. the attention, mLSTM and scan kernels; the serving paths -------
     flash, flash_main, decode, decode_main = attention_phases()
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
@@ -2814,11 +2939,13 @@ def main() -> int:
     log("sweep_n64: " + json.dumps(n64))
     log("throughput: " + json.dumps(throughput))
     log("faults: " + json.dumps(faults))
+    log("evaluation: " + json.dumps(evaluation))
     sinkhorn_by_path = {"sweep": launches, "sweep_n64": n64["launches"],
                         "adaptive_a": adaptive["a"]["launches"],
                         "adaptive_b": adaptive["b"]["launches"],
                         **throughput["launches"],
-                        "faults": faults["launches"]}
+                        "faults": faults["launches"],
+                        "evaluation": evaluation["launches"]}
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -2833,8 +2960,9 @@ def main() -> int:
         "cuda_launches_per_call": sinkhorn_per_call,
     }]
     # sinkhorn's `launches` counts wrapper calls on the sweep's schedules,
-    # the two adaptive grids, the throughput analysis's four card paths
-    # and the faults phase, each read between its own resets
+    # the two adaptive grids, the throughput analysis's four card paths,
+    # the faults phase and the evaluation drivers, each read between its
+    # own resets
     # (`launches_by_path`), its `cuda_launches_per_call` those of one traced
     # schedule; for the others `launches` counts wrapper calls on the
     # serving paths, summed

@@ -1036,12 +1036,14 @@ def _arrive(voq_flat: torch.Tensor, arr_pid: torch.Tensor,
         voq_flat.index_add_(0, arr_pid[a:b], arr_size[a:b])
 
 
-def _offload_shares(cap: torch.Tensor, voq: torch.Tensor):
+def _offload_shares(cap: torch.Tensor, voq: torch.Tensor,
+                    row_sum=torch.sum):
     """The proportional spray of the leftover capacity: per (case, node
     u), ``send_u = min(leftover, queue)``, each circuit's share ``ls`` of
-    the leftover and each destination's share ``qs`` of the queue."""
-    leftover = cap.sum(dim=2)
-    queue = voq.sum(dim=2)
+    the leftover and each destination's share ``qs`` of the queue, the row
+    sums taken by ``row_sum(x, 2)``."""
+    leftover = row_sum(cap, 2)
+    queue = row_sum(voq, 2)
     send_u = torch.minimum(leftover, queue)
     ls = torch.where(leftover[:, :, None] > _JEPS,
                      cap / leftover.clamp_min(_JEPS)[:, :, None], 0.0)
@@ -1092,9 +1094,50 @@ def twohop_dense(voq: torch.Tensor, relay: torch.Tensor, caps: torch.Tensor,
         relay.add_(moved.mul_(offdiag))
 
 
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)`` in one fixed pairwise order (element i with element
+    i + h of the 2h leading ones, the last one of an odd count carried),
+    built of elementwise adds: the same bits on the card as on the CPU,
+    where ``torch.sum``'s order differs between the two."""
+    k = x.shape[dim]
+    while k > 1:
+        h = k // 2
+        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        if k % 2:
+            y = torch.cat([y, x.narrow(dim, k - 1, 1)], dim)
+        x, k = y, y.shape[dim]
+    return x.squeeze(dim)
+
+
+def _arrival_rounds(apid: np.ndarray, bucket: np.ndarray) -> tuple:
+    """Each slot's arrivals regrouped into rounds of distinct pair ids, the
+    k-th arrival of each pair in round k, so that an ``index_add_`` of a
+    round adds to each pair once: the card's atomics then give the bits of
+    the CPU's adds in arrival order.  Returns (the arrivals' permutation,
+    the rounds' bounds in it, slot h's rounds ``slot_rounds[h]:
+    slot_rounds[h + 1]``)."""
+    A, H = len(apid), len(bucket) - 1
+    slot = np.repeat(np.arange(H), np.diff(bucket))
+    idx = np.arange(A)
+    by_pair = np.lexsort((idx, apid, slot))
+    first = np.ones(A, dtype=bool)
+    first[1:] = ((slot[by_pair][1:] != slot[by_pair][:-1])
+                 | (apid[by_pair][1:] != apid[by_pair][:-1]))
+    rank = np.empty(A, dtype=np.int64)
+    rank[by_pair] = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    perm = np.lexsort((idx, rank, slot))
+    new = np.ones(A, dtype=bool)
+    new[1:] = ((slot[perm][1:] != slot[perm][:-1])
+               | (rank[perm][1:] != rank[perm][:-1]))
+    starts = np.flatnonzero(new)
+    bounds = np.append(starts, A)
+    slot_rounds = np.searchsorted(slot[perm][starts], np.arange(H + 1))
+    return perm, bounds, slot_rounds
+
+
 def twohop_fct(voq: torch.Tensor, relay3: torch.Tensor, caps: torch.Tensor,
                cap_idx: torch.Tensor, arr_pid: torch.Tensor,
-               arr_size: torch.Tensor, arr_bounds: np.ndarray,
+               arr_size: torch.Tensor, arr_rounds: tuple,
                direct: torch.Tensor, dp: torch.Tensor,
                second: torch.Tensor) -> None:
     """Serve ``H = cap_idx.shape[0]`` slots of the two-hop relay plane,
@@ -1104,19 +1147,30 @@ def twohop_fct(voq: torch.Tensor, relay3: torch.Tensor, caps: torch.Tensor,
     dst]`` carries whose bits sit in each relay bucket; relay drains and
     offload sprays are proportional within a bucket.  Slot ``h`` writes
     the ``(B, n, n)`` bits delivered per (src, dst) into ``dp[h]`` and
-    the second-hop bits per case into ``second[h]``."""
+    the second-hop bits per case into ``second[h]``.
+
+    Every value the FCTs read is computed in an order that does not
+    depend on the device: the arrivals by rounds of distinct pairs
+    (``arr_rounds``: the bounds and per-slot rounds of
+    :func:`_arrival_rounds`, ``arr_pid`` / ``arr_size`` in its order) and
+    the sums by :func:`_tree_sum`.  An ulp of difference in a relay
+    bucket moves a flow's last bits by many slots, so the card's FCTs
+    equal the CPU's only when its bits do."""
     n = voq.shape[1]
     offdiag = 1.0 - torch.eye(n, dtype=voq.dtype, device=voq.device)
     voq_flat = voq.view(-1)
+    bounds, slot_rounds = arr_rounds
     for h in range(cap_idx.shape[0]):
-        _arrive(voq_flat, arr_pid, arr_size, arr_bounds, h)
+        for r in range(int(slot_rounds[h]), int(slot_rounds[h + 1])):
+            a, b = int(bounds[r]), int(bounds[r + 1])
+            voq_flat.index_add_(0, arr_pid[a:b], arr_size[a:b])
         cap = caps[cap_idx[h]]
         # priority 1: drain relay buckets, attributed pro-rata to src
-        tot = relay3.sum(dim=2)                      # [b, at, dst] totals
+        tot = _tree_sum(relay3, 2)                   # [b, at, dst] totals
         send1 = torch.minimum(tot, cap)
         frac = torch.where(tot > _JEPS, send1 / tot.clamp_min(_JEPS), 0.0)
         out = dp[h]
-        torch.sum(relay3 * frac[:, :, None, :], dim=1, out=out)
+        out.copy_(_tree_sum(relay3 * frac[:, :, None, :], 1))
         relay3.mul_((1.0 - frac)[:, :, None, :])
         torch.sum(send1, dim=(1, 2), out=second[h])
         cap.sub_(send1)
@@ -1127,7 +1181,7 @@ def twohop_fct(voq: torch.Tensor, relay3: torch.Tensor, caps: torch.Tensor,
         cap.sub_(tx)
         # offload leftover capacity into relays, keeping src labels:
         # moved[b, u, v, d] = send_u * link_share[u, v] * q_share[u, d]
-        send_u, ls, qs = _offload_shares(cap, voq)
+        send_u, ls, qs = _offload_shares(cap, voq, _tree_sum)
         moved = (send_u[:, :, None] * ls)[:, :, :, None] * qs[:, :, None, :]
         voq.sub_(send_u[:, :, None] * qs).clamp_min_(0.0)
         # bits whose relay node IS the destination arrive at once,
@@ -1328,7 +1382,12 @@ def _twohop_batch(
     def up(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(dev)
 
-    args = (up(caps_flat), up(cap_idx), up(apid), up(asz), bucket)
+    if route == "twohop_fct":
+        perm, bounds, slot_rounds = _arrival_rounds(apid, bucket)
+        args = (up(caps_flat), up(cap_idx), up(apid[perm]), up(asz[perm]),
+                (bounds, slot_rounds))
+    else:
+        args = (up(caps_flat), up(cap_idx), up(apid), up(asz), bucket)
     d_direct = up(direct)
     voq = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)
     second = torch.empty((H, B), dtype=DATA_DTYPE, device=dev)

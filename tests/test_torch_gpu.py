@@ -23,7 +23,8 @@ trajectory and counters exactly, FCTs differing on at most 0.1 % of flows
 by at most 1 slot (CUDA ``index_add_``'s order of same-slot arrivals),
 utilization rtol 1e-5; the fleet estimation ops' ticks equal to the CPU's.
 The two-hop routes on the card against the CPU: aggregates (delivered
-bits, utilization, avg_hops) rtol 1e-4, FCTs within the sweep's bar;
+bits, utilization, avg_hops) rtol 1e-4, FCTs within the sweep's bar
+(``twohop_fct``'s per-slot outputs bit for bit, its FCTs equal);
 ``simulate_aggregate`` per slot rtol 1e-5, final VOQ within 1e-3 bits.
 The throughput analysis on the card against the CPU: a saturate
 certificate's bounds, checks and violations exactly, theta rtol 1e-9; the
@@ -32,6 +33,8 @@ drain within the sweep's bar.  Fault injection on the card against the
 CPU: the faulted sweep's FCTs within the sweep's bar, delivered and lost
 bits rtol 1e-5 (f32), refused bits equal; the degraded-service engine
 (f64): trajectory digests, counters and excisions equal, bits rtol 1e-9.
+The evaluation drivers (``repro_torch.benchmarks``) on the card against
+their CPU runs at the same bars.
 """
 import numpy as np
 import pytest
@@ -977,3 +980,72 @@ def test_throughput_paths_need_a_card_unless_cpu(monkeypatch, tmp_path):
     assert certify.main(["--case", "skewed", "--n", "8", "--device", "cpu",
                          "--json", str(out)]) == 0
     assert out.exists()
+
+
+@pytest.mark.gpu
+def test_fct_bench_on_card_matches_cpu():
+    """The Fig. 5/6 driver at a small grid (all five systems): one Sinkhorn
+    launch a load, rows within the sweep's bar of the CPU's."""
+    _card()
+    from repro_torch.benchmarks import fct_bench
+
+    kw = dict(n=8, d_hat=2, horizon=400, loads=(0.3, 0.6))
+    rows = {d: [] for d in ("cuda", "cpu")}
+    ops.reset_launches()
+    fct_bench.run(**kw, device="cuda", sweep_rows=rows["cuda"])
+    assert ops.launches == 2
+    table = fct_bench.run(**kw, device="cpu", sweep_rows=rows["cpu"])
+    assert len(table) == 10 and {r["system"] for r in table} == {
+        "vermilion", "greedy", "rotorlb", "vlb", "obl-singlehop"}
+    _assert_card_matches_cpu([r.result for r in rows["cuda"]],
+                             [r.result for r in rows["cpu"]])
+
+
+@pytest.mark.gpu
+def test_adaptive_bench_smoke_on_card_matches_cpu():
+    """The adaptive driver's smoke grid on the card: its own assertions,
+    then the CPU's trajectories, counters, FCT bar and utilization."""
+    _card()
+    from repro_torch.benchmarks import adaptive_bench
+
+    rows = adaptive_bench.smoke(device="cuda")
+    rows_cpu = adaptive_bench.smoke(device="cpu")
+    for a, b in zip(rows, rows_cpu):
+        assert a.plan_digest == b.plan_digest, a.label
+        for f in ("recomputes", "schedule_groups_max", "dark_slots"):
+            assert getattr(a, f) == getattr(b, f), f
+        assert np.array_equal(a.epoch_disagreement, b.epoch_disagreement)
+        fa, fb = a.result.fct_slots, b.result.fct_slots
+        differ = fa != fb
+        assert differ.sum() <= 1e-3 * len(fa)
+        assert not differ.any() or np.abs(fa - fb)[differ].max() <= 1.0
+        assert np.isclose(a.result.utilization, b.result.utilization,
+                          rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_twohop_fct_on_card_is_bitwise_the_cpus(monkeypatch):
+    """twohop_fct adds arrivals by rounds of distinct pairs and sums in a
+    fixed order, so its per-slot delivered matrices on the card are the
+    CPU's bit for bit and every FCT is equal (the Fig. 5/6 grid's two-hop
+    batch at n 16, cut to 800 slots)."""
+    _card()
+    from repro_torch.benchmarks import fct_bench
+
+    cases = [c for c in fct_bench.build_grid(16, 4, 800, loads=(0.3, 0.7),
+                                             device="cpu")
+             if c.mode != "single_hop"]
+    assert simulator._twohop_route(len(cases), 16, 800) == "twohop_fct"
+    inner, seen = simulator.twohop_fct, {}
+
+    def keep(*args):
+        inner(*args)
+        seen[args[0].device.type] = args[-2].cpu().clone()
+
+    monkeypatch.setattr(simulator, "twohop_fct", keep)
+    rows = {d: simulator.run_sweep(cases, fct_bench.BITS_PER_SLOT, device=d)
+            for d in ("cuda", "cpu")}
+    assert torch.equal(seen["cuda"], seen["cpu"])
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert np.array_equal(a.result.fct_slots, b.result.fct_slots)
+        assert a.result.delivered_bits == b.result.delivered_bits

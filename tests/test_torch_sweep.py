@@ -196,10 +196,13 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "assert len(mods) >= 59, mods\n"
+        "assert len(mods) >= 63, mods\n"
         "assert {'repro_torch.core.throughput', 'repro_torch.core.collectives',"
-        " 'repro_torch.analysis.certify', 'repro_torch.core.faults'}"
-        " <= set(mods), mods\n"
+        " 'repro_torch.analysis.certify', 'repro_torch.core.faults',"
+        " 'repro_torch.benchmarks.fct_bench',"
+        " 'repro_torch.benchmarks.adaptive_bench',"
+        " 'repro_torch.benchmarks.schedule_time',"
+        " 'repro_torch.benchmarks.run'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -227,6 +227,41 @@ def test_step_outputs_match_jax_scan(route, monkeypatch):
     assert want[0].sum() > 0 and want[1].sum() > 0
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_arrival_rounds_add_like_the_cpu(seed):
+    """twohop_fct's arrivals by rounds: each round holds distinct pairs of
+    one slot, and adding round by round gives the bits of the in-order
+    adds (what an index_add_ of the slot gives on the CPU)."""
+    rng = np.random.default_rng(seed)
+    H, A, P = 12, 300, 9
+    slot = np.sort(rng.integers(0, H, A))
+    apid = rng.integers(0, P, A)
+    size = rng.uniform(1.0, 1e7, A).astype(np.float32)
+    bucket = np.searchsorted(slot, np.arange(H + 1))
+    perm, bounds, slot_rounds = simulator._arrival_rounds(apid, bucket)
+    assert np.array_equal(np.sort(perm), np.arange(A))
+    want, got = torch.zeros(P), torch.zeros(P)
+    for h in range(H):
+        want.index_add_(0, torch.from_numpy(apid[bucket[h]:bucket[h + 1]]),
+                        torch.from_numpy(size[bucket[h]:bucket[h + 1]]))
+        for r in range(slot_rounds[h], slot_rounds[h + 1]):
+            seg = perm[bounds[r]:bounds[r + 1]]
+            assert len(np.unique(apid[seg])) == len(seg)
+            assert (slot[seg] == h).all()
+            got.index_add_(0, torch.from_numpy(apid[seg]),
+                           torch.from_numpy(size[seg]))
+        assert torch.equal(got, want), h
+    assert slot_rounds[-1] == len(bounds) - 1 > H
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 12, 16, 33])
+def test_tree_sum_is_a_sum(k):
+    x = torch.rand(2, k, 5, dtype=torch.float64)
+    got = simulator._tree_sum(x, 1)
+    assert got.shape == (2, 5)
+    torch.testing.assert_close(got, x.sum(dim=1), rtol=1e-14, atol=0.0)
+
+
 # ---------------------------------------------------------------------------
 # simulate_aggregate against simulate_aggregate_jax
 # ---------------------------------------------------------------------------
