@@ -138,6 +138,22 @@ and read just after:
    two broken uses of the scan kernel as controls (C left out of y; B left
    out of the input), its f32 weights holding 2 of the 16
    experts so that they fit the card.
+5. Serving Mixtral-8x7B as card 0 of an expert-parallel pair
+   (``mixtral-8x7b-ep2``: all 32 layers at full width, d_model 4096, 32 / 8
+   heads of 128, MoE FFNs of d_ff 14336 holding experts 0-3 of 8 with the
+   router whole, vocab 32,000, sliding window 4096; 24.2 B parameters,
+   44.99 GiB in bf16) on a deployment of its own, a long-context chat or
+   retrieval service: 8 lanes x 8192, 12 requests (4 prompts of 4200-6000
+   tokens, past the window, then 8 of 128-1024), 32 new tokens.  Every
+   prefill runs the flash kernel and every decode step the decode kernel
+   once per layer, both with the window; the decode steps with an active
+   lane past the window are counted (> 0).  The logits check is Jamba's,
+   on two requests past the window, with Qwen's two controls and a third,
+   the decode kernel without its window; its f32 weights hold 2 of the 8
+   experts (47.98 GiB).  Jamba's and Mixtral's bf16 checks also read the
+   share of router decisions the two paths make differently, and the plain
+   path against itself with q nudged by 2^-9 in its attention (the size of
+   the bf16 kernels' roundings of P): the model's own sensitivity.
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (Sinkhorn also bit for bit against
@@ -149,7 +165,10 @@ and a NaN entry; the attention kernels at Qwen's
 and Jamba's head shapes and at the bf16 kernels' tile edges: Sq = Sk of
 63-255 around the 64-row query and 64- and 128-key tiles, ragged Sq < Sk,
 a window edge inside key tiles, rep 1, 3, 8 and 32, decode lengths of
-none, one key, a split-share boundary and S - 1 to past S; each twice,
+none, one key, a split-share boundary and S - 1 to past S, Mixtral's
+windowed prefill (1 x 5000, window 4096) and decode (S 8192, window 4096,
+lengths from none through the window's edges to an idle lane whose window
+lies past the cache, with the unwindowed kernel as a control); each twice,
 bitwise; the mLSTM kernel in f32 with its states: the
 served prefills from a fresh state, a carried nonzero state, S <= 256, S a
 multiple of 256, ragged S, head dims 32-512, S at a 64-position chunk and
@@ -356,10 +375,9 @@ TRACE_ACTIVITIES = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 DEV = "cuda"
 
 # serving: Qwen1.5-0.5B at full width and depth, the repo's default
-# serving model (src/repro/launch/serve.py)
+# serving model (src/repro/launch/serve.py), on the deployment SERVING
+# (below)
 ARCH = "qwen1.5-0.5b"
-LANES, MAX_LEN = 8, 2048
-N_REQUESTS, PROMPT_LO, PROMPT_HI, NEW_TOKENS = 16, 128, 1024, 32
 CHECK_REQUESTS, CHECK_STEPS = 2, 8
 TRACED_STEPS = 8
 
@@ -394,7 +412,49 @@ MLSTM_TOL = (1e-4, 1e-4)
 # requests; its f32 checks hold 2 of the 16 experts, so that the f32
 # weights (42.1 GiB) fit the card
 JAMBA_ARCH = "jamba-1.5-large"
-JAMBA_F32_HELD = 2
+
+# the fourth served model: Mixtral-8x7B as card 0 of an expert-parallel
+# pair, all 32 layers at full width with experts 0-3 of its 8 and its
+# sliding window of 4096 (src/repro_torch/configs/mixtral_8x7b.py, SERVED
+# and REDUCED; 44.99 GiB in bf16), on a deployment of its own (below); its
+# f32 checks hold 2 of the 8 experts (47.98 GiB in f32)
+MIXTRAL_ARCH = "mixtral-8x7b-ep2"
+
+# experts the f32 logits checks hold, where the served model holds a share
+F32_HELD = {JAMBA_ARCH: 2, MIXTRAL_ARCH: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Deployment:
+    """A serving deployment: ``lanes`` cache lanes of ``max_len``
+    positions; requests drawn from SEED, ``groups`` of (count, shortest,
+    longest prompt) in that order, each asking ``new_tokens`` tokens."""
+    lanes: int
+    max_len: int
+    groups: tuple
+    new_tokens: int
+
+    @property
+    def n_requests(self) -> int:
+        return sum(g[0] for g in self.groups)
+
+    def describe(self) -> str:
+        return (f"{self.lanes} lanes x {self.max_len}, {self.n_requests} "
+                f"requests, prompts "
+                + " and ".join(f"{n} of {lo}-{hi}" for n, lo, hi in
+                               self.groups)
+                + f", {self.new_tokens} new tokens, seed {SEED}")
+
+
+# Qwen's, xLSTM's and Jamba's: 8 lanes of 2048, 16 requests of 128-1024
+# tokens
+SERVING = Deployment(8, 2048, ((16, 128, 1024),), 32)
+# Mixtral's: a chat or retrieval-augmented service with long contexts on a
+# card's expert share, 8 lanes of 8192 (a KV cache of 8 GiB beside its
+# 44.99 GiB of weights); 4 prompts past the window first (the logits
+# checks take the first CHECK_REQUESTS), then 8 short ones
+MIXTRAL_SERVING = Deployment(8, 8192, ((4, 4200, 6000), (8, 128, 1024)), 32)
+DEPLOYMENTS = {MIXTRAL_ARCH: MIXTRAL_SERVING}
 
 # H100 SXM's special-function units: 16 ex2 a clock on each of 132 SMs at
 # the 1.98 GHz boost clock (CUDA C programming guide, compute capability
@@ -733,63 +793,100 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def visible_range(length: int, s: int, window: int) -> tuple:
+    """The keys [lo, hi) a decode lane of ``length`` sees in a cache of
+    ``s`` under ``window`` (0: none), as the kernel reckons them."""
+    if length < 0:
+        return 0, 0
+    hi = min(length, s - 1) + 1
+    return min(max(0, length - window + 1) if window else 0, hi), hi
+
+
 def check_decode(label: str, lens: list, s: int, h: int, kv: int, dh: int,
-                 dtype: torch.dtype, reps: int = 20,
+                 dtype: torch.dtype, window: int = 0, reps: int = 20,
                  seed: int = SEED) -> dict:
     """The flash-decode kernel against its plain version with one length
-    per lane; checks two calls bitwise; times kernel, plain version and
-    ``scaled_dot_product_attention`` with the same per-lane mask on the card
-    alone (:func:`device_ms`), and the kernel's calls with the host's share
-    (:func:`time_ms`)."""
+    per lane and a sliding ``window`` (0: none); checks two calls bitwise;
+    times kernel, plain version and ``scaled_dot_product_attention`` with
+    the same per-lane mask on the card alone (:func:`device_ms`), and the
+    kernel's calls with the host's share (:func:`time_ms`).  With a window,
+    a control: the unwindowed kernel must miss the windowed plain version,
+    beyond the tolerance, on every lane whose window hides at least as
+    many keys as it shows (its misses on all lanes past the window are
+    logged), so that a window that is dropped shows."""
     b = len(lens)
     gen = torch.Generator(device=DEV).manual_seed(seed + s + h)
     q = torch.randn(b, 1, h, dh, generator=gen, device=DEV).to(dtype)
     k = torch.randn(b, s, kv, dh, generator=gen, device=DEV).to(dtype)
     v = torch.randn(b, s, kv, dh, generator=gen, device=DEV).to(dtype)
     length = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    got = decode_ops.decode_kernel(q, k, v, length)
-    again = decode_ops.decode_kernel(q, k, v, length)
+    got = decode_ops.decode_kernel(q, k, v, length, window)
+    again = decode_ops.decode_kernel(q, k, v, length, window)
     torch.cuda.synchronize()
-    want = decode_attention_ref(q, k, v, length)
+    want = decode_attention_ref(q, k, v, length, window)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     tol = ATTN_TOL[dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     same = bool(torch.equal(got, again))
-    call = lambda: decode_ops.decode_kernel(q, k, v, length)  # noqa: E731
+    ranges = [visible_range(x, s, window) for x in lens]
+    control: dict = {}
+    if window:
+        nowin = decode_ops.decode_kernel(q, k, v, length).float()
+        miss = ((nowin - want.float()).abs()
+                - tol * (1 + want.float().abs())).flatten(1).amax(1)
+        control = {x: float(miss[i]) for i, x in enumerate(lens)
+                   if ranges[i][0] > 0}
+        gated = [x for x, (lo, hi) in zip(lens, ranges)
+                 if 0 < lo and hi - lo <= lo]
+        control_ok = bool(gated) and all(control[x] > 0 for x in gated)
+    call = lambda: decode_ops.decode_kernel(  # noqa: E731
+        q, k, v, length, window)
     ms = device_ms(call, reps)
     call_ms = time_ms(call, reps)
-    plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, length),
+    plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, length,
+                                                      window),
                          max(2, reps // 4))
     kpos = torch.arange(s, device=DEV)[None, :]
-    mask = (kpos <= length[:, None].long())[:, None, None, :]
+    ln = length[:, None].long()
+    mask = kpos <= ln
+    if window:
+        mask &= kpos > ln - window
+    mask = mask[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=h != kv), reps)
     size = torch.finfo(dtype).bits // 8
-    rows = sum(min(x, s - 1) + 1 for x in lens if x >= 0)
+    rows = sum(hi - lo for lo, hi in ranges)
     bound_ms, bound_by = attn_bound_ms(
         2 * rows * kv * dh * size + 2 * b * h * dh * size + 4 * b,
         4.0 * rows * (h // kv) * kv * dh, dtype)
     log(f"  {label:14s} {_dname(dtype):8s} B={b} S={s} H={h} KV={kv} "
-        f"dh={dh} lengths={lens}: max_abs_err={err:.3e} "
+        f"dh={dh} window={window} lengths={lens}: max_abs_err={err:.3e} "
         f"(tol {tol:g}) {'ok' if ok else 'FAIL'}; deterministic={same}; "
         f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}); x bound {ms / bound_ms:.1f}, "
-        f"x sdpa {ms / library_ms:.2f}")
+        f"x sdpa {ms / library_ms:.2f}"
+        + (f"; control, the unwindowed kernel's miss beyond the tolerance "
+           f"by length (gated where the window hides at least half): "
+           f"{json.dumps(control)} {'ok' if control_ok else 'FAIL'}"
+           if window else ""))
     if not ok:
         raise AssertionError(f"flash-decode kernel disagrees with its plain "
                              f"version: {label} {_dname(dtype)}")
     if not same:
         raise AssertionError(f"flash-decode kernel is not deterministic: "
                              f"{label}")
+    if window and not control_ok:
+        raise AssertionError(f"the unwindowed decode kernel passes for the "
+                             f"windowed one: {label} {_dname(dtype)}")
     return {"label": label, "dtype": _dname(dtype),
-            "shape": [b, s, h, kv, dh], "lengths": lens,
+            "shape": [b, s, h, kv, dh], "lengths": lens, "window": window,
             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "control_miss": control}
 
 
 def mlstm_bound_ms(b: int, s: int, h: int, dh: int) -> tuple:
@@ -976,11 +1073,12 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
-def serving_requests(vocab: int) -> list:
+def serving_requests(vocab: int, dep: Deployment = SERVING) -> list:
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, size=N_REQUESTS)
+    lens = np.concatenate([rng.integers(lo, hi + 1, size=n)
+                           for n, lo, hi in dep.groups])
     return [Request(rid=i, prompt=rng.integers(1, vocab, size=int(n)),
-                    max_new_tokens=NEW_TOKENS)
+                    max_new_tokens=dep.new_tokens)
             for i, n in enumerate(lens)]
 
 
@@ -999,12 +1097,23 @@ def swapped(module, name: str, fn):
 DROPPED_KEYS = 256
 
 
-def decode_split_dropped(q, k, v, length):
-    """Control: the decode kernel with the first DROPPED_KEYS cache keys
-    left out, what a combine that lost one partial would return."""
+def decode_split_dropped(q, k, v, length, window=0):
+    """Control: the decode kernel with the first DROPPED_KEYS keys of each
+    lane's visible range left out, what a combine that lost one partial
+    would return (the cache from DROPPED_KEYS on, the length and a window
+    both shorter by as much)."""
     s = DROPPED_KEYS
+    if 0 < window <= s:
+        raise ValueError(f"the control needs a window over {s} keys")
     ln = decode_ops.lengths_vector(length, q.shape[0], q.device) - s
-    return decode_ops.decode_kernel(q, k[:, s:], v[:, s:], ln)
+    return decode_ops.decode_kernel(q, k[:, s:], v[:, s:], ln,
+                                    window - s if window else 0)
+
+
+def decode_window_dropped(q, k, v, length, window=0):
+    """Control: the decode kernel without its sliding window, what a window
+    that never reached the kernel would return."""
+    return decode_ops.decode_kernel(q, k, v, length)
 
 
 def flash_unscaled(q, k, v, causal=True, window=0):
@@ -1047,6 +1156,11 @@ def mamba_b_ignored(dt, a, bmat, cmat, u, h0=None):
 CONTROLS = {"decode_split_dropped": (decode_ops, "decode_attn",
                                      decode_split_dropped),
             "flash_unscaled": (flash_ops, "attention", flash_unscaled)}
+# Mixtral's check requests are past its window, so dropping the window
+# shows in their decode logits
+MIXTRAL_CONTROLS = {**CONTROLS,
+                    "decode_window_dropped": (decode_ops, "decode_attn",
+                                              decode_window_dropped)}
 MLSTM_CONTROLS = {"mlstm_state_lost": (mlstm_ops, "mlstm", mlstm_state_lost),
                   "mlstm_unscaled": (mlstm_ops, "mlstm", mlstm_unscaled)}
 MAMBA_CONTROLS = {"mamba_c_ignored": (mamba_ops, "selective_scan",
@@ -1059,9 +1173,9 @@ MAMBA_CONTROLS = {"mamba_c_ignored": (mamba_ops, "selective_scan",
 # largest logit where the f32 logits move by ~3e-5, and as much from the
 # plain version run in f64): its bf16 logits and served tokens are read,
 # held to no gate.  Its f32 logits, and the logits and tokens of a
-# two-lane f32 engine, carry the gates, as they do for Qwen.  Jamba's
-# likewise: a bf16 rounding flipped by an f32 reordering can flip a top-2
-# expert choice of its router.
+# two-lane f32 engine, carry the gates, as they do for Qwen.  Jamba's and
+# Mixtral's likewise: a bf16 rounding flipped by an f32 reordering can flip
+# a top-2 expert choice of their routers.
 
 # the served models: the wrappers of their kernels (whose launches the
 # serving run counts), the broken uses the logits check reads as controls,
@@ -1072,7 +1186,10 @@ SERVED = {ARCH: ({"flash_attention": flash_ops,
           JAMBA_ARCH: ({"mamba_scan": mamba_ops,
                         "flash_attention": flash_ops,
                         "decode_attention": decode_ops}, MAMBA_CONTROLS,
-                       False)}
+                       False),
+          MIXTRAL_ARCH: ({"flash_attention": flash_ops,
+                          "decode_attention": decode_ops}, MIXTRAL_CONTROLS,
+                         False)}
 
 # the __global__ functions each wrapper launches, by a part of their names
 KERNEL_EVENTS = {"sinkhorn": ("sinkhorn_",),
@@ -1081,11 +1198,12 @@ KERNEL_EVENTS = {"sinkhorn": ("sinkhorn_",),
                  "mlstm": ("mlstm_",), "mamba_scan": ("mamba_scan_fwd",)}
 
 
-def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
+def logits_path(p, cfg, prompt: torch.Tensor, feed: list, max_len: int,
                 plain: bool = False) -> list:
-    """Logits (f32, (V,)) of one request at B = 1: its prefill, then one
-    decode step per token of ``feed``."""
-    lg, caches, ln = prefill(p, cfg, prompt, MAX_LEN, DEV, plain=plain)
+    """Logits (f32, (V,)) of one request at B = 1 in a cache of
+    ``max_len``: its prefill, then one decode step per token of
+    ``feed``."""
+    lg, caches, ln = prefill(p, cfg, prompt, max_len, DEV, plain=plain)
     out = [lg[0].float()]
     for i, tok in enumerate(feed):
         t = torch.tensor([[tok]], device=DEV)
@@ -1094,12 +1212,12 @@ def logits_path(p, cfg, prompt: torch.Tensor, feed: list,
     return out
 
 
-def engine_logits(p, cfg, reqs: list) -> list:
-    """Serve ``reqs`` on an engine of one lane each (all admitted at once,
-    request i in lane i), recording the logits (f32, (V,)) the engine
-    computed for each: its prefill's, then its lane's at each decode step
-    while it is active."""
-    eng = ServeEngine(p, cfg, n_lanes=len(reqs), max_len=MAX_LEN, device=DEV)
+def engine_logits(p, cfg, reqs: list, max_len: int) -> list:
+    """Serve ``reqs`` on an engine of one lane of ``max_len`` each (all
+    admitted at once, request i in lane i), recording the logits (f32,
+    (V,)) the engine computed for each: its prefill's, then its lane's at
+    each decode step while it is active."""
+    eng = ServeEngine(p, cfg, n_lanes=len(reqs), max_len=max_len, device=DEV)
     seen: list = []
 
     def rec(fn):
@@ -1117,6 +1235,32 @@ def engine_logits(p, cfg, reqs: list) -> list:
             for i, r in enumerate(reqs)]
 
 
+def routed(fn) -> tuple:
+    """(``fn()``, the expert choices (tokens, k) of every MoE router call
+    it made, in order)."""
+    seen: list = []
+    real = MOE.route
+
+    def rec(logits, cfg):
+        out = real(logits, cfg)
+        seen.append(out[2])
+        return out
+
+    with swapped(MOE, "route", rec):
+        return fn(), seen
+
+
+def router_flips(a: list, b: list):
+    """The share of tokens whose top-k expert set differs between two
+    runs' router calls (None without a router)."""
+    if not a:
+        return None
+    flips = [(x.sort(-1).values != y.sort(-1).values).any(-1)
+             for x, y in zip(a, b, strict=True)]
+    return float(sum(int(f.sum()) for f in flips)
+                 / sum(f.numel() for f in flips))
+
+
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over the largest |b| (at least 1)."""
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
@@ -1129,27 +1273,58 @@ def _gaps(logits: list, tokens: list) -> list:
             for lg, t in zip(logits, tokens)]
 
 
-def check_logits(p, cfg, req: Request, controls: dict) -> tuple:
+# a nudge of half a bf16 ulp, the size of the roundings the bf16 attention
+# kernels make in P
+NUDGE = 2.0 ** -9
+
+
+def q_nudged(ref):
+    """``ref``, a plain attention version, with q scaled by 1 + NUDGE in
+    f32 and the result in q's type."""
+    def call(q, *args, **kw):
+        return ref(q.float() * (1 + NUDGE), *args, **kw).to(q.dtype)
+    return call
+
+
+def check_logits(p, cfg, req: Request, controls: dict, max_len: int,
+                 nudged: bool = False) -> tuple:
     """Prefill plus CHECK_STEPS decode steps of one request, fed the tokens
     it was served, through the kernels, through the plain versions and
     through each broken use of ``controls`` (name: module, wrapper name,
     broken use); per position the max |logit diff| against the plain
-    versions over their largest |logit|.  Returns (readings, the plain
-    versions' logits)."""
+    versions over their largest |logit|; for an MoE model, the share of
+    router decisions in which the two chose other experts.  ``nudged``
+    also reads the plain versions against themselves with q nudged by
+    NUDGE in their attention: how far the model moves under roundings of
+    the bf16 kernels' size alone.  Returns (readings, the plain versions'
+    logits)."""
     prompt = torch.as_tensor(req.prompt, device=DEV)[None]
     feed = req.out_tokens[:CHECK_STEPS]
-    kern = logits_path(p, cfg, prompt, feed)
-    plain = logits_path(p, cfg, prompt, feed, plain=True)
+    kern, kern_routes = routed(
+        lambda: logits_path(p, cfg, prompt, feed, max_len))
+    plain, plain_routes = routed(
+        lambda: logits_path(p, cfg, prompt, feed, max_len, plain=True))
     readings: dict = {}
     for name, (module, attr, fn) in controls.items():
         with swapped(module, attr, fn):
-            bad = logits_path(p, cfg, prompt, feed)
+            bad = logits_path(p, cfg, prompt, feed, max_len)
         readings[name] = max(_rel(a, b) for a, b in zip(bad, plain))
     rel = [_rel(a, b) for a, b in zip(kern, plain)]
-    return {"rid": req.rid, "prompt": len(req.prompt),
-            "dtype": _dname(getattr(torch, cfg.dtype)),
-            "max_rel_diff": max(rel), "per_step": rel, "controls": readings,
-            "positions": len(rel)}, plain
+    out = {"rid": req.rid, "prompt": len(req.prompt),
+           "dtype": _dname(getattr(torch, cfg.dtype)),
+           "max_rel_diff": max(rel), "per_step": rel, "controls": readings,
+           "router_flips": router_flips(kern_routes, plain_routes),
+           "positions": len(rel)}
+    if nudged:
+        with swapped(L, "attention_ref", q_nudged(attention_ref)), \
+                swapped(L, "decode_attention_ref",
+                        q_nudged(decode_attention_ref)):
+            nudge, nudge_routes = routed(lambda: logits_path(
+                p, cfg, prompt, feed, max_len, plain=True))
+        out["plain_nudged"] = {
+            "max_rel_diff": max(_rel(a, b) for a, b in zip(nudge, plain)),
+            "router_flips": router_flips(nudge_routes, plain_routes)}
+    return out, plain
 
 
 def attention_phases() -> tuple:
@@ -1158,6 +1333,7 @@ def attention_phases() -> tuple:
     kernel line reports, decode instances, likewise)."""
     log("== flash-attention kernel vs plain PyTorch version on the card")
     reqs = serving_requests(get_config(ARCH).vocab)
+    mixtral = get_config(MIXTRAL_ARCH)
     prompt_lens = sorted({len(r.prompt) for r in reqs})
     flash = [check_flash("served prefill", 1, n, n, 16, 16, 64,
                          torch.bfloat16) for n in prompt_lens]
@@ -1198,34 +1374,50 @@ def attention_phases() -> tuple:
                           (32, 1, 128)):
             flash.append(check_flash(f"rep {h // kv}", 1, 300, 300, h, kv,
                                      dh, dt, reps=5))
+        # Mixtral's windowed prefill: H 32 / KV 8 at dh 128, window 4096,
+        # past the window
+        flash.append(check_flash("Mixtral prefill", 1, 5000, 5000, 32, 8,
+                                 128, dt, window=mixtral.sliding_window,
+                                 reps=5))
     log("== flash-decode kernel vs plain PyTorch version on the card")
-    mid = [len(r.prompt) + NEW_TOKENS // 2 for r in reqs[:LANES]]
+    lanes, max_len = SERVING.lanes, SERVING.max_len
+    mid = [len(r.prompt) + SERVING.new_tokens // 2 for r in reqs[:lanes]]
 
     def edge(kv: int) -> list:
         # every length class the device split meets: none, one key, a
         # share boundary (visible keys a multiple of the splits times 128
         # rows, then one more), 255 and 256, S - 1, S, past S
         sms = decode_ops.sm_count(torch.device(DEV))
-        b = decode_ops.split_plan(LANES, kv, MAX_LEN, sms) * 128
-        return [0, 1, b - 1, b, 255, 256, MAX_LEN - 1, MAX_LEN,
-                MAX_LEN + 40, 1000]
+        b = decode_ops.split_plan(lanes, kv, max_len, sms) * 128
+        return [0, 1, b - 1, b, 255, 256, max_len - 1, max_len,
+                max_len + 40, 1000]
 
-    decode = [check_decode("served decode", mid, MAX_LEN, 16, 16, 64,
+    decode = [check_decode("served decode", mid, max_len, 16, 16, 64,
                            torch.bfloat16)]
     decode_main = decode[0]
     for dt in (torch.bfloat16, torch.float32):
         if dt == torch.float32:
-            decode.append(check_decode("served decode", mid, MAX_LEN, 16, 16,
+            decode.append(check_decode("served decode", mid, max_len, 16, 16,
                                        64, dt))
-        decode.append(check_decode("edge lengths", edge(16), MAX_LEN, 16, 16,
+        decode.append(check_decode("edge lengths", edge(16), max_len, 16, 16,
                                    64, dt))
-        decode.append(check_decode("llama GQA", mid, MAX_LEN, 24, 8, 128, dt))
-        decode.append(check_decode("MQA", mid, MAX_LEN, 8, 1, 64, dt))
-        decode.append(check_decode("Jamba decode", mid, MAX_LEN, 64, 8, 128,
+        decode.append(check_decode("llama GQA", mid, max_len, 24, 8, 128, dt))
+        decode.append(check_decode("MQA", mid, max_len, 8, 1, 64, dt))
+        decode.append(check_decode("Jamba decode", mid, max_len, 64, 8, 128,
                                    dt))
-        decode.append(check_decode("Jamba edges", edge(8), MAX_LEN, 64, 8,
+        decode.append(check_decode("Jamba edges", edge(8), max_len, 64, 8,
                                    128, dt))
-        decode.append(check_decode("rep 32", mid, MAX_LEN, 32, 1, 128, dt))
+        decode.append(check_decode("rep 32", mid, max_len, 32, 1, 128, dt))
+        # Mixtral's windowed decode: H 32 / KV 8 at dh 128, its cache of
+        # 8192 and window of 4096; lanes with nothing visible, below, at and
+        # past the window, at S - 1, and an idle lane whose window lies past
+        # the cache
+        w, sm = mixtral.sliding_window, MIXTRAL_SERVING.max_len
+        decode.append(check_decode(
+            "Mixtral decode", [-1, 0, 100, w - 1, w, w + 1, 6000, sm - 1,
+                               sm - 1 + 4200],
+            sm, mixtral.n_heads, mixtral.n_kv_heads, mixtral.head_dim, dt,
+            window=w))
     return flash, flash_main, decode, decode_main
 
 
@@ -1260,7 +1452,8 @@ def cuda_launches_per_call(prof, calls: dict) -> dict:
             for w, c in calls.items() if c}
 
 
-def prefill_breakdown(p, cfg, req: Request, wrappers: dict) -> dict:
+def prefill_breakdown(p, cfg, req: Request, wrappers: dict,
+                      max_len: int) -> dict:
     """Where one prefill's time goes (B = 1): its wall time; the host-clock
     time of each block kind (its mixer: attn, mamba, mlstm, slstm) and each
     FFN kind (moe, dense ffn), each between two synchronisations (a second
@@ -1268,7 +1461,7 @@ def prefill_breakdown(p, cfg, req: Request, wrappers: dict) -> dict:
     launches of each kernel wrapper's calls (a third run, under
     torch.profiler)."""
     prompt = torch.as_tensor(req.prompt, device=DEV)[None]
-    run = lambda: prefill(p, cfg, prompt, MAX_LEN, DEV)  # noqa: E731
+    run = lambda: prefill(p, cfg, prompt, max_len, DEV)  # noqa: E731
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1416,9 +1609,15 @@ def serving_phases(arch: str) -> dict:
     steps and the logits check; returns what they measured, launch counts
     included."""
     wrappers, controls, bf16_gated = SERVED[arch]
+    dep = DEPLOYMENTS.get(arch, SERVING)
     cfg = get_config(arch)
     kinds = cfg.layer_kinds()
-    reqs = serving_requests(cfg.vocab)
+    reqs = serving_requests(cfg.vocab, dep)
+    window = cfg.sliding_window
+    if window and not all(len(r.prompt) > window
+                          for r in reqs[:CHECK_REQUESTS]):
+        raise AssertionError("the logits checks' requests must be longer "
+                             "than the window")
     torch.cuda.empty_cache()            # what an earlier phase left cached
     log(f"== serving: {cfg.name}, {cfg.n_layers} layers "
         f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
@@ -1427,13 +1626,12 @@ def serving_phases(arch: str) -> dict:
         + (f", experts {cfg.expert_offset}-"
            f"{cfg.expert_offset + cfg.n_held - 1} of {cfg.n_experts} held, "
            f"top-{cfg.top_k}" if cfg.n_experts else "")
-        + f", {cfg.dtype}; {LANES} lanes x {MAX_LEN}, {N_REQUESTS} requests, "
-        f"prompts {PROMPT_LO}-{PROMPT_HI}, {NEW_TOKENS} new tokens, seed "
-        f"{SEED}")
+        + (f", sliding window {window}" if window else "")
+        + f", {cfg.dtype}; {dep.describe()}")
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=DEV).manual_seed(SEED),
                          cfg, DEV, serve=True)
-    eng = ServeEngine(params, cfg, n_lanes=LANES, max_len=MAX_LEN,
+    eng = ServeEngine(params, cfg, n_lanes=dep.lanes, max_len=dep.max_len,
                       device=DEV)
     del params
     n_params = _numel(eng.params)
@@ -1442,28 +1640,42 @@ def serving_phases(arch: str) -> dict:
         f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated()} "
         f"B allocated")
     torch.cuda.reset_peak_memory_stats()
+    # decode steps in which an active lane's window hides the first keys
+    # (length >= window), read from the engine's host lengths before each
+    # step: no synchronisation
+    past = [0]
+
+    def step_past_window():
+        past[0] += any(r is not None and n >= window
+                       for r, n in zip(eng.active, eng._lengths))
+        return ServeEngine.step(eng)
+
+    if window:
+        eng.step = step_past_window
     for ops in wrappers.values():
         ops.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(reqs)
     serve_wall = time.perf_counter() - t0
     serve_launches = {name: ops.launches for name, ops in wrappers.items()}
+    eng.__dict__.pop("step", None)
     peak = torch.cuda.max_memory_allocated()
     st = dict(eng.stats)
     log(f"  launches: {serve_launches}")
     # a call per prefill (every prompt has >= 2 tokens) or per decode step,
     # for each layer of the kernel's kind
-    expected = {"flash_attention": N_REQUESTS * kinds.count("attn"),
+    n_req = dep.n_requests
+    expected = {"flash_attention": n_req * kinds.count("attn"),
                 "decode_attention": st["decode_steps"] * kinds.count("attn"),
-                "mlstm": N_REQUESTS * kinds.count("mlstm"),
-                "mamba_scan": N_REQUESTS * kinds.count("mamba")}
+                "mlstm": n_req * kinds.count("mlstm"),
+                "mamba_scan": n_req * kinds.count("mamba")}
     for name, n in serve_launches.items():
         want = expected[name]
         if n != want or n <= 0:
             raise AssertionError(f"the serving path launched {name} {n} "
                                  f"times (expected {want})")
-    if len(done) != N_REQUESTS or any(
-            len(r.out_tokens) != NEW_TOKENS
+    if len(done) != n_req or any(
+            len(r.out_tokens) != dep.new_tokens
             or not all(0 <= t < cfg.vocab for t in r.out_tokens)
             for r in reqs):
         raise AssertionError("the engine did not serve every request")
@@ -1476,22 +1688,34 @@ def serving_phases(arch: str) -> dict:
                "decode_s": st["decode_s"], "decode_steps": st["decode_steps"],
                "decode_tokens": st["decode_tokens"],
                "decode_ms_per_step": step_ms, "decode_tok_per_s": decode_tps,
-               "peak_mem_bytes": peak, "launches": serve_launches}
+               "peak_mem_bytes": peak, "launches": serve_launches,
+               "weights": n_params}
     log(f"  engine wall {serve_wall:.6f} s; prefill {st['prefill_tokens']} "
         f"tokens in {st['prefill_s']:.6f} s ({prefill_tps:.1f} tok/s); "
         f"decode {st['decode_steps']} steps, {st['decode_tokens']} tokens "
         f"in {st['decode_s']:.6f} s ({step_ms:.4f} ms/step, "
         f"{decode_tps:.1f} tok/s); peak memory {peak} B "
         f"({peak / 2**30:.3f} GiB)")
+    if window:
+        n_past = past[0] * kinds.count("attn")
+        serving["decode_steps_past_window"] = past[0]
+        serving["decode_launches_past_window"] = n_past
+        log(f"  decode steps with an active lane past the window ({window} "
+            f"keys): {past[0]} of {st['decode_steps']}, {n_past} decode "
+            f"launches")
+        if not n_past > 0:
+            raise AssertionError("no decode launch had a lane past the "
+                                 "window")
     log(f"  request 0: {len(reqs[0].prompt)} prompt tokens -> "
         f"{reqs[0].out_tokens[:8]}...")
     serving["prefill_breakdown"] = prefill_breakdown(
-        eng.params, cfg, max(reqs, key=lambda r: len(r.prompt)), wrappers)
+        eng.params, cfg, max(reqs, key=lambda r: len(r.prompt)), wrappers,
+        dep.max_len)
 
     # a traced rerun of decode steps: the device's idle share
-    log(f"== traced decode: {LANES} lanes admitted, {TRACED_STEPS} steps "
+    log(f"== traced decode: {dep.lanes} lanes admitted, {TRACED_STEPS} steps "
         f"(torch.profiler)")
-    for r in serving_requests(cfg.vocab)[:LANES]:
+    for r in serving_requests(cfg.vocab, dep)[:dep.lanes]:
         r.max_new_tokens = TRACED_STEPS + 2
         eng.try_admit(r)
     before = eng.stats["decode_s"]
@@ -1523,7 +1747,7 @@ def serving_phases(arch: str) -> dict:
     # served logits: kernels against plain versions, in bf16 (the served
     # type) and in f32 (the same weights drawn anew in f32, after the bf16
     # engine is freed; a model that holds a share of its experts holds
-    # JAMBA_F32_HELD of them in f32, so that its f32 weights fit the card),
+    # F32_HELD of them in f32, so that its f32 weights fit the card),
     # each beside its controls.  In f32 the check requests are first served
     # by a two-lane engine whose own logits are recorded, so that the
     # engine's path (prefill caches spliced into lanes, lanes decoded as one
@@ -1538,18 +1762,18 @@ def serving_phases(arch: str) -> dict:
             p = eng = None
             torch.cuda.empty_cache()
             c = cfg.replace(dtype="float32")
-            if cfg.experts_held:
-                c = c.replace(experts_held=JAMBA_F32_HELD)
+            if arch in F32_HELD:
+                c = c.replace(experts_held=F32_HELD[arch])
             p = init_params(torch.Generator(device=DEV).manual_seed(SEED), c,
                             DEV)
             served = reqs32
-            served32 = engine_logits(p, c, reqs32)
+            served32 = engine_logits(p, c, reqs32, dep.max_len)
         else:
             p, c, served = eng.params, cfg, reqs[:CHECK_REQUESTS]
         dt = getattr(torch, c.dtype)
         gate = LOGIT_TOL[dt] if bf16_gated or is32 else None
         where = (f"a {CHECK_REQUESTS}-lane engine" if is32 else
-                 f"the engine's {LANES} lanes")
+                 f"the engine's {dep.lanes} lanes")
         log(f"== logits of {CHECK_REQUESTS} requests fed the tokens "
             f"{where} served them, {c.dtype}: kernels vs plain versions, "
             f"prefill + {CHECK_STEPS} decode steps"
@@ -1558,7 +1782,8 @@ def serving_phases(arch: str) -> dict:
                       "read, no gate") + "), and the controls")
         plains = []
         for i, r in enumerate(served):
-            chk, plain = check_logits(p, c, r, controls)
+            chk, plain = check_logits(p, c, r, controls, dep.max_len,
+                                      nudged=gate is None and "attn" in kinds)
             chk["gate"] = gate
             if is32:
                 eng_rel = [_rel(a, b) for a, b in zip(served32[i], plain)]
@@ -1577,6 +1802,11 @@ def serving_phases(arch: str) -> dict:
                 + (f"the engine's own logits: max rel diff "
                    f"{chk['engine_max_rel_diff']:.3e}; "
                    if "engine_max_rel_diff" in chk else "")
+                + (f"router decisions flipped {chk['router_flips']:.3e}; "
+                   if chk["router_flips"] is not None else "")
+                + (f"the plain versions with q nudged by 2^-9: "
+                   f"{json.dumps(chk['plain_nudged'])}; "
+                   if "plain_nudged" in chk else "")
                 + f"controls {json.dumps(chk['controls'])}")
             if gate is not None and not chk["max_rel_diff"] <= gate:
                 failures.append(
@@ -2916,7 +3146,7 @@ def main() -> int:
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
     served = {arch: serving_phases(arch)
-              for arch in (ARCH, XLSTM_ARCH, JAMBA_ARCH)}
+              for arch in (ARCH, XLSTM_ARCH, JAMBA_ARCH, MIXTRAL_ARCH)}
     # each kernel's launches on every serving path that runs it, each path
     # read between its own resets
     by_path: dict = {}

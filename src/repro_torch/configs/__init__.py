@@ -1,5 +1,6 @@
 """Architecture registry: the 10 assigned configs + smoke variants, and
-the one-card served cut of Jamba (``jamba-1.5-large``)."""
+the one-card served cuts of Jamba (``jamba-1.5-large``) and Mixtral
+(``mixtral-8x7b-ep2``)."""
 from __future__ import annotations
 
 from .base import ModelConfig, ShapeConfig, TrainConfig, SHAPES
@@ -11,6 +12,7 @@ from .qwen1_5_0_5b import FULL as QWEN1_5_0_5B, smoke as qwen1_5_0_5b_smoke
 from .internvl2_76b import FULL as INTERNVL2_76B, smoke as internvl2_76b_smoke
 from .llama4_maverick import FULL as LLAMA4_MAVERICK, smoke as llama4_maverick_smoke
 from .mixtral_8x7b import FULL as MIXTRAL_8X7B, smoke as mixtral_8x7b_smoke
+from .mixtral_8x7b import SERVED as MIXTRAL_8X7B_SERVED
 from .whisper_tiny import FULL as WHISPER_TINY, smoke as whisper_tiny_smoke
 from .jamba_1_5_large import FULL as JAMBA_1_5_LARGE, smoke as jamba_1_5_large_smoke
 from .jamba_1_5_large import SERVED as JAMBA_1_5_LARGE_SERVED
@@ -29,6 +31,8 @@ REGISTRY: dict[str, ModelConfig] = {
     "xlstm-350m": XLSTM_350M,
     # one supercell holding 8 of 16 experts: what one card serves
     "jamba-1.5-large": JAMBA_1_5_LARGE_SERVED,
+    # every layer at full width holding 4 of 8 experts: card 0 of two
+    "mixtral-8x7b-ep2": MIXTRAL_8X7B_SERVED,
 }
 
 SMOKE: dict[str, ModelConfig] = {
@@ -43,6 +47,7 @@ SMOKE: dict[str, ModelConfig] = {
     "jamba-1.5-large-398b": jamba_1_5_large_smoke(),
     "xlstm-350m": xlstm_350m_smoke(),
     "jamba-1.5-large": jamba_1_5_large_smoke(),
+    "mixtral-8x7b-ep2": mixtral_8x7b_smoke(),
 }
 
 # archs whose `long_500k` cell runs (sub-quadratic sequence mixing);

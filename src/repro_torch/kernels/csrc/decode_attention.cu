@@ -6,13 +6,18 @@
 // (B, 1, H, dh) against a cache k/v (B, S, KV, dh), keys at positions
 // <= length visible (length is the last valid index, the new token's own
 // slot, not a count), the rep = H / KV query heads of one kv head together,
-// f32 running max, sum and accumulator.  One extension, what the reference
-// serving engine computes: `length` is one int32 per batch row (a (B,)
-// device tensor; the reference engine vmaps the scalar kernel over its
-// lanes).  length >= S sees the whole cache (the reference engine lets idle
-// lanes' lengths run past it); length < 0 sees nothing and returns 0.
+// f32 running max, sum and accumulator.  Two extensions, what the reference
+// model and serving engine compute: `length` is one int32 per batch row (a
+// (B,) device tensor; the reference engine vmaps the scalar kernel over its
+// lanes), and a sliding window (the reference model's decode masks keys to
+// `k_pos > length - window`, repro/models/layers.py `chunked_attention`).
+// A lane sees the keys [lo, hi): hi = min(length, S - 1) + 1 (length >= S
+// sees to the end of the cache: the reference engine lets idle lanes'
+// lengths run past it), lo = max(0, length - window + 1) with the length as
+// given, not clamped, or 0 without a window (window = 0).  length < 0, or a
+// window that lies wholly past the cache, sees nothing and returns 0.
 //
-// Bound.  Decoding reads each visible cache row once: 2 (length + 1) KV dh
+// Bound.  Decoding reads each visible cache row once: 2 (hi - lo) KV dh
 // elements per batch row, plus q and o; ~2 FLOP per element read, far below
 // the ~295 FLOP per byte at which the tensor cores would bound it.  So the
 // least time is those bytes over the HBM rate (3.35 TB/s), and the design
@@ -25,9 +30,11 @@
 //   1. The partials: one block of 128 threads per (split, kv head, batch
 //      row), `nsplit` splits chosen by the wrapper from B KV so that the
 //      working blocks fill the card about twice.  Each block reads its
-//      lane's length and takes an equal share of that lane's visible keys,
-//      rounded up to the tile: no host synchronisation, and no block reads
-//      a row past the lane's length.  A share that is empty writes
+//      lane's length and takes an equal share of that lane's visible keys
+//      [lo, hi), rounded up to the tile and starting at lo: no host
+//      synchronisation, and no block reads a row outside [lo, hi) (a tile
+//      starts at its share's first key, so lo need not be tile-aligned).
+//      A share that is empty writes
 //      (m = -inf, l = 0), which adds exactly 0.  The share streams through
 //      a ring of tiles in shared memory, filled by 16-byte cp.async copies
 //      and kept in the stored type.  At the end the block merges its
@@ -82,6 +89,32 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// the keys [lo, hi) that batch row b sees (see the top of the file)
+struct Visible {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Visible visible(int len, int s_len, int window) {
+  if (len < 0) return {0, 0};
+  const int hi = min(len, s_len - 1) + 1;
+  // len - window + 1 in 64 bits: a length near INT_MAX must not wrap
+  long long lo = window > 0 ? static_cast<long long>(len) - window + 1 : 0;
+  if (lo < 0) lo = 0;
+  if (lo > hi) lo = hi;
+  return {static_cast<int>(lo), hi};
+}
+
+// this split's share [k_first, k_stop) of [lo, hi): shares of equal length,
+// a multiple of `tile`, in split order
+__device__ __forceinline__ void split_share(Visible vis, int nsplit, int sp,
+                                            int tile, int& k_first,
+                                            int& k_stop) {
+  const int n = vis.hi - vis.lo;
+  const int share = ((n + nsplit - 1) / nsplit + tile - 1) / tile * tile;
+  k_first = vis.lo + sp * share;
+  k_stop = min(vis.hi, k_first + share);
+}
+
 // ---- f32: the CUDA cores ---------------------------------------------------
 constexpr int EPL = 4;          // floats per lane (16 bytes)
 
@@ -106,7 +139,7 @@ decode_partial(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ part_ml, float* __restrict__ part_acc,
                int s_len, int h, int rep, int hg_n, int kg_n,
                long long q_sb, long long kv_sb, long long kv_ss, int nsplit,
-               float scale_log2) {
+               int window, float scale_log2) {
   constexpr int LPK = Geo<DH>::LPK;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);    // [STAGES][K|V][TILE][DH]
@@ -121,12 +154,10 @@ decode_partial(const float* __restrict__ q, const float* __restrict__ k,
   const int hpp = hg_n * HPL;          // heads per pass
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
 
-  // this split's share of the visible keys [0, n_vis)
-  const int len = lengths[b];
-  const int n_vis = len < 0 ? 0 : min(len, s_len - 1) + 1;
-  const int share = ((n_vis + nsplit - 1) / nsplit + TILE - 1) / TILE * TILE;
-  const int k_first = sp * share;
-  const int k_stop = min(n_vis, k_first + share);
+  // this split's share of the visible keys [lo, hi)
+  int k_first, k_stop;
+  split_share(visible(lengths[b], s_len, window), nsplit, sp, TILE, k_first,
+              k_stop);
   // partial (b, head g * rep + r, sp) sits at p0 + r * nsplit
   const long long p0 =
       (static_cast<long long>(b) * h + static_cast<long long>(g) * rep) *
@@ -301,7 +332,7 @@ decode_partial_mma(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ lengths,
                    float* __restrict__ part_ml, float* __restrict__ part_acc,
                    int s_len, int h, int rep, long long q_sb,
-                   long long kv_sb, long long kv_ss, int nsplit,
+                   long long kv_sb, long long kv_ss, int nsplit, int window,
                    float scale_log2) {
   using bf16 = __nv_bfloat16;
   constexpr int CH = DH / 8;   // 16-byte chunks of a row
@@ -312,12 +343,9 @@ decode_partial_mma(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int sp = blockIdx.x, kvh_i = blockIdx.y, b = blockIdx.z;
-  const int len = lengths[b];
-  const int n_vis = len < 0 ? 0 : min(len, s_len - 1) + 1;
-  const int share = ((n_vis + nsplit - 1) / nsplit + MMA_TILE - 1) /
-                    MMA_TILE * MMA_TILE;
-  const int k_first = sp * share;
-  const int k_stop = min(n_vis, k_first + share);
+  int k_first, k_stop;
+  split_share(visible(lengths[b], s_len, window), nsplit, sp, MMA_TILE,
+              k_first, k_stop);
   const long long p0 =
       (static_cast<long long>(b) * h + static_cast<long long>(kvh_i) * rep) *
           nsplit + sp;
@@ -524,7 +552,7 @@ int launch_partial(const void* q, const void* k, const void* v,
                    const void* lengths, void* part_ml, void* part_acc,
                    int batch, int s_len, int h, int kvh, int hg, int kg,
                    long long q_sb, long long kv_sb, long long kv_ss,
-                   int nsplit, float scale, cudaStream_t stream) {
+                   int nsplit, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>(hg * HPL, kg);
   const cudaError_t err = cudaFuncSetAttribute(
       decode_partial<DH, HPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -535,7 +563,7 @@ int launch_partial(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(lengths),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc), s_len, h,
-      h / kvh, hg, kg, q_sb, kv_sb, kv_ss, nsplit, scale * LOG2E);
+      h / kvh, hg, kg, q_sb, kv_sb, kv_ss, nsplit, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -543,7 +571,7 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* o, void* part_ml, void* part_acc, int batch, int s_len,
            int h, int kvh, long long q_sb, long long kv_sb, long long kv_ss,
-           int nsplit, float scale, cudaStream_t stream) {
+           int nsplit, int window, float scale, cudaStream_t stream) {
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const int rep = h / kvh;
   int err = 0;
@@ -561,7 +589,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const int*>(lengths), static_cast<float*>(part_ml),
           static_cast<float*>(part_acc), s_len, h, rep, q_sb, kv_sb, kv_ss,
-          nsplit, scale * LOG2E);
+          nsplit, window, scale * LOG2E);
       err = static_cast<int>(cudaGetLastError());
     }
   } else if (s_len > 0) {
@@ -575,19 +603,19 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
     if (want <= 1)
       err = launch_partial<DH, 1>(q, k, v, lengths, part_ml, part_acc, batch,
                                   s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
-                                  nsplit, scale, stream);
+                                  nsplit, window, scale, stream);
     else if (want <= 2)
       err = launch_partial<DH, 2>(q, k, v, lengths, part_ml, part_acc, batch,
                                   s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
-                                  nsplit, scale, stream);
+                                  nsplit, window, scale, stream);
     else if (want <= 4)
       err = launch_partial<DH, 4>(q, k, v, lengths, part_ml, part_acc, batch,
                                   s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
-                                  nsplit, scale, stream);
+                                  nsplit, window, scale, stream);
     else
       err = launch_partial<DH, 8>(q, k, v, lengths, part_ml, part_acc, batch,
                                   s_len, h, kvh, hg, kg, q_sb, kv_sb, kv_ss,
-                                  nsplit, scale, stream);
+                                  nsplit, window, scale, stream);
   }
   if (err != 0) return err;
   decode_combine<T, DH><<<dim3(h, batch), DH, 0, stream>>>(
@@ -600,17 +628,20 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths,
              void* o, void* part_ml, void* part_acc, int batch, int s_len,
              int h, int kvh, int dh, long long q_sb, long long kv_sb,
-             long long kv_ss, int nsplit, float scale, void* stream) {
+             long long kv_ss, int nsplit, int window, float scale,
+             void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (kvh <= 0 || h % kvh != 0 || h / kvh > MAX_REP || nsplit <= 0)
+  if (kvh <= 0 || h % kvh != 0 || h / kvh > MAX_REP || nsplit <= 0 ||
+      window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
     return launch<T, 64>(q, k, v, lengths, o, part_ml, part_acc, batch, s_len,
-                         h, kvh, q_sb, kv_sb, kv_ss, nsplit, scale, st);
+                         h, kvh, q_sb, kv_sb, kv_ss, nsplit, window, scale,
+                         st);
   if (dh == 128)
     return launch<T, 128>(q, k, v, lengths, o, part_ml, part_acc, batch,
-                          s_len, h, kvh, q_sb, kv_sb, kv_ss, nsplit, scale,
-                          st);
+                          s_len, h, kvh, q_sb, kv_sb, kv_ss, nsplit, window,
+                          scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -623,15 +654,16 @@ extern "C" {
 // kv_sb / kv_ss in elements, base and strides 16-byte aligned (cp.async);
 // lengths (B,) int32 on the card; o a contiguous (B, 1, H, dh) tensor;
 // part_ml (B, H, nsplit, 2) and part_acc (B, H, nsplit, dh) float scratch,
-// nsplit the number of splits of each lane's visible keys.
+// nsplit the number of splits of each lane's visible keys; window the
+// sliding window (0: none).
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* lengths, void* o, void* part_ml,
                          void* part_acc, int batch, int s_len, int h, int kvh,
                          int dh, long long q_sb, long long kv_sb,
-                         long long kv_ss, int nsplit, float scale,
+                         long long kv_ss, int nsplit, int window, float scale,
                          void* stream) {
   return dispatch<float>(q, k, v, lengths, o, part_ml, part_acc, batch, s_len,
-                         h, kvh, dh, q_sb, kv_sb, kv_ss, nsplit, scale,
+                         h, kvh, dh, q_sb, kv_sb, kv_ss, nsplit, window, scale,
                          stream);
 }
 
@@ -639,11 +671,11 @@ int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* lengths, void* o, void* part_ml,
                           void* part_acc, int batch, int s_len, int h,
                           int kvh, int dh, long long q_sb, long long kv_sb,
-                          long long kv_ss, int nsplit, float scale,
+                          long long kv_ss, int nsplit, int window, float scale,
                           void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, lengths, o, part_ml, part_acc,
                                  batch, s_len, h, kvh, dh, q_sb, kv_sb, kv_ss,
-                                 nsplit, scale, stream);
+                                 nsplit, window, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

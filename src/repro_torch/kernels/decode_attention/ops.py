@@ -5,7 +5,9 @@ Counterpart of ``repro.kernels.decode_attention.ops.decode_attn``.  The
 kernel (``kernels/csrc/decode_attention.cu``) replaces the Pallas TPU
 kernel ``decode_attention``
 (``repro/kernels/decode_attention/decode_attention.py``) and is
-instantiated for f32 and bf16 at head dims 64 and 128.  One call issues two
+instantiated for f32 and bf16 at head dims 64 and 128, with an optional
+sliding window (``window``: keys at ``length - window < pos <= length``,
+the reference model's decode mask).  One call issues two
 CUDA launches (the split partials, then their combine) and adds one to
 ``launches``; nothing else adds to it.  The number of splits of each lane's
 visible keys is :func:`split_plan`'s; the kernel divides the keys by the
@@ -47,19 +49,23 @@ def _entry(dtype: torch.dtype):
     fn = getattr(lib, _FNS[dtype])
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.cuda_error_string
 
 
-def split_plan(batch: int, kvh: int, s: int, sms: int) -> int:
+def split_plan(batch: int, kvh: int, s: int, sms: int,
+               window: int = 0) -> int:
     """Splits of each lane's visible keys (one block each per lane and kv
     head): enough that the ``batch * kvh * nsplit`` blocks fill ``sms`` SMs
-    about twice, and no more than ``S`` has tiles."""
+    about twice, and no more than a lane's visible keys have tiles: those
+    of ``S``, or of ``window`` where that is shorter."""
     want = -(-2 * sms // max(1, batch * kvh))
-    return max(1, min(want, -(-s // TILE)))
+    seen = min(s, window) if window else s
+    return max(1, min(want, -(-seen // TILE)))
 
 
 @functools.cache
@@ -124,14 +130,15 @@ def lengths_vector(length, batch: int, device) -> torch.Tensor:
 
 
 def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  length) -> torch.Tensor:
+                  length, window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel.  q (B, 1, H, dh) and a cache k/v
     (B, S, KV, dh), CUDA tensors of one type (f32 or bf16), dh in
     :data:`HEAD_DIMS`, H / KV <= :data:`MAX_REP`, heads packed and dh
     contiguous (k and v share their batch and sequence strides, which with
     k's base are 16-byte aligned for the kernel's 16-byte copies); ``length``
-    the last visible index, a scalar or one per batch row.  Returns a new
-    contiguous (B, 1, H, dh) tensor."""
+    the last visible index, a scalar or one per batch row; ``window`` the
+    sliding window (0: none), which hides keys at or below ``length -
+    window``.  Returns a new contiguous (B, 1, H, dh) tensor."""
     global launches
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError("decode_kernel needs CUDA tensors (got "
@@ -153,6 +160,9 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h // kvh > MAX_REP:
         raise ValueError(f"decode_kernel takes at most {MAX_REP} query heads "
                          f"per kv head (got {h // kvh})")
+    if not 0 <= window < 2 ** 31:
+        raise ValueError(f"window must be 0 (none) or a positive int32 "
+                         f"(got {window})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or t.stride(-2) != dh:
             raise ValueError(f"{name} must have dh contiguous and its heads "
@@ -164,7 +174,7 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_aligned("v", v)
     lengths = lengths_vector(length, b, q.device)
     fn, err_str = _entry(q.dtype)
-    nsplit = split_plan(b, kvh, s, sm_count(q.device))
+    nsplit = split_plan(b, kvh, s, sm_count(q.device), window)
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -172,7 +182,7 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                  out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
                  b, s, h, kvh, dh, q.stride(0), k.stride(0), k.stride(1),
-                 nsplit, dh ** -0.5, stream)
+                 nsplit, window, dh ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
@@ -181,11 +191,12 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                length) -> torch.Tensor:
+                length, window: int = 0) -> torch.Tensor:
     """One query token against a KV cache, keys at positions <= ``length``
-    (a scalar or one per batch row; ``>= S`` sees the whole cache).  CPU
-    tensors take the plain version (:func:`decode_attention_ref`); CUDA
-    tensors launch the kernel, or raise if it does not take them."""
+    (a scalar or one per batch row; ``>= S`` sees the whole cache) and,
+    with a sliding ``window``, above ``length - window``.  CPU tensors take
+    the plain version (:func:`decode_attention_ref`); CUDA tensors launch
+    the kernel, or raise if it does not take them."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, length)
-    return decode_kernel(q, k, v, length)
+        return decode_attention_ref(q, k, v, length, window)
+    return decode_kernel(q, k, v, length, window)

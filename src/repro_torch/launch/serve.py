@@ -7,9 +7,11 @@ Counterpart of ``repro.launch.serve``, with the same flags and requests,
 plus ``--device`` (default: the card; without one it raises unless given
 ``--device cpu``).  ``--arch`` takes the models the port serves: the dense
 attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``),
-``xlstm-350m``, and ``jamba-1.5-large``, the Jamba cut one H100 serves (one
-supercell at full width holding 8 of its 16 experts; ``--smoke`` gives the
-narrow 8-layer Jamba for the CPU).  Weights are random, from the port's
+``xlstm-350m``, ``mixtral-8x7b`` (sliding-window attention, all 8
+experts), and the cuts one H100 serves: ``jamba-1.5-large`` (one
+supercell at full width holding 8 of its 16 experts) and
+``mixtral-8x7b-ep2`` (all 32 layers at full width holding 4 of its 8
+experts).  ``--smoke`` gives a narrow model of the same kind for the CPU.  Weights are random, from the port's
 seeded ``init_params``, drawn straight into the served type.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Model stack of the port: dense attention decoders, xLSTM and the Jamba
-hybrid (``transformer``) over the blocks of ``layers``, ``xlstm``,
+"""Model stack of the port: dense and MoE attention decoders, xLSTM and
+the Jamba hybrid (``transformer``) over the blocks of ``layers``, ``xlstm``,
 ``mamba`` and ``moe``, with the high-level API of ``model``."""
 from . import layers, mamba, model, moe, transformer, xlstm
 from .model import (

@@ -13,7 +13,8 @@ Attention goes through the port's kernels: prefill through
 CUDA kernels on the card and take their plain versions on the CPU.
 ``plain=True`` calls the plain versions on any device: a check-only switch,
 for holding the kernels against them on the card; serving never sets it.
-MLA, cross-attention and sliding-window decode are not ported yet.
+A sliding window (``cfg.sliding_window``) reaches both kernels.  MLA and
+cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,9 +36,6 @@ _TRUNC_STD = 0.87962566103423978
 
 UNPORTED_MLA = ("MLA attention is not ported yet (ROADMAP queue 1: the "
                 "model families that wait)")
-UNPORTED_WINDOW_DECODE = (
-    "decode with a sliding window is not ported yet (ROADMAP queue 1: the "
-    "model families that wait; the one windowed config, Mixtral, is MoE)")
 
 
 def dense_init(gen: torch.Generator, shape: tuple,
@@ -122,8 +120,8 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
       lane): the write index is clamped to ``max_len - 1`` as the
       reference's ``dynamic_update_slice`` clamps it, and the query sees
       cache positions ``<= length`` (all of them once ``length >=
-      max_len``).  A sliding-window config raises here: the decode kernel
-      has no window.
+      max_len``) and, under a sliding window ``W``, above ``length - W``,
+      with ``length`` not clamped, as the reference's ``q_offset``.
 
     ``plain=True`` is a check-only switch: the kernels' plain versions on
     any device.  The cache returned is ``(k, v, length + S)``."""
@@ -144,14 +142,12 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         ck, cv, ln = kv_cache
         if s == 1:
-            if cfg.sliding_window:
-                raise NotImplementedError(UNPORTED_WINDOW_DECODE)
             idx = decode_ops.lengths_vector(ln, b, ck.device).clamp(
                 max=ck.shape[1] - 1)
             lanes = torch.arange(b, device=ck.device)
             ck[lanes, idx] = k[:, 0].to(ck.dtype)
             cv[lanes, idx] = v[:, 0].to(cv.dtype)
-            o = decode(q, ck, cv, ln)
+            o = decode(q, ck, cv, ln, cfg.sliding_window)
         else:
             if not isinstance(ln, int):
                 raise TypeError("a multi-token cache write takes an int "

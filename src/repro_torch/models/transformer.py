@@ -1,5 +1,5 @@
-"""Decoder LM for dense attention models, xLSTM and the Jamba hybrid: init,
-prefill/decode forward, caches.
+"""Decoder LM for dense and MoE attention models (Mixtral), xLSTM and the
+Jamba hybrid: init, prefill/decode forward, caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
@@ -12,8 +12,8 @@ f32 with the leading ``(R, B)`` axes.  An FFN is dense or MoE (holding the
 config's share of the experts, ``models.moe``).  The reference scans over
 repetitions; the port loops over them in Python (serving needs no
 rematerialisation) and updates every cache in place.  MLA,
-encoder-decoder, VLM models and sliding-window decode are not ported yet
-and raise ``NotImplementedError``.
+encoder-decoder and VLM models are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,8 +79,6 @@ def check_supported(cfg) -> None:
         raise _unported(f"the {cfg.family} family ({cfg.name})")
     if cfg.attention == "mla":
         raise _unported(f"MLA attention ({cfg.name})")
-    if cfg.sliding_window:
-        raise _unported(f"decode with a sliding window ({cfg.name})")
     for kind, _ in cell_structure(cfg):
         if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
@@ -104,12 +102,33 @@ def _init_block(gen, cfg, kind: str, ffn_kind: str, dtype, cast,
     return p
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    if len(trees) == 1:
-        return trees[0].unsqueeze(0)       # a view: no second copy
-    return torch.stack(trees)
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(dst, src, r: int) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k], r)
+    else:
+        dst[r].copy_(src)
+
+
+def _stacked(draw, reps: int):
+    """``reps`` trees from ``draw()``, stacked on a new leading axis.  Each
+    is copied into its slot as soon as it is drawn, so the stack never
+    sits beside a second copy of itself (one repetition is a view)."""
+    first = draw()
+    if reps == 1:
+        return _tree_map(lambda t: t.unsqueeze(0), first)
+    out = _tree_map(lambda t: t.new_empty((reps,) + tuple(t.shape)), first)
+    _copy_into(out, first, 0)
+    del first
+    for r in range(1, reps):
+        _copy_into(out, draw(), r)
+    return out
 
 
 def init_params(gen: torch.Generator, cfg, serve_cast=None) -> dict:
@@ -124,9 +143,8 @@ def init_params(gen: torch.Generator, cfg, serve_cast=None) -> dict:
     cast = serve_cast or (lambda tree: tree)
     store = getattr(torch, cfg.dtype) if serve_cast else None
     reps = cfg.n_layers // supercell_size(cfg)
-    cells = [_stack([_init_block(gen, cfg, kind, ffn_kind, dtype, cast,
-                                 store)
-                     for _ in range(reps)])
+    cells = [_stacked(lambda: _init_block(gen, cfg, kind, ffn_kind, dtype,
+                                          cast, store), reps)
              for kind, ffn_kind in cell_structure(cfg)]
     p = {
         "embed": cast(L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype)),

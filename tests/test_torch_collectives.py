@@ -76,8 +76,9 @@ def test_param_count_and_step_matrix_equal_reference(arch):
 
 def test_port_registry_holds_the_reference_archs():
     assert set(REF_REGISTRY) <= set(REGISTRY)
-    # the one extra entry is the one-card served cut of Jamba
-    assert set(REGISTRY) - set(REF_REGISTRY) == {"jamba-1.5-large"}
+    # the extra entries are the one-card served cuts of Jamba and Mixtral
+    assert set(REGISTRY) - set(REF_REGISTRY) == {"jamba-1.5-large",
+                                                 "mixtral-8x7b-ep2"}
 
 
 def test_interconnect_rows_equal_reference():

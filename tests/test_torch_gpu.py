@@ -252,6 +252,7 @@ def _randn(gen, *shape, dtype):
     (1, 300, 300, 24, 8, 128, True, 0),       # rep 3
     (1, 300, 300, 64, 8, 64, True, 0),        # rep 8
     (1, 300, 300, 32, 1, 128, True, 0),       # rep 32
+    (1, 5000, 5000, 32, 8, 128, True, 4096),  # Mixtral's windowed prefill
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
                                     window):
@@ -317,6 +318,59 @@ def test_decode_kernel_matches_plain(dtype, s, h, kv, dh):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,dh", [
+    (8, 8, 64), (16, 4, 64), (64, 8, 64),         # rep 1, 4, 8 at dh 64
+    (8, 8, 128), (32, 8, 128), (64, 8, 128),      # ... at dh 128 (Mixtral's)
+])
+@pytest.mark.parametrize("window,s", [
+    (1, 1024), (63, 1024), (64, 1024), (65, 1024),
+    (4096, 8192),                                 # Mixtral's window and cache
+    (1030, 1024),                                 # a window wider than S
+])
+def test_decode_kernel_window_matches_plain(dtype, h, kv, dh, window, s):
+    """The windowed decode kernel against its plain version, lanes seeing
+    [lo, hi) with lo = length - window + 1: none, one key, the window's
+    edges, lo on and off the 64-row tile edge and on a split edge of the
+    unwindowed plan, a share boundary of the windowed plan, S - 1 to past
+    S, and idle lanes whose window reaches one key into the cache or lies
+    past it (0).  Two calls give the same bits; the unwindowed kernel
+    misses the windowed plain version, beyond the tolerance, on every lane
+    whose window hides at least as many keys as it shows."""
+    _card()
+    dt, w = getattr(torch, dtype), window
+    sms = decode_ops.sm_count(torch.device("cuda"))
+    unit = decode_ops.split_plan(17, kv, s, sms) * 64
+    wunit = decode_ops.split_plan(17, kv, s, sms, w) * 64
+    lens = [-1, 0, 1, w - 2, w - 1, w, w + 1, 192 + w - 1, 192 + w + 16,
+            unit + w - 1, wunit - 1, wunit, s // 2 + 3, s - 1, s, s + 40,
+            s + w - 2, s + w + 5]
+    b = len(lens)
+    gen = torch.Generator(device="cuda").manual_seed(s + h + w)
+    q = _randn(gen, b, 1, h, dh, dtype=dt)
+    k = _randn(gen, b, s, kv, dh, dtype=dt)
+    v = _randn(gen, b, s, kv, dh, dtype=dt)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = decode_ops.launches
+    got = decode_ops.decode_attn(q, k, v, length, w)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    want = decode_attention_ref(q, k, v, length, w)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, decode_ops.decode_attn(q, k, v, length, w))
+    hi = [min(x, s - 1) + 1 if x >= 0 else 0 for x in lens]
+    lo = [min(max(0, x - w + 1), e) if x >= 0 else 0
+          for x, e in zip(lens, hi)]
+    assert not got[[i for i in range(b) if lo[i] == hi[i]]].any()
+    cut = [i for i in range(b) if hi[i] - lo[i] <= lo[i] < hi[i]]
+    assert cut
+    nowin = decode_ops.decode_attn(q, k, v, length).float()
+    assert not any(torch.allclose(nowin[i], want[i].float(), rtol=tol,
+                                  atol=tol) for i in cut)
+
+
+@pytest.mark.gpu
 def test_attention_kernels_reject_bad_input():
     _card()
     x = torch.zeros(1, 8, 2, 32, device="cuda")
@@ -331,6 +385,9 @@ def test_attention_kernels_reject_bad_input():
     kv1 = torch.zeros(1, 8, 1, 64, device="cuda")
     with pytest.raises(ValueError, match="query heads per kv head"):
         decode_ops.decode_kernel(q, kv1, kv1, 3)
+    kv64 = torch.zeros(1, 8, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="window"):
+        decode_ops.decode_kernel(q, kv64, kv64, 3, window=-1)
     strided = torch.zeros(1, 8, 64, 2, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError, match="packed"):
         flash_ops.attention_kernel(strided, strided, strided)
@@ -595,6 +652,40 @@ def test_served_jamba_kernels_match_plain():
     assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in reqs)
     assert mamba_ops.launches - m0 == 3 * kinds.count("mamba")
     assert flash_ops.launches - f0 == 3 * kinds.count("attn")
+
+
+@pytest.mark.gpu
+def test_served_mixtral_kernels_match_plain():
+    """A narrow Mixtral (head dim 128, window 32, half of its 4 experts
+    held) on the card: a 40-token prefill and 20 decode steps past the
+    window through the kernels against the plain versions in f32, fed the
+    same tokens; then the engine on lanes of 64 whose idle lanes run past
+    the cache, launching the decode kernel once per layer a step."""
+    _card()
+    cfg = get_config("mixtral-8x7b-ep2", smoke=True).replace(
+        d_model=256, n_heads=2, n_kv_heads=1, head_dim=0, dtype="float32",
+        experts_held=2, expert_offset=2)
+    assert cfg.head_dim == 128 and cfg.sliding_window == 32
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    serve=True)
+    prompt = torch.arange(1, 41, device="cuda")[None] % cfg.vocab
+    lk, ck, ln = prefill(p, cfg, prompt, 64)
+    lp, cp, _ = prefill(p, cfg, prompt, 64, plain=True)
+    for step in range(20):
+        scale = max(1.0, float(lp.abs().max()))
+        assert float((lk - lp).abs().max()) <= 1e-3 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step)
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True)
+    d0, f0 = decode_ops.launches, flash_ops.launches
+    reqs = [Request(rid=i, prompt=np.arange(1, n + 1), max_new_tokens=new)
+            for i, (n, new) in enumerate(((49, 3), (9, 50)))]
+    eng = ServeEngine(p, cfg, n_lanes=2, max_len=64)
+    done = eng.run(reqs)
+    assert len(done) == 2 and [len(r.out_tokens) for r in reqs] == [3, 50]
+    assert flash_ops.launches - f0 == 2 * cfg.n_layers
+    assert decode_ops.launches - d0 == eng.stats["decode_steps"] * cfg.n_layers
+    assert eng._lengths[0] - cfg.sliding_window + 1 >= 64
 
 
 # ---------------------------------------------------------------------------
