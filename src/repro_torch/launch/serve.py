@@ -7,6 +7,7 @@ Counterpart of ``repro.launch.serve``, with the same flags and requests,
 plus ``--device`` (default: the card; without one it raises unless given
 ``--device cpu``).  ``--arch`` takes the models the port serves: the dense
 attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``),
+``minicpm3-4b`` (MLA latent attention; one H100 holds it whole),
 ``xlstm-350m``, ``mixtral-8x7b`` (sliding-window attention, all 8
 experts), and the cuts one H100 serves: ``jamba-1.5-large`` (one
 supercell at full width holding 8 of its 16 experts) and

@@ -1,6 +1,6 @@
-"""Shared model layers: RMSNorm, RoPE, GQA attention, SwiGLU FFN.
+"""Shared model layers: RMSNorm, RoPE, GQA and MLA attention, SwiGLU FFN.
 
-Counterpart of ``repro.models.layers`` for dense GQA models, over plain
+Counterpart of ``repro.models.layers`` for dense GQA and MLA models, over plain
 dicts of tensors with the reference's layout: weights are
 ``(d_in, d_out)`` and used as ``x @ W``, cast to the activation type at
 each product (a copy already in that type, as :func:`repro_torch.models.
@@ -13,8 +13,11 @@ Attention goes through the port's kernels: prefill through
 CUDA kernels on the card and take their plain versions on the CPU.
 ``plain=True`` calls the plain versions on any device: a check-only switch,
 for holding the kernels against them on the card; serving never sets it.
-A sliding window (``cfg.sliding_window``) reaches both kernels.  MLA and
-cross-attention are not ported yet.
+A sliding window (``cfg.sliding_window``) reaches both kernels.  MLA
+attention takes the reference's weight-absorbed path over the latent cache,
+prefill through ``kernels.mla_attention.ops.mla_prefill`` and each decode
+step through ``mla_decode``; its path without a cache (training's
+``forward``) and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,18 +28,17 @@ from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.decode_attention.ref import decode_attention_ref
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import attention_ref
+from ..kernels.mla_attention import ops as mla_ops
+from ..kernels.mla_attention.ref import mla_decode_ref, mla_prefill_ref
 
 __all__ = ["dense_init", "rms_norm", "init_rms_norm", "rope", "init_gqa",
-           "gqa_qkv", "gqa_attention", "init_mla", "mla_attention",
+           "gqa_qkv", "gqa_attention", "write_cache", "init_mla",
+           "mla_attention",
            "init_ffn", "ffn"]
 
 # truncated_normal(stddev) of jax.nn.initializers: a standard normal cut at
 # +-2 and scaled so that the cut distribution has the requested stddev
 _TRUNC_STD = 0.87962566103423978
-
-UNPORTED_MLA = ("MLA attention is not ported yet (ROADMAP queue 1: the "
-                "model families that wait)")
-
 
 def dense_init(gen: torch.Generator, shape: tuple,
                dtype: torch.dtype) -> torch.Tensor:
@@ -141,22 +143,10 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
     else:
         ck, cv, ln = kv_cache
+        write_cache((ck, cv), (k, v), ln)
         if s == 1:
-            idx = decode_ops.lengths_vector(ln, b, ck.device).clamp(
-                max=ck.shape[1] - 1)
-            lanes = torch.arange(b, device=ck.device)
-            ck[lanes, idx] = k[:, 0].to(ck.dtype)
-            cv[lanes, idx] = v[:, 0].to(cv.dtype)
             o = decode(q, ck, cv, ln, cfg.sliding_window)
         else:
-            if not isinstance(ln, int):
-                raise TypeError("a multi-token cache write takes an int "
-                                "length")
-            if ln + s > ck.shape[1]:
-                raise ValueError(f"{s} tokens at {ln} do not fit a cache of "
-                                 f"{ck.shape[1]}")
-            ck[:, ln:ln + s] = k.to(ck.dtype)
-            cv[:, ln:ln + s] = v.to(cv.dtype)
             o = attend(q, ck[:, :ln + s], cv[:, :ln + s], causal=True,
                        window=cfg.sliding_window)
         new_cache = (ck, cv, ln + s)
@@ -164,12 +154,88 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return o, new_cache
 
 
-def init_mla(gen, cfg, dtype):
-    raise NotImplementedError(UNPORTED_MLA)
+def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    rq = cfg.q_lora_rank or d
+    rkv, rd = cfg.kv_lora_rank, cfg.rope_head_dim
+    return {
+        "w_dq": dense_init(gen, (d, rq), dtype),
+        "w_uq": dense_init(gen, (rq, h * (hd + rd)), dtype),
+        "w_dkv": dense_init(gen, (d, rkv), dtype),
+        "w_ukv": dense_init(gen, (rkv, h * (hd + hd)), dtype),
+        "w_kr": dense_init(gen, (d, rd), dtype),
+        "wo": dense_init(gen, (h * hd, d), dtype),
+    }
 
 
-def mla_attention(p, x, cfg, positions, kv_cache=None, causal=True):
-    raise NotImplementedError(UNPORTED_MLA)
+def write_cache(caches: tuple, news: tuple, ln) -> None:
+    """Each ``new`` (B, S, ...) into its ``cache`` (B, max_len, ...) at
+    ``ln``: a prompt at an int offset, or one token a lane at ``ln`` (an int
+    or a ``(B,)`` tensor) clamped to ``max_len - 1``, as the reference's
+    ``dynamic_update_slice`` clamps it."""
+    b, s = news[0].shape[:2]
+    n = caches[0].shape[1]
+    if s == 1:
+        dev = caches[0].device
+        idx = decode_ops.lengths_vector(ln, b, dev).clamp(max=n - 1)
+        lanes = torch.arange(b, device=dev)
+        for cache, new in zip(caches, news):
+            cache[lanes, idx] = new[:, 0].to(cache.dtype)
+        return
+    if not isinstance(ln, int):
+        raise TypeError("a multi-token cache write takes an int length")
+    if ln + s > n:
+        raise ValueError(f"{s} tokens at {ln} do not fit a cache of {n}")
+    for cache, new in zip(caches, news):
+        cache[:, ln:ln + s] = new.to(cache.dtype)
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  kv_cache: tuple | None = None, causal: bool = True,
+                  plain: bool = False):
+    """MLA block over the latent cache ``kv_cache=(c_kv, k_rope, length)``
+    (``(B, max_len, kv_lora_rank)`` and ``(B, max_len, rope_head_dim)``,
+    updated in place); returns ``(out, (c_kv, k_rope, length + S))``.
+
+    The reference's weight-absorbed path, step by step: the down and up
+    projections, RoPE on ``q_rope`` and the one-head ``k_rope``, the cache
+    write at ``length`` (:func:`write_cache`), ``q_lat =
+    q_nope . W_uk``, attention over the latent (scores ``(q_lat . c +
+    q_rope . k_rope) (head_dim + rope_head_dim)^-0.5``, causal from
+    ``length``; ``S > 1`` tokens through ``mla_prefill`` over the cache
+    prefix ``[0, length + S)``, one token through ``mla_decode``), the
+    context in the activation type, then ``W_uv`` and ``wo``.  ``plain=True``
+    is the check-only switch of :func:`gqa_attention`.  Without a cache
+    (training's ``forward``) it raises."""
+    if kv_cache is None:
+        raise NotImplementedError(
+            "MLA attention without a cache (training's forward) is not "
+            "ported yet (ROADMAP queue 1, item 9: training)")
+    b, s, _ = x.shape
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    rkv = cfg.kv_lora_rank
+    cq = x @ p["w_dq"].to(x.dtype)
+    q = (cq @ p["w_uq"].to(x.dtype)).reshape(b, s, h, hd + rd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv = x @ p["w_dkv"].to(x.dtype)                   # (B, S, rkv)
+    k_rope = rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]           # (B, S, rd)
+    cc, ckr, ln = kv_cache
+    write_cache((cc, ckr), (c_kv, k_rope), ln)
+    w_ukv = p["w_ukv"].to(x.dtype).reshape(rkv, h, 2 * hd)
+    w_uk, w_uv = w_ukv[..., :hd], w_ukv[..., hd:]
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+    scale = (hd + rd) ** -0.5
+    if s == 1:
+        decode = mla_decode_ref if plain else mla_ops.mla_decode
+        ctx = decode(q_lat, q_rope, cc, ckr, ln, scale)
+    else:
+        attend = mla_prefill_ref if plain else mla_ops.mla_prefill
+        ctx = attend(q_lat, q_rope, cc[:, :ln + s], ckr[:, :ln + s], scale)
+    o = torch.einsum("bshr,rhd->bshd", ctx.to(x.dtype), w_uv)
+    o = o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    return o, (cc, ckr, ln + s)
 
 
 def init_ffn(gen: torch.Generator, d: int, ff: int,

@@ -1,5 +1,5 @@
 """High-level model API: init / prefill / decode, for dense and MoE
-attention models, xLSTM and the Jamba hybrid.
+attention models, MLA models (MiniCPM3), xLSTM and the Jamba hybrid.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given

@@ -1,19 +1,21 @@
-"""Decoder LM for dense and MoE attention models (Mixtral), xLSTM and the
-Jamba hybrid: init, prefill/decode forward, caches.
+"""Decoder LM for dense and MoE attention models (Mixtral), MLA models
+(MiniCPM3), xLSTM and the Jamba hybrid: init, prefill/decode forward,
+caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
 stacked with a leading repetition axis under ``params["cells"][j]``, and
 one cache per cell position in the layout of the reference's
 ``init_cache``: an attention block's ``(k, v)`` pair of ``(R, B, max_len,
-KV, dh)`` tensors, an mLSTM block's ``(C, n, m)``, an sLSTM block's
+KV, dh)`` tensors (MLA's latent pair ``(c_kv, k_rope)`` of ``(R, B,
+max_len, kv_lora_rank)`` and ``(R, B, max_len, rope_head_dim)``), an mLSTM
+block's ``(C, n, m)``, an sLSTM block's
 ``(c, h, n, m)`` and a Mamba block's ``(ssm, conv_buf)`` recurrent states,
 f32 with the leading ``(R, B)`` axes.  An FFN is dense or MoE (holding the
 config's share of the experts, ``models.moe``).  The reference scans over
 repetitions; the port loops over them in Python (serving needs no
-rematerialisation) and updates every cache in place.  MLA,
-encoder-decoder and VLM models are not ported yet and raise
-``NotImplementedError``.
+rematerialisation) and updates every cache in place.  Encoder-decoder and
+VLM models are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -77,8 +79,6 @@ def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet."""
     if cfg.family in ("encdec", "vlm"):
         raise _unported(f"the {cfg.family} family ({cfg.name})")
-    if cfg.attention == "mla":
-        raise _unported(f"MLA attention ({cfg.name})")
     for kind, _ in cell_structure(cfg):
         if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
@@ -90,7 +90,8 @@ def _init_block(gen, cfg, kind: str, ffn_kind: str, dtype, cast,
     is drawn (the experts are drawn one at a time into ``store``)."""
     p: dict = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device)}
     if kind == "attn":
-        p["attn"] = cast(L.init_gqa(gen, cfg, dtype))
+        init = L.init_mla if cfg.attention == "mla" else L.init_gqa
+        p["attn"] = cast(init(gen, cfg, dtype))
     else:
         p[kind] = cast(_RECURRENT[kind][0](gen, cfg, dtype))
     if ffn_kind != "none":
@@ -172,8 +173,8 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     new_state = None
     if kind == "attn":
-        o, _ = L.gqa_attention(bp["attn"], h, cfg, positions, kv_cache=cache,
-                               plain=plain)
+        fn = L.mla_attention if cfg.attention == "mla" else L.gqa_attention
+        o, _ = fn(bp["attn"], h, cfg, positions, kv_cache=cache, plain=plain)
     elif kind == "mlstm":
         o, new_state = X.mlstm_block(bp["mlstm"], h, cfg, state=cache,
                                      plain=plain)
@@ -196,7 +197,8 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
 
 def _cache_in(kind: str, cache: tuple, r: int, length) -> tuple:
     """Repetition ``r`` of a cell position's cache, as its block takes it:
-    ``(k, v, length)`` for attention, the state tensors otherwise."""
+    ``(k, v, length)`` for attention (MLA: ``(c_kv, k_rope, length)``), the
+    state tensors otherwise."""
     if kind == "attn":
         ck, cv = cache
         return ck[r], cv[r], length
@@ -249,20 +251,26 @@ def logits_fn(params, cfg, h):
 
 def init_cache(cfg, batch: int, max_len: int, device) -> list:
     """Per cell position: for attention a ``(k, v)`` pair of zero ``(R, B,
-    max_len, KV, dh)`` tensors in the activation type; for an mLSTM, sLSTM
+    max_len, KV, dh)`` tensors in the activation type (MLA: the latent
+    ``(c_kv, k_rope)`` pair of ``(R, B, max_len, kv_lora_rank)`` and ``(R,
+    B, max_len, rope_head_dim)``); for an mLSTM, sLSTM
     or Mamba block its fresh state (``init_*_state``, f32; the xLSTM
     stabilisers ``m`` at -1e9) repeated to ``(R, B, ...)``.  Recurrent
     states stay f32, as in the reference: they are small beside KV caches
     and accumulate over every decode step."""
     check_supported(cfg)
     reps = cfg.n_layers // supercell_size(cfg)
-    shape = (reps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    lead = (reps, batch, max_len)
+    if cfg.attention == "mla":
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.rope_head_dim,))
+    else:
+        shapes = (lead + (cfg.n_kv_heads, cfg.head_dim),) * 2
     dt = getattr(torch, cfg.dtype)
     caches = []
     for kind, _ in cell_structure(cfg):
         if kind == "attn":
-            caches.append((torch.zeros(shape, dtype=dt, device=device),
-                           torch.zeros(shape, dtype=dt, device=device)))
+            caches.append(tuple(torch.zeros(sh, dtype=dt, device=device)
+                                for sh in shapes))
         else:
             st = _RECURRENT[kind][1](cfg, batch, device)
             caches.append(tuple(t.expand((reps,) + t.shape).contiguous()

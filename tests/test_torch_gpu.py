@@ -10,7 +10,8 @@ holds the Pallas kernel (reduction order only), f64 rtol 1e-12 over 200
 iterations, and its cluster path bit for bit against
 ``sinkhorn_kernel_order``, the CPU model of its order; attention f32 2e-5
 and bf16 2e-2, as tests/test_kernels.py holds the Pallas attention
-kernels; mLSTM f32 rtol 1e-4 / atol 1e-4 on the
+kernels (the MLA latent attention kernels likewise, against their plain
+versions); mLSTM f32 rtol 1e-4 / atol 1e-4 on the
 outputs and the final states (the kernel's chunks are 64 positions, the
 plain version's 256, so its sums and exponent arguments are grouped
 differently); the selective scan rtol 1e-4 / atol 1e-4 on ``y`` and the
@@ -51,6 +52,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mla_attention import ops as mla_ops
+from repro_torch.kernels.mla_attention.ref import (mla_decode_ref,
+                                                   mla_prefill_ref)
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
@@ -686,6 +690,177 @@ def test_served_mixtral_kernels_match_plain():
     assert flash_ops.launches - f0 == 2 * cfg.n_layers
     assert decode_ops.launches - d0 == eng.stats["decode_steps"] * cfg.n_layers
     assert eng._lengths[0] - cfg.sliding_window + 1 >= 64
+
+
+# ---------------------------------------------------------------------------
+# The MLA latent attention kernels (MiniCPM3's widths: R 256, Dr 32)
+# ---------------------------------------------------------------------------
+
+MLA_SCALE = 96 ** -0.5
+
+
+def _mla_inputs(gen, b, sq, sk, h, dt):
+    return (_randn(gen, b, sq, h, 256, dtype=dt),
+            _randn(gen, b, sq, h, 32, dtype=dt),
+            _randn(gen, b, sk, 256, dtype=dt), _randn(gen, b, sk, 32, dtype=dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [40, 1, 64])
+def test_mla_decode_kernel_matches_plain(dtype, h):
+    """MiniCPM3's decode at S 8192: lanes that see nothing, one key, a
+    32-key tile and one past it, a share boundary of the split plan and one
+    past it, S - 1, and past the cache; two calls give the same bits; one
+    call adds one to the decode counter and none to the prefill's."""
+    _card()
+    dt, s = getattr(torch, dtype), 8192
+    sms = decode_ops.sm_count(torch.device("cuda"))
+    unit = mla_ops.split_plan(14, h, s, sms) * mla_ops.TILE
+    lens = [-1, 0, 1, 31, 32, 33, 100, unit - 1, unit, 4095, 6000, s - 1,
+            s, s + 100]
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    ql, qr, c, kr = _mla_inputs(gen, len(lens), 1, s, h, dt)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    p0, d0 = mla_ops.PREFILL.launches, mla_ops.DECODE.launches
+    got = mla_ops.mla_decode(ql, qr, c, kr, length, MLA_SCALE)
+    torch.cuda.synchronize()
+    assert (mla_ops.PREFILL.launches, mla_ops.DECODE.launches) == (p0, d0 + 1)
+    want = mla_decode_ref(ql, qr, c, kr, length, MLA_SCALE)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[0].any()
+    assert torch.equal(got, mla_ops.mla_decode(ql, qr, c, kr, length,
+                                               MLA_SCALE))
+    # a scalar length broadcasts
+    torch.testing.assert_close(
+        mla_ops.mla_decode(ql, qr, c, kr, 300, MLA_SCALE).float(),
+        mla_decode_ref(ql, qr, c, kr, 300, MLA_SCALE).float(), rtol=tol,
+        atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h", [
+    (1, 1000, 1000, 40),          # a served prefill's shape
+    (1, 63, 63, 40), (1, 64, 64, 40), (1, 65, 65, 40), (1, 129, 129, 40),
+    (1, 255, 255, 40),            # around the 64-row and 32-key tiles
+    (1, 31, 31, 1), (1, 33, 33, 1), (1, 64, 64, 1), (1, 65, 65, 1),
+    (1, 100, 612, 40), (1, 77, 301, 40),   # a prefill at an offset
+    (2, 33, 1000, 40), (3, 1, 50, 64),
+])
+def test_mla_prefill_kernel_matches_plain(dtype, b, sq, sk, h):
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + h)
+    ql, qr, c, kr = _mla_inputs(gen, b, sq, sk, h, dt)
+    p0, d0 = mla_ops.PREFILL.launches, mla_ops.DECODE.launches
+    got = mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE)
+    torch.cuda.synchronize()
+    assert (mla_ops.PREFILL.launches, mla_ops.DECODE.launches) == (p0 + 1, d0)
+    want = mla_prefill_ref(ql, qr, c, kr, MLA_SCALE)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE))
+
+
+@pytest.mark.gpu
+def test_mla_kernels_take_views_of_the_cache():
+    """The model hands the kernels views of its (R, B, max_len, .) cache
+    (one repetition, a prefix for prefill) and a q_lat whose heads are not
+    packed: strides are honoured."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cache = _randn(gen, 3, 2, 700, 256, dtype=torch.bfloat16)
+    kcache = _randn(gen, 3, 2, 700, 32, dtype=torch.bfloat16)
+    c, kr = cache[1, :, :300], kcache[1, :, :300]
+    ql = _randn(gen, 2, 40, 120, 256, dtype=torch.bfloat16).transpose(1, 2)
+    qr = _randn(gen, 2, 120, 40, 32, dtype=torch.bfloat16)
+    got = mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE)
+    want = mla_prefill_ref(ql, qr, c, kr, MLA_SCALE)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    length = torch.tensor([299, 650], dtype=torch.int32, device="cuda")
+    got = mla_ops.mla_decode(ql[:, :1], qr[:, :1], cache[2], kcache[2],
+                             length, MLA_SCALE)
+    want = mla_decode_ref(ql[:, :1], qr[:, :1], cache[2], kcache[2], length,
+                          MLA_SCALE)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_mla_kernels_reject_bad_input():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ql, qr, c, kr = _mla_inputs(gen, 1, 4, 16, 8, torch.float32)
+    p0, d0 = mla_ops.PREFILL.launches, mla_ops.DECODE.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mla_ops.mla_prefill_kernel(ql.cpu(), qr.cpu(), c.cpu(), kr.cpu(),
+                                   MLA_SCALE)
+    with pytest.raises(ValueError, match="latent width"):
+        mla_ops.mla_prefill_kernel(ql[..., :128], qr, c[..., :128], kr,
+                                   MLA_SCALE)
+    wide = torch.cat([qr, qr], -1)
+    with pytest.raises(ValueError, match="rope width"):
+        mla_ops.mla_prefill_kernel(ql, wide, c, torch.cat([kr, kr], -1),
+                                   MLA_SCALE)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mla_ops.mla_prefill_kernel(ql.half(), qr.half(), c.half(),
+                                   kr.half(), MLA_SCALE)
+    # c one element off its 16-byte boundary
+    shifted = torch.empty(1, 16 * 256 + 1, device="cuda")[:, 1:].view(
+        1, 16, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        mla_ops.mla_prefill_kernel(ql, qr, shifted, kr, MLA_SCALE)
+    # a row stride that is no multiple of 16 bytes
+    ragged = torch.empty(1, 16, 257, device="cuda")[..., :256]
+    with pytest.raises(ValueError, match="16-byte"):
+        mla_ops.mla_decode_kernel(ql[:, :1], qr[:, :1], ragged, kr, 3,
+                                  MLA_SCALE)
+    with pytest.raises(ValueError, match="contiguous"):
+        mla_ops.mla_prefill_kernel(ql, qr, c.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), kr, MLA_SCALE)
+    with pytest.raises(ValueError, match="at least as many"):
+        mla_ops.mla_prefill_kernel(ql, qr, c[:, :3], kr[:, :3], MLA_SCALE)
+    with pytest.raises(ValueError, match="one query"):
+        mla_ops.mla_decode_kernel(ql, qr, c, kr, 3, MLA_SCALE)
+    with pytest.raises(ValueError, match="scale"):
+        mla_ops.mla_prefill_kernel(ql, qr, c, kr, 0.0)
+    assert (mla_ops.PREFILL.launches, mla_ops.DECODE.launches) == (p0, d0)
+
+
+@pytest.mark.gpu
+def test_served_minicpm3_kernels_match_plain():
+    """MiniCPM3's layers at their full widths (d_model 2560, 40 heads of
+    64, ranks 768 / 256, rope 32) and 2 layers, in f32 on the card: a
+    300-token prefill and 12 decode steps through the kernels against the
+    plain versions, fed the same tokens; then the engine, launching the
+    prefill kernel once per layer a request and the decode kernel once per
+    layer a step."""
+    _card()
+    cfg = get_config("minicpm3-4b").replace(n_layers=2, vocab=4096,
+                                            dtype="float32")
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    serve=True)
+    prompt = torch.arange(1, 301, device="cuda")[None] * 7 % cfg.vocab
+    lk, ck, ln = prefill(p, cfg, prompt, 320)
+    lp, cp, _ = prefill(p, cfg, prompt, 320, plain=True)
+    for step in range(12):
+        scale = max(1.0, float(lp.abs().max()))
+        assert float((lk - lp).abs().max()) <= 1e-3 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step)
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True)
+    p0, d0 = mla_ops.PREFILL.launches, mla_ops.DECODE.launches
+    reqs = [Request(rid=i, prompt=np.arange(1, n + 1), max_new_tokens=new)
+            for i, (n, new) in enumerate(((49, 3), (9, 30), (20, 4)))]
+    eng = ServeEngine(p, cfg, n_lanes=2, max_len=64)
+    done = eng.run(reqs)
+    assert len(done) == 3 and [len(r.out_tokens) for r in reqs] == [3, 30, 4]
+    assert mla_ops.PREFILL.launches - p0 == 3 * cfg.n_layers
+    assert (mla_ops.DECODE.launches - d0
+            == eng.stats["decode_steps"] * cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
