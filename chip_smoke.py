@@ -180,9 +180,12 @@ none, one key, a split-share boundary and S - 1 to past S, Mixtral's
 windowed prefill (1 x 5000, window 4096) and decode (S 8192, window 4096,
 lengths from none through the window's edges to an idle lane whose window
 lies past the cache, with the unwindowed kernel as a control); the MLA
-kernels at MiniCPM3's widths (prefill 1 x 5000, Sq = Sk of 31-255 around
-the 64-row and 32-key tiles at H 40 and H 1, ragged Sq < Sk, B 2; decode
-at S 8192, lengths -1 to 8191 + 100, split-share edges, H 1, 40 and 64);
+kernels at MiniCPM3's widths (prefill 1 x 5000, Sq = Sk of 16-257 around
+the bf16 kernel's 128-row blocks and 64-key tiles and the f32 kernel's
+64-row blocks and 32-key tiles at H 40 and H 1, ragged Sq < Sk at a tile
+edge, B 2 on strided views of a cache; decode at S 8192, lengths -1 to
+8191 + 100, the 64-key tile's edges, split-share edges, H 1, 40 and 64,
+B 2 on views of a cache; each with its achieved TFLOP/s beside its bound);
 each twice, bitwise; the mLSTM kernel in f32 with its states: the
 served prefills from a fresh state, a carried nonzero state, S <= 256, S a
 multiple of 256, ragged S, head dims 32-512, S at a 64-position chunk and
@@ -950,7 +953,21 @@ def _mla_log(label: str, shape: str, dtype: torch.dtype, res: dict) -> None:
         f"{res['library_ms']:.4f} ms ({res['library_backend']}), bound "
         f"{res['bound_ms']:.6f} ms ({res['bound_by']}); x bound "
         f"{res['ms'] / res['bound_ms']:.1f}, x sdpa "
-        f"{res['ms'] / res['library_ms']:.2f}")
+        f"{res['ms'] / res['library_ms']:.2f}; {res['tflops']:.1f} TFLOP/s "
+        f"of the bound's {res['flop'] / res['bound_ms'] / 1e9:.1f}")
+
+
+def _mla_views(b: int, sq: int, sk: int, h: int, dtype: torch.dtype,
+               seed: int) -> tuple:
+    """As :func:`mla_inputs`, as the model hands them over: c and k_rope
+    views of the first ``sk`` keys of one repetition of a (3, B, sk + 88,
+    .) cache, q_lat with its heads unpacked (a transposed (B, H, Sq, R))."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(  # noqa: E731
+        *shape, generator=gen, device=DEV).to(dtype)
+    cache, kcache = rnd(3, b, sk + 88, MLA_R), rnd(3, b, sk + 88, MLA_DR)
+    return (rnd(b, h, sq, MLA_R).transpose(1, 2), rnd(b, sq, h, MLA_DR),
+            cache[1, :, :sk], kcache[1, :, :sk])
 
 
 def _held(label: str, got, again, want, dtype) -> float:
@@ -969,14 +986,17 @@ def _held(label: str, got, again, want, dtype) -> float:
 
 
 def check_mla_prefill(label: str, b: int, sq: int, sk: int, h: int,
-                      dtype: torch.dtype, reps: int = 10) -> dict:
+                      dtype: torch.dtype, reps: int = 10,
+                      views: bool = False) -> dict:
     """``mla_prefill`` against its plain version (twice, bitwise); times
     kernel, plain version and ``scaled_dot_product_attention`` on the same
     function (q and k of width R + Dr = 288, v of width R, one kv head for
     the H query heads, the same scale and end-aligned causal mask; q and k
     concatenated outside the timed call) on the card alone, and the kernel's
-    calls with the host's share."""
-    ql, qr, c, kr = mla_inputs(b, sq, sk, h, dtype, SEED + sq + 3 * sk + h)
+    calls with the host's share.  ``views``: the operands as the model hands
+    them over (:func:`_mla_views`)."""
+    ql, qr, c, kr = (_mla_views if views else mla_inputs)(
+        b, sq, sk, h, dtype, SEED + sq + 3 * sk + h)
     got = mla_ops.mla_prefill_kernel(ql, qr, c, kr, MLA_SCALE)
     again = mla_ops.mla_prefill_kernel(ql, qr, c, kr, MLA_SCALE)
     torch.cuda.synchronize()
@@ -1001,26 +1021,29 @@ def check_mla_prefill(label: str, b: int, sq: int, sk: int, h: int,
     del qt, kt, vt
     size = torch.finfo(dtype).bits // 8
     pairs = visible_pairs(sq, sk, True, 0)
+    flop = 2.0 * b * h * pairs * (2 * MLA_R + MLA_DR)
     bound_ms, bound_by = attn_bound_ms(
         (b * sq * h * (2 * MLA_R + MLA_DR) + b * sk * (MLA_R + MLA_DR))
-        * size, 2.0 * b * h * pairs * (2 * MLA_R + MLA_DR), dtype)
+        * size, flop, dtype)
     res = {"label": label, "dtype": _dname(dtype), "shape": [b, sq, sk, h],
            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_backend": backend, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "flop": flop, "tflops": flop / ms / 1e9}
     _mla_log(label, f"B={b} Sq={sq} Sk={sk} H={h}", dtype, res)
     return res
 
 
 def check_mla_decode(label: str, lens: list, s: int, h: int,
-                     dtype: torch.dtype, reps: int = 20) -> dict:
+                     dtype: torch.dtype, reps: int = 20,
+                     views: bool = False) -> dict:
     """``mla_decode`` against its plain version with one length per lane
     (twice, bitwise); times kernel, plain version and
     ``scaled_dot_product_attention`` with the same per-lane mask as
-    :func:`check_mla_prefill` does."""
+    :func:`check_mla_prefill` does, views likewise."""
     b = len(lens)
-    ql, qr, c, kr = mla_inputs(b, 1, s, h, dtype, SEED + s + h + b)
+    ql, qr, c, kr = (_mla_views if views else mla_inputs)(
+        b, 1, s, h, dtype, SEED + s + h + b)
     length = torch.tensor(lens, dtype=torch.int32, device=DEV)
     got = mla_ops.mla_decode_kernel(ql, qr, c, kr, length, MLA_SCALE)
     again = mla_ops.mla_decode_kernel(ql, qr, c, kr, length, MLA_SCALE)
@@ -1045,15 +1068,15 @@ def check_mla_decode(label: str, lens: list, s: int, h: int,
     del qt, kt, vt
     size = torch.finfo(dtype).bits // 8
     rows = sum(hi - lo for lo, hi in (visible_range(x, s, 0) for x in lens))
+    flop = 2.0 * rows * h * (2 * MLA_R + MLA_DR)
     bound_ms, bound_by = attn_bound_ms(
         rows * (MLA_R + MLA_DR) * size
-        + b * h * (2 * MLA_R + MLA_DR) * size + 4 * b,
-        2.0 * rows * h * (2 * MLA_R + MLA_DR), dtype)
+        + b * h * (2 * MLA_R + MLA_DR) * size + 4 * b, flop, dtype)
     res = {"label": label, "dtype": _dname(dtype), "shape": [b, s, h],
            "lengths": lens, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_backend": backend, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "bound_by": bound_by, "flop": flop, "tflops": flop / ms / 1e9}
     _mla_log(label, f"B={b} S={s} H={h} lengths={lens}", dtype, res)
     return res
 
@@ -1073,20 +1096,30 @@ def mla_phases() -> tuple:
         prefill_inst.append(check_mla_prefill("served prefill", 1, 5000,
                                               5000, h, dt, reps=2 if f32
                                               else 5))
-        # the 64-row and 32-key tiles: Sq = Sk around them at H 40 (rows
-        # 63 x 40 ...) and H 1 (rows = positions); ragged Sq < Sk (a
-        # prefill at an offset), B 2
-        for n in (63, 64, 65, 127, 128, 129, 255):
+        # the tiles: bf16's 128-row blocks and 64-key tiles, f32's 64-row
+        # blocks and 32-key tiles; Sq = Sk around them at H 40 (rows n x
+        # 40: 16 and 32 fill 5 and 10 blocks exactly) and H 1 (rows =
+        # positions); ragged Sq < Sk (a prefill at an offset, Sk at a tile
+        # edge), B 2 on views of a cache
+        for n in (16, 32, 63, 64, 65, 127, 128, 129, 255):
             prefill_inst.append(check_mla_prefill("tile edge", 1, n, n, h,
                                                   dt, reps=3))
-        for n in (31, 32, 33, 63, 64, 65):
+        for n in (31, 32, 33, 63, 64, 65, 127, 128, 129, 257):
             prefill_inst.append(check_mla_prefill("tile edge H 1", 1, n, n, 1,
                                                   dt, reps=3))
-        for b, sq, sk in ((1, 100, 612), (1, 77, 301), (2, 33, 1000)):
+        for b, sq, sk in ((1, 100, 612), (1, 77, 301), (1, 65, 192),
+                          (2, 33, 1000)):
             prefill_inst.append(check_mla_prefill("Sq<Sk ragged", b, sq, sk,
                                                   h, dt, reps=3))
+        prefill_inst.append(check_mla_prefill("cache views", 2, 120, 300, h,
+                                              dt, reps=3, views=True))
         lens = [-1, 0, 1, 63, 64, 100, 4095, 6000, s - 1, s - 1 + 100]
         decode_inst.append(check_mla_decode("served decode", lens, s, h, dt))
+        decode_inst.append(check_mla_decode(
+            "tile edges", [63, 64, 65, 127, 128, 129, 191, 192], s, h, dt,
+            reps=5))
+        decode_inst.append(check_mla_decode("cache views", [299, 650], 700,
+                                            h, dt, reps=5, views=True))
         # a share boundary of the 8 lanes' split plan: visible keys a
         # multiple of the splits times the tile, and one more
         unit = mla_ops.split_plan(8, h, s, sms) * mla_ops.TILE

@@ -74,7 +74,6 @@
 // stream, does not synchronise, and returns cudaGetLastError() (or
 // TMAP_ERROR + the CUresult if a tensor map cannot be encoded).
 
-#include <cuda.h>  // CUtensorMap and its enums only: no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -469,40 +468,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---- host --------------------------------------------------------------------
-constexpr int TMAP_ERROR = 100000;  // + CUresult: a map could not be encoded
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime, so that
-// the library links no libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
+using hopper::TMAP_ERROR;
 
 // a (dh, heads, seq, batch) bf16 tensor, boxes of 64 x 1 x rows x 1 with
 // the 128-byte swizzle; strides in elements; rows past seq read as zeros
 int encode_map(CUtensorMap* map, const void* base, int dh, int heads,
                int seq, int batch, long long ss, long long sb, int rows) {
-  const EncodeTiled fn = encode_tiled();
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
                               cuuint64_t(seq), cuuint64_t(batch)};

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// stores into another block of a cluster (`mapa`, `st.async`), TMA tile
+// named barriers, stores into another block of a cluster (`mapa`, `st.async`), TMA tile
 // loads, cp.async 16-byte copies, warp-level bf16 `mma.sync` with
-// `ldmatrix`, and bf16 `wgmma` with its shared-memory descriptors.
-// Header-only; every function is inline PTX.
+// `ldmatrix`, and bf16 `wgmma` with its shared-memory descriptors; on the
+// host, `cuTensorMapEncodeTiled` reached through the runtime.  Header-only;
+// every device function is inline PTX.
 //
 // Layout conventions (those of CU_TENSOR_MAP_SWIZZLE_128B): a tile is kept
 // as panels of 64 bf16 columns (128 bytes a row), each panel `rows x 128 B`
@@ -10,7 +11,13 @@
 // (the contraction index contiguous) steps through a panel's 16-column
 // slices by adding 32 bytes to the descriptor's start address; an N-major
 // operand (B with the transpose bit) steps 16 rows, 2048 bytes, at a time.
+// A panel of 32 bf16 columns (64 bytes a row) takes the 64-byte swizzle
+// (CU_TENSOR_MAP_SWIZZLE_64B, `desc_sw64`): 16-byte chunk c of row r sits
+// at chunk c ^ ((r / 2) % 4), 512 bytes between groups of 8 rows.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -62,6 +69,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- named barriers ----------------------------------------------------------
+// waits at barrier `id` (1-15; 0 is __syncthreads) until `count` threads
+// have arrived or synced there
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// counts this thread at barrier `id` without waiting
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // ---- thread-block clusters -----------------------------------------------
 // the shared::cluster address of `p`'s counterpart in block `rank`
 __device__ __forceinline__ uint32_t cluster_addr(const void* p,
@@ -102,6 +121,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a 3-D box of `map` at coordinates (c0 innermost .. c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -180,6 +211,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p,
          (static_cast<uint64_t>(1) << 62);
 }
 
+// descriptor of a 64-byte-swizzled K-major operand at `p` (rows of 32 bf16
+// columns, 512 bytes between groups of 8 rows, its base 512-byte aligned)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -198,6 +237,16 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// keeps a register A operand alive (its registers unreused) until here:
+// wgmma reads it after the instruction issues
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
 }
 
 // D (64 x 64, f32) = A (64 x 16, smem) * B (16 x 64, smem), both K-major
@@ -334,6 +383,36 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- host: tensor maps --------------------------------------------------------
+constexpr int TMAP_ERROR = 100000;  // + CUresult: a map could not be encoded
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query, so
+// that a library links no libcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace hopper

@@ -5,15 +5,18 @@ The kernels (``kernels/csrc/mla_attention.cu``) replace no Pallas kernel:
 they compute the attention that the reference model's ``mla_attention``
 computes in jnp over the latent cache (``repro/models/layers.py``, the
 ``kv_cache`` branch), which serves every MLA prefill and decode step.  They
-are instantiated for f32 and bf16 at the latent width :data:`LATENT` (256)
-and the rope width :data:`ROPE` (32); other widths raise.  The softmax
-scale is an argument.  :func:`mla_prefill` is one CUDA launch a call;
-:func:`mla_decode` two (the split partials, then their combine), its splits
-by :func:`split_plan`, its scratch allocated once per shape, device and
-stream.  Each entry point counts its kernel's calls in its own counter
-(:data:`PREFILL`, :data:`DECODE`); nothing else adds to them.  Every base
-address and stride must be 16-byte aligned (the kernels copy 16 bytes at a
-time); :func:`strides` raises where one is not.
+are instantiated for f32 (the CUDA cores) and bf16 (``wgmma`` on key tiles
+that TMA loads) at the latent width :data:`LATENT` (256) and the rope width
+:data:`ROPE` (32); other widths raise.  The softmax scale is an argument.
+:func:`mla_prefill` is one CUDA launch a call; :func:`mla_decode` two (the
+split partials, then their combine), its splits by :func:`split_plan`, its
+scratch allocated once per shape, device and stream.  Each entry point
+counts its kernel's calls in its own counter (:data:`PREFILL`,
+:data:`DECODE`); nothing else adds to them.  Every base address and stride
+must be 16-byte aligned (the kernels copy 16 bytes at a time); in bf16,
+where every operand reaches the kernel through a TMA map, no stride may
+be 0 and H must divide 8 or be a multiple of 8.  :func:`strides` and
+:func:`tma_strides` raise where a stride does not fit.
 """
 from __future__ import annotations
 
@@ -28,11 +31,13 @@ from .ref import mla_decode_ref, mla_prefill_ref
 
 __all__ = ["DECODE", "LATENT", "PREFILL", "ROPE", "ROWS", "TILE",
            "Launches", "mla_decode", "mla_decode_kernel", "mla_prefill",
-           "mla_prefill_kernel", "reset_launches", "split_plan", "strides"]
+           "mla_prefill_kernel", "reset_launches", "split_plan", "strides",
+           "tma_strides"]
 
 LATENT, ROPE = 256, 32      # the widths the kernels take
-ROWS = 64                   # query rows a block
-TILE = 32                   # keys a staged tile
+ROWS = 64                   # a decode block's query rows (a lane's heads)
+TILE = 64                   # keys a bf16 tile; the f32 kernel's are 32
+_TMAP_ERROR = 100000        # + CUresult: a tensor map the library could not encode
 
 
 class Launches:
@@ -73,12 +78,12 @@ def _entry(kind: str, dtype: torch.dtype):
 
 
 def split_plan(batch: int, h: int, s: int, sms: int) -> int:
-    """Splits of each decode lane's keys: enough that the blocks (one per
-    lane, split and 64 heads) fill ``sms`` SMs about twice, and no more
-    than a cache of ``s`` keys has tiles."""
+    """Splits of each decode lane's keys: as many as let the blocks (one
+    per lane, split and 64 heads; two fit an SM) fill ``sms`` SMs in one
+    wave, at least one, and no more than a cache of ``s`` keys has 64-key
+    tiles."""
     blocks = batch * -(-h // ROWS)
-    want = -(-2 * sms // max(1, blocks))
-    return max(1, min(want, -(-s // TILE)))
+    return max(1, min(2 * sms // max(1, blocks), -(-s // TILE)))
 
 
 def strides(name: str, t: torch.Tensor) -> list:
@@ -97,6 +102,32 @@ def strides(name: str, t: torch.Tensor) -> list:
                          f"strides that are multiples of 16 bytes for the "
                          f"kernel's 16-byte copies (got address "
                          f"{t.data_ptr():#x}, strides {tuple(t.stride())})")
+    return out
+
+
+def tma_strides(name: str, t: torch.Tensor) -> list:
+    """Element strides of every dimension of ``t`` but the last, for a TMA
+    map of its rows (every bf16 operand): the base 16-byte aligned and every
+    stride a positive multiple of 16 bytes below 2^40, else ``ValueError``.
+    A dimension of size 1 is never stepped: it is given the stride a
+    contiguous tensor would have."""
+    size = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have its last dimension contiguous "
+                         f"(got strides {tuple(t.stride())})")
+    out, step = [], t.shape[-1]
+    for n, st in reversed(list(zip(t.shape[:-1], t.stride()[:-1]))):
+        st = step if n == 1 else st
+        out.insert(0, st)
+        step = max(n, 1) * st
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                         f"kernel's TMA loads (address {t.data_ptr():#x})")
+    for st in out:
+        if st <= 0 or (st * size) % 16 or st * size >= 2 ** 40:
+            raise ValueError(f"{name}'s strides must be positive multiples "
+                             f"of 16 bytes for the kernel's TMA loads (got "
+                             f"{tuple(t.stride())})")
     return out
 
 
@@ -128,11 +159,21 @@ def _check(q_lat, q_rope, c, k_rope, scale) -> list:
                          f"{q_rope.shape[3]}, {k_rope.shape[2]})")
     if not 0.0 < scale < float("inf"):
         raise ValueError(f"the softmax scale must be positive (got {scale})")
-    return (strides("q_lat", q_lat) + strides("q_rope", q_rope)
-            + strides("c", c) + strides("k_rope", k_rope))
+    if q_lat.dtype == torch.float32:
+        return (strides("q_lat", q_lat) + strides("q_rope", q_rope)
+                + strides("c", c) + strides("k_rope", k_rope))
+    if h % 8 and 8 % h:
+        raise ValueError(f"the bf16 MLA kernels load q in boxes of 8 "
+                         f"(position, head) rows: H must divide 8 or be a "
+                         f"multiple of 8 (got {h})")
+    return (tma_strides("q_lat", q_lat) + tma_strides("q_rope", q_rope)
+            + tma_strides("c", c) + tma_strides("k_rope", k_rope))
 
 
 def _raise_on(err: int, err_str, what: str) -> None:
+    if err >= _TMAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _TMAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

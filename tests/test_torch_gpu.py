@@ -11,7 +11,8 @@ iterations, and its cluster path bit for bit against
 ``sinkhorn_kernel_order``, the CPU model of its order; attention f32 2e-5
 and bf16 2e-2, as tests/test_kernels.py holds the Pallas attention
 kernels (the MLA latent attention kernels likewise, against their plain
-versions); mLSTM f32 rtol 1e-4 / atol 1e-4 on the
+versions, and the bf16 ones within a bf16 rounding of the output, 2^-7
+relative and 2^-9 absolute, of the plain models of their order); mLSTM f32 rtol 1e-4 / atol 1e-4 on the
 outputs and the final states (the kernel's chunks are 64 positions, the
 plain version's 256, so its sums and exponent arguments are grouped
 differently); the selective scan rtol 1e-4 / atol 1e-4 on ``y`` and the
@@ -54,7 +55,9 @@ from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.mla_attention.ref import (mla_decode_ref,
-                                                   mla_prefill_ref)
+                                                   mla_decode_splits,
+                                                   mla_prefill_ref,
+                                                   mla_prefill_tiles)
 from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
@@ -709,16 +712,17 @@ def _mla_inputs(gen, b, sq, sk, h, dt):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h", [40, 1, 64])
 def test_mla_decode_kernel_matches_plain(dtype, h):
-    """MiniCPM3's decode at S 8192: lanes that see nothing, one key, a
-    32-key tile and one past it, a share boundary of the split plan and one
-    past it, S - 1, and past the cache; two calls give the same bits; one
-    call adds one to the decode counter and none to the prefill's."""
+    """MiniCPM3's decode at S 8192: lanes that see nothing, one key, the
+    f32 kernel's 32-key tile and the bf16 kernel's 64-key tile and one past
+    each, a share boundary of the split plan and one past it, S - 1, and
+    past the cache; two calls give the same bits; one call adds one to the
+    decode counter and none to the prefill's."""
     _card()
     dt, s = getattr(torch, dtype), 8192
     sms = decode_ops.sm_count(torch.device("cuda"))
-    unit = mla_ops.split_plan(14, h, s, sms) * mla_ops.TILE
-    lens = [-1, 0, 1, 31, 32, 33, 100, unit - 1, unit, 4095, 6000, s - 1,
-            s, s + 100]
+    unit = mla_ops.split_plan(20, h, s, sms) * mla_ops.TILE
+    lens = [-1, 0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 100, unit - 1, unit,
+            4095, 6000, s - 1, s, s + 100, 129]
     gen = torch.Generator(device="cuda").manual_seed(h)
     ql, qr, c, kr = _mla_inputs(gen, len(lens), 1, s, h, dt)
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -748,6 +752,9 @@ def test_mla_decode_kernel_matches_plain(dtype, h):
     (1, 31, 31, 1), (1, 33, 33, 1), (1, 64, 64, 1), (1, 65, 65, 1),
     (1, 100, 612, 40), (1, 77, 301, 40),   # a prefill at an offset
     (2, 33, 1000, 40), (3, 1, 50, 64),
+    (1, 16, 16, 40), (1, 32, 32, 40),      # 5 and 10 bf16 blocks exactly
+    (1, 127, 127, 1), (1, 128, 128, 1), (1, 129, 129, 1),  # 128-row block
+    (1, 65, 192, 40), (2, 64, 129, 40),    # Sk at a 64-key tile edge
 ])
 def test_mla_prefill_kernel_matches_plain(dtype, b, sq, sk, h):
     _card()
@@ -789,6 +796,72 @@ def test_mla_kernels_take_views_of_the_cache():
                                atol=2e-2)
 
 
+def _mla_views(gen, b, sq, sk, h, dt):
+    """q_lat with its heads unpacked, c and k_rope views of the first sk
+    keys of one repetition of a (3, B, sk + 88, .) cache."""
+    cache = _randn(gen, 3, b, sk + 88, 256, dtype=dt)
+    kcache = _randn(gen, 3, b, sk + 88, 32, dtype=dt)
+    return (_randn(gen, b, h, sq, 256, dtype=dt).transpose(1, 2),
+            _randn(gen, b, sq, h, 32, dtype=dt), cache[1, :, :sk],
+            kcache[1, :, :sk])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (65, 129), (128, 128),
+                                   (1, 700)])
+def test_mla_kernels_take_strided_views_at_b2(dtype, sq, sk):
+    """B 2 on strided views of a cache at the tiles' edges: prefill (Sq =
+    1 decodes at two lengths instead); two calls bitwise equal."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    ql, qr, c, kr = _mla_views(gen, 2, sq, sk, 40, dt)
+    tol = ATTN_TOL[dt]
+    if sq > 1:
+        got = mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE)
+        want = mla_prefill_ref(ql, qr, c, kr, MLA_SCALE)
+        again = mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE)
+    else:
+        length = torch.tensor([63, 650], dtype=torch.int32, device="cuda")
+        got = mla_ops.mla_decode(ql, qr, c, kr, length, MLA_SCALE)
+        want = mla_decode_ref(ql, qr, c, kr, length, MLA_SCALE)
+        again = mla_ops.mla_decode(ql, qr, c, kr, length, MLA_SCALE)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 129, 129, 40), (1, 200, 200, 1),
+                                       (2, 33, 300, 40)])
+def test_mla_bf16_kernels_match_their_models(b, sq, sk, h):
+    """The bf16 kernels against the plain models of their order
+    (``mla_prefill_tiles``: 128-row blocks, 64-key tiles, P rounded to bf16
+    before P V; ``mla_decode_splits`` at the wrapper's split plan): within
+    one bf16 rounding of the output (2^-7 relative, 2^-9 absolute), far
+    inside the plain version's bar, since both round P alike and differ
+    only in the order of the f32 sums."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sq * h)
+    ql, qr, c, kr = _mla_inputs(gen, b, sq, sk, h, torch.bfloat16)
+    got = mla_ops.mla_prefill(ql, qr, c, kr, MLA_SCALE)
+    want = mla_prefill_tiles(ql, qr, c, kr, MLA_SCALE)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9)
+    lens = [-1, 0, 63, 64, 65, sk - 1]
+    ql1, qr1, c1, kr1 = (t[:1, :1] if t.dim() == 4 else t[:1]
+                         for t in (ql, qr, c, kr))
+    ql1, qr1, c1, kr1 = (t.repeat(len(lens), *[1] * (t.dim() - 1))
+                         for t in (ql1, qr1, c1, kr1))
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = mla_ops.mla_decode(ql1, qr1, c1, kr1, length, MLA_SCALE)
+    nsplit = mla_ops.split_plan(len(lens), h, sk, decode_ops.sm_count(
+        torch.device("cuda")))
+    want = mla_decode_splits(ql1, qr1, c1, kr1, length, MLA_SCALE, nsplit)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -9)
+
+
 @pytest.mark.gpu
 def test_mla_kernels_reject_bad_input():
     _card()
@@ -827,6 +900,17 @@ def test_mla_kernels_reject_bad_input():
         mla_ops.mla_decode_kernel(ql, qr, c, kr, 3, MLA_SCALE)
     with pytest.raises(ValueError, match="scale"):
         mla_ops.mla_prefill_kernel(ql, qr, c, kr, 0.0)
+    # bf16 reads every operand through a TMA map: no zero stride, and
+    # boxes of 8 (position, head) rows: H dividing 8 or a multiple of 8
+    bq, bqr = ql.bfloat16().repeat(2, 1, 1, 1), qr.bfloat16().repeat(2, 1, 1,
+                                                                     1)
+    bc = c.bfloat16().repeat(2, 1, 1)
+    shared = kr[:1].bfloat16().expand(2, 16, 32)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        mla_ops.mla_prefill_kernel(bq, bqr, bc, shared, MLA_SCALE)
+    with pytest.raises(ValueError, match="divide 8"):
+        mla_ops.mla_prefill_kernel(bq[:, :, :6], bqr[:, :, :6], bc,
+                                   kr.bfloat16().repeat(2, 1, 1), MLA_SCALE)
     assert (mla_ops.PREFILL.launches, mla_ops.DECODE.launches) == (p0, d0)
 
 

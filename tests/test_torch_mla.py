@@ -8,11 +8,16 @@ reference serves MLA only through its weight-absorbed branch (prefill and
 decode both take the ``kv_cache`` path), which the port runs through
 ``kernels/mla_attention`` (the plain versions on the CPU).
 
-Bars: the plain latent attention within 1e-5 of an f64 softmax oracle; a
-plain model of the decode kernel's split (split-K partials combined in
-split order) within 1e-5 of the plain version; an MLA layer and its caches
-within 2e-5 of the reference's; prefill and decode logits within 1e-4 of
-the largest logit, greedy and engine tokens equal.
+Bars: the plain latent attention within 1e-5 of an f64 softmax oracle;
+plain models of the kernels' arithmetic (the decode split: split-K partials
+combined in split order; the bf16 prefill: 128-row blocks, 64-key tiles,
+P rounded to the working type before P V) within 1e-5 of the plain version
+in f32, and in bf16 within the card's bar (2e-2 absolute plus 2e-2
+relative, as the kernels are held on the card: P in bf16 moves a row's
+output by up to 2^-9 of its largest value, and both sides round the output
+to bf16); an MLA layer and its caches within 2e-5 of the reference's;
+prefill and decode logits within 1e-4 of the largest logit, greedy and
+engine tokens equal.
 """
 import ast
 import math
@@ -40,7 +45,9 @@ from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.mla_attention.ref import (
     mla_attention_ref,
     mla_decode_ref,
+    mla_decode_splits as _kernel_split,
     mla_prefill_ref,
+    mla_prefill_tiles as _kernel_tiles,
 )
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import (
@@ -174,46 +181,44 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     assert (mla_ops.PREFILL.launches, mla_ops.DECODE.launches) == (p0, d0)
 
 
-# -- the decode kernel's split, modelled on the CPU -----------------------------
-def _kernel_split(ql, qr, c, kr, length, scale, nsplit, tile=32):
-    """A plain model of mla_attention.cu's decode: each lane's visible keys
-    [0, hi) cut into ``nsplit`` shares of equal length, rounded up to the
-    tile, in split order; each split an online softmax over its tiles in
-    log2 units, (m, l, acc); the combine adds the splits' partials in split
-    order, weighted by exp2(m_s - m)."""
-    b, _, h, r = ql.shape
-    sk = c.shape[1]
-    sl2 = scale * LOG2E
-    out = torch.zeros((b, 1, h, r))
-    for lane in range(b):
-        ln = int(length[lane])
-        hi = 0 if ln < 0 else min(ln, sk - 1) + 1
-        share = -(-(-(-hi // nsplit)) // tile) * tile
-        parts = []
-        for sp in range(nsplit):
-            m = torch.full((h,), -math.inf)
-            lsum, acc = torch.zeros(h), torch.zeros(h, r)
-            for t0 in range(sp * share, min(hi, sp * share + share), tile):
-                t1 = min(hi, sp * share + share, t0 + tile)
-                s = (ql[lane, 0] @ c[lane, t0:t1].T
-                     + qr[lane, 0] @ kr[lane, t0:t1].T)
-                mn = torch.maximum(m, s.max(-1).values * sl2)
-                mu = torch.where(mn == -math.inf, 0.0, mn)
-                al = torch.exp2(m - mu)
-                p = torch.exp2(s * sl2 - mu[:, None])
-                lsum = lsum * al + p.sum(-1)
-                acc = acc * al[:, None] + p @ c[lane, t0:t1]
-                m = mn
-            parts.append((m, lsum, acc))
-        mm = torch.stack([p[0] for p in parts]).max(0).values
-        tot, num = torch.zeros(h), torch.zeros(h, r)
-        for ms, ls, acs in parts:
-            w = torch.where(ms == -math.inf, 0.0, torch.exp2(ms - mm))
-            tot = tot + ls * w
-            num = num + acs * w[:, None]
-        out[lane, 0] = torch.where(tot[:, None] > 0,
-                                   num / tot.clamp(min=1e-30)[:, None], 0.0)
-    return out
+# -- the kernels' arithmetic, modelled on the CPU ---------------------------------
+def _held(got, want, dtype):
+    """f32: within 1e-5 of the largest output; bf16: the card's bar."""
+    if dtype == torch.float32:
+        _close(got, want.numpy(), 1e-5)
+    else:
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= 2e-2 + 2e-2 * want.float().abs()).all()), \
+            float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [1, 40])
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 128, 129])
+def test_prefill_tile_model_matches_plain(n, h, dtype):
+    """Sq = Sk around the 64-key tile and the 128-row block, at H 1 (rows
+    are positions) and MiniCPM3's H 40 (a block spans 3-4 positions)."""
+    dt = getattr(torch, dtype)
+    ql, qr, c, kr = (_t(a).to(dt) for a in _operands(1, n, n, h, 256, 32,
+                                                     n + h))
+    scale = 96 ** -0.5
+    got = _kernel_tiles(ql, qr, c, kr, scale)
+    assert got.dtype == dt and tuple(got.shape) == (1, n, h, 256)
+    _held(got, mla_prefill_ref(ql, qr, c, kr, scale), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 77, 301, 40), (2, 33, 150, 40),
+                                       (1, 100, 612, 1)])
+def test_prefill_tile_model_at_an_offset(b, sq, sk, h, dtype):
+    """A prefill at an offset (Sq < Sk: row i at Sk - Sq + i), B 2, and
+    keys past the last tile's end read as zeros."""
+    dt = getattr(torch, dtype)
+    ql, qr, c, kr = (_t(a).to(dt) for a in _operands(b, sq, sk, h, 256, 32,
+                                                     sq * sk))
+    scale = 96 ** -0.5
+    _held(_kernel_tiles(ql, qr, c, kr, scale),
+          mla_prefill_ref(ql, qr, c, kr, scale), dt)
 
 
 @pytest.mark.parametrize("nsplit", [1, 2, 3, 7, 33])
@@ -231,15 +236,73 @@ def test_decode_split_model_matches_plain(nsplit):
     _close(got, mla_decode_ref(ql, qr, c, kr, ln, scale).numpy(), 1e-5)
 
 
+@pytest.mark.parametrize("tile,dtype", [(32, "float32"), (64, "bfloat16")])
+@pytest.mark.parametrize("nsplit", [1, 26, 33])
+def test_decode_split_model_per_type(tile, dtype, nsplit):
+    """Each type's tile (f32 32 keys, bf16 64) at the served plan's splits
+    (10 lanes: 26, 8 lanes: 33) and one, lanes at the tile and share edges; bf16
+    with P rounded before P V, within the card's bar."""
+    sk = 8 * 64 + 5
+    lens = [-1, 0, 63, 64, 65, 16 * 64 - 1, sk - 1, sk + 3]
+    dt = getattr(torch, dtype)
+    ql, qr, c, kr = (_t(a).to(dt) for a in _operands(len(lens), 1, sk, 40,
+                                                     256, 32, nsplit + tile))
+    ln = torch.tensor(lens, dtype=torch.int32)
+    scale = 96 ** -0.5
+    got = _kernel_split(ql, qr, c, kr, ln, scale, nsplit, tile)
+    assert got.dtype == dt and not got[0].any()
+    _held(got, mla_decode_ref(ql, qr, c, kr, ln, scale), dt)
+
+
 @pytest.mark.parametrize("batch,h,s,want", [
     (8, 40, 8192, 33),          # MiniCPM3's served decode: 2 x 132 SMs
-    (1, 40, 8192, 256),         # one lane: capped by S's 256 tiles
-    (10, 64, 8192, 27),
-    (1, 128, 100, 4),           # two row blocks; S's 4 tiles cap it
-    (64, 40, 8192, 5),
+    (1, 40, 8192, 128),         # one lane: capped by S's 128 tiles
+    (10, 64, 8192, 26),
+    (1, 128, 100, 2),           # two row blocks; S's 2 tiles cap it
+    (64, 40, 8192, 4),
+    (10, 40, 8192, 26),         # chip_smoke's served decode: 260 blocks
+    (300, 40, 8192, 1),         # more lanes than block slots: one split
+    (3, 40, 1, 1),              # a one-key cache
 ])
 def test_split_plan(batch, h, s, want):
     assert mla_ops.split_plan(batch, h, s, 132) == want
+
+
+def test_tma_strides_on_cpu_tensors():
+    """Every bf16 operand reaches the kernel through a TMA map: views of the
+    cache keep their strides, a dimension of size 1 takes a contiguous
+    tensor's stride (TMA refuses 0), and a base or stride off 16 bytes, a
+    last dimension that is not contiguous, or a zero stride raise.  A
+    transposed q_lat (heads not packed) keeps its strides: q's map has a
+    dimension for each of batch, position and head."""
+    bf = torch.bfloat16
+    cache = torch.zeros(3, 2, 700, 256, dtype=bf)
+    assert mla_ops.tma_strides("c", cache[1, :, :300]) == [700 * 256, 256]
+    assert mla_ops.tma_strides("c", torch.zeros(1, 5, 256, dtype=bf)) == [
+        5 * 256, 256]
+    assert mla_ops.tma_strides("k_rope", torch.zeros(2, 1, 32, dtype=bf)) \
+        == [32, 32]
+    assert mla_ops.strides("c", torch.zeros(1, 5, 256, dtype=bf)) == [0, 256]
+    flat = torch.zeros(16 * 256 + 8, dtype=bf)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        mla_ops.tma_strides("c", flat[1:1 + 16 * 256].view(1, 16, 256))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        mla_ops.tma_strides("c", torch.zeros(1, 16, 260, dtype=bf)[..., :256])
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        mla_ops.tma_strides("k_rope", torch.zeros(1, 32, dtype=bf)
+                            .expand(4, 16, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        mla_ops.tma_strides("c", torch.zeros(1, 256, 16, dtype=bf)
+                            .transpose(1, 2))
+    ql = torch.zeros(2, 40, 120, 256, dtype=bf).transpose(1, 2)
+    assert mla_ops.strides("q_lat", ql) == [40 * 120 * 256, 256, 120 * 256]
+    assert mla_ops.tma_strides("q_lat", ql) == [40 * 120 * 256, 256,
+                                                120 * 256]
+    one = torch.zeros(3, 1, 40, 32, dtype=bf)         # a decode's q_rope
+    assert mla_ops.tma_strides("q_rope", one) == [40 * 32, 40 * 32, 32]
+    with pytest.raises(ValueError, match="16-byte"):
+        mla_ops.strides("q_lat", torch.zeros(1, 4, 40, 260, dtype=bf)
+                        [..., :256])
 
 
 # -- one MLA layer ----------------------------------------------------------------
