@@ -165,6 +165,24 @@ and read just after:
    from the key width, the q_rope . k_rope term dropped, and a decode split
    dropped.  Its bf16 logits are gated at Qwen's bar unless the plain path
    nudged by 2^-9 already moves past it; then they are read.
+7. Serving Whisper-tiny whole (``whisper-tiny``: 4 encoder and 4 decoder
+   layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51,865, 1500
+   stubbed frames; 61,065,984 parameters by ``param_count``, drawn
+   straight into bf16) through ``prefill(frames=)`` and a loop of
+   ``decode_step(cross_kv=)``, batched as the reference's
+   ``test_whisper_decode`` batches it (the reference's engine takes no
+   frames): 8 lanes, each with its own seeded frames, a 4-token prompt and
+   224 greedy tokens (openai/whisper's ``sample_len``) in a cache of 448
+   (``n_text_ctx``).  The prefill runs the flash kernel 12 times (4
+   non-causal encoder layers over 8 x 1500 frames, 4 causal decoder
+   layers, 4 cross-attention layers of the prompt over the 1500 encoder
+   rows), every decode step the decode kernel 8 times (4 self, 4 cross
+   over all 1500 rows).  Before it both kernels are held against their
+   plain versions at Whisper's shapes.  An f32 build's prefill and
+   decode steps are gated at 1e-3 against the plain path, with Qwen's two
+   controls and a third, cross decode over 1499 of the 1500 keys, and
+   against the f32 teacher-forced ``forward`` on the card; its bf16
+   logits and tokens take MiniCPM3's nudge rule.
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (Sinkhorn also bit for bit against
@@ -284,7 +302,12 @@ from repro_torch.kernels.sinkhorn.ref import (  # noqa: E402
     sinkhorn_kernel_order,
     sinkhorn_ref,
 )
-from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step,
+    forward,
+    init_params,
+    prefill,
+)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -448,6 +471,16 @@ MIXTRAL_ARCH = "mixtral-8x7b-ep2"
 # latent attention; src/repro_torch/configs/minicpm3_4b.py), 7.94 GiB in
 # bf16, 15.88 GiB in f32, nothing cut, on Mixtral's long-context deployment
 MINICPM3_ARCH = "minicpm3-4b"
+
+# the sixth served model: Whisper-tiny whole (src/repro_torch/configs/
+# whisper_tiny.py, the published widths), served as a speech-to-text
+# transcription service batches it: WHISPER_LANES lanes, each transcribing
+# its own 30-s window (enc_seq stubbed frames, seeded), a
+# start-of-transcript prompt of WHISPER_PROMPT tokens, openai/whisper's
+# sample_len (n_text_ctx // 2) greedy tokens in a cache of n_text_ctx
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_LANES, WHISPER_PROMPT = 8, 4
+WHISPER_NEW, WHISPER_MAX_LEN = 224, 448
 
 # experts the f32 logits checks hold, where the served model holds a share
 F32_HELD = {JAMBA_ARCH: 2, MIXTRAL_ARCH: 2}
@@ -793,6 +826,9 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     if causal and sq == sk and not window:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=h != kv)
+    elif not causal and not window:     # every key visible: no mask
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=h != kv)
     else:
         mask = _end_aligned_mask(sq, sk, causal, window, DEV)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1353,6 +1389,16 @@ def decode_split_dropped(q, k, v, length, window=0):
                                     window - s if window else 0)
 
 
+def cross_key_dropped(q, k, v, length, window=0):
+    """Control: cross-attention's decode (keys as many as Whisper's
+    encoder rows) over all of them but the last, the one in the tail of
+    the last key tile; self-attention's decode as it is."""
+    if k.shape[1] != get_config(WHISPER_ARCH).enc_seq:
+        return decode_ops.decode_kernel(q, k, v, length, window)
+    ln = decode_ops.lengths_vector(length, q.shape[0], q.device) - 1
+    return decode_ops.decode_kernel(q, k[:, :-1], v[:, :-1], ln, window)
+
+
 def decode_window_dropped(q, k, v, length, window=0):
     """Control: the decode kernel without its sliding window, what a window
     that never reached the kernel would return."""
@@ -1440,6 +1486,9 @@ CONTROLS = {"decode_split_dropped": (decode_ops, "decode_attn",
 MIXTRAL_CONTROLS = {**CONTROLS,
                     "decode_window_dropped": (decode_ops, "decode_attn",
                                               decode_window_dropped)}
+WHISPER_CONTROLS = {**CONTROLS,
+                    "cross_key_dropped": (decode_ops, "decode_attn",
+                                          cross_key_dropped)}
 MLSTM_CONTROLS = {"mlstm_state_lost": (mlstm_ops, "mlstm", mlstm_state_lost),
                   "mlstm_unscaled": (mlstm_ops, "mlstm", mlstm_unscaled)}
 MAMBA_CONTROLS = {"mamba_c_ignored": (mamba_ops, "selective_scan",
@@ -2175,6 +2224,308 @@ def serving_phases(arch: str) -> dict:
     serving["served_tokens"] = tokens
     serving["logit_checks"] = checks
     return serving
+
+
+def whisper_kernel_checks() -> tuple:
+    """Both attention kernels against their plain versions at Whisper's
+    shapes: the encoder's non-causal self-attention over its frames, the
+    cross-attention prefill (the prompt over the encoder rows, Sq != Sk),
+    the decoder's causal prefill, key counts at the tail of the last key
+    tile (a full tile, one key past it), the cross decode (every lane over
+    all encoder rows) and the self decode; returns (flash instances,
+    decode instances), the encoder's and the cross decode's bf16 first."""
+    log("== attention kernels vs plain PyTorch versions at Whisper-tiny's "
+        "shapes")
+    cfg = get_config(WHISPER_ARCH)
+    h, dh, se, b = cfg.n_heads, cfg.head_dim, cfg.enc_seq, WHISPER_LANES
+    tail = se - se % 64                 # the last full 64-key tile's end
+    flash, decode = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        flash.append(check_flash("Whisper encoder", b, se, se, h, h, dh, dt,
+                                 causal=False, reps=5))
+        flash.append(check_flash("Whisper cross", b, WHISPER_PROMPT, se, h, h,
+                                 dh, dt, causal=False))
+        flash.append(check_flash("Whisper prefill", b, WHISPER_PROMPT,
+                                 WHISPER_PROMPT, h, h, dh, dt))
+        for sq, sk in ((1, se), (130, se), (130, tail), (130, tail + 1)):
+            flash.append(check_flash("Whisper tail", 2 if sq == 1 else 1, sq,
+                                     sk, h, h, dh, dt, causal=False, reps=5))
+        decode.append(check_decode("Whisper cross", [se - 1] * b, se, h, h,
+                                   dh, dt))
+        decode.append(check_decode(
+            "Whisper self", [WHISPER_PROMPT + WHISPER_NEW // 2] * b,
+            WHISPER_MAX_LEN, h, h, dh, dt))
+    return flash, decode
+
+
+def whisper_inputs(cfg) -> tuple:
+    """Each lane's stubbed frames (WHISPER_LANES, enc_seq, d), f32, and its
+    WHISPER_PROMPT-token prompt, both from SEED."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    frames = torch.randn(WHISPER_LANES, cfg.enc_seq, cfg.d_model,
+                         generator=gen, device=DEV)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(
+        1, cfg.vocab, size=(WHISPER_LANES, WHISPER_PROMPT)), device=DEV)
+    return frames, prompt
+
+
+def whisper_logits(p, cfg, frames, prompt, feed, plain: bool = False):
+    """Logits (f32, (B, V)) of ``prefill(frames=)``, then of one
+    ``decode_step(cross_kv=)`` per column of ``feed`` (B, n), or, with
+    ``feed`` an int n, per token of the path's own greedy choice.  Returns
+    (the logits, the tokens fed (B, n))."""
+    lg, caches, ln, cross = prefill(p, cfg, prompt, WHISPER_MAX_LEN, DEV,
+                                    plain=plain, frames=frames)
+    out, fed = [lg.float()], []
+    n = feed if isinstance(feed, int) else feed.shape[1]
+    for i in range(n):
+        tok = (torch.argmax(lg, dim=-1)[:, None] if isinstance(feed, int)
+               else feed[:, i:i + 1])
+        fed.append(tok)
+        lg, caches = decode_step(p, cfg, tok, caches, ln + i, DEV,
+                                 plain=plain, cross_kv=cross)
+        out.append(lg.float())
+    return out, torch.cat(fed, dim=1)
+
+
+def _lane_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """:func:`_rel` of each lane (row) of two (B, V) logits, the largest."""
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def whisper_phases() -> dict:
+    """Whisper-tiny served whole: 8 lanes through ``prefill(frames=)`` and
+    ``decode_step(cross_kv=)`` with the launch counts set to 0 just before
+    and read just after; its encode, prefill and decode times, a traced
+    decode, peak memory; then the logits checks (bf16 by the nudge rule,
+    f32 gated against the plain path with its controls and against the
+    teacher-forced ``forward``).  Returns what they measured."""
+    cfg = get_config(WHISPER_ARCH)
+    card = nvidia_smi()
+    wrappers = {"flash_attention": flash_ops, "decode_attention": decode_ops}
+    torch.cuda.empty_cache()
+    log(f"== serving: {cfg.name}, {cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.enc_seq} "
+        f"frames, {cfg.dtype}; {WHISPER_LANES} lanes, prompts of "
+        f"{WHISPER_PROMPT} tokens, {WHISPER_NEW} new tokens, cache "
+        f"{WHISPER_MAX_LEN}, seed {SEED}; prefill(frames=) and "
+        f"decode_step(cross_kv=)")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg,
+                         DEV, serve=True)
+    frames, prompt = whisper_inputs(cfg)
+    n_params = _numel(params)
+    torch.cuda.synchronize()
+    log(f"  weights: {n_params} tensor entries ({cfg.param_count()} by "
+        f"param_count), drawn into {cfg.dtype} in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # a warm-up of the path (its first prefill pays one-time set-up: 48.4
+    # ms against 3.9 for the encoder, NVIDIA H100 80GB HBM3, 700 W), then
+    # the encoder alone at B lanes, both outside the counted run
+    lg, caches, ln, cross = prefill(params, cfg, prompt, WHISPER_MAX_LEN,
+                                    DEV, frames=frames)
+    for i in range(2):
+        lg, caches = decode_step(params, cfg, torch.argmax(lg, -1)[:, None],
+                                 caches, ln + i, DEV, cross_kv=cross)
+    del caches, cross
+    torch.cuda.synchronize()
+    enc_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+    encode_ms = sum(enc_s) / len(enc_s) * 1e3
+
+    # the main path: prefill, then a decode step a token, each step's
+    # tokens read back as a transcription service streams them
+    torch.cuda.reset_peak_memory_stats()
+    for ops in wrappers.values():
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches, ln, cross = prefill(params, cfg, prompt, WHISPER_MAX_LEN,
+                                    DEV, frames=frames)
+    tok = torch.argmax(lg, dim=-1)[:, None]
+    first = lg
+    toks = [tok.flatten().tolist()]
+    prefill_s = time.perf_counter() - t0
+    steps = WHISPER_NEW - 1
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, caches = decode_step(params, cfg, tok, caches, ln + i, DEV,
+                                 cross_kv=cross)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        toks.append(tok.flatten().tolist())
+    decode_s = time.perf_counter() - t0
+    launches = {name: ops.launches for name, ops in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                "decode_attention": steps * 2 * cfg.n_layers}
+    log(f"  launches: {launches} (expected {expected})")
+    for name, n in launches.items():
+        if n != expected[name] or n <= 0:
+            raise AssertionError(f"the Whisper path launched {name} {n} "
+                                 f"times (expected {expected[name]})")
+    tokens = np.array(toks).T                   # (lanes, WHISPER_NEW)
+    if (tokens.shape != (WHISPER_LANES, WHISPER_NEW)
+            or not ((tokens >= 0) & (tokens < cfg.vocab)).all()
+            or not bool(torch.isfinite(first).all())
+            or not bool(torch.isfinite(lg).all())):
+        raise AssertionError("the Whisper path gave tokens out of range or "
+                             "logits that are not finite")
+    want = (WHISPER_LANES, cfg.enc_seq, cfg.d_model)
+    if (tuple(cross.shape) != want or cross.dtype != getattr(torch, cfg.dtype)
+            or not bool(torch.isfinite(cross).all())):
+        raise AssertionError(f"the encoder output is {tuple(cross.shape)} "
+                             f"{cross.dtype} (expected {want} {cfg.dtype}, "
+                             f"finite)")
+    step_ms = decode_s / steps * 1e3
+    tok_s = WHISPER_LANES * steps / decode_s
+    res = {"card": card, "encode_ms": encode_ms,
+           "prefill_ms": prefill_s * 1e3, "decode_s": decode_s,
+           "decode_steps": steps, "decode_ms_per_step": step_ms,
+           "decode_tok_per_s": tok_s, "peak_mem_bytes": peak,
+           "launches": launches, "weights": n_params,
+           "tokens_lane0": tokens[0, :16].tolist()}
+    log(f"  [{card}] encode {encode_ms:.4f} ms at B {WHISPER_LANES}; "
+        f"prefill (encode included) {prefill_s * 1e3:.4f} ms; decode "
+        f"{steps} steps in {decode_s:.6f} s ({step_ms:.4f} ms/step, "
+        f"{tok_s:.1f} tok/s); peak memory {peak} B "
+        f"({peak / 2**30:.3f} GiB); lane 0: {tokens[0, :16].tolist()}...")
+
+    # a traced rerun of decode steps: the device's idle share
+    lg, caches, ln, cross = prefill(params, cfg, prompt, WHISPER_MAX_LEN,
+                                    DEV, frames=frames)
+    tok = torch.argmax(lg, dim=-1)[:, None]
+    calls = {w: -ops.launches for w, ops in wrappers.items()}
+    torch.cuda.synchronize()
+    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRACED_STEPS):
+            lg, caches = decode_step(params, cfg, tok, caches, ln + i, DEV,
+                                     cross_kv=cross)
+            tok = torch.argmax(lg, dim=-1)[:, None]
+            tok.flatten().tolist()
+        traced_wall = time.perf_counter() - t0
+    calls = {w: n + wrappers[w].launches for w, n in calls.items()}
+    res["traced_cuda_launches_per_call"] = cuda_launches_per_call(prof,
+                                                                  calls)
+    n_ev, busy, by_kind = _device_time(prof)
+    if n_ev:
+        res.update(traced_idle_share=1 - busy / traced_wall,
+                   traced_busy_s=busy, traced_wall_s=traced_wall,
+                   traced_events_per_step=n_ev / TRACED_STEPS,
+                   traced_device_s_by_kind=by_kind)
+        log(f"  [{card}] traced decode, {TRACED_STEPS} steps: {n_ev} device "
+            f"events ({n_ev / TRACED_STEPS:.1f} per step); device busy "
+            f"{busy:.6f} s of {traced_wall:.6f} s (idle share "
+            f"{1 - busy / traced_wall:.4f}); by kind (s): "
+            f"{json.dumps(by_kind)}; CUDA launches a wrapper call "
+            f"{json.dumps(res['traced_cuda_launches_per_call'])}")
+    else:
+        log("  the profiler recorded no device events: device busy time "
+            "not measured")
+    del caches, cross, lg
+
+    failures = []
+    # bf16: kernels against plain versions, fed the served tokens; gated
+    # unless the plain path nudged by 2^-9 already moves past the gate
+    t_checks = time.perf_counter()
+    feed = torch.as_tensor(tokens[:, :CHECK_STEPS], device=DEV)
+    kern, _ = whisper_logits(params, cfg, frames, prompt, feed)
+    plain, _ = whisper_logits(params, cfg, frames, prompt, feed, plain=True)
+    with swapped(L, "attention_ref", q_nudged(attention_ref)), \
+            swapped(L, "decode_attention_ref",
+                    q_nudged(decode_attention_ref)):
+        nudge, _ = whisper_logits(params, cfg, frames, prompt, feed,
+                                  plain=True)
+    bf16 = torch.bfloat16
+    rel = [_lane_rel(a, b) for a, b in zip(kern, plain)]
+    nudged = max(_lane_rel(a, b) for a, b in zip(nudge, plain))
+    gate = LOGIT_TOL[bf16] if nudged <= LOGIT_TOL[bf16] else None
+    own = tokens[:, :CHECK_STEPS + 1]
+    gaps = [max(_gaps([x[i] for x in plain], own[i].tolist()))
+            for i in range(WHISPER_LANES)]
+    res["bf16_check"] = {"max_rel_diff": max(rel), "per_step": rel,
+                         "plain_nudged": nudged, "gate": gate,
+                         "token_max_gap": max(gaps), "token_gaps": gaps}
+    log(f"== Whisper logits, bf16, {WHISPER_LANES} lanes fed their served "
+        f"tokens: kernels vs plain versions, prefill + {CHECK_STEPS} decode "
+        f"steps: max rel diff {max(rel):.3e}, per position "
+        f"{[f'{x:.2e}' for x in rel]}; the plain versions with q nudged by "
+        f"2^-9: {nudged:.3e} ("
+        + (f"gate {gate:g}" if gate else
+           f"read, as the nudge moves past {LOGIT_TOL[bf16]:g}")
+        + f"); served tokens' largest gap below the plain maximum "
+        f"{max(gaps):.3e}")
+    if gate is not None:
+        if not max(rel) <= gate:
+            failures.append(f"bf16 Whisper logits differ from the plain "
+                            f"versions' by {max(rel):.3e} (gate {gate:g})")
+        if not max(gaps) <= 2 * gate:
+            failures.append(f"a served bf16 Whisper token sits "
+                            f"{max(gaps):.3e} below the plain maximum "
+                            f"(limit {2 * gate:g})")
+    del params, kern, plain, nudge
+    torch.cuda.empty_cache()
+
+    # f32: the same weights drawn anew in f32; the kernel path's own greedy
+    # tokens fed to the plain versions, the controls and forward
+    c32 = cfg.replace(dtype="float32")
+    p32 = init_params(torch.Generator(device=DEV).manual_seed(SEED), c32,
+                      DEV)
+    gate = LOGIT_TOL[torch.float32]
+    kern, fed = whisper_logits(p32, c32, frames, prompt, CHECK_STEPS)
+    plain, _ = whisper_logits(p32, c32, frames, prompt, fed, plain=True)
+    rel = [_lane_rel(a, b) for a, b in zip(kern, plain)]
+    readings = {}
+    for name, (module, attr, fn) in WHISPER_CONTROLS.items():
+        with swapped(module, attr, fn):
+            bad, _ = whisper_logits(p32, c32, frames, prompt, fed)
+        readings[name] = max(_lane_rel(a, b) for a, b in zip(bad, plain))
+    h, _ = forward(p32, c32, torch.cat([prompt, fed], dim=1), frames=frames,
+                   device=DEV)
+    full = T.logits_fn(p32, c32, h[:, WHISPER_PROMPT - 1:]).float()
+    fwd = [_lane_rel(full[:, j], kern[j]) for j in range(CHECK_STEPS + 1)]
+    own = torch.cat([fed, torch.argmax(kern[-1], dim=-1)[:, None]], 1)
+    gaps = [max(_gaps([x[i] for x in plain], own[i].tolist()))
+            for i in range(WHISPER_LANES)]
+    res["f32_check"] = {"max_rel_diff": max(rel), "per_step": rel,
+                        "controls": readings, "gate": gate,
+                        "forward_max_rel_diff": max(fwd),
+                        "forward_per_step": fwd,
+                        "token_max_gap": max(gaps)}
+    log(f"== Whisper logits, f32, {WHISPER_LANES} lanes fed the kernel "
+        f"path's greedy tokens: kernels vs plain versions, prefill + "
+        f"{CHECK_STEPS} decode steps (gate {gate:g}): max rel diff "
+        f"{max(rel):.3e}, per position {[f'{x:.2e}' for x in rel]}; "
+        f"controls {json.dumps(readings)}; the served logits vs the "
+        f"teacher-forced forward on the card: {max(fwd):.3e}; greedy "
+        f"tokens' largest gap below the plain maximum {max(gaps):.3e}")
+    if not max(rel) <= gate:
+        failures.append(f"f32 Whisper logits differ from the plain "
+                        f"versions' by {max(rel):.3e} (gate {gate:g})")
+    for name, x in readings.items():
+        if not x > gate:
+            failures.append(f"control {name} reads {x:.3e}, inside the f32 "
+                            f"gate: the check cannot tell that kernel fault")
+    if not max(fwd) <= gate:
+        failures.append(f"the served f32 Whisper logits differ from the "
+                        f"teacher-forced forward's by {max(fwd):.3e} (gate "
+                        f"{gate:g})")
+    if not max(gaps) <= 2 * gate:
+        failures.append(f"an f32 Whisper token sits {max(gaps):.3e} below "
+                        f"the plain maximum (limit {2 * gate:g})")
+    res["checks_s"] = time.perf_counter() - t_checks
+    log(f"  checks {res['checks_s']:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
 
 
 def adaptive_grid_a() -> list:
@@ -3493,10 +3844,15 @@ def main() -> int:
     for arch in (ARCH, XLSTM_ARCH, JAMBA_ARCH, MIXTRAL_ARCH, MINICPM3_ARCH):
         served[arch] = serving_phases(arch)
         mark(f"serving {arch}")
+    w_flash, w_decode = whisper_kernel_checks()
+    flash += w_flash
+    decode += w_decode
+    whisper = whisper_phases()
+    mark(f"serving {WHISPER_ARCH}")
     # each kernel's launches on every serving path that runs it, each path
     # read between its own resets
     by_path: dict = {}
-    for arch, res in served.items():
+    for arch, res in {**served, WHISPER_ARCH: whisper}.items():
         for name, n in res["launches"].items():
             by_path.setdefault(name, {})[arch] = n
 
@@ -3512,6 +3868,7 @@ def main() -> int:
     log(f"mla_decode instances: {json.dumps(mla_dec)}")
     for arch, res in served.items():
         log(f"serving {arch}: {json.dumps(res)}")
+    log(f"serving {WHISPER_ARCH}: {json.dumps(whisper)}")
     log("adaptive: " + json.dumps(adaptive))
     log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
                                 "phases": phases}))

@@ -101,10 +101,12 @@ def params_from(jax_params, cfg) -> dict:
     vectors (attention blocks' ``{"scale": ...}``, the xLSTM blocks'
     ``"norm"``) stacked with a leading repetition axis under
     ``["cells"][j]``, so each leaf is copied as it is and nothing is split
-    or transposed, with one exception: where ``cfg`` holds a share of the
-    experts (``experts_held``), the MoE layers' ``(R, E, d, ff)`` expert
-    stacks are cut to the share's ``[expert_offset, expert_offset +
-    experts_held)`` on their expert axis (the router stays whole)."""
+    or transposed (an encoder-decoder's ``encoder``, ``enc_pos``,
+    ``enc_ln_f`` and ``cross`` trees likewise), with one exception: where
+    ``cfg`` holds a share of the experts (``experts_held``), the MoE
+    layers' ``(R, E, d, ff)`` expert stacks are cut to the share's
+    ``[expert_offset, expert_offset + experts_held)`` on their expert axis
+    (the router stays whole)."""
     check_supported(cfg)
     share = slice(cfg.expert_offset, cfg.expert_offset + cfg.n_held)
 

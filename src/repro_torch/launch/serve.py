@@ -12,8 +12,10 @@ attention configs (``qwen1.5-0.5b``, ``llama3.2-3b``, ``yi-9b``),
 experts), and the cuts one H100 serves: ``jamba-1.5-large`` (one
 supercell at full width holding 8 of its 16 experts) and
 ``mixtral-8x7b-ep2`` (all 32 layers at full width holding 4 of its 8
-experts).  ``--smoke`` gives a narrow model of the same kind for the CPU.  Weights are random, from the port's
-seeded ``init_params``, drawn straight into the served type.
+experts).  ``--smoke`` gives a narrow model of the same kind for the CPU.
+Weights are random, from the port's seeded ``init_params``, drawn straight
+into the served type.  The engine refuses an encoder-decoder config, as
+the reference's does.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
-"""Model stack of the port: dense and MoE attention decoders, xLSTM and
-the Jamba hybrid (``transformer``) over the blocks of ``layers``, ``xlstm``,
-``mamba`` and ``moe``, with the high-level API of ``model``."""
+"""Model stack of the port: dense and MoE attention decoders, xLSTM, the
+Jamba hybrid and the Whisper encoder-decoder (``transformer``) over the
+blocks of ``layers``, ``xlstm``, ``mamba`` and ``moe``, with the
+high-level API of ``model``."""
 from . import layers, mamba, model, moe, transformer, xlstm
 from .model import (
     decode_step,
+    forward,
     greedy_generate,
     init_params,
     prefill,
@@ -11,5 +13,5 @@ from .model import (
 )
 
 __all__ = ["layers", "mamba", "model", "moe", "transformer", "xlstm",
-           "decode_step", "greedy_generate", "init_params", "prefill",
-           "serve_params"]
+           "decode_step", "forward", "greedy_generate", "init_params",
+           "prefill", "serve_params"]

@@ -13,11 +13,14 @@ Attention goes through the port's kernels: prefill through
 CUDA kernels on the card and take their plain versions on the CPU.
 ``plain=True`` calls the plain versions on any device: a check-only switch,
 for holding the kernels against them on the card; serving never sets it.
-A sliding window (``cfg.sliding_window``) reaches both kernels.  MLA
-attention takes the reference's weight-absorbed path over the latent cache,
-prefill through ``kernels.mla_attention.ops.mla_prefill`` and each decode
-step through ``mla_decode``; its path without a cache (training's
-``forward``) and cross-attention are not ported yet.
+A sliding window (``cfg.sliding_window``) reaches both kernels.
+Cross-attention (an encoder-decoder's, ``cross_kv``) goes through the same
+two kernels with no mask: several queries through the flash kernel, one
+query through the decode kernel.  MLA attention takes the reference's
+weight-absorbed path over the latent cache, prefill through
+``kernels.mla_attention.ops.mla_prefill`` and each decode step through
+``mla_decode``; its path without a cache (training's ``forward``) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -125,31 +128,50 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
       max_len``) and, under a sliding window ``W``, above ``length - W``,
       with ``length`` not clamped, as the reference's ``q_offset``.
 
+    With ``cross_kv`` (the encoder output ``(B, Se, d)``), cross-attention
+    as the reference computes it: q is ``x @ wq`` (plus ``bq``) without
+    RoPE, k and v are ``cross_kv`` projected by ``wk`` and ``wv`` (no bias,
+    even under ``qkv_bias``), and every query sees all ``Se`` keys of its
+    own batch row: no mask, no window, no cache.  Several queries go
+    through the flash kernel, one through the decode kernel, whose splits
+    spread the lane's keys over the card.
+
     ``plain=True`` is a check-only switch: the kernels' plain versions on
-    any device.  The cache returned is ``(k, v, length + S)``."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is not ported yet (ROADMAP "
-            "queue 1: the model families that wait)")
+    any device.  The cache returned is ``(k, v, length + S)`` (None without
+    a cache)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     attend = attention_ref if plain else flash_ops.attention
     decode = decode_attention_ref if plain else decode_ops.decode_attn
-    q, k, v = gqa_qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     new_cache = None
-    if kv_cache is None:
-        o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
-    else:
-        ck, cv, ln = kv_cache
-        write_cache((ck, cv), (k, v), ln)
+    if cross_kv is not None:
+        q = x @ p["wq"].to(x.dtype)
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(x.dtype)
+        q = q.reshape(b, s, h, hd)
+        se, kvh = cross_kv.shape[1], cfg.n_kv_heads
+        enc = cross_kv.to(x.dtype)
+        k = (enc @ p["wk"].to(x.dtype)).reshape(b, se, kvh, hd)
+        v = (enc @ p["wv"].to(x.dtype)).reshape(b, se, kvh, hd)
         if s == 1:
-            o = decode(q, ck, cv, ln, cfg.sliding_window)
+            o = decode(q, k, v, se - 1)
         else:
-            o = attend(q, ck[:, :ln + s], cv[:, :ln + s], causal=True,
-                       window=cfg.sliding_window)
-        new_cache = (ck, cv, ln + s)
+            o = attend(q, k, v, causal=False)
+    else:
+        q, k, v = gqa_qkv(p, x, cfg)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if kv_cache is None:
+            o = attend(q, k, v, causal=causal, window=cfg.sliding_window)
+        else:
+            ck, cv, ln = kv_cache
+            write_cache((ck, cv), (k, v), ln)
+            if s == 1:
+                o = decode(q, ck, cv, ln, cfg.sliding_window)
+            else:
+                o = attend(q, ck[:, :ln + s], cv[:, :ln + s], causal=True,
+                           window=cfg.sliding_window)
+            new_cache = (ck, cv, ln + s)
     o = o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
     return o, new_cache
 

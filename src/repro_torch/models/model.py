@@ -1,10 +1,14 @@
-"""High-level model API: init / prefill / decode, for dense and MoE
-attention models, MLA models (MiniCPM3), xLSTM and the Jamba hybrid.
+"""High-level model API: init / prefill / decode / teacher-forced forward,
+for dense and MoE attention models, MLA models (MiniCPM3), xLSTM, the
+Jamba hybrid and the Whisper encoder-decoder.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given
 ``device="cpu"``; the parameters must already be on that device.  The
-caches are written in place.  ``loss_fn`` waits for the training slice.
+caches are written in place.  An encoder-decoder model is served through
+``prefill(..., frames=)``, which also returns the encoder output, and
+``decode_step(..., cross_kv=)``, which takes it.  ``loss_fn`` waits for
+the training slice.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from ..device import resolve_device
 from . import transformer as T
 
 __all__ = ["init_params", "serve_params", "prefill", "decode_step",
-           "greedy_generate"]
+           "forward", "greedy_generate"]
 
 
 def _device(params, device) -> torch.device:
@@ -64,42 +68,101 @@ def serve_params(params, cfg) -> dict:
     return cast(params)
 
 
+def _frames(cfg, frames, dev):
+    """``frames`` on ``dev``: required by an encoder-decoder model, refused
+    by any other."""
+    if cfg.is_encdec and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: prefill "
+                         f"and forward take its frames (B, {cfg.enc_seq}, "
+                         f"{cfg.d_model})")
+    if not cfg.is_encdec and frames is not None:
+        raise ValueError(f"{cfg.name} has no encoder: frames are for an "
+                         f"encoder-decoder model")
+    return None if frames is None else torch.as_tensor(frames, device=dev)
+
+
 def prefill(params, cfg, tokens, max_len: int, device=None,
-            plain: bool = False):
+            plain: bool = False, frames=None):
     """Run the prompt ``tokens`` (B, S) through the model, filling fresh
     caches (``max_len`` positions for attention; recurrent states hold the
     prompt's final state).  Returns (logits of the last position
-    (B, V), caches, length S).  ``plain=True`` is a check-only switch: it
-    takes the kernels' plain versions on any device, to hold the kernels
-    against them on the card; serving never sets it."""
+    (B, V), caches, length S).  An encoder-decoder model (``cfg.is_encdec``)
+    needs ``frames`` (B, enc_seq, d), the stubbed frame embeddings, and
+    returns the reference's 4-tuple (logits, caches, length, cross_kv), with
+    ``cross_kv`` the encoder output (B, enc_seq, d) in ``cfg.dtype`` that
+    each :func:`decode_step` takes; any other model refuses ``frames``.
+    ``plain=True`` is a check-only switch: it takes the kernels' plain
+    versions on any device, to hold the kernels against them on the card;
+    serving never sets it."""
     dev = _device(params, device)
     tokens = torch.as_tensor(tokens, device=dev)
+    frames = _frames(cfg, frames, dev)
     b, s = tokens.shape
     caches = T.init_cache(cfg, b, max_len, dev)
+    cross_kv = (None if frames is None
+                else T.encode(params, cfg, frames, plain))
     x = T.embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=dev).expand(b, s)
-    x = T.run_cells(params, x, cfg, positions, caches, 0, plain)
+    x = T.run_cells(params, x, cfg, positions, caches, 0, plain,
+                    cross_kv=cross_kv)
     h = T.rms_norm_final(params, cfg, x[:, -1:])
-    return T.logits_fn(params, cfg, h)[:, -1], caches, s
+    logits = T.logits_fn(params, cfg, h)[:, -1]
+    if cross_kv is None:
+        return logits, caches, s
+    return logits, caches, s, cross_kv
 
 
 def decode_step(params, cfg, tokens, caches, length, device=None,
-                plain: bool = False, per_lane: bool = False):
+                plain: bool = False, per_lane: bool = False,
+                cross_kv=None):
     """One token (B, 1) at cache fill ``length`` (an int, or a (B,) tensor,
     one per lane).  Returns (logits (B, V), caches).  ``plain=True`` is the
     check-only switch of :func:`prefill`.  ``per_lane=True`` routes each
     row's MoE tokens as a group of their own, as a serving engine decodes
     independent lanes; by default the B tokens form one group, as in the
-    reference's ``decode_step``."""
+    reference's ``decode_step``.  An encoder-decoder model needs
+    ``cross_kv``, the encoder output :func:`prefill` returned (row b is lane
+    b's); any other model refuses it."""
     dev = _device(params, device)
     tokens = torch.as_tensor(tokens, device=dev)
+    if cfg.is_encdec and cross_kv is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                         f"decode_step takes the cross_kv prefill returned")
+    if not cfg.is_encdec and cross_kv is not None:
+        raise ValueError(f"{cfg.name} has no encoder: cross_kv is for an "
+                         f"encoder-decoder model")
+    if cross_kv is not None:
+        cross_kv = torch.as_tensor(cross_kv, device=dev)
     return T.decode_step(params, cfg, tokens, caches, length, plain,
-                         per_lane)
+                         per_lane, cross_kv)
+
+
+def forward(params, cfg, tokens, frames=None, device=None,
+            plain: bool = False):
+    """Teacher-forced forward of ``tokens`` (B, S), no caches: (the
+    final-normed hidden states (B, S, d), the MoE aux loss), as the
+    reference's ``transformer.forward``; :func:`repro_torch.models.
+    transformer.logits_fn` turns the states into logits.  An
+    encoder-decoder model needs ``frames``, as in :func:`prefill`.
+    ``plain=True`` is the check-only switch of :func:`prefill`."""
+    dev = _device(params, device)
+    tokens = torch.as_tensor(tokens, device=dev)
+    return T.forward(params, cfg, tokens, _frames(cfg, frames, dev), plain)
 
 
 def greedy_generate(params, cfg, prompt, steps: int, max_len: int,
                     device=None):
-    """Greedy continuation of ``prompt`` (B, S): (B, steps) tokens."""
+    """Greedy continuation of ``prompt`` (B, S): (B, steps) tokens.  An
+    encoder-decoder model raises: the reference's ``greedy_generate``
+    passes its prefill no frames, so it has no such path to match; serve
+    one through :func:`prefill` (``frames=``) and :func:`decode_step`
+    (``cross_kv=``)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"greedy_generate does not run {cfg.name}, an encoder-decoder "
+            f"model: the reference's greedy_generate passes its prefill no "
+            f"frames; call prefill(..., frames=) and decode_step(..., "
+            f"cross_kv=)")
     logits, caches, length = prefill(params, cfg, prompt, max_len, device)
     tok = torch.argmax(logits, dim=-1)[:, None]
     out = [tok]

@@ -1,6 +1,6 @@
 """Decoder LM for dense and MoE attention models (Mixtral), MLA models
-(MiniCPM3), xLSTM and the Jamba hybrid: init, prefill/decode forward,
-caches.
+(MiniCPM3), xLSTM, the Jamba hybrid and the Whisper encoder-decoder: init,
+the encoder, prefill/decode and teacher-forced forward, caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
@@ -14,8 +14,13 @@ block's ``(C, n, m)``, an sLSTM block's
 f32 with the leading ``(R, B)`` axes.  An FFN is dense or MoE (holding the
 config's share of the experts, ``models.moe``).  The reference scans over
 repetitions; the port loops over them in Python (serving needs no
-rematerialisation) and updates every cache in place.  Encoder-decoder and
-VLM models are not ported yet and raise ``NotImplementedError``.
+rematerialisation) and updates every cache in place.  An encoder-decoder
+model adds the reference's encoder tree (``encoder``, stacked over its
+layers; ``enc_pos``; ``enc_ln_f``) and a cross-attention ``{ln, attn}`` per
+decoder repetition under ``cross``; its decoder blocks attend to the
+encoder output (``cross_kv``, ``(B, enc_seq, d)``) after their
+self-attention, and it keeps no cross-attention cache.  VLM models are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ from . import moe as MOE
 from . import xlstm as X
 
 __all__ = ["supercell_size", "cell_structure", "check_supported",
-           "init_params", "embed_tokens", "rms_norm_final", "logits_fn",
-           "run_cells", "init_cache", "decode_step"]
+           "init_params", "embed_tokens", "encode", "forward",
+           "rms_norm_final", "logits_fn", "run_cells", "init_cache",
+           "decode_step"]
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -77,8 +83,10 @@ _RECURRENT = {"mlstm": (X.init_mlstm, X.init_mlstm_state),
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet."""
-    if cfg.family in ("encdec", "vlm"):
-        raise _unported(f"the {cfg.family} family ({cfg.name})")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"the vlm family ({cfg.name}) is not ported yet (ROADMAP queue "
+            f"1, item 7b: the vision prefix)")
     for kind, _ in cell_structure(cfg):
         if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
@@ -155,6 +163,21 @@ def init_params(gen: torch.Generator, cfg, serve_cast=None) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = cast(L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                          dtype))
+    if cfg.is_encdec:
+        dev = gen.device
+        p["encoder"] = _stacked(lambda: {
+            "ln1": L.init_rms_norm(cfg.d_model, dtype, dev),
+            "attn": cast(L.init_gqa(gen, cfg, dtype)),
+            "ln2": L.init_rms_norm(cfg.d_model, dtype, dev),
+            "ffn": cast(L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)),
+        }, cfg.n_enc_layers)
+        p["enc_pos"] = cast(L.dense_init(gen, (cfg.enc_seq, cfg.d_model),
+                                         dtype))
+        p["enc_ln_f"] = L.init_rms_norm(cfg.d_model, dtype, dev)
+        p["cross"] = _stacked(lambda: {
+            "ln": L.init_rms_norm(cfg.d_model, dtype, dev),
+            "attn": cast(L.init_gqa(gen, cfg, dtype)),
+        }, reps)
     return p
 
 
@@ -166,15 +189,23 @@ def _layer(tree, r: int):
 
 
 def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
-                   plain=False, per_lane=False):
-    """One block; returns (x, the new recurrent state or None).  An
-    attention block writes its KV cache in place.  ``per_lane`` groups an
-    MoE FFN's tokens within each batch row (see :func:`run_cells`)."""
+                   plain=False, per_lane=False, cross_kv=None, cross_p=None):
+    """One block; returns (x, the new recurrent state or None, the MoE
+    FFN's aux loss or None).  An attention block writes its KV cache in
+    place and, given ``cross_p`` (a repetition of ``params["cross"]``),
+    adds cross-attention to ``cross_kv`` after its own, as the reference
+    does.  ``per_lane`` groups an MoE FFN's tokens within each batch row
+    (see :func:`run_cells`)."""
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
-    new_state = None
+    new_state = aux = None
     if kind == "attn":
         fn = L.mla_attention if cfg.attention == "mla" else L.gqa_attention
         o, _ = fn(bp["attn"], h, cfg, positions, kv_cache=cache, plain=plain)
+        if cross_p is not None:
+            x = x + o
+            hc = L.rms_norm(x, cross_p["ln"]["scale"], cfg.norm_eps)
+            o, _ = L.gqa_attention(cross_p["attn"], hc, cfg, positions,
+                                   cross_kv=cross_kv, plain=plain)
     elif kind == "mlstm":
         o, new_state = X.mlstm_block(bp["mlstm"], h, cfg, state=cache,
                                      plain=plain)
@@ -188,11 +219,11 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
         x = x + L.ffn(bp["ffn"], L.rms_norm(x, bp["ln2"]["scale"],
                                             cfg.norm_eps))
     elif ffn_kind == "moe":
-        o, _ = MOE.moe_ffn(bp["moe"], L.rms_norm(x, bp["ln2"]["scale"],
-                                                 cfg.norm_eps), cfg,
-                           per_row=per_lane)
+        o, aux = MOE.moe_ffn(bp["moe"], L.rms_norm(x, bp["ln2"]["scale"],
+                                                   cfg.norm_eps), cfg,
+                             per_row=per_lane)
         x = x + o
-    return x, new_state
+    return x, new_state, aux
 
 
 def _cache_in(kind: str, cache: tuple, r: int, length) -> tuple:
@@ -214,30 +245,83 @@ def _cache_out(kind: str, cache: tuple, r: int, new_state) -> None:
 
 
 def run_cells(params, x, cfg, positions, caches=None, length=0,
-              plain=False, per_lane=False):
+              plain=False, per_lane=False, cross_kv=None, aux=None):
     """All layers in order.  ``caches``: per cell position the cache of
     its block kind (see the module docstring), updated in place, with
     ``length`` the attention caches' fill (an int, or a ``(B,)`` tensor
-    for a one-token step; recurrent blocks do not read it).  ``per_lane``
+    for a one-token step; recurrent blocks do not read it); None runs
+    without caches (the teacher-forced path).  ``per_lane``
     groups each MoE FFN's tokens within each batch row instead of over the
     whole batch: the capacity then couples no two lanes, as in the
-    reference engine's per-lane decode."""
+    reference engine's per-lane decode.  ``cross_kv``: an encoder-decoder's
+    encoder output, which repetition ``r``'s attention blocks attend to
+    through ``params["cross"]``'s repetition ``r``.  ``aux``, a list,
+    collects the MoE FFNs' aux losses."""
     struct = cell_structure(cfg)
     reps = cfg.n_layers // len(struct)
     for r in range(reps):
+        cross_p = (None if cross_kv is None
+                   else _layer(params["cross"], r))
         for j, (kind, ffn_kind) in enumerate(struct):
             cache = (None if caches is None
                      else _cache_in(kind, caches[j], r, length))
-            x, new_state = _block_forward(_layer(params["cells"][j], r), x,
-                                          cfg, kind, ffn_kind, positions,
-                                          cache, plain, per_lane)
+            x, new_state, a = _block_forward(
+                _layer(params["cells"][j], r), x, cfg, kind, ffn_kind,
+                positions, cache, plain, per_lane, cross_kv, cross_p)
             if caches is not None:
                 _cache_out(kind, caches[j], r, new_state)
+            if aux is not None and a is not None:
+                aux.append(a)
     return x
 
 
 def embed_tokens(params, cfg, tokens):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def encode(params, cfg, frames, plain=False):
+    """The encoder over stubbed frame embeddings ``frames`` (B, enc_seq, d)
+    -> (B, enc_seq, d) in ``cfg.dtype``: ``enc_pos`` added, then per layer
+    RMSNorm, non-causal self-attention with RoPE on q and k (the
+    reference's path without a cache, under ``cfg.sliding_window``), the
+    residual, RMSNorm, the SwiGLU FFN and the residual; ``enc_ln_f`` last.
+    ``plain`` as in :func:`run_cells`."""
+    want = (cfg.enc_seq, cfg.d_model)
+    if frames.dim() != 3 or tuple(frames.shape[1:]) != want:
+        raise ValueError(f"frames must have shape (B, {want[0]}, {want[1]}) "
+                         f"(got {tuple(frames.shape)})")
+    dt = getattr(torch, cfg.dtype)
+    x = frames.to(dt) + params["enc_pos"].to(dt)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for r in range(cfg.n_enc_layers):
+        lp = _layer(params["encoder"], r)
+        h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
+        o, _ = L.gqa_attention(lp["attn"], h, cfg, positions, causal=False,
+                               plain=plain)
+        x = x + o
+        x = x + L.ffn(lp["ffn"], L.rms_norm(x, lp["ln2"]["scale"],
+                                            cfg.norm_eps))
+    return L.rms_norm(x, params["enc_ln_f"]["scale"], cfg.norm_eps)
+
+
+def forward(params, cfg, tokens, frames=None, plain=False):
+    """Teacher-forced forward of ``tokens`` (B, S) without caches -> (the
+    final-normed hidden states (B, S, d), the sum of the MoE FFNs' aux
+    losses, an f32 scalar), as the reference's ``forward``; an
+    encoder-decoder model encodes ``frames`` first.  MLA models raise
+    (:func:`repro_torch.models.layers.mla_attention` without a cache)."""
+    x = embed_tokens(params, cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cross_kv = encode(params, cfg, frames, plain) if cfg.is_encdec else None
+    aux: list = []
+    x = run_cells(params, x, cfg, positions, plain=plain, cross_kv=cross_kv,
+                  aux=aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return rms_norm_final(params, cfg, x), total
 
 
 def rms_norm_final(params, cfg, x):
@@ -279,10 +363,11 @@ def init_cache(cfg, batch: int, max_len: int, device) -> list:
 
 
 def decode_step(params, cfg, tokens, caches, length, plain=False,
-                per_lane=False):
+                per_lane=False, cross_kv=None):
     """One-token decode.  tokens: (B, 1); length: the cache fill, an int or
-    a (B,) int tensor (one per lane); ``per_lane`` as in :func:`run_cells`.
-    Writes the caches in place; returns (logits (B, V), caches)."""
+    a (B,) int tensor (one per lane); ``per_lane`` and ``cross_kv`` (an
+    encoder-decoder's encoder output) as in :func:`run_cells`.  Writes the
+    caches in place; returns (logits (B, V), caches)."""
     x = embed_tokens(params, cfg, tokens)
     if isinstance(length, torch.Tensor):
         positions = length.reshape(-1, 1).expand(tokens.shape)
@@ -290,6 +375,6 @@ def decode_step(params, cfg, tokens, caches, length, plain=False,
         positions = torch.full(tokens.shape, length, dtype=torch.int32,
                                device=tokens.device)
     x = run_cells(params, x, cfg, positions, caches, length, plain,
-                  per_lane)
+                  per_lane, cross_kv)
     h = rms_norm_final(params, cfg, x)
     return logits_fn(params, cfg, h)[:, -1], caches

@@ -16,6 +16,10 @@ An MoE FFN routes each lane's token as a group of its own
 (``per_lane=True``), as the reference's one-lane decode does: batched
 over lanes, the capacity would otherwise couple them.
 
+An encoder-decoder model is refused at construction: the reference's
+engine admits a request by a prefill without frames, which its encoder
+cannot run, so it has no such path to match.
+
 ``stats`` accumulates host wall time (each phase ends by reading its
 tokens back, so the card has finished) and work counts: ``prefill_s``,
 ``prefill_tokens``, ``decode_s``, ``decode_steps``, ``decode_tokens``
@@ -47,6 +51,13 @@ class Request:
 class ServeEngine:
     def __init__(self, params, cfg, n_lanes: int = 4, max_len: int = 256,
                  device=None):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"ServeEngine does not serve {cfg.name}, an encoder-decoder "
+                f"model: the reference's engine admits a request by a "
+                f"prefill without frames (src/repro/serve/engine.py, "
+                f"_admit); serve it through models.prefill(..., frames=) "
+                f"and decode_step(..., cross_kv=)")
         self.device = M._device(params, device)
         self.params, self.cfg = M.serve_params(params, cfg), cfg
         self.n_lanes, self.max_len = n_lanes, max_len

@@ -62,7 +62,9 @@ from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
                                               sinkhorn_ref)
-from repro_torch.models import decode_step, init_params, prefill, serve_params
+from repro_torch.models import (decode_step, forward, init_params, prefill,
+                                serve_params)
+from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -260,6 +262,16 @@ def _randn(gen, *shape, dtype):
     (1, 300, 300, 64, 8, 64, True, 0),        # rep 8
     (1, 300, 300, 32, 1, 128, True, 0),       # rep 32
     (1, 5000, 5000, 32, 8, 128, True, 4096),  # Mixtral's windowed prefill
+    # Whisper-tiny (H 6, dh 64, 1500 encoder rows): the encoder's
+    # non-causal self-attention, the cross-attention prefill (Sq != Sk),
+    # one query, and key counts around the last 64-key tile's tail (1472
+    # fills 23 tiles, 1473 one key past, 1500 leaves 28 keys in the last)
+    (8, 1500, 1500, 6, 6, 64, False, 0),
+    (8, 4, 1500, 6, 6, 64, False, 0),
+    (2, 1, 1500, 6, 6, 64, False, 0),
+    (1, 130, 1500, 6, 6, 64, False, 0),
+    (1, 130, 1472, 6, 6, 64, False, 0),
+    (1, 130, 1473, 6, 6, 64, False, 0),
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
                                     window):
@@ -322,6 +334,36 @@ def test_decode_kernel_matches_plain(dtype, s, h, kv, dh):
     torch.testing.assert_close(
         decode_ops.decode_attn(q, k, v, 300).float(),
         decode_attention_ref(q, k, v, 300).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_cross_attention_shape(dtype):
+    """Whisper-tiny's cross decode: 8 lanes, each one query over all 1500
+    rows of its own encoder output (length 1499 everywhere), H 6, K/V a
+    fresh contiguous projection and not a cache."""
+    _card()
+    dt = getattr(torch, dtype)
+    b, s, h, dh, d = 8, 1500, 6, 64, 384
+    gen = torch.Generator(device="cuda").manual_seed(1500)
+    q = _randn(gen, b, 1, h, dh, dtype=dt)
+    enc = _randn(gen, b, s, d, dtype=dt)
+    wk = _randn(gen, d, h * dh, dtype=dt) * 0.05
+    wv = _randn(gen, d, h * dh, dtype=dt) * 0.05
+    k = (enc @ wk).reshape(b, s, h, dh)
+    v = (enc @ wv).reshape(b, s, h, dh)
+    before = decode_ops.launches
+    got = decode_ops.decode_attn(q, k, v, s - 1)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    want = decode_attention_ref(q, k, v, s - 1)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, decode_ops.decode_attn(q, k, v, s - 1))
+    # the same as the flash kernel's one-query answer over every key
+    torch.testing.assert_close(
+        got.float(), flash_ops.attention(q, k, v, causal=False).float(),
+        rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -693,6 +735,48 @@ def test_served_mixtral_kernels_match_plain():
     assert flash_ops.launches - f0 == 2 * cfg.n_layers
     assert decode_ops.launches - d0 == eng.stats["decode_steps"] * cfg.n_layers
     assert eng._lengths[0] - cfg.sliding_window + 1 >= 64
+
+
+@pytest.mark.gpu
+def test_served_whisper_kernels_match_plain():
+    """A narrow Whisper (head dim 64, 300 encoder rows) on the card in
+    f32: prefill(frames=) and decode steps through the kernels against the
+    plain versions and against the teacher-forced forward, fed the same
+    tokens; a prefill launches the flash kernel once per encoder layer and
+    twice per decoder layer (self and cross), a decode step the decode
+    kernel twice per decoder layer."""
+    _card()
+    cfg = get_config("whisper-tiny", smoke=True).replace(
+        d_model=256, n_heads=4, n_kv_heads=4, head_dim=0, d_ff=512,
+        enc_seq=300, dtype="float32")
+    assert cfg.head_dim == 64
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen,
+                         device="cuda")
+    prompt = torch.arange(1, 11, device="cuda").reshape(2, 5) % cfg.vocab
+    f0, d0 = flash_ops.launches, decode_ops.launches
+    lk, ck, ln, xk = prefill(p, cfg, prompt, 64, frames=frames)
+    assert flash_ops.launches - f0 == cfg.n_enc_layers + 2 * cfg.n_layers
+    lp, cp, _, xp = prefill(p, cfg, prompt, 64, plain=True, frames=frames)
+    torch.testing.assert_close(xk, xp, rtol=1e-4, atol=1e-4)
+    fed, logits = [], [lk]
+    for step in range(6):
+        scale = max(1.0, float(lp.abs().max()))
+        assert float((lk - lp).abs().max()) <= 1e-3 * scale
+        tok = torch.argmax(lk, dim=-1)[:, None]
+        fed.append(tok)
+        before = decode_ops.launches
+        lk, ck = decode_step(p, cfg, tok, ck, ln + step, cross_kv=xk)
+        assert decode_ops.launches - before == 2 * cfg.n_layers
+        lp, cp = decode_step(p, cfg, tok, cp, ln + step, plain=True,
+                             cross_kv=xp)
+        logits.append(lk)
+    h, _ = forward(p, cfg, torch.cat([prompt] + fed, dim=1), frames=frames)
+    full = T.logits_fn(p, cfg, h)[:, prompt.shape[1] - 1:]
+    for j, lg in enumerate(logits):
+        scale = max(1.0, float(lg.abs().max()))
+        assert float((full[:, j] - lg).abs().max()) <= 1e-3 * scale
 
 
 # ---------------------------------------------------------------------------

@@ -179,10 +179,6 @@ def test_unported_attention_kinds_raise():
     x = torch.zeros(1, 2, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP.*training"):
         L.mla_attention({}, x, cfg, None)
-    q = get_config("qwen1.5-0.5b", smoke=True)
-    x = torch.zeros(1, 2, q.d_model)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        L.gqa_attention({}, x, q, None, cross_kv=x)
 
 
 # -- the model -------------------------------------------------------------
@@ -286,7 +282,7 @@ def test_serve_params_give_the_same_logits():
 
 
 def test_init_params_tree_and_distribution():
-    for arch in ARCHS:
+    for arch in ARCHS + ["whisper-tiny"]:
         jcfg = j_get_config(arch, smoke=True)
         cfg = get_config(arch, smoke=True)
         want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
@@ -305,7 +301,7 @@ def test_init_params_tree_and_distribution():
     assert torch.equal(again["embed"], w)
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["internvl2-76b"])
 def test_unported_models_raise(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
