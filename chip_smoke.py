@@ -117,10 +117,11 @@ and read just after:
    (controls: the f32 gate must sit between them and the kernels), and
    each token an engine served must be a near-argmax of the plain
    version's logits of its type.
-3. Serving xLSTM-350M the same way at full width and depth (24 layers:
-   21 mLSTM, sLSTM at 1, 9 and 17; d_model 1024, 4 heads of dim 512,
-   vocab 50,304), on the same deployment and requests: every prefill runs
-   the chunkwise mLSTM kernel once per mLSTM layer (16 x 21 = 336 launches),
+3. Serving xLSTM-350M the same way at full width, cut to one of its
+   three 8-layer supercells (``SERVED_LAYERS``: 7 mLSTM, sLSTM at 1;
+   d_model 1024, 4 heads of dim 512, vocab 50,304), on the same
+   deployment and requests: every prefill runs the chunkwise mLSTM kernel
+   once per mLSTM layer (16 x 7 = 112 launches),
    decode is the plain recurrence.  The logits check is Qwen's, with two
    broken uses of the mLSTM kernel as controls (the prompt's final state
    not handed to decode; q's 1/sqrt(dh) scale left out); its bf16 logits
@@ -139,10 +140,10 @@ and read just after:
    out of the input), its f32 weights holding 2 of the 16
    experts so that they fit the card.
 5. Serving Mixtral-8x7B as card 0 of an expert-parallel pair
-   (``mixtral-8x7b-ep2``: all 32 layers at full width, d_model 4096, 32 / 8
-   heads of 128, MoE FFNs of d_ff 14336 holding experts 0-3 of 8 with the
-   router whole, vocab 32,000, sliding window 4096; 24.2 B parameters,
-   44.99 GiB in bf16) on a deployment of its own, a long-context chat or
+   (``mixtral-8x7b-ep2`` at full width, cut to 8 of its 32 layers by
+   ``SERVED_LAYERS``: d_model 4096, 32 / 8 heads of 128, MoE FFNs of d_ff
+   14336 holding experts 0-3 of 8 with the router whole, vocab 32,000,
+   sliding window 4096) on a deployment of its own, a long-context chat or
    retrieval service: 8 lanes x 8192, 12 requests (4 prompts of 4200-6000
    tokens, past the window, then 8 of 128-1024), 32 new tokens.  Every
    prefill runs the flash kernel and every decode step the decode kernel
@@ -150,18 +151,18 @@ and read just after:
    lane past the window are counted (> 0).  The logits check is Jamba's,
    on two requests past the window, with Qwen's two controls and a third,
    the decode kernel without its window; its f32 weights hold 2 of the 8
-   experts (47.98 GiB).  Jamba's and Mixtral's bf16 checks also read the
+   experts.  Jamba's and Mixtral's bf16 checks also read the
    share of router decisions the two paths make differently, and the plain
    path against itself with q nudged by 2^-9 in its attention (the size of
    the bf16 kernels' roundings of P): the model's own sensitivity.
-6. Serving MiniCPM3-4B whole (``minicpm3-4b``: 62 layers, d_model 2560,
-   40 heads of 64, MLA with q_lora_rank 768, kv_lora_rank 256 and
-   rope_head_dim 32, d_ff 6400, vocab 73,448; 4,261,519,360 parameters,
-   7.94 GiB in bf16, nothing cut) on Mixtral's long-context deployment.
+6. Serving MiniCPM3-4B (``minicpm3-4b`` at full width, cut to 16 of its
+   62 layers by ``SERVED_LAYERS``: d_model 2560, 40 heads of 64, MLA with
+   q_lora_rank 768, kv_lora_rank 256 and rope_head_dim 32, d_ff 6400,
+   vocab 73,448) on Mixtral's long-context deployment.
    Every prefill runs the MLA prefill kernel and every decode step the MLA
    decode kernel once per layer (attention over the latent cache, the
    reference's weight-absorbed path).  The logits check is Qwen's, its f32
-   weights whole (15.88 GiB), with three controls: the scale worked out
+   weights whole, with three controls: the scale worked out
    from the key width, the q_rope . k_rope term dropped, and a decode split
    dropped.  Its bf16 logits are gated at Qwen's bar unless the plain path
    nudged by 2^-9 already moves past it; then they are read.
@@ -183,6 +184,29 @@ and read just after:
    controls and a third, cross decode over 1499 of the 1500 keys, and
    against the f32 teacher-forced ``forward`` on the card; its bf16
    logits and tokens take MiniCPM3's nudge rule.
+
+8. Training (``training_phases``), after the flash-attention backward
+   kernel is held against its plain version (``flash_bwd_phases``: dQ, dK,
+   dV and the forward's log-sum-exp at Qwen's training shape 8 x 2048 in
+   bf16 and f32, Mixtral's window 1 x 5000 (H 32 / KV 8, dh 128, window
+   4096) in bf16 and f32, Whisper's encoder 8 x 1500^2 and cross-attention
+   8 x 448 x 1500, a ragged 1 x 130 x 1473; the GQA sum left out and the D
+   term dropped as controls, at least 10x past the f32 gate).  Qwen1.5-0.5B
+   at full width and depth: one f32 loss and gradient at B 2 x 1024 through
+   the kernels against the plain versions (loss rtol 1e-5, every gradient
+   leaf within 1e-3 of its largest magnitude), then the ``Trainer`` in bf16
+   at B 8 x 2048 (warmup 2, 12 steps, a checkpoint every 4 under
+   ``chiprun_out/train_ckpt``, removed after): the flash kernels' calls
+   gated (each layer's forward once plus once under remat, its backward
+   once), losses finite and falling, a failure injected at step 6 and a
+   resume from the step-3 checkpoint whose losses hold to the uninterrupted
+   run's at rtol 1e-4; a traced step reads the idle share and the device
+   time by kind.  Whisper-tiny whole: the same f32 check at B 2 x 448 with
+   its 1500 seeded frames, then 4 bf16 Trainer steps at 8 x 448.
+   InternVL2-76B at full width cut to 4 of its 80 layers: ``forward`` and
+   ``loss_fn`` with 256 vision tokens before 768 text tokens, B 2, under
+   no_grad, f32 kernels against plain within 1e-3, bf16 by MiniCPM3's
+   nudge rule.
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (Sinkhorn also bit for bit against
@@ -229,6 +253,7 @@ import functools
 import gc
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -252,6 +277,7 @@ from repro_torch.benchmarks import interconnect_bench  # noqa: E402
 from repro_torch.benchmarks import schedule_time  # noqa: E402
 from repro_torch.benchmarks import throughput_bench  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core import faults as faults_mod  # noqa: E402
 from repro_torch.core import schedule as schedule_mod  # noqa: E402
 from repro_torch.core import simulator as sim_mod  # noqa: E402
@@ -287,7 +313,12 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
+from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as mamba_ops  # noqa: E402
 from repro_torch.kernels.mla_attention import ops as mla_ops  # noqa: E402
 from repro_torch.kernels.mla_attention.ref import (  # noqa: E402
@@ -302,17 +333,27 @@ from repro_torch.kernels.sinkhorn.ref import (  # noqa: E402
     sinkhorn_kernel_order,
     sinkhorn_ref,
 )
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     decode_step,
     forward,
     init_params,
+    loss_fn,
     prefill,
+    serve_params,
 )
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    InjectedFailure,
+    Trainer,
+    init_state,
+    make_train_step,
+)
+from repro_torch.tree import flatten_with_keys, leaves, tree_map  # noqa: E402
 
 N, D_HAT, K, RECFG = 256, 8, 3, 1 / 9
 BITS_PER_SLOT = 100e9 * 4.5e-6
@@ -461,15 +502,15 @@ MLSTM_TOL = (1e-4, 1e-4)
 JAMBA_ARCH = "jamba-1.5-large"
 
 # the fourth served model: Mixtral-8x7B as card 0 of an expert-parallel
-# pair, all 32 layers at full width with experts 0-3 of its 8 and its
-# sliding window of 4096 (src/repro_torch/configs/mixtral_8x7b.py, SERVED
-# and REDUCED; 44.99 GiB in bf16), on a deployment of its own (below); its
-# f32 checks hold 2 of the 8 experts (47.98 GiB in f32)
+# pair, at full width with experts 0-3 of its 8 and its sliding window of
+# 4096 (src/repro_torch/configs/mixtral_8x7b.py, SERVED and REDUCED), its
+# depth cut by SERVED_LAYERS, on a deployment of its own (below); its f32
+# checks hold 2 of the 8 experts
 MIXTRAL_ARCH = "mixtral-8x7b-ep2"
 
-# the fifth served model: MiniCPM3-4B whole (62 layers at full width, MLA
-# latent attention; src/repro_torch/configs/minicpm3_4b.py), 7.94 GiB in
-# bf16, 15.88 GiB in f32, nothing cut, on Mixtral's long-context deployment
+# the fifth served model: MiniCPM3-4B at full width (MLA latent attention;
+# src/repro_torch/configs/minicpm3_4b.py), its depth cut by SERVED_LAYERS,
+# on Mixtral's long-context deployment
 MINICPM3_ARCH = "minicpm3-4b"
 
 # the sixth served model: Whisper-tiny whole (src/repro_torch/configs/
@@ -519,6 +560,14 @@ SERVING = Deployment(8, 2048, ((16, 128, 1024),), 32)
 # latent cache of 2.18 GiB beside its 7.94 GiB of weights)
 MIXTRAL_SERVING = Deployment(8, 8192, ((4, 4200, 6000), (8, 128, 1024)), 32)
 DEPLOYMENTS = {MIXTRAL_ARCH: MIXTRAL_SERVING, MINICPM3_ARCH: MIXTRAL_SERVING}
+
+# the serving paths cut in depth, every width kept, so that the script with
+# its training phases stays well inside its 1,200-s limit: xLSTM to one of
+# its three 8-layer supercells (7 mLSTM, 1 sLSTM), Mixtral to 8 of its 32
+# layers, MiniCPM3 to 16 of its 62; their host-bound phases had grown to
+# 92, 102 and 140 s on a slower host.  Qwen, Jamba's supercell and Whisper
+# keep their depth; Qwen also trains at full depth
+SERVED_LAYERS = {XLSTM_ARCH: 8, MIXTRAL_ARCH: 8, MINICPM3_ARCH: 16}
 
 # H100 SXM's special-function units: 16 ex2 a clock on each of 132 SMs at
 # the 1.98 GHz boost clock (CUDA C programming guide, compute capability
@@ -1534,6 +1583,7 @@ SERVED = {ARCH: ({"flash_attention": flash_ops,
 # the __global__ functions each wrapper launches, by a part of their names
 KERNEL_EVENTS = {"sinkhorn": ("sinkhorn_",),
                  "flash_attention": ("flash_fwd",),
+                 "flash_attention_bwd": ("bwd_dsum", "bwd_dkdv", "bwd_dq"),
                  "decode_attention": ("decode_partial", "decode_combine"),
                  "mlstm": ("mlstm_",), "mamba_scan": ("mamba_scan_fwd",),
                  "mla_prefill": ("mla_prefill_fwd",),
@@ -1770,13 +1820,16 @@ def attention_phases() -> tuple:
 
 def _device_kind(name: str) -> str:
     return ("flash_fwd" if "flash_fwd" in name else
+            "flash_bwd" if any(k in name for k in
+                               KERNEL_EVENTS["flash_attention_bwd"]) else
             "mla_prefill" if "mla_prefill_fwd" in name else
             "mla_decode" if "mla_decode_" in name else
             "mlstm" if "mlstm_" in name else   # its four passes
             "mamba_scan_fwd" if "mamba_scan_fwd" in name else
             "decode_partial" if "decode_partial" in name else
             "decode_combine" if "decode_combine" in name else
-            "gemm" if "gemm" in name.lower() else "other")
+            "gemm" if "gemm" in name.lower() or "nvjet" in name else
+            "other")
 
 
 def _device_time(prof) -> tuple:
@@ -1960,6 +2013,8 @@ def serving_phases(arch: str) -> dict:
     wrappers, controls, bf16_gated = SERVED[arch]
     dep = DEPLOYMENTS.get(arch, SERVING)
     cfg = get_config(arch)
+    if arch in SERVED_LAYERS:
+        cfg = cfg.replace(n_layers=SERVED_LAYERS[arch])
     kinds = cfg.layer_kinds()
     reqs = serving_requests(cfg.vocab, dep)
     window = cfg.sliding_window
@@ -3648,6 +3703,498 @@ def evaluation_phases() -> dict:
     return out
 
 
+# -- training: the flash-attention backward kernel and the trainer -----------
+# the backward kernel against its plain version (attention_bwd_ref): f32
+# within 1e-4 of each output's largest magnitude (the two sum in other
+# orders over up to 5000 keys); bf16 by the forward checks' rule,
+# |diff| <= 2e-2 (1 + |plain|), since both round only the outputs to bf16;
+# the forward's log-sum-exp within 1e-5 of a plain logsumexp
+BWD_F32_TOL = 1e-4
+LSE_TOL = 1e-5
+# a broken backward must sit at least this many times past the f32 gate
+CONTROL_FACTOR = 10.0
+# (label, B, Sq, Sk, H, KV, dh, causal, window, dtypes): Qwen's training
+# shape, Mixtral's window, Whisper's encoder and cross-attention, a ragged
+# cross shape; the controls run where the f32 kernel runs
+BWD_SHAPES = (
+    ("qwen-train", 8, 2048, 2048, 16, 16, 64, True, 0,
+     (torch.bfloat16, torch.float32)),
+    ("mixtral-window", 1, 5000, 5000, 32, 8, 128, True, 4096,
+     (torch.bfloat16, torch.float32)),
+    ("whisper-encoder", 8, 1500, 1500, 6, 6, 64, False, 0, (torch.bfloat16,)),
+    ("whisper-cross", 8, 448, 1500, 6, 6, 64, False, 0, (torch.bfloat16,)),
+    ("ragged-cross", 1, 130, 1473, 6, 6, 64, False, 0,
+     (torch.bfloat16, torch.float32)),
+)
+
+# training: Qwen1.5-0.5B at full width and depth, the f32 gradient check
+# at B 2 x 1024 (kernels vs plain versions: loss rtol 1e-5, each gradient
+# leaf within 1e-3 of its largest magnitude, attention's reduction order
+# carried through 24 layers and the chunked loss), then the Trainer in
+# bf16 at B 8 x 2048: warmup 2, 12 steps, a checkpoint every 4, a failure
+# injected at step 6 and a resume whose losses hold to the uninterrupted
+# run's at rtol 1e-4 (the kernels are deterministic)
+TRAIN_ARCH = "qwen1.5-0.5b"
+GRAD_CHECK = (2, 1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL = 8, 2048, 12, 6
+GRAD_LOSS_RTOL, GRAD_LEAF_TOL, RESUME_RTOL = 1e-5, 1e-3, 1e-4
+# Whisper-tiny trained whole: the gradient check at B 2 x 448 tokens, then
+# 4 bf16 Trainer steps at 8 x 448, each with its 1500 seeded frames
+WHISPER_TRAIN = (2, 8, 448, 4)
+# InternVL2-76B at full width, cut to 4 of its 80 layers: 256 vision tokens
+# before 768 text tokens, B 2; forward and loss_fn under no_grad, f32
+# kernels vs plain versions within 1e-3 (as the served models' f32
+# logits), bf16 gated as the served models are
+VLM_ARCH, VLM_LAYERS, VLM_TEXT, VLM_BATCH = "internvl2-76b", 4, 768, 2
+VLM_F32_TOL = 1e-3
+CKPT_ROOT = Path(__file__).resolve().parent / "chiprun_out" / "train_ckpt"
+
+
+@dataclasses.dataclass(frozen=True)
+class SizedTrainConfig(TrainConfig):
+    """A TrainConfig that carries the run's batch shape, which the Trainer
+    reads as the reference's does (``getattr(tc, "seq_len", 64)``)."""
+    seq_len: int = 64
+    global_batch: int = 8
+
+
+def bwd_ratio(got, want, dtype) -> float:
+    """How far (dq, dk, dv) sit from the plain version's, over the gate:
+    f32 max |diff| / (1e-4 max |plain|) per output, bf16 max |diff| /
+    (2e-2 (1 + |plain|)); the largest of the three.  <= 1 passes."""
+    r = 0.0
+    for g, w in zip(got, want):
+        d, wf = (g.float() - w.float()).abs(), w.float()
+        if dtype == torch.float32:
+            r = max(r, float(d.max()) / (BWD_F32_TOL * max(
+                float(wf.abs().max()), 1e-30)))
+        else:
+            tol = ATTN_TOL[dtype]
+            r = max(r, float((d / (tol + tol * wf.abs())).max()))
+    return r
+
+
+def bwd_group_not_summed(q, k, v, o, lse, do, causal, window):
+    """Control: the plain backward with each kv head's dK and dV from the
+    first query head of its group alone (the GQA sum left out)."""
+    first = torch.arange(0, q.shape[2], q.shape[2] // k.shape[2],
+                         device=q.device)
+    dq, _, _ = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    _, dk, dv = attention_bwd_ref(q[:, :, first], k, v, o[:, :, first],
+                                  lse[:, first], do[:, :, first], causal,
+                                  window)
+    return dq, dk, dv
+
+
+def bwd_d_dropped(q, k, v, o, lse, do, causal, window):
+    """Control: the plain backward without D = rowsum(dO o O)."""
+    return attention_bwd_ref(q, k, v, torch.zeros_like(o), lse, do, causal,
+                             window)
+
+
+def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
+                    dh: int, dtype: torch.dtype, causal: bool, window: int,
+                    reps: int = 5) -> dict:
+    """The backward kernel against its plain version on one input, after
+    the forward kernel's log-sum-exp against a plain logsumexp; in f32 the
+    two controls (the GQA sum left out where rep > 1, the D term dropped)
+    must miss the gate by CONTROL_FACTOR.  Times the kernel on the card
+    alone (:func:`device_ms`) and with the host, the plain version, and
+    ``scaled_dot_product_attention``'s backward under the same mask."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + sq + sk + h)
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device=DEV).to(dtype)
+    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
+    do = rnd(b, sq, h, dh)
+    o, lse = flash_ops.attention_kernel(q, k, v, causal, window,
+                                        with_lse=True)
+    _, lse_ref = attention_lse_ref(q, k, v, causal, window)
+    seen = torch.isfinite(lse_ref)
+    lse_err = (float((lse[seen] - lse_ref[seen]).abs().max())
+               if bool(seen.any()) else 0.0)
+    if not torch.equal(torch.isfinite(lse), seen) or lse_err > LSE_TOL:
+        raise AssertionError(f"flash forward log-sum-exp disagrees with a "
+                             f"plain logsumexp: {label} {_dname(dtype)} "
+                             f"({lse_err:.3e})")
+    args = (q, k, v, o, lse, do, causal, window)
+    got = bwd_ops.attention_bwd_kernel(*args)
+    again = bwd_ops.attention_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(*args)
+    ratio = bwd_ratio(got, want, dtype)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    controls = {}
+    if dtype == torch.float32:
+        broken = {"d_dropped": bwd_d_dropped}
+        if h != kv:
+            broken["group_not_summed"] = bwd_group_not_summed
+        controls = {name: bwd_ratio(fn(*args), want, dtype)
+                    for name, fn in broken.items()}
+    del got, again, want
+    call = lambda: bwd_ops.attention_bwd_kernel(*args)  # noqa: E731
+    ms = device_ms(call, reps)
+    call_ms = time_ms(call, reps)
+    plain_ms = device_ms(lambda: attention_bwd_ref(*args), 2, warm=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    if causal and sq == sk and not window:
+        mask = dict(is_causal=True)
+    elif not causal and not window:
+        mask = {}
+    else:
+        mask = dict(attn_mask=_end_aligned_mask(sq, sk, causal, window, DEV))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=h != kv,
+                                         **mask)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps)
+    backend = sdpa_backend(qt, kt, vt, mask.get("attn_mask"), 0.0,
+                           bool(mask.get("is_causal")), enable_gqa=h != kv)
+    del out, qt, kt, vt
+    size = torch.finfo(dtype).bits // 8
+    pairs = visible_pairs(sq, sk, causal, window)
+    bound_ms, bound_by = attn_bound_ms(
+        (4 * b * sq * h + 4 * b * sk * kv) * dh * size + 4 * b * h * sq,
+        10.0 * b * h * dh * pairs, dtype)
+    log(f"  {label:16s} {_dname(dtype):8s} B={b} Sq={sq} Sk={sk} H={h} "
+        f"KV={kv} dh={dh} causal={int(causal)} window={window}: "
+        f"max_abs_err={err:.3e} ({ratio:.3f} of the gate) "
+        f"{'ok' if ratio <= 1 else 'FAIL'}; lse err {lse_err:.2e}; "
+        f"deterministic={same}; controls (x the gate) "
+        f"{json.dumps({k: round(x, 2) for k, x in controls.items()})}; "
+        f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms ({backend}), "
+        f"bound {bound_ms:.6f} ms ({bound_by}); x bound "
+        f"{ms / bound_ms:.1f}, x sdpa {ms / library_ms:.2f}")
+    if ratio > 1:
+        raise AssertionError(f"flash backward kernel disagrees with its "
+                             f"plain version: {label} {_dname(dtype)}")
+    if not same:
+        raise AssertionError(f"flash backward kernel is not deterministic: "
+                             f"{label} {_dname(dtype)}")
+    for name, r in controls.items():
+        if r < CONTROL_FACTOR:
+            raise AssertionError(f"control {name} at {label} is within "
+                                 f"{r:.2f}x the gate (needs "
+                                 f"{CONTROL_FACTOR}x)")
+    return {"label": label, "dtype": _dname(dtype),
+            "shape": [b, sq, sk, h, kv, dh], "causal": causal,
+            "window": window, "max_abs_err": err, "x_gate": ratio,
+            "lse_err": lse_err, "controls": controls, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_backend": backend,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def flash_bwd_phases() -> tuple:
+    """``check_flash_bwd`` at every shape of :data:`BWD_SHAPES`; both
+    controls must have been caught.  Returns (instances, Qwen's bf16
+    training shape, which the kernel line reports)."""
+    log("== flash-attention backward kernel vs plain "
+        "(attention_bwd_ref) on the card")
+    out = []
+    for label, b, sq, sk, h, kv, dh, causal, window, dtypes in BWD_SHAPES:
+        for dt in dtypes:
+            out.append(check_flash_bwd(label, b, sq, sk, h, kv, dh, dt,
+                                       causal, window))
+            gc.collect()
+            torch.cuda.empty_cache()
+    caught = {name for inst in out for name in inst["controls"]}
+    if caught != {"d_dropped", "group_not_summed"}:
+        raise AssertionError(f"controls run: {sorted(caught)}")
+    return out, out[0]
+
+
+def expect_calls(path: str, got: dict, want: dict) -> None:
+    """The flash kernels' wrapper calls on a training path, against the
+    count its layers give."""
+    log(f"  {path}: flash wrapper calls {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{path} called the flash kernels {got} times "
+                             f"(expected {want})")
+
+
+def flash_calls_per_pass(cfg) -> dict:
+    """Flash forward and backward calls of one loss and gradient: each
+    attention call once forward and once backward, and the decoder's
+    forward once more where ``remat`` recomputes it (the encoder runs
+    outside the checkpointed blocks)."""
+    dec = sum(k == "attn" for k in cfg.layer_kinds())
+    dec *= 2 if cfg.is_encdec else 1       # self- and cross-attention
+    enc = cfg.n_enc_layers if cfg.is_encdec else 0
+    fwd = enc + dec * (2 if cfg.remat == "block" else 1)
+    return {"forward": fwd, "backward": enc + dec}
+
+
+def flash_calls() -> dict:
+    return {"forward": flash_ops.launches, "backward": bwd_ops.launches}
+
+
+def reset_flash() -> None:
+    flash_ops.reset_launches()
+    bwd_ops.reset_launches()
+
+
+def lm_batch(cfg, b: int, s: int, step: int = 0) -> dict:
+    """``SyntheticLM``'s batch ``step`` at B x S (the family's frames or
+    vision embeddings with it), numpy, as the Trainer draws them."""
+    return SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=SEED,
+        family=cfg.family, n_vision_tokens=cfg.n_vision_tokens,
+        d_model=cfg.d_model, enc_seq=cfg.enc_seq)).batch_at(step)
+
+
+def grad_check(label: str, cfg, batch: dict) -> dict:
+    """One loss and gradient of seeded f32 weights through the kernels and
+    through the plain versions (``plain=True``): the loss within
+    GRAD_LOSS_RTOL and every gradient leaf within GRAD_LEAF_TOL of its
+    largest magnitude; the kernels' calls gated."""
+    p = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg, DEV)
+
+    def value_and_grad(plain: bool) -> tuple:
+        pt = tree_map(lambda t: t.detach().requires_grad_(), p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(pt, cfg, batch, DEV, plain=plain)
+        gs = torch.autograd.grad(loss, leaves(pt), allow_unused=True)
+        torch.cuda.synchronize()
+        return loss.detach(), gs, time.perf_counter() - t0
+
+    reset_flash()
+    loss, gs, secs = value_and_grad(False)
+    calls = flash_calls()
+    loss_p, gs_p, secs_p = value_and_grad(True)
+    loss_rel = float((loss - loss_p).abs() / loss_p.abs())
+    worst, worst_key = 0.0, None
+    for (key, _), g, gp in zip(flatten_with_keys(p), gs, gs_p):
+        if gp is None:
+            continue
+        r = float((g - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+        if r >= worst:
+            worst, worst_key = r, key
+    n_params = sum(t.numel() for t in leaves(p))
+    log(f"  {label}: {n_params} weights; loss {float(loss):.6f} (plain "
+        f"{float(loss_p):.6f}, rel {loss_rel:.2e}); worst gradient leaf "
+        f"{worst_key} at {worst:.2e} of its largest magnitude; loss and "
+        f"gradient {secs:.3f} s through the kernels, {secs_p:.3f} s plain")
+    expect_calls(label, calls, flash_calls_per_pass(cfg))
+    if loss_rel > GRAD_LOSS_RTOL or worst > GRAD_LEAF_TOL:
+        raise AssertionError(f"{label}: kernels' loss / gradients differ "
+                             f"from the plain path's (loss rel "
+                             f"{loss_rel:.2e}, leaf {worst_key} {worst:.2e})")
+    return {"weights": n_params, "loss": float(loss),
+            "loss_rel": loss_rel, "worst_leaf": worst_key,
+            "worst_leaf_rel": worst, "s": secs, "plain_s": secs_p,
+            "calls": calls}
+
+
+def traced_train_step(cfg, tc) -> dict:
+    """One bf16 train step of fresh weights, warmed by one untraced step,
+    under the profiler: its wall time, device events, busy time by kind
+    and idle share, and the backward kernel's CUDA launches a call."""
+    p = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg, DEV)
+    state = init_state(p, tc)
+    step = make_train_step(cfg, tc, DEV)
+    batch = lm_batch(cfg, tc.global_batch, tc.seq_len)
+    state, m = step(state, batch)
+    float(m["loss"])
+    reset_flash()
+    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = flash_calls()
+    events, busy, by_kind = _device_time(prof)
+    per_call = cuda_launches_per_call(
+        prof, {"flash_attention": calls["forward"],
+               "flash_attention_bwd": calls["backward"]})
+    del state, p
+    out = {"wall_s": wall, "device_events": events, "busy_s": busy,
+           "idle_share": 1 - busy / wall, "busy_by_kind": by_kind,
+           "calls": calls, "cuda_launches_per_call": per_call}
+    log(f"  traced step: {json.dumps(out)}")
+    return out
+
+
+def trainer_runs(label: str, cfg, tc, fail_at: int | None) -> dict:
+    """The Trainer from fresh weights to ``tc.total_steps`` with the flash
+    counts set to 0 just before and read just after; then, with
+    ``fail_at``, a second run that fails there and a third that resumes
+    from its last checkpoint, whose losses must hold to the first run's.
+    The checkpoints are removed at the end."""
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    tc_a = dataclasses.replace(tc, ckpt_dir=str(CKPT_ROOT / "a"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash()
+    t0 = time.perf_counter()
+    full = Trainer(cfg, tc_a).run()
+    wall = time.perf_counter() - t0
+    calls = flash_calls()
+    peak = torch.cuda.max_memory_allocated()
+    steps = tc.total_steps
+    per = flash_calls_per_pass(cfg)
+    expect_calls(label, calls, {k: n * steps for k, n in per.items()})
+    losses = full["losses"]
+    secs = full["step_seconds"]
+    steady = secs[1:] if len(secs) > 1 else secs
+    step_s = sum(steady) / len(steady)
+    tokens = tc.global_batch * tc.seq_len
+    out = {"steps": steps, "batch": [tc.global_batch, tc.seq_len],
+           "losses": losses, "step_s": secs, "mean_step_s": step_s,
+           "tokens_per_s": tokens / step_s, "wall_s": wall,
+           "peak_mem_gib": peak / 2 ** 30, "calls": calls,
+           "calls_per_step": per}
+    log(f"  {label}: losses {[round(x, 4) for x in losses]}; first step "
+        f"{secs[0]:.3f} s, then {step_s:.4f} s a step, "
+        f"{tokens / step_s:.1f} tokens/s; run wall {wall:.1f} s; peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    if fail_at is not None:
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the last loss {losses[-1]} is "
+                                 f"not below the first {losses[0]}")
+        tc_b = dataclasses.replace(tc, ckpt_dir=str(CKPT_ROOT / "b"))
+        t0 = time.perf_counter()
+        try:
+            Trainer(cfg, tc_b, fail_at_step=fail_at).run()
+        except InjectedFailure as e:
+            log(f"  {label}: {e}")
+        else:
+            raise AssertionError(f"{label}: no failure at step {fail_at}")
+        resumed = Trainer(cfg, tc_b).run()
+        restart = time.perf_counter() - t0
+        start = steps - len(resumed["losses"])
+        want = losses[start:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                      want))
+        out["resume"] = {"from_step": start, "losses": resumed["losses"],
+                         "max_rel_diff": rel, "wall_s": restart}
+        log(f"  {label}: failed at step {fail_at}, resumed from step "
+            f"{start}: losses {[round(x, 4) for x in resumed['losses']]}, "
+            f"max rel diff {rel:.2e} from the uninterrupted run "
+            f"(rtol {RESUME_RTOL}); fail and resume wall {restart:.1f} s")
+        if start != (fail_at // tc.ckpt_every) * tc.ckpt_every or \
+                rel > RESUME_RTOL:
+            raise AssertionError(f"{label}: the resumed run differs "
+                                 f"(from step {start}, rel {rel:.2e})")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return out
+
+
+def training_phases() -> dict:
+    """Qwen1.5-0.5B and Whisper-tiny trained on the card and InternVL2-76B's
+    vision-prefixed forward and loss (see the module docstring)."""
+    out: dict = {}
+    cfg = get_config(TRAIN_ARCH)
+    log(f"== training {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, vocab {cfg.vocab})")
+    b, s = GRAD_CHECK
+    out["grad_check"] = grad_check(f"{TRAIN_ARCH} f32 {b} x {s}",
+                                   cfg.replace(dtype="float32"),
+                                   lm_batch(cfg, b, s))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = SizedTrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          warmup_steps=2, total_steps=TRAIN_STEPS,
+                          ckpt_every=4, seed=SEED)
+    out["trainer"] = trainer_runs(f"{TRAIN_ARCH} bf16 Trainer", cfg, tc,
+                                  TRAIN_FAIL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["traced_step"] = traced_train_step(cfg, tc)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wcfg = get_config(WHISPER_ARCH)
+    gb, tb, ts, steps = WHISPER_TRAIN
+    log(f"== training {WHISPER_ARCH} whole ({wcfg.n_enc_layers} + "
+        f"{wcfg.n_layers} layers, d {wcfg.d_model}, {wcfg.enc_seq} frames)")
+    out["whisper_grad_check"] = grad_check(
+        f"{WHISPER_ARCH} f32 {gb} x {ts}", wcfg.replace(dtype="float32"),
+        lm_batch(wcfg, gb, ts))
+    wtc = SizedTrainConfig(seq_len=ts, global_batch=tb, warmup_steps=1,
+                           total_steps=steps, ckpt_every=steps, seed=SEED)
+    out["whisper_trainer"] = trainer_runs(f"{WHISPER_ARCH} bf16 Trainer",
+                                          wcfg, wtc, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["vlm"] = vlm_phase()
+    return out
+
+
+def vlm_phase() -> dict:
+    """InternVL2-76B at full width, VLM_LAYERS layers: ``forward`` and
+    ``loss_fn`` with the vision prefix under no_grad, f32 through the
+    kernels against the plain versions, then bf16 (``serve_params``) read
+    and gated by MiniCPM3's nudge rule."""
+    cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS, dtype="float32")
+    log(f"== {VLM_ARCH} at full width (d {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+        f"{VLM_LAYERS} of 80 layers: {cfg.n_vision_tokens} vision + "
+        f"{VLM_TEXT} text tokens, B {VLM_BATCH}")
+    t0 = time.perf_counter()
+    p = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg, DEV)
+    batch = lm_batch(cfg, VLM_BATCH, VLM_TEXT)
+    out = {"weights": sum(t.numel() for t in leaves(p)),
+           "init_s": time.perf_counter() - t0}
+    tokens, vis = batch["tokens"], batch["vision_embeds"]
+
+    def run(params, c, plain: bool) -> tuple:
+        h, _ = forward(params, c, tokens, device=DEV, plain=plain,
+                       vision_embeds=vis)
+        loss, _ = loss_fn(params, c, batch, DEV, plain=plain)
+        return h.float(), T.logits_fn(params, c, h[:, -1]).float(), loss
+
+    with torch.no_grad():
+        flash_ops.reset_launches()
+        t0 = time.perf_counter()
+        h, lg, loss = run(p, cfg, False)
+        torch.cuda.synchronize()
+        out["f32_s"] = time.perf_counter() - t0
+        out["flash_calls"] = flash_ops.launches
+        hp, lgp, loss_p = run(p, cfg, True)
+        out["f32"] = {"hidden_rel": float((h - hp).abs().max()
+                                          / hp.abs().max()),
+                      "logits_rel": _rel(lg, lgp),
+                      "loss": float(loss), "loss_plain": float(loss_p),
+                      "loss_rel": float((loss - loss_p).abs()
+                                        / loss_p.abs())}
+        del h, hp
+        c16 = cfg.replace(dtype="bfloat16")
+        sp = serve_params(p, c16)
+        del p
+        gc.collect()
+        _, lg16, loss16 = run(sp, c16, False)
+        _, lg16p, loss16p = run(sp, c16, True)
+        with swapped(L, "attention_ref", q_nudged(attention_ref)):
+            _, lg16n, _ = run(sp, c16, True)
+        rel, nudge = _rel(lg16, lg16p), _rel(lg16n, lg16p)
+        out["bf16"] = {"logits_rel": rel, "plain_nudged_rel": nudge,
+                       "gated": nudge <= LOGIT_TOL[torch.bfloat16],
+                       "loss": float(loss16), "loss_plain": float(loss16p)}
+        del sp
+    log(f"  {VLM_ARCH}: {out['weights']} weights; {json.dumps(out)}")
+    if out["flash_calls"] != 2 * VLM_LAYERS:
+        raise AssertionError(f"{VLM_ARCH}: {out['flash_calls']} flash calls "
+                             f"(expected {2 * VLM_LAYERS})")
+    f32 = out["f32"]
+    if max(f32["hidden_rel"], f32["logits_rel"], f32["loss_rel"]) > \
+            VLM_F32_TOL:
+        raise AssertionError(f"{VLM_ARCH}: f32 kernels differ from the "
+                             f"plain path: {f32}")
+    if out["bf16"]["gated"] and rel > LOGIT_TOL[torch.bfloat16]:
+        raise AssertionError(f"{VLM_ARCH}: bf16 logits differ from the "
+                             f"plain path by {rel:.3e}")
+    if not np.isfinite([f32["loss"], out["bf16"]["loss"]]).all():
+        raise AssertionError(f"{VLM_ARCH}: a loss is not finite")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3849,12 +4396,24 @@ def main() -> int:
     decode += w_decode
     whisper = whisper_phases()
     mark(f"serving {WHISPER_ARCH}")
+
+    # -- 5g. training: the backward kernel, Qwen, Whisper, InternVL2 --------
+    bwd, bwd_main = flash_bwd_phases()
+    mark("flash_bwd_checks")
+    training = training_phases()
+    mark("training")
     # each kernel's launches on every serving path that runs it, each path
     # read between its own resets
     by_path: dict = {}
     for arch, res in {**served, WHISPER_ARCH: whisper}.items():
         for name, n in res["launches"].items():
             by_path.setdefault(name, {})[arch] = n
+    for arch, key in ((TRAIN_ARCH, "trainer"),
+                      (WHISPER_ARCH, "whisper_trainer")):
+        calls = training[key]["calls"]
+        by_path["flash_attention"][f"train {arch}"] = calls["forward"]
+        by_path.setdefault("flash_attention_bwd", {})[f"train {arch}"] = \
+            calls["backward"]
 
     # -- 6. results -----------------------------------------------------------
     log(f"total wall {time.perf_counter() - t_start:.1f} s; by phase (s) "
@@ -3869,6 +4428,8 @@ def main() -> int:
     for arch, res in served.items():
         log(f"serving {arch}: {json.dumps(res)}")
     log(f"serving {WHISPER_ARCH}: {json.dumps(whisper)}")
+    log(f"flash_bwd instances: {json.dumps(bwd)}")
+    log(f"training: {json.dumps(training)}")
     log("adaptive: " + json.dumps(adaptive))
     log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
                                 "phases": phases}))
@@ -3913,6 +4474,8 @@ def main() -> int:
                        res.get("traced_cuda_launches_per_call", {})):
             for name, n in traced.items():
                 per_call.setdefault(name, n)
+    for name, n in training["traced_step"]["cuda_launches_per_call"].items():
+        per_call.setdefault(name, n)
     # the MLA kernels replace no Pallas kernel: the reference computes that
     # attention in jnp (its layers.py, mla_attention's kv_cache branch)
     for name, inst, replaces in (
@@ -3924,7 +4487,10 @@ def main() -> int:
             ("mamba_scan", mamba_main,
              "src/repro/kernels/mamba_scan/mamba_scan.py:54"),
             ("mla_prefill", mla_pre_main, "src/repro/models/layers.py:228"),
-            ("mla_decode", mla_dec_main, "src/repro/models/layers.py:228")):
+            ("mla_decode", mla_dec_main, "src/repro/models/layers.py:228"),
+            # the gradient JAX takes of the reference's jnp attention
+            ("flash_attention_bwd", bwd_main,
+             "src/repro/models/layers.py:56")):
         source = "mla_attention" if name.startswith("mla_") else name
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,3 +1,24 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (``ref.py``) and a wrapper (``ops.py``) that takes the plain version
-for a CPU tensor and launches the kernel for a CUDA tensor."""
+for a CPU tensor and launches the kernel for a CUDA tensor.
+
+Only flash attention has a backward kernel.  The other wrappers refuse a
+CUDA tensor that needs a gradient (:func:`no_backward`): a ctypes launch
+returns a tensor without one, and a loss through it would silently train
+nothing below it."""
+from __future__ import annotations
+
+__all__ = ["no_backward"]
+
+
+def no_backward(kernel: str, item: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` if grad mode is on and any of
+    ``tensors`` requires a gradient: ``kernel`` has no backward kernel yet
+    (ROADMAP ``item``)."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"the {kernel} kernel has no backward kernel yet, so it cannot "
+            f"train on the card (ROADMAP queue 1, {item}); call it under "
+            f"torch.no_grad(), or train on the CPU's plain path")

@@ -70,6 +70,11 @@
 // K/V are never repeated in memory, and no sum uses atomics: two calls give
 // the same bits.
 //
+// Given a pointer for it, either kernel also writes each query row's
+// log-sum-exp of the scaled scores (f32, (B, H, Sq)), which the training
+// path's backward kernel (flash_attention_bwd.cu) reads to recompute P.
+// Serving passes none, and its launches are unchanged.
+//
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError() (or
 // TMAP_ERROR + the CUresult if a tensor map cannot be encoded).
@@ -109,7 +114,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int h,
           int rep, long long q_sb, long long q_ss, long long kv_sb,
-          long long kv_ss, int causal, int window, float scale) {
+          long long kv_ss, int causal, int window, float scale,
+          float* __restrict__ lse) {
   constexpr int KP = Layout<DH>::KP;
   constexpr int PP = Layout<DH>::PP;
   constexpr int DPT = DH / TX;  // accumulator columns per thread
@@ -244,6 +250,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
       ob[tx + TX * j] = from_f<T>(l[i] > 0.f ? acc[i][j] / l[i] : 0.f);
+    // the row's log-sum-exp of the scaled scores (Q was scaled on load)
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * h + head) * sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -287,7 +297,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 bf16* __restrict__ o, int sq, int sk, int h, int rep,
-                int causal, int window, float scale_log2) {
+                int causal, int window, float scale_log2,
+                float* __restrict__ lse) {
   using C = Wg<DH>;
   constexpr int BK = C::BK, NP = C::NP, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -465,6 +476,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
           acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
+  // the rows' log-sum-exp, natural log: m is in scaled log2 units
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + (static_cast<long long>(b) * h + head) * sq;
+    constexpr float LN2 = 0.6931471805599453f;
+    if (row0 < sq) lrow[row0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : -INFINITY;
+    if (row1 < sq) lrow[row1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : -INFINITY;
+  }
 }
 
 // ---- host --------------------------------------------------------------------
@@ -495,7 +513,7 @@ template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int batch, int sq, int sk, int h, int kvh, long long q_sb,
                  long long q_ss, long long kv_sb, long long kv_ss, int causal,
-                 int window, float scale, cudaStream_t stream) {
+                 int window, float scale, float* lse, cudaStream_t stream) {
   using C = Wg<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -509,7 +527,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + 63) / 64, h, batch);
   flash_fwd_wgmma<DH><<<grid, C::THREADS, C::SMEM, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), sq, sk, h, h / kvh, causal, window,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,7 +535,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                   int batch, int sq, int sk, int h, int kvh, int dh,
                   long long q_sb, long long q_ss, long long kv_sb,
                   long long kv_ss, int causal, int window, float scale,
-                  void* stream) {
+                  float* lse, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (kvh <= 0 || h % kvh != 0 || (dh != 64 && dh != 128))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -527,9 +545,9 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
         o, 0, size_t(batch) * sq * h * dh * sizeof(bf16), st));
   if (dh == 64)
     return launch_wgmma<64>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
-                            kv_sb, kv_ss, causal, window, scale, st);
+                            kv_sb, kv_ss, causal, window, scale, lse, st);
   return launch_wgmma<128>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
-                           kv_sb, kv_ss, causal, window, scale, st);
+                           kv_sb, kv_ss, causal, window, scale, lse, st);
 }
 
 // ---- f32: the CUDA-core kernel -----------------------------------------------
@@ -537,7 +555,7 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int sk, int h, int kvh, long long q_sb, long long q_ss,
            long long kv_sb, long long kv_ss, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float scale, float* lse, cudaStream_t stream) {
   const size_t smem = Layout<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -548,7 +566,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   flash_fwd<T, DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, h / kvh, q_sb,
-      q_ss, kv_sb, kv_ss, causal, window, scale);
+      q_ss, kv_sb, kv_ss, causal, window, scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -556,16 +574,16 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
              int sq, int sk, int h, int kvh, int dh, long long q_sb,
              long long q_ss, long long kv_sb, long long kv_ss, int causal,
-             int window, float scale, void* stream) {
+             int window, float scale, float* lse, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (kvh <= 0 || h % kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64)
     return launch<T, 64>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
-                         kv_sb, kv_ss, causal, window, scale, st);
+                         kv_sb, kv_ss, causal, window, scale, lse, st);
   if (dh == 128)
     return launch<T, 128>(q, k, v, o, batch, sq, sk, h, kvh, q_sb, q_ss,
-                          kv_sb, kv_ss, causal, window, scale, st);
+                          kv_sb, kv_ss, causal, window, scale, lse, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -576,23 +594,26 @@ extern "C" {
 // q (B, Sq, H, dh) and k/v (B, Sk, KV, dh): heads packed (stride dh) and dh
 // contiguous; batch and sequence strides in elements (k and v share them).
 // o is a contiguous (B, Sq, H, dh) tensor.  bf16 takes the TMA route: base
-// pointers 16-byte aligned, strides multiples of 8 elements.
+// pointers 16-byte aligned, strides multiples of 8 elements.  lse, when not
+// null, is a contiguous (B, H, Sq) f32 tensor that receives each row's
+// log-sum-exp of the scaled scores (-inf for a row that sees no key), which
+// the backward kernel (flash_attention_bwd.cu) reads; serving passes null.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int batch, int sq, int sk, int h, int kvh, int dh,
                         long long q_sb, long long q_ss, long long kv_sb,
                         long long kv_ss, int causal, int window, float scale,
-                        void* stream) {
+                        float* lse, void* stream) {
   return dispatch<float>(q, k, v, o, batch, sq, sk, h, kvh, dh, q_sb, q_ss,
-                         kv_sb, kv_ss, causal, window, scale, stream);
+                         kv_sb, kv_ss, causal, window, scale, lse, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int batch, int sq, int sk, int h, int kvh,
                          int dh, long long q_sb, long long q_ss,
                          long long kv_sb, long long kv_ss, int causal,
-                         int window, float scale, void* stream) {
+                         int window, float scale, float* lse, void* stream) {
   return dispatch_bf16(q, k, v, o, batch, sq, sk, h, kvh, dh, q_sb, q_ss,
-                       kv_sb, kv_ss, causal, window, scale, stream);
+                       kv_sb, kv_ss, causal, window, scale, lse, stream);
 }
 
 const char* cuda_error_string(int code) {

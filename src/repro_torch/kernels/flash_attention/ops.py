@@ -9,6 +9,14 @@ and is instantiated for f32 and bf16 at head dims 64 and 128: bf16 runs
 16-byte aligned base pointers and strides that are multiples of 16 bytes;
 :func:`tma_strides` checks them and raises where they fail.
 ``launches`` counts the calls that ran the kernel; nothing else adds to it.
+
+Under autograd (grad mode on and q, k or v requiring a gradient)
+:func:`attention` goes through :class:`FlashAttention`: its forward is the
+same kernel, which then also writes each row's log-sum-exp, and its
+backward the kernel of ``csrc/flash_attention_bwd.cu``
+(``kernels.flash_attention_bwd``); on CPU tensors the same Function runs
+the plain versions (``attention_lse_ref``, ``attention_bwd_ref``).
+Serving runs without a gradient, and its launches are unchanged.
 """
 from __future__ import annotations
 
@@ -18,10 +26,11 @@ import functools
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from ..flash_attention_bwd import ops as bwd_ops
+from .ref import attention_lse_ref, attention_ref
 
-__all__ = ["HEAD_DIMS", "attention", "attention_kernel", "launches",
-           "reset_launches", "tma_strides"]
+__all__ = ["HEAD_DIMS", "FlashAttention", "attention", "attention_kernel",
+           "launches", "reset_launches", "tma_strides"]
 
 HEAD_DIMS = (64, 128)
 
@@ -44,7 +53,7 @@ def _entry(dtype: torch.dtype):
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 4
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -79,12 +88,14 @@ def tma_strides(name: str, t: torch.Tensor) -> tuple:
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool = True, window: int = 0) -> torch.Tensor:
+                     causal: bool = True, window: int = 0,
+                     with_lse: bool = False):
     """Launch the CUDA kernel.  q (B, Sq, H, dh) and k/v (B, Sk, KV, dh)
     CUDA tensors of one type (f32 or bf16), dh in :data:`HEAD_DIMS`, heads
     packed and dh contiguous (batch and sequence strides are free, in bf16
     as far as :func:`tma_strides` allows; k and v share theirs).  Returns a
-    new contiguous (B, Sq, H, dh) tensor."""
+    new contiguous (B, Sq, H, dh) tensor; with ``with_lse``, also each
+    row's log-sum-exp of the scaled scores, f32 (B, H, Sq)."""
     global launches
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError("attention_kernel needs CUDA tensors (got "
@@ -115,11 +126,14 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tma_strides("v", v)
     fn, err_str = _entry(q.dtype)
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, h, kvh, dh, q_sb, q_ss, kv_sb, kv_ss,
-                 int(causal), int(window), dh ** -0.5, stream)
+                 int(causal), int(window), dh ** -0.5,
+                 None if lse is None else lse.data_ptr(), stream)
     if err >= _TMAP_ERROR:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
                            f"(CUresult {err - _TMAP_ERROR})")
@@ -127,14 +141,46 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
     launches += 1
-    return out
+    if lse is None:
+        return out
+    if sk == 0 and lse.numel():      # no key: the kernel wrote no row
+        lse.fill_(float("-inf"))
+    return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel with its log-sum-exp,
+    the backward kernel (``kernels.flash_attention_bwd``); their plain
+    versions on CPU tensors.  ``apply(q, k, v, causal, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cpu":
+            out, lse = attention_lse_ref(q, k, v, causal, window)
+        else:
+            out, lse = attention_kernel(q, k, v, causal, window,
+                                        with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd_ops.attention_bwd(q, k, v, out, lse, do,
+                                           ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Causal/windowed GQA attention, end-aligned query positions.  CPU
     tensors take the plain version (:func:`attention_ref`); CUDA tensors
-    launch the kernel, or raise if it does not take them."""
+    launch the kernel, or raise if it does not take them.  Where a gradient
+    is wanted the call goes through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     return attention_kernel(q, k, v, causal=causal, window=window)

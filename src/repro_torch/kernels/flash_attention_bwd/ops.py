@@ -1,0 +1,112 @@
+"""Flash-attention backward entry point: the CUDA kernel on the card, the
+plain version on the CPU.
+
+The kernel (``kernels/csrc/flash_attention_bwd.cu``) computes dQ, dK and
+dV of the flash-attention forward kernel's function from q, k, v, the
+forward output and its rows' log-sum-exp, at head dims 64 and 128, in f32
+or bf16; it replaces no Pallas kernel (the reference differentiates its
+jnp attention).  :class:`repro_torch.kernels.flash_attention.ops.
+FlashAttention` calls :func:`attention_bwd` from its ``backward``.
+``launches`` counts the calls that ran the kernel (three CUDA launches
+each); nothing else adds to it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from ..flash_attention.ref import attention_bwd_ref
+
+__all__ = ["HEAD_DIMS", "attention_bwd", "attention_bwd_kernel", "launches",
+           "reset_launches"]
+
+HEAD_DIMS = (64, 128)
+
+launches = 0
+
+_FNS = {torch.float32: "flash_attention_bwd_f32",
+        torch.bfloat16: "flash_attention_bwd_bf16"}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+@functools.cache     # the library's entry point, typed once
+def _entry(dtype: torch.dtype):
+    lib = _build.load("flash_attention_bwd")
+    fn = getattr(lib, _FNS[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.cuda_error_string
+
+
+def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, lse: torch.Tensor,
+                         do: torch.Tensor, causal: bool = True,
+                         window: int = 0) -> tuple:
+    """Launch the CUDA kernel.  q, o, do (B, Sq, H, dh) and k, v (B, Sk,
+    KV, dh) CUDA tensors of one type (f32 or bf16), dh in
+    :data:`HEAD_DIMS`; ``lse`` the forward's (B, H, Sq) f32 log-sum-exp.
+    Non-contiguous inputs are copied.  Returns new contiguous (dq, dk, dv)
+    in the inputs' type."""
+    global launches
+    ts = (q, k, v, o, do)
+    if not all(t.device.type == "cuda" for t in ts + (lse,)):
+        raise ValueError("attention_bwd_kernel needs CUDA tensors")
+    if q.dtype not in _FNS or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"attention_bwd_kernel takes float32 or bfloat16 "
+                        f"q, k, v, o, do of one type (got "
+                        f"{[t.dtype for t in ts]})")
+    if q.dim() != 4 or k.shape != v.shape or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError(f"attention_bwd_kernel takes q, o, do (B, Sq, H, "
+                         f"dh) and k, v (B, Sk, KV, dh) (got "
+                         f"{[tuple(t.shape) for t in ts]})")
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or kvh == 0 or h % kvh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"attention_bwd_kernel takes head dims {HEAD_DIMS} "
+                         f"(got {dh})")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse must be f32 (B, H, Sq) = {(b, h, sq)} (got "
+                         f"{lse.dtype} {tuple(lse.shape)})")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    fn, err_str = _entry(q.dtype)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, sq, sk, h, kvh, dh, int(causal), int(window), dh ** -0.5,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err} ({err_str(err).decode()})")
+    launches += 1
+    return dq, dk, dv
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool = True, window: int = 0) -> tuple:
+    """(dq, dk, dv) of causal/windowed GQA attention, end-aligned query
+    positions.  CPU tensors take the plain version
+    (:func:`attention_bwd_ref`); CUDA tensors launch the kernel, or raise
+    if it does not take them."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    return attention_bwd_kernel(q, k, v, o, lse, do, causal, window)

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, no_backward
 from .ref import selective_scan_ref
 
 __all__ = ["D_STATES", "launches", "reset_launches", "selective_scan",
@@ -114,4 +114,6 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     or raise if it does not take them."""
     if u.device.type == "cpu":
         return selective_scan_ref(dt, a, bmat, cmat, u, h0)
+    no_backward("selective-scan", "item 9b: the mLSTM and scan backward "
+                "kernels", dt, a, bmat, cmat, u, h0)
     return selective_scan_kernel(dt, a, bmat, cmat, u, h0)

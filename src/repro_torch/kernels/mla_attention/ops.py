@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, no_backward
 from ..decode_attention import ops as decode_ops
 from .ref import mla_decode_ref, mla_prefill_ref
 
@@ -256,6 +256,8 @@ def mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
     the kernel, or raise if it does not take them."""
     if q_lat.device.type == "cpu":
         return mla_prefill_ref(q_lat, q_rope, c, k_rope, scale)
+    no_backward("MLA prefill", "item 9c: MLA's cacheless branch", q_lat,
+                q_rope, c, k_rope)
     return mla_prefill_kernel(q_lat, q_rope, c, k_rope, scale)
 
 
@@ -266,4 +268,6 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
     launch the kernels, or raise if they do not take them."""
     if q_lat.device.type == "cpu":
         return mla_decode_ref(q_lat, q_rope, c, k_rope, length, scale)
+    no_backward("MLA decode", "item 9c: MLA's cacheless branch", q_lat,
+                q_rope, c, k_rope)
     return mla_decode_kernel(q_lat, q_rope, c, k_rope, length, scale)

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, no_backward
 from .ref import M_INIT, mlstm_chunkwise_ref, pads
 
 __all__ = ["HEAD_DIMS", "launches", "mlstm", "mlstm_kernel",
@@ -127,4 +127,6 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors launch the kernel, or raise if it does not take them."""
     if q.device.type == "cpu":
         return mlstm_chunkwise_ref(q, k, v, logi, logf, state)
+    no_backward("mLSTM", "item 9b: the mLSTM and scan backward kernels",
+                q, k, v, logi, logf, *(state or ()))
     return mlstm_kernel(q, k, v, logi, logf, state)

@@ -1,14 +1,18 @@
-"""High-level model API: init / prefill / decode / teacher-forced forward,
-for dense and MoE attention models, MLA models (MiniCPM3), xLSTM, the
-Jamba hybrid and the Whisper encoder-decoder.
+"""High-level model API: init / prefill / decode / teacher-forced forward /
+loss, for dense and MoE attention models, MLA models (MiniCPM3; no
+forward or loss yet), xLSTM, the Jamba hybrid, the Whisper encoder-decoder
+and the InternVL2 VLM.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given
 ``device="cpu"``; the parameters must already be on that device.  The
 caches are written in place.  An encoder-decoder model is served through
 ``prefill(..., frames=)``, which also returns the encoder output, and
-``decode_step(..., cross_kv=)``, which takes it.  ``loss_fn`` waits for
-the training slice.
+``decode_step(..., cross_kv=)``, which takes it.  A VLM's
+``vision_embeds`` reach ``forward`` and ``loss_fn`` only; its prefill and
+decode are text-only, as the reference's are.  ``loss_fn`` is the
+training loss; under autograd on the card its attention runs the
+flash-attention forward and backward kernels.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from ..device import resolve_device
 from . import transformer as T
 
 __all__ = ["init_params", "serve_params", "prefill", "decode_step",
-           "forward", "greedy_generate"]
+           "forward", "loss_fn", "greedy_generate"]
 
 
 def _device(params, device) -> torch.device:
@@ -137,17 +141,55 @@ def decode_step(params, cfg, tokens, caches, length, device=None,
                          per_lane, cross_kv)
 
 
+def _vision(cfg, vision_embeds, dev):
+    """``vision_embeds`` on ``dev``: a VLM's optional prefix, refused by any
+    other model."""
+    if vision_embeds is None:
+        return None
+    if cfg.family != "vlm":
+        raise ValueError(f"{cfg.name} is not a VLM: vision_embeds are for "
+                         f"the vlm family")
+    return torch.as_tensor(vision_embeds, device=dev)
+
+
 def forward(params, cfg, tokens, frames=None, device=None,
-            plain: bool = False):
+            plain: bool = False, vision_embeds=None):
     """Teacher-forced forward of ``tokens`` (B, S), no caches: (the
-    final-normed hidden states (B, S, d), the MoE aux loss), as the
+    final-normed hidden states (B, S', d), the MoE aux loss), as the
     reference's ``transformer.forward``; :func:`repro_torch.models.
     transformer.logits_fn` turns the states into logits.  An
-    encoder-decoder model needs ``frames``, as in :func:`prefill`.
+    encoder-decoder model needs ``frames``, as in :func:`prefill`; a VLM
+    takes ``vision_embeds`` (B, Nv, d) as a prefix (S' = Nv + S).
     ``plain=True`` is the check-only switch of :func:`prefill`."""
     dev = _device(params, device)
     tokens = torch.as_tensor(tokens, device=dev)
-    return T.forward(params, cfg, tokens, _frames(cfg, frames, dev), plain)
+    return T.forward(params, cfg, tokens, _frames(cfg, frames, dev), plain,
+                     _vision(cfg, vision_embeds, dev))
+
+
+def loss_fn(params, cfg, batch: dict, device=None,
+            plain: bool = False) -> tuple:
+    """The training loss of ``batch``, as the reference's ``loss_fn``:
+    ``tokens`` and ``labels`` (B, S) int (label -100 masked), optional
+    ``vision_embeds`` / ``frames``; numpy arrays or tensors, moved to the
+    device.  Returns (ce + 0.01 aux, {"ce": ce, "aux": aux}), f32
+    scalars.  A VLM's labels are padded with -100 over its vision prefix.
+    ``plain=True`` is the check-only switch of :func:`prefill`."""
+    dev = _device(params, device)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    vision = _vision(cfg, batch.get("vision_embeds"), dev)
+    h, aux = T.forward(params, cfg, tokens,
+                       _frames(cfg, batch.get("frames"), dev), plain, vision)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    if vision is not None:
+        pad = torch.full((labels.shape[0], vision.shape[1]), -100,
+                         dtype=labels.dtype, device=dev)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = (labels >= 0).to(torch.float32)
+    labels = torch.clamp(labels, min=0)
+    ce = T.chunked_softmax_xent(params, cfg, h, labels, mask)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def greedy_generate(params, cfg, prompt, steps: int, max_len: int,

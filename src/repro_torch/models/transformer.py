@@ -1,6 +1,7 @@
 """Decoder LM for dense and MoE attention models (Mixtral), MLA models
-(MiniCPM3), xLSTM, the Jamba hybrid and the Whisper encoder-decoder: init,
-the encoder, prefill/decode and teacher-forced forward, caches.
+(MiniCPM3), xLSTM, the Jamba hybrid, the Whisper encoder-decoder and the
+InternVL2 VLM: init, the encoder, prefill/decode, teacher-forced forward,
+the chunked cross-entropy, caches.
 
 Counterpart of ``repro.models.transformer`` with the same parameter tree:
 layers grouped into repeating supercells, each cell position's parameters
@@ -19,14 +20,26 @@ model adds the reference's encoder tree (``encoder``, stacked over its
 layers; ``enc_pos``; ``enc_ln_f``) and a cross-attention ``{ln, attn}`` per
 decoder repetition under ``cross``; its decoder blocks attend to the
 encoder output (``cross_kv``, ``(B, enc_seq, d)``) after their
-self-attention, and it keeps no cross-attention cache.  VLM models are not
-ported yet and raise ``NotImplementedError``.
+self-attention, and it keeps no cross-attention cache.  A VLM adds
+``vis_proj`` (d, d): :func:`forward` given ``vision_embeds`` (B, Nv, d)
+puts their projection before the token embeddings, as the reference's
+``embed_tokens`` does; prefill and decode stay text-only, as the
+reference's are.
+
+Training runs :func:`forward` under autograd: with ``cfg.remat ==
+"block"`` each block is checkpointed (``torch.utils.checkpoint``,
+recomputed in backward), as the reference's ``jax.checkpoint`` does, and
+:func:`chunked_softmax_xent` recomputes each chunk's logits in backward,
+so that only one chunk's ``(B, c, V)`` logits are alive at a time.
+Neither changes a number.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as MB
@@ -35,8 +48,8 @@ from . import xlstm as X
 
 __all__ = ["supercell_size", "cell_structure", "check_supported",
            "init_params", "embed_tokens", "encode", "forward",
-           "rms_norm_final", "logits_fn", "run_cells", "init_cache",
-           "decode_step"]
+           "rms_norm_final", "logits_fn", "chunked_softmax_xent",
+           "run_cells", "init_cache", "decode_step"]
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -83,10 +96,6 @@ _RECURRENT = {"mlstm": (X.init_mlstm, X.init_mlstm_state),
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"the vlm family ({cfg.name}) is not ported yet (ROADMAP queue "
-            f"1, item 7b: the vision prefix)")
     for kind, _ in cell_structure(cfg):
         if kind not in _RECURRENT and kind != "attn":
             raise _unported(f"the {kind} block ({cfg.name})")
@@ -163,6 +172,9 @@ def init_params(gen: torch.Generator, cfg, serve_cast=None) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = cast(L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                          dtype))
+    if cfg.family == "vlm":
+        p["vis_proj"] = cast(L.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                          dtype))
     if cfg.is_encdec:
         dev = gen.device
         p["encoder"] = _stacked(lambda: {
@@ -256,18 +268,28 @@ def run_cells(params, x, cfg, positions, caches=None, length=0,
     reference engine's per-lane decode.  ``cross_kv``: an encoder-decoder's
     encoder output, which repetition ``r``'s attention blocks attend to
     through ``params["cross"]``'s repetition ``r``.  ``aux``, a list,
-    collects the MoE FFNs' aux losses."""
+    collects the MoE FFNs' aux losses.  Without caches, under grad and with
+    ``cfg.remat == "block"``, each block is checkpointed: its activations
+    are recomputed in backward, as the reference's ``jax.checkpoint``
+    recomputes them."""
     struct = cell_structure(cfg)
     reps = cfg.n_layers // len(struct)
+    remat = (caches is None and cfg.remat == "block"
+             and torch.is_grad_enabled())
     for r in range(reps):
         cross_p = (None if cross_kv is None
                    else _layer(params["cross"], r))
         for j, (kind, ffn_kind) in enumerate(struct):
             cache = (None if caches is None
                      else _cache_in(kind, caches[j], r, length))
-            x, new_state, a = _block_forward(
-                _layer(params["cells"][j], r), x, cfg, kind, ffn_kind,
-                positions, cache, plain, per_lane, cross_kv, cross_p)
+            args = (_layer(params["cells"][j], r), x, cfg, kind, ffn_kind,
+                    positions, cache, plain, per_lane, cross_kv, cross_p)
+            if remat:
+                x, new_state, a = checkpoint(_block_forward, *args,
+                                             use_reentrant=False,
+                                             preserve_rng_state=False)
+            else:
+                x, new_state, a = _block_forward(*args)
             if caches is not None:
                 _cache_out(kind, caches[j], r, new_state)
             if aux is not None and a is not None:
@@ -275,8 +297,14 @@ def run_cells(params, x, cfg, positions, caches=None, length=0,
     return x
 
 
-def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+def embed_tokens(params, cfg, tokens, vision_embeds=None):
+    """Token embeddings in ``cfg.dtype``; a VLM given ``vision_embeds``
+    (B, Nv, d) puts ``vision_embeds @ vis_proj`` before them."""
+    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    if cfg.family == "vlm" and vision_embeds is not None:
+        vis = vision_embeds.to(x.dtype) @ params["vis_proj"].to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def encode(params, cfg, frames, plain=False):
@@ -305,14 +333,17 @@ def encode(params, cfg, frames, plain=False):
     return L.rms_norm(x, params["enc_ln_f"]["scale"], cfg.norm_eps)
 
 
-def forward(params, cfg, tokens, frames=None, plain=False):
+def forward(params, cfg, tokens, frames=None, plain=False,
+            vision_embeds=None):
     """Teacher-forced forward of ``tokens`` (B, S) without caches -> (the
-    final-normed hidden states (B, S, d), the sum of the MoE FFNs' aux
+    final-normed hidden states (B, S', d), the sum of the MoE FFNs' aux
     losses, an f32 scalar), as the reference's ``forward``; an
-    encoder-decoder model encodes ``frames`` first.  MLA models raise
-    (:func:`repro_torch.models.layers.mla_attention` without a cache)."""
-    x = embed_tokens(params, cfg, tokens)
-    b, s = tokens.shape
+    encoder-decoder model encodes ``frames`` first, and a VLM given
+    ``vision_embeds`` (B, Nv, d) runs them as a prefix (S' = Nv + S).  MLA
+    models raise (:func:`repro_torch.models.layers.mla_attention` without
+    a cache)."""
+    x = embed_tokens(params, cfg, tokens, vision_embeds)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     cross_kv = encode(params, cfg, frames, plain) if cfg.is_encdec else None
     aux: list = []
@@ -331,6 +362,42 @@ def rms_norm_final(params, cfg, x):
 def logits_fn(params, cfg, h):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return h @ w.to(h.dtype)
+
+
+def _chunk_nll(w, h, labels, mask):
+    """Sum over one chunk of the masked negative log-likelihood, from its
+    f32 logits ``h @ w``."""
+    logits = (h @ w.to(h.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def chunked_softmax_xent(params, cfg, h, labels, mask, chunk: int = 512):
+    """Cross-entropy without materializing (B, S, V) logits: the
+    reference's chunks of ``chunk`` positions (S padded to a multiple),
+    each chunk's f32 logsumexp, the masked sum over chunks in order over
+    the mask's count.  Under grad each chunk is checkpointed, so backward
+    recomputes its logits and keeps one chunk's alive at a time."""
+    b, s, d = h.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    hp = F.pad(h, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad))
+    mp = F.pad(mask, (0, pad))
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    remat = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(hp.shape[1] // c):
+        part = (w, hp[:, i * c:(i + 1) * c], lp[:, i * c:(i + 1) * c],
+                mp[:, i * c:(i + 1) * c])
+        nll = (checkpoint(_chunk_nll, *part, use_reentrant=False,
+                          preserve_rng_state=False)
+               if remat else _chunk_nll(*part))
+        tot = tot + nll
+        cnt = cnt + part[3].sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> list:

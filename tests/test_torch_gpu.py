@@ -36,7 +36,10 @@ CPU: the faulted sweep's FCTs within the sweep's bar, delivered and lost
 bits rtol 1e-5 (f32), refused bits equal; the degraded-service engine
 (f64): trajectory digests, counters and excisions equal, bits rtol 1e-9.
 The evaluation drivers (``repro_torch.benchmarks``) on the card against
-their CPU runs at the same bars.
+their CPU runs at the same bars.  The flash-attention backward kernel
+against its plain version (``attention_bwd_ref``): f32 within 1e-4 of each
+output's largest magnitude, bf16 by the forward's bf16 rule; the forward's
+log-sum-exp within 1e-5 of a plain logsumexp, -inf on the same rows.
 """
 import numpy as np
 import pytest
@@ -49,7 +52,10 @@ from repro_torch.core.traffic import saturate
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
+from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.mlstm import ops as mlstm_ops
@@ -1483,3 +1489,97 @@ def test_twohop_fct_on_card_is_bitwise_the_cpus(monkeypatch):
     for a, b in zip(rows["cuda"], rows["cpu"]):
         assert np.array_equal(a.result.fct_slots, b.result.fct_slots)
         assert a.result.delivered_bits == b.result.delivered_bits
+
+
+# -- training: the flash-attention backward kernel ---------------------------
+def _bwd_close(got, want, dtype):
+    """f32: within 1e-4 of the largest magnitude of each output; bf16: the
+    forward checks' rule, |diff| <= 2e-2 (1 + |want|)."""
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        if dtype == torch.float32:
+            assert float(d.max()) <= 1e-4 * float(w.float().abs().max())
+        else:
+            assert bool((d <= 2e-2 + 2e-2 * w.float().abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,window", [
+    (1, 63, 63, 4, 4, 64, True, 0),           # one partial tile
+    (1, 64, 64, 4, 4, 64, True, 0),
+    (1, 65, 65, 4, 2, 64, True, 0),           # a tile and one row
+    (2, 129, 129, 8, 1, 128, True, 0),        # MQA, dh 128
+    (1, 300, 300, 8, 2, 128, True, 100),      # window edges inside tiles
+    (1, 130, 1473, 6, 6, 64, False, 0),       # ragged cross shape
+    (1, 256, 128, 2, 2, 64, True, 0),         # rows that see no key
+    (2, 200, 200, 6, 6, 64, False, 0),        # non-causal
+    (1, 100, 612, 8, 8, 128, True, 0),        # Sq < Sk, end-aligned
+])
+def test_flash_bwd_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
+                                        window):
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq * 5 + sk)
+    q = _randn(gen, b, sq, h, dh, dtype=dt)
+    k = _randn(gen, b, sk, kv, dh, dtype=dt)
+    v = _randn(gen, b, sk, kv, dh, dtype=dt)
+    do = _randn(gen, b, sq, h, dh, dtype=dt)
+    o, lse = flash_ops.attention_kernel(q, k, v, causal, window,
+                                        with_lse=True)
+    _, lse_ref = attention_lse_ref(q, k, v, causal, window)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), seen)
+    torch.testing.assert_close(lse[seen], lse_ref[seen], rtol=0, atol=1e-5)
+    before = bwd_ops.launches
+    got = bwd_ops.attention_bwd_kernel(q, k, v, o, lse, do, causal, window)
+    again = bwd_ops.attention_bwd_kernel(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert bwd_ops.launches == before + 2
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    _bwd_close(got, want, dt)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_function_on_the_card():
+    """Under grad ``attention`` runs the forward kernel once and the
+    backward kernel once, and its gradient is the plain path's."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (_randn(gen, 2, 150, 4, 64, dtype=torch.float32)
+               .requires_grad_() for _ in range(3))
+    do = _randn(gen, 2, 150, 4, 64, dtype=torch.float32)
+    f0, b0 = flash_ops.launches, bwd_ops.launches
+    out = flash_ops.attention(q, k, v, True, 0)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches - f0, bwd_ops.launches - b0) == (1, 1)
+    want = torch.autograd.grad(attention_ref(q, k, v, True, 0), (q, k, v),
+                               do)
+    _bwd_close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_refuse_grad_on_the_card():
+    _card()
+    dev = "cuda"
+    x = torch.zeros(1, 4, 2, 32, device=dev, requires_grad=True)
+    gates = torch.zeros(1, 4, 2, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mlstm_ops.mlstm(x, x, x, gates, gates)
+    dt = torch.zeros(1, 4, 8, device=dev, requires_grad=True)
+    a = torch.zeros(8, 4, device=dev)
+    bm = torch.zeros(1, 4, 4, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mamba_ops.selective_scan(dt, a, bm, bm, dt)
+    ql = torch.zeros(1, 4, 40, 256, device=dev, requires_grad=True)
+    qr = torch.zeros(1, 4, 40, 32, device=dev)
+    c = torch.zeros(1, 4, 256, device=dev)
+    kr = torch.zeros(1, 4, 32, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mla_ops.mla_prefill(ql, qr, c, kr, 0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mla_ops.mla_decode(ql[:, :1], qr[:, :1], c, kr, 3, 0.1)
+    with torch.no_grad():
+        mlstm_ops.mlstm(x, x, x, gates, gates)
