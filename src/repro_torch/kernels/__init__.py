@@ -11,14 +11,17 @@ from __future__ import annotations
 __all__ = ["no_backward"]
 
 
-def no_backward(kernel: str, item: str, *tensors) -> None:
+def no_backward(kernel: str, item: str | None, *tensors) -> None:
     """Raise ``NotImplementedError`` if grad mode is on and any of
     ``tensors`` requires a gradient: ``kernel`` has no backward kernel yet
-    (ROADMAP ``item``)."""
+    (ROADMAP ``item``; None where none is queued, because training does
+    not reach the kernel)."""
     import torch
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
+        why = (f"no backward kernel yet, so it cannot train on the card "
+               f"(ROADMAP queue 1, {item})" if item else
+               "no backward kernel, so it cannot train on the card")
         raise NotImplementedError(
-            f"the {kernel} kernel has no backward kernel yet, so it cannot "
-            f"train on the card (ROADMAP queue 1, {item}); call it under "
+            f"the {kernel} kernel has {why}; call it under "
             f"torch.no_grad(), or train on the CPU's plain path")

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, no_backward
 from .ref import decode_attention_ref
 
 __all__ = ["HEAD_DIMS", "MAX_REP", "TILE", "check_aligned", "check_q",
@@ -196,7 +196,10 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (a scalar or one per batch row; ``>= S`` sees the whole cache) and,
     with a sliding ``window``, above ``length - window``.  CPU tensors take
     the plain version (:func:`decode_attention_ref`); CUDA tensors launch
-    the kernel, or raise if it does not take them."""
+    the kernel, or raise if it does not take them or need a gradient (a
+    loss has no cache, and its one-query cross-attention takes the flash
+    kernel)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, length, window)
+    no_backward("decode-attention", None, q, k, v)
     return decode_kernel(q, k, v, length, window)

@@ -134,7 +134,8 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     even under ``qkv_bias``), and every query sees all ``Se`` keys of its
     own batch row: no mask, no window, no cache.  Several queries go
     through the flash kernel, one through the decode kernel, whose splits
-    spread the lane's keys over the card.
+    spread the lane's keys over the card; one query that needs a gradient
+    takes the flash kernel, which has a backward.
 
     ``plain=True`` is a check-only switch: the kernels' plain versions on
     any device.  The cache returned is ``(k, v, length + S)`` (None without
@@ -153,7 +154,8 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         enc = cross_kv.to(x.dtype)
         k = (enc @ p["wk"].to(x.dtype)).reshape(b, se, kvh, hd)
         v = (enc @ p["wv"].to(x.dtype)).reshape(b, se, kvh, hd)
-        if s == 1:
+        if s == 1 and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v))):
             o = decode(q, k, v, se - 1)
         else:
             o = attend(q, k, v, causal=False)

@@ -50,16 +50,15 @@ def _split(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
-def make_train_step(cfg, tc, device=None, plain: bool = False):
+def make_train_step(cfg, tc, device=None):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` a dict of
     numpy arrays (or tensors), moved to ``device`` (default: the card, as
-    every entry point).  The state is updated in place.  ``plain=True`` is
-    the check-only switch of :func:`repro_torch.models.loss_fn`."""
+    every entry point).  The state is updated in place."""
     optimizer = make_optimizer(tc)
 
     def value_and_grad(params, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = loss_fn(p, cfg, batch, device=device, plain=plain)
+        loss, metrics = loss_fn(p, cfg, batch, device=device)
         flat = leaves(p)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
         gs = [torch.zeros_like(t) if g is None else g

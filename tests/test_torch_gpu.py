@@ -38,7 +38,8 @@ bits rtol 1e-5 (f32), refused bits equal; the degraded-service engine
 The evaluation drivers (``repro_torch.benchmarks``) on the card against
 their CPU runs at the same bars.  The flash-attention backward kernel
 against its plain version (``attention_bwd_ref``): f32 within 1e-4 of each
-output's largest magnitude, bf16 by the forward's bf16 rule; the forward's
+output's largest magnitude, bf16 within 1.25e-2 (1.6 bf16 ulps; the card's
+readings reach 6.9e-3 in ``chip_smoke.py``); the forward's
 log-sum-exp within 1e-5 of a plain logsumexp, -inf on the same rows.
 """
 import numpy as np
@@ -49,6 +50,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config
 from repro_torch.core import estimation, faults, schedule, simulator
 from repro_torch.core.traffic import saturate
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -68,10 +70,11 @@ from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
                                               sinkhorn_ref)
-from repro_torch.models import (decode_step, forward, init_params, prefill,
-                                serve_params)
+from repro_torch.models import (decode_step, forward, init_params, loss_fn,
+                                prefill, serve_params)
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.tree import flatten_with_keys, leaves, tree_map
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MLSTM_TOL = 1e-4
@@ -1492,15 +1495,15 @@ def test_twohop_fct_on_card_is_bitwise_the_cpus(monkeypatch):
 
 
 # -- training: the flash-attention backward kernel ---------------------------
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.25e-2}
+
+
 def _bwd_close(got, want, dtype):
-    """f32: within 1e-4 of the largest magnitude of each output; bf16: the
-    forward checks' rule, |diff| <= 2e-2 (1 + |want|)."""
+    """Each output within ``BWD_TOL[dtype]`` of its own largest magnitude
+    (f32 1e-4; bf16 as ``chip_smoke.py`` gates it)."""
     for g, w in zip(got, want):
-        d = (g.float() - w.float()).abs()
-        if dtype == torch.float32:
-            assert float(d.max()) <= 1e-4 * float(w.float().abs().max())
-        else:
-            assert bool((d <= 2e-2 + 2e-2 * w.float().abs()).all())
+        d = float((g.float() - w.float()).abs().max())
+        assert d <= BWD_TOL[dtype] * float(w.float().abs().max())
 
 
 @pytest.mark.gpu
@@ -1539,6 +1542,33 @@ def test_flash_bwd_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
     want = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
     _bwd_close(got, want, dt)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_gate_catches_broken_backwards(dtype):
+    """The kernel passes ``_bwd_close`` at a GQA shape while two broken
+    plain backwards (the D term dropped; each kv head's dK, dV from the
+    first query head of its group alone) miss it by at least 10x."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (_randn(gen, 2, 1024, 8, 64, dtype=dt) for _ in range(2))
+    k, v = (_randn(gen, 2, 1024, 2, 64, dtype=dt) for _ in range(2))
+    o, lse = flash_ops.attention_kernel(q, k, v, True, 0, with_lse=True)
+    got = bwd_ops.attention_bwd_kernel(q, k, v, o, lse, do, True, 0)
+    want = attention_bwd_ref(q, k, v, o, lse, do, True, 0)
+    _bwd_close(got, want, dt)
+    first = torch.arange(0, 8, 4, device="cuda")
+    d_dropped = attention_bwd_ref(q, k, v, torch.zeros_like(o), lse, do,
+                                  True, 0)
+    _, dk, dv = attention_bwd_ref(q[:, :, first], k, v, o[:, :, first],
+                                  lse[:, first], do[:, :, first], True, 0)
+    for broken in (d_dropped, (want[0], dk, dv)):
+        worst = max(float((g.float() - w.float()).abs().max())
+                    / float(w.float().abs().max())
+                    for g, w in zip(broken, want))
+        assert worst >= 10 * BWD_TOL[dt]
 
 
 @pytest.mark.gpu
@@ -1581,5 +1611,45 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card():
         mla_ops.mla_prefill(ql, qr, c, kr, 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mla_ops.mla_decode(ql[:, :1], qr[:, :1], c, kr, 3, 0.1)
+    with pytest.raises(NotImplementedError, match="decode-attention"):
+        decode_ops.decode_attn(x, x, x, 3)
     with torch.no_grad():
         mlstm_ops.mlstm(x, x, x, gates, gates)
+
+
+@pytest.mark.gpu
+def test_whisper_one_token_loss_trains_on_the_card():
+    """A narrow Whisper's loss over one token on the card in f32: the one
+    cross-attention query needs a gradient, so it takes the flash kernel
+    and its backward (never the decode kernel, which has none), and every
+    gradient leaf is the plain path's within 1e-4 of the largest gradient;
+    the cross projections and the encoder get one."""
+    _card()
+    cfg = get_config("whisper-tiny", smoke=True).replace(
+        d_model=256, n_heads=4, n_kv_heads=4, head_dim=0, d_ff=512,
+        enc_seq=300, dtype="float32")
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=1, global_batch=2, seed=1,
+        family=cfg.family, d_model=cfg.d_model,
+        enc_seq=cfg.enc_seq)).batch_at(0)
+
+    def grads(plain):
+        pt = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = loss_fn(pt, cfg, batch, plain=plain)
+        return dict(zip((k for k, _ in flatten_with_keys(pt)),
+                        torch.autograd.grad(loss, leaves(pt))))
+
+    f0, b0, d0 = flash_ops.launches, bwd_ops.launches, decode_ops.launches
+    got = grads(False)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == d0
+    assert bwd_ops.launches - b0 == cfg.n_enc_layers + 2 * cfg.n_layers
+    assert flash_ops.launches - f0 > bwd_ops.launches - b0
+    want = grads(True)
+    largest = max(float(w.abs().max()) for w in want.values())
+    for key, g in got.items():
+        assert float((g - want[key]).abs().max()) <= 1e-4 * largest, key
+    for key in ("cross/attn/wq", "cross/attn/wk", "cross/attn/wv",
+                "encoder/attn/wq", "enc_pos"):
+        assert float(got[key].abs().max()) > 0, key

@@ -235,7 +235,15 @@ def test_loss_fn_value_and_gradients_match_reference(arch):
     aux loss), Whisper (frames), InternVL2 (the vision prefix), xLSTM and
     Jamba (their kernels' plain versions on the CPU)."""
     jcfg, jp, cfg, p = _pair(arch)
-    batch = _batch(cfg)
+    _loss_and_grads_match(jcfg, jp, cfg, p, _batch(cfg))
+
+
+def _loss_and_grads_match(jcfg, jp, cfg, p, batch, zero=()):
+    """``loss_fn``'s value (rtol 1e-5) and every gradient leaf (within 1e-4
+    of its largest magnitude) against the reference's on ``batch``.  The
+    leaves named in ``zero`` have gradient 0 in exact arithmetic (the
+    reference's is 0): the port's rounding noise there is held within 1e-4
+    of the largest gradient of any leaf."""
     (jl, jm), jg = jax.value_and_grad(
         lambda pp: j_loss_fn(pp, jcfg, {k: jnp.asarray(v)
                                         for k, v in batch.items()}),
@@ -255,10 +263,48 @@ def test_loss_fn_value_and_gradients_match_reference(arch):
            for (k, t), g in zip(flatten_with_keys(pt), grads)}
     want = j_flatten(jg)
     assert sorted(got) == sorted(want)
+    largest = max(float(np.abs(w).max()) for w in want.values())
     for key, g in got.items():
         w = want[key]
         scale = max(float(np.abs(w).max()), 1e-30)
+        if key in zero:
+            assert not np.any(w), key
+            scale = largest
         assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * scale, key
+
+
+def test_whisper_one_token_loss_takes_the_flash_path(monkeypatch):
+    """A Whisper loss over one token: its cross-attention has one query,
+    which under grad goes through ``flash_ops.attention`` (the path with a
+    backward), never the decode wrapper; value and gradients match the
+    reference's, and the cross projections and the encoder get one.  The
+    self-attention's one key takes all the weight, so its ``wq`` and ``wk``
+    have no gradient."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    jcfg, jp, cfg, p = _pair("whisper-tiny")
+    batch = _batch(cfg, s=1, masked=False)
+    calls = []
+    attention = flash_ops.attention
+    monkeypatch.setattr(flash_ops, "attention", lambda q, *a, **k: (
+        calls.append(q.shape[1]), attention(q, *a, **k))[1])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("decode_attn called under grad")
+
+    monkeypatch.setattr(decode_ops, "decode_attn", refuse)
+    _loss_and_grads_match(jcfg, jp, cfg, p, batch,
+                          zero=("cells/[0]/attn/wq", "cells/[0]/attn/wk"))
+    # self- and cross-attention of each layer, again where remat recomputes
+    assert calls.count(1) == 2 * cfg.n_layers * (1 + (cfg.remat == "block"))
+    pt = tree_map(lambda t: t.detach().requires_grad_(), p)
+    loss, _ = loss_fn(pt, cfg, batch, device="cpu")
+    grads = dict(zip((k for k, _ in flatten_with_keys(pt)),
+                     torch.autograd.grad(loss, leaves(pt))))
+    for key in ("cross/attn/wq", "cross/attn/wk", "cross/attn/wv",
+                "encoder/attn/wq", "enc_pos"):
+        assert any(key in k and float(g.abs().max()) > 0
+                   for k, g in grads.items()), key
 
 
 def test_remat_does_not_change_the_gradients():
