@@ -191,7 +191,9 @@ and read just after:
    bf16 and f32, Mixtral's window 1 x 5000 (H 32 / KV 8, dh 128, window
    4096) in bf16 and f32, Whisper's encoder 8 x 1500^2 and cross-attention
    8 x 448 x 1500, a ragged 1 x 130 x 1473; the GQA sum left out and the D
-   term dropped as controls, at least 10x past the gate in each type).
+   term dropped as controls, at least 10x past the gate in each type; in
+   bf16 also the plain model of the kernel's arithmetic,
+   ``attention_bwd_tiles``, within ``TILE_TOL`` beyond one rounding).
    Qwen1.5-0.5B at full width and depth: one f32 loss and gradient at B
    2 x 1024 through the kernels against the plain versions (loss rtol
    1e-5, every gradient leaf within 1e-3 of its largest magnitude), then
@@ -317,6 +319,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref,
+    attention_bwd_tiles,
     attention_lse_ref,
     attention_ref,
 )
@@ -3715,6 +3718,17 @@ def evaluation_phases() -> dict:
 # puts every control at least 16x past it; the forward's log-sum-exp
 # within 1e-5 of a plain logsumexp
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.25e-2}
+# the bf16 kernel against the plain model of its own arithmetic
+# (attention_bwd_tiles: the same roundings of P and dS, the same order of
+# sums): beyond one bf16 rounding of each element (2^-8 of its magnitude,
+# the kernel's rounding of its f32 sums into its bf16 outputs), within
+# BWD_TOL[bf16] / 4 of each output's largest magnitude.  What is left is
+# the order of sums inside a wgmma and the few P and dS that round to the
+# other bf16 neighbour where the kernel's S or ex2 differ from the model's
+# by an f32 ulp: one such dS of a row with a dominant key moves a dQ or dK
+# element by ~1e-3 of the largest (readings up to 1.82e-3, at Whisper's
+# encoder; the parent's mma.sync kernel read the same)
+TILE_TOL = BWD_TOL[torch.bfloat16] / 4
 LSE_TOL = 1e-5
 # a broken backward must sit at least this many times past the gate
 CONTROL_FACTOR = 10.0
@@ -3777,6 +3791,18 @@ def bwd_ratio(got, want, dtype) -> float:
     return max(bwd_rel(got, want)) / BWD_TOL[dtype]
 
 
+def tile_excess(got, model) -> float:
+    """How far the kernel's bf16 (dq, dk, dv) sit from the tile model's
+    f32 ones beyond one bf16 rounding of each element, over each output's
+    largest magnitude; the largest of the three."""
+    out = 0.0
+    for g, m in zip(got, model):
+        m = m.float()
+        over = ((g.float() - m).abs() - m.abs() * 2.0 ** -8).clamp_min(0)
+        out = max(out, float(over.max()) / max(float(m.abs().max()), 1e-30))
+    return out
+
+
 def bwd_group_not_summed(q, k, v, o, lse, do, causal, window):
     """Control: the plain backward with each kv head's dK and dV from the
     first query head of its group alone (the GQA sum left out)."""
@@ -3801,7 +3827,10 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     """The backward kernel against its plain version on one input, after
     the forward kernel's log-sum-exp against a plain logsumexp; the two
     controls (the GQA sum left out where rep > 1, the D term dropped) must
-    miss the gate by CONTROL_FACTOR.  Times the kernel on the card alone
+    miss the gate by CONTROL_FACTOR; in bf16 the kernel also within
+    ``TILE_TOL`` of ``attention_bwd_tiles`` (:func:`tile_excess`).  Logs
+    the rate of the five products and the SFU floor of the exponentials
+    beside the bound.  Times the kernel on the card alone
     (:func:`device_ms`) and with the host, the plain version, and
     ``scaled_dot_product_attention``'s backward under the same mask on the
     card alone."""
@@ -3835,7 +3864,11 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
         broken["group_not_summed"] = bwd_group_not_summed
     controls = {name: bwd_ratio(fn(*args), want, dtype)
                 for name, fn in broken.items()}
-    del got, again, want
+    del want
+    tile = None
+    if dtype == torch.bfloat16:
+        tile = tile_excess(got, attention_bwd_tiles(*args))
+    del got, again
     call = lambda: bwd_ops.attention_bwd_kernel(*args)  # noqa: E731
     ms = device_ms(call, reps)
     call_ms = time_ms(call, reps)
@@ -3860,24 +3893,37 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     del qt, kt, vt
     size = torch.finfo(dtype).bits // 8
     pairs = visible_pairs(sq, sk, causal, window)
+    flop = 10.0 * b * h * dh * pairs
     bound_ms, bound_by = attn_bound_ms(
         (4 * b * sq * h + 4 * b * sk * kv) * dh * size + 4 * b * h * sq,
-        10.0 * b * h * dh * pairs, dtype)
+        flop, dtype)
+    # two exponentials a visible pair: the dK/dV and the dQ passes each
+    # recompute P
+    sfu_ms = 2.0 * b * h * pairs / SFU_EX2_PER_S * 1e3
+    tile_log = ("" if tile is None else
+                f"; beyond one rounding of the tile model {tile:.2e} (gate "
+                f"{TILE_TOL:g}) {'ok' if tile <= TILE_TOL else 'FAIL'}")
     log(f"  {label:16s} {_dname(dtype):8s} B={b} Sq={sq} Sk={sk} H={h} "
         f"KV={kv} dh={dh} causal={int(causal)} window={window}: "
         f"max_abs_err={err:.3e}, of each output's largest (dq, dk, dv) "
         f"{', '.join(f'{x:.2e}' for x in rel)} ({ratio:.3f} of the gate "
         f"{BWD_TOL[dtype]:g}) "
-        f"{'ok' if ratio <= 1 else 'FAIL'}; lse err {lse_err:.2e}; "
-        f"deterministic={same}; controls (x the gate) "
+        f"{'ok' if ratio <= 1 else 'FAIL'}{tile_log}; lse err "
+        f"{lse_err:.2e}; deterministic={same}; controls (x the gate) "
         f"{json.dumps({k: round(x, 2) for k, x in controls.items()})}; "
         f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms ({backend}), "
         f"bound {bound_ms:.6f} ms ({bound_by}); x bound "
-        f"{ms / bound_ms:.1f}, x sdpa {ms / library_ms:.2f}")
+        f"{ms / bound_ms:.1f}, x sdpa {ms / library_ms:.2f}; "
+        f"{flop / ms / 1e9:.1f} TFLOP/s of the five products; the "
+        f"exponentials' SFU floor {sfu_ms:.6f} ms")
     if ratio > 1:
         raise AssertionError(f"flash backward kernel disagrees with its "
                              f"plain version: {label} {_dname(dtype)}")
+    if tile is not None and tile > TILE_TOL:
+        raise AssertionError(f"flash backward kernel disagrees with the "
+                             f"model of its arithmetic: {label} "
+                             f"({tile:.2e})")
     if not same:
         raise AssertionError(f"flash backward kernel is not deterministic: "
                              f"{label} {_dname(dtype)}")
@@ -3889,11 +3935,12 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     return {"label": label, "dtype": _dname(dtype),
             "shape": [b, sq, sk, h, kv, dh], "causal": causal,
             "window": window, "max_abs_err": err, "rel": rel,
-            "x_gate": ratio,
+            "x_gate": ratio, "tile_excess": tile,
             "lse_err": lse_err, "controls": controls, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_backend": backend,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flop / ms / 1e9, "sfu_floor_ms": sfu_ms}
 
 
 def flash_bwd_phases() -> tuple:

@@ -486,29 +486,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---- host --------------------------------------------------------------------
-using hopper::TMAP_ERROR;
-
-// a (dh, heads, seq, batch) bf16 tensor, boxes of 64 x 1 x rows x 1 with
-// the 128-byte swizzle; strides in elements; rows past seq read as zeros
-int encode_map(CUtensorMap* map, const void* base, int dh, int heads,
-               int seq, int batch, long long ss, long long sb, int rows) {
-  const hopper::EncodeTiled fn = hopper::encode_tiled();
-  if (fn == nullptr) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
-                              cuuint64_t(seq), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(dh) * 2, cuuint64_t(ss) * 2,
-                                 cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, one,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
-}
-
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int batch, int sq, int sk, int h, int kvh, long long q_sb,
@@ -520,9 +497,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap qm, km, vm;
-  int e = encode_map(&qm, q, DH, h, sq, batch, q_ss, q_sb, 64);
-  if (e == 0) e = encode_map(&km, k, DH, kvh, sk, batch, kv_ss, kv_sb, C::BK);
-  if (e == 0) e = encode_map(&vm, v, DH, kvh, sk, batch, kv_ss, kv_sb, C::BK);
+  int e = hopper::encode_rows_map(&qm, q, DH, h, sq, batch, q_ss, q_sb, 64);
+  if (e == 0)
+    e = hopper::encode_rows_map(&km, k, DH, kvh, sk, batch, kv_ss, kv_sb,
+                                C::BK);
+  if (e == 0)
+    e = hopper::encode_rows_map(&vm, v, DH, kvh, sk, batch, kv_ss, kv_sb,
+                                C::BK);
   if (e != 0) return e;
   const dim3 grid((sq + 63) / 64, h, batch);
   flash_fwd_wgmma<DH><<<grid, C::THREADS, C::SMEM, stream>>>(

@@ -19,46 +19,89 @@
 //
 // Bound.  Five products of the visible (query, key) pairs by dh (S, dP, dV,
 // dK, dQ): 10 dh FLOP a pair, 2.5 times the forward's 4.  At the training
-// shape (B 8, S 2048, H 16, dh 64, causal) that is 1.7e11 FLOP a call
-// against ~67 MB of bf16 inputs and outputs: the operations bound it, at
-// the tensor cores' rate in bf16 and the CUDA cores' in f32.
+// shape (B 8, S 2048, H 16, dh 64, causal: 2.686e8 visible pairs over the
+// batch and heads) that is 1.72e11 FLOP, 0.174 ms at the tensor cores'
+// 989 TFLOP/s, against ~67 MB of bf16 inputs and outputs (0.02 ms at
+// 3.35 TB/s): the operations bound it, at the tensor cores' rate in bf16
+// and the CUDA cores' in f32.  The split below recomputes S and dP in its
+// second pass: 7 products a pair, whose floor there is 0.243 ms, and two
+// exponentials a pair, whose floor on the special-function units (16 ex2
+// a clock on each of 132 SMs) is 0.128 ms (0.064 for one a pair).
 //
 // Three launches, FA2's split, so that no sum needs atomics and two calls
 // give the same bits (restarts reproduce):
-//   1. `bwd_dsum`: D = rowsum(dO o O) in f32, one warp a row.
-//   2. `bwd_dkdv`: one block per (key tile of 64, kv head, batch row).  K
-//      and V stay in shared memory; the block walks the group's rep query
-//      heads and, for each, the query tiles of 64 rows that see some key of
-//      the tile (the causal and window band; tiles outside it are never
-//      read), recomputes S and dP, and accumulates dV and dK in registers.
-//      The GQA sum over the group is this loop, in a fixed order.
-//   3. `bwd_dq`: one block per (query tile of 64, head, batch row), walking
-//      the key tiles the forward walks, dQ accumulated in registers.
-// Both kernels recompute S and dP, so a pair costs 7 products instead of 5.
+//   1. D = rowsum(dO o O) in f32 (`bwd_dsum_bf16`: 16-byte loads, dh / 8
+//      lanes a row; `bwd_dsum`: one warp a row).
+//   2. dK, dV: one block per (key tile of 64, kv head, batch row).  K and V
+//      stay in shared memory; the block walks the group's rep query heads
+//      and, for each, the query tiles of 64 rows that see some key of the
+//      tile (the causal and window band; tiles outside it are never read),
+//      recomputes S and dP, and accumulates dV and dK in registers.  The
+//      GQA sum over the group is this loop, in a fixed order.
+//   3. dQ: one block per (query tile of 64, head, batch row), walking the
+//      key tiles the forward walks, dQ accumulated in registers.
+// Under the causal mask the tiles with the most work start first: the
+// bf16 grids put the tile index slowest (key tiles ascending, query tiles
+// descending), so every head's heavy tiles are in the first wave.
 //
-// bf16 (`bwd_dkdv_mma`, `bwd_dq_mma`): the products on the tensor cores by
-// warp-level mma.sync m16n8k16 (bf16 in, f32 sums), 4 warps a block, each
-// owning 16 of the block's 64 rows (keys, or queries) and holding its
-// accumulators as mma fragments; S^T = K Q^T and dP^T = V dO^T come out in
-// the layout of the A operand of dV += P^T dO and dK += dS^T Q, so P and dS
-// go from registers to the next product as bf16 without shared memory.
-// Tiles are bf16 in shared memory, filled by cp.async and read by ldmatrix
-// (.trans for the operands whose contraction runs down the rows).  The only
-// roundings beyond the plain version's are P and dS to bf16 before their
-// products.  `wgmma` and TMA wait for a later version.
+// bf16 (`bwd_dkdv_wgmma`, `bwd_dq_wgmma`): `wgmma` on TMA-fed tiles, the
+// forward's shape (flash_attention.cu, `flash_fwd_wgmma`).  A block is one
+// consumer warpgroup, which owns the block's 64 keys (dK/dV) or 64 queries
+// (dQ) as the `wgmma` M, and one producer warp; two blocks share an SM at
+// dh 64, so that one's exponentials run under the other's products (two
+// consumer warpgroups in one block, sharing the ring, measured slower:
+// they reach their exponentials together).  The producer's first lane
+// issues TMA loads of 128-byte swizzled panels of 64 columns: in the dK/dV
+// kernel K and V once, then Q and dO of each step through a ring of
+// stages (3 at dh 64, 2 at 128, where 3 would leave one block an SM); in
+// the dQ kernel Q and dO once, then K and V of each key tile through the
+// ring.  Each stage has a full and an empty mbarrier.  Every lane of the
+// producer also copies the step's rows of L (times log2 e) and D into the
+// stage (a TMA box of them would start off 16 bytes wherever Sq is not a
+// multiple of 4), and arrives on the full barrier after.
+//   dK/dV, per step of 64 queries: S^T = K Q^T and dP^T = V dO^T by
+// `wgmma_ss` (A the K or V tile, B the Q or dO tile, both K-major), so
+// that in the accumulator fragment rows are keys and columns queries: L
+// and D are a column's.  P^T = 2^(S^T scale log2 e - L) runs while dP^T
+// is in the tensor cores; then dS^T = P^T o (dP^T - D), and both go to
+// bf16 A fragments in registers, P^T and dS^T never touching shared
+// memory; dV += P^T dO and dK += dS^T Q by `wgmma_rs`, dO and Q read
+// N-major (the transpose bit) from the same swizzled panels, as the
+// forward reads V for P V.  Forming dS before either rs product issues
+// keeps the kernel within the 168 registers of two blocks an SM at dh 64
+// with no spill (issuing dV's product first, to overlap dS, spills there
+// and serialises the wgmma, C7512).  232 registers at dh 128: one block.
+//   dQ, per key tile of 64: S = Q K^T and dP = dO V^T by `wgmma_ss`, P
+// while dP runs, dS = P o (dP - D) to bf16 A fragments, dQ += dS K by
+// `wgmma_rs` with K read N-major.  128 registers at dh 64, 160 at 128:
+// two blocks an SM.
+//   Only the steps and tiles that cross the diagonal, a window edge or the
+// end of Sq or Sk take the mask.  Rows past Sq or Sk arrive as TMA's
+// zeros; the dK/dV kernel masks them (they would add to every key's sum),
+// the dQ kernel leaves its rows past Sq unmasked and unstored.
+// Exponentials are `ex2.approx.ftz` (within 2 ulps; a result below
+// 2^-126 flushes to 0).  The roundings beyond the plain version's are P
+// and dS to bf16 before their products.  `attention_bwd_tiles`
+// (kernels/flash_attention/ref.py) models this arithmetic on the CPU.
+// TMA needs 16-byte aligned bases; the wrapper copies any input that is
+// not.  The tensor maps are encoded per call (`hopper::encode_rows_map`).
 //
-// f32 (`bwd_dkdv`, `bwd_dq`): the CUDA cores, as the f32 forward kernel
-// (TF32 would not hold the f32 checks): tiles of 64 x 64 scores, each
-// thread 4 x 4 of them and 4 rows x dh/16 columns of its accumulators, rows
-// padded by one float in shared memory so that neighbouring threads hit
-// neighbouring banks.
+// f32 (`bwd_dkdv`, `bwd_dq`): the CUDA cores, as the f32 forward kernel:
+// the tensor cores' f32 route is TF32 (about 3 decimal digits), which the
+// f32 checks (1e-4 of each output's largest magnitude against the plain
+// version, and the training gradient check) could not hold; f32 runs
+// only in those checks.  Tiles of 64 x 64 scores, each thread 4 x 4 of
+// them and 4 rows x dh/16 columns of its accumulators, rows padded by one
+// float in shared memory so that neighbouring threads hit neighbouring
+// banks.
 //
 // Inputs are contiguous (B, S, heads, dh) tensors (the wrapper makes them
 // so); dQ, dK, dV are written in the input type.
 //
 // Plain C interface for ctypes: the entry points launch on the given
 // stream, do not synchronise, and return the first cudaGetLastError() that
-// is not cudaSuccess.
+// is not cudaSuccess (or TMAP_ERROR + the CUresult if a tensor map cannot
+// be encoded).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,6 +195,35 @@ bwd_dsum(const T* __restrict__ o, const T* __restrict__ dout,
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
+    const long long bi = r / h;  // b * sq + i
+    const int head = static_cast<int>(r % h);
+    const long long b = bi / sq, i = bi % sq;
+    dsum[(b * h + head) * sq + i] = acc;
+  }
+}
+
+// the same for bf16 rows, 16-byte loads: DH / 8 lanes a row
+template <int DH>
+__global__ void __launch_bounds__(256)
+bwd_dsum_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+              float* __restrict__ dsum, long long rows, int sq, int h) {
+  constexpr int LANES = DH / 8;
+  const long long r = (blockIdx.x * 256LL + threadIdx.x) / LANES;
+  const int j = threadIdx.x % LANES;
+  float acc = 0.f;
+  if (r < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + r * DH + 8 * j);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + r * DH + 8 * j);
+    const bf16* x = reinterpret_cast<const bf16*>(&a);
+    const bf16* y = reinterpret_cast<const bf16*>(&c);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc = fmaf(__bfloat162float(x[e]), __bfloat162float(y[e]), acc);
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && j == 0) {
     const long long bi = r / h;  // b * sq + i
     const int head = static_cast<int>(r % h);
     const long long b = bi / sq, i = bi % sq;
@@ -367,33 +439,60 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: the products on the tensor cores (mma.sync m16n8k16) -----------
-// Same split and loops as the CUDA-core kernels above, 128 threads a block:
-// each of the 4 warps owns 16 rows of the block's 64 (keys in bwd_dkdv_mma,
-// queries in bwd_dq_mma) and holds its accumulators as mma fragments.  Tiles
-// are bf16 in shared memory, rows padded by 16 bytes so that ldmatrix's 8
-// rows fall in distinct banks, and filled by cp.async (rows past the end
-// zero).  S and dP stay f32 in registers; P and dS are rounded to bf16 as
-// the A operands of the next products, whose sums stay f32.
-template <int DH>
-struct MmaSmem {
-  static constexpr int DP = DH + 8;  // padded row, bf16 elements
-  static constexpr size_t bytes =
-      4 * size_t(64) * DP * sizeof(bf16) + 2 * 64 * sizeof(float);
-};
+// ---- bf16: wgmma on TMA-fed tiles -------------------------------------------
+constexpr float LOG2E = 1.4426950408889634f;
 
-// rows [r0, r0 + 64) of a (.., heads, DH) bf16 tensor (row stride rs
-// elements) into a [64][DH + 8] tile, zero past n; one cp.async group
-template <int DH>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int r0, int n, long long rs) {
-  constexpr int DP = DH + 8, CH = DH / 8;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < 64 * CH; e += 128) {
-    const int r = e / CH, c = e % CH;
-    const bool in = r0 + r < n;
-    hopper::cp_async_16_or_zero(dst + r * DP + c * 8,
-                                in ? src + (r0 + r) * rs + c * 8 : src, in);
-  }
+// 2^x on the SFU (ex2.approx.ftz: a result below 2^-126 flushes to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 64) hopper::wgmma_ss_n64(d, a, b, scale_d);
+  else hopper::wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, b);
+  else hopper::wgmma_rs_n128(d, a, b);
+}
+
+// acc = A B^T over DH, A's 64 rows and B's N rows both (rows, DH) tiles of
+// 128-byte swizzled panels (`a_panel`, `b_panel` bytes apart): 16 columns
+// of DH a step, 32 bytes into a panel
+template <int N, int DH>
+__device__ __forceinline__ void issue_rows_by_rows(float (&acc)[N / 2],
+                                                   const uint8_t* a,
+                                                   int a_panel,
+                                                   const uint8_t* b,
+                                                   int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss<N>(acc,
+                hopper::desc_sw128(a + (kk / 4) * a_panel + (kk % 4) * 32, 0),
+                hopper::desc_sw128(b + (kk / 4) * b_panel + (kk % 4) * 32, 0),
+                kk > 0);
+  hopper::wgmma_commit();
+}
+
+// acc += F B, F the (64, K) bf16 A fragments in registers, B a (K, DH)
+// tile of panels `b_panel` bytes apart, read N-major: 16 rows (2048 bytes)
+// a step
+template <int K, int DH>
+__device__ __forceinline__ void issue_frags_by_tile(float (&acc)[DH / 2],
+                                                    uint32_t (&f)[K / 16][4],
+                                                    const uint8_t* b,
+                                                    int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<DH>(acc, f[kk], hopper::desc_sw128(b + kk * 16 * 128, b_panel));
+  hopper::wgmma_commit();
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -401,298 +500,444 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// acc (16 rows x 64 columns, 8 n-tiles) += A rows [r0, r0 + 16) of a
-// [64][DP] tile times the transpose of all 64 rows of B, over DH
+// this thread's two rows (r, r + 8) of a (64, DH) f32 accumulator, times
+// `mul`, as bf16 into rows of a tensor with row stride `rs`; rows past n
+// left out
 template <int DH>
-__device__ __forceinline__ void mma_rows_by_rows_t(float (&acc)[8][4],
-                                                   const bf16* A, int r0,
-                                                   const bf16* B) {
-  constexpr int DP = DH + 8;
-  const int lane = threadIdx.x % 32, i = lane / 8, r = lane % 8;
+__device__ __forceinline__ void store_acc(bf16* dst, int r, int n,
+                                          long long rs,
+                                          const float (&acc)[DH / 2],
+                                          float mul) {
+  const int t4 = threadIdx.x % 4;
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    hopper::ldmatrix_x4(a, A + (r0 + lane % 16) * DP + kk * 16 +
-                               (lane / 16) * 8);
+  for (int hi = 0; hi < 2; ++hi) {
+    if (r + 8 * hi >= n) continue;
+    bf16* row = dst + (r + 8 * hi) * rs;
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bb[4];
-      hopper::ldmatrix_x4(bb, B + (np * 16 + r + (i / 2) * 8) * DP +
-                                  kk * 16 + (i % 2) * 8);
-      hopper::mma_16816(acc[2 * np], a, bb[0], bb[1]);
-      hopper::mma_16816(acc[2 * np + 1], a, bb[2], bb[3]);
-    }
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * hi] * mul, acc[4 * j + 2 * hi + 1] * mul);
   }
 }
 
-// acc (16 rows x DH) += A (16 x 64, four k-steps of bf16 fragments) times
-// the [64][DP] tile B (64 rows by DH columns)
+// dK/dV: a block per (64 keys, kv head, batch row), one consumer warpgroup
+// and one producer warp
 template <int DH>
-__device__ __forceinline__ void mma_frags_by_tile(float (&acc)[DH / 8][4],
-                                                  const uint32_t (&a)[4][4],
-                                                  const bf16* B) {
-  constexpr int DP = DH + 8;
-  const int lane = threadIdx.x % 32, i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-    for (int np = 0; np < DH / 16; ++np) {
-      uint32_t bb[4];
-      hopper::ldmatrix_x4_trans(bb, B + (kq * 16 + r + (i % 2) * 8) * DP +
-                                        np * 16 + (i / 2) * 8);
-      hopper::mma_16816(acc[2 * np], a[kq], bb[0], bb[1]);
-      hopper::mma_16816(acc[2 * np + 1], a[kq], bb[2], bb[3]);
-    }
-}
-
-// the 16 x 64 f32 fragments of acc as four k-steps of bf16 A fragments
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
-                                           const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kq = 0; kq < 4; ++kq) {
-    a[kq][0] = pack_bf16(acc[2 * kq][0], acc[2 * kq][1]);
-    a[kq][1] = pack_bf16(acc[2 * kq][2], acc[2 * kq][3]);
-    a[kq][2] = pack_bf16(acc[2 * kq + 1][0], acc[2 * kq + 1][1]);
-    a[kq][3] = pack_bf16(acc[2 * kq + 1][2], acc[2 * kq + 1][3]);
-  }
-}
-
-// this warp's 16 rows of a (16 x DH) accumulator, times `mul`, as bf16 into
-// rows row0 + [0, 16) of a (.., heads, DH) tensor (row stride rs), rows past
-// n left out
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, int row0, int n,
-                                           long long rs,
-                                           const float (&acc)[DH / 8][4],
-                                           float mul) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + 8 * half;
-    if (row >= n) continue;
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + row * rs + nt * 8 + 2 * t) =
-          pack_bf16(acc[nt][2 * half] * mul, acc[nt][2 * half + 1] * mul);
-  }
-}
+struct KvCfg {
+  static constexpr int BQ = 64;  // queries a step
+  static constexpr int STAGES = DH == 64 ? 3 : 2;  // steps in the ring
+  static constexpr int MIN_BLOCKS = DH == 64 ? 2 : 1;  // blocks an SM
+  static constexpr int NP = DH / 64;             // 64-column panels a row
+  static constexpr int KV_PANEL = 64 * 128;      // bytes: 64 keys x 128 B
+  static constexpr int KV_BYTES = NP * KV_PANEL;
+  static constexpr int Q_PANEL = BQ * 128;
+  static constexpr int Q_BYTES = NP * Q_PANEL;   // Q (or dO) of one step
+  // Q, dO, then L and D (f32, BQ each), padded so that the next stage's
+  // panels stay 1024-byte aligned
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 1024;
+  static constexpr int THREADS = 128 + 32;
+  static constexpr size_t SMEM = 1024 + 2 * size_t(KV_BYTES) +
+                                 size_t(STAGES) * STAGE_BYTES +
+                                 8 * (1 + 2 * STAGES);
+};
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ dsum,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-             int h, int kvh, int causal, int window, float scale) {
-  constexpr int DP = DH + 8, NT = DH / 8;
-  constexpr float LOG2E = 1.4426950408889634f;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + 64 * DP;
-  bf16* Qs = Vs + 64 * DP;
-  bf16* dOs = Qs + 64 * DP;
-  float* Ls = reinterpret_cast<float*>(dOs + 64 * DP);  // lse, log2 units
-  float* Ds = Ls + 64;
+__global__ void __launch_bounds__(KvCfg<DH>::THREADS, KvCfg<DH>::MIN_BLOCKS)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap domap,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+               int h, int kvh, int causal, int window, float scale) {
+  using C = KvCfg<DH>;
+  constexpr int BQ = C::BQ, NP = C::NP, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_k = smem;                       // [NP] panels of 64 keys
+  uint8_t* s_v = s_k + C::KV_BYTES;
+  uint8_t* s_ring = s_v + C::KV_BYTES;       // [ST] {Q, dO, L, D}
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(s_ring + ST * C::STAGE_BYTES);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4, kr = 16 * warp;
-  const int k0 = blockIdx.x * BK, grp = blockIdx.y, b = blockIdx.z;
+  // key tiles slowest in the grid: under the causal mask the first tiles,
+  // which the most query rows see, start first on every head
+  const int k0 = blockIdx.z * 64, grp = blockIdx.x, b = blockIdx.y;
   const int rep = h / kvh, q_off = sk - sq;
-  const float scale_log2 = scale * LOG2E;
-  const long long q_rs = static_cast<long long>(h) * DH;
-  const long long kv_rs = static_cast<long long>(kvh) * DH;
-  const long long kvb = static_cast<long long>(b) * sk * kv_rs + grp * DH;
-  load_tile_async<DH>(Ks, k + kvb, k0, sk, kv_rs);
-  load_tile_async<DH>(Vs, v + kvb, k0, sk, kv_rs);
-  hopper::cp_async_commit();
-
-  const int k_last = min(k0 + BK, sk) - 1;
+  // query rows [i_lo, i_hi) that see some key of [k0, min(k0 + 64, sk)):
+  // the steps walk the group's rep heads and, for each, these rows' tiles
+  const int k_last = min(k0 + 64, sk) - 1;
   const int i_lo = causal ? max(0, k0 - q_off) : 0;
   const int i_hi = window ? min(sq, k_last + window - q_off) : sq;
+  const int q_first = (i_lo / BQ) * BQ;
+  const int nq = i_hi > q_first ? (i_hi - q_first + BQ - 1) / BQ : 0;
+  const int n_steps = rep * nq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float acc_v[NT][4], acc_k[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.f;
-
-  for (int hh = 0; hh < rep; ++hh) {
-    const int head = grp * rep + hh;
-    const long long qh = static_cast<long long>(b) * sq * q_rs + head * DH;
-    const float* lrow = lse + (static_cast<long long>(b) * h + head) * sq;
-    const float* drow = dsum + (static_cast<long long>(b) * h + head) * sq;
-    for (int q0 = (i_lo / BQ) * BQ; q0 < i_hi; q0 += BQ) {
-      __syncthreads();  // the previous tile's Q and dO are read
-      load_tile_async<DH>(Qs, q + qh, q0, sq, q_rs);
-      load_tile_async<DH>(dOs, dout + qh, q0, sq, q_rs);
-      hopper::cp_async_commit();
-      if (tid < BQ) {
-        const bool in = q0 + tid < sq;
-        Ls[tid] = in ? lrow[q0 + tid] * LOG2E : 0.f;
-        Ds[tid] = in ? drow[q0 + tid] : 0.f;
-      }
-      hopper::cp_async_wait<0>();
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys, 64 queries
-      float st[8][4], dpt[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      mma_rows_by_rows_t<DH>(st, Ks, kr, Qs);
-      mma_rows_by_rows_t<DH>(dpt, Vs, kr, dOs);
-      // fragment element (n, e): key kr + g + 8 (e / 2), query 8 n + 2 t + e % 2
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * n + 2 * t + e % 2;
-          const int kpos = k0 + kr + g + 8 * (e / 2);
-          const bool ok = q0 + qi < sq && kpos < sk &&
-                          visible(q_off + q0 + qi, kpos, causal, window);
-          const float p =
-              ok ? exp2f(fmaf(st[n][e], scale_log2, -Ls[qi])) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - Ds[qi]);
-        }
-      uint32_t ap[4][4], as[4][4];
-      to_a_frags(ap, st);
-      to_a_frags(as, dpt);
-      // dV += P^T dO, dK += dS^T Q
-      mma_frags_by_tile<DH>(acc_v, ap, dOs);
-      mma_frags_by_tile<DH>(acc_k, as, Qs);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      // the TMA's expect_tx and the 32 producer lanes' copies of L and D
+      hopper::mbar_init(&full[s], 1 + 32);
+      hopper::mbar_init(&empty[s], 4);  // one arrival per consumer warp
     }
+    hopper::fence_barrier_init();
   }
-  hopper::cp_async_wait<0>();
-  store_rows<DH>(dv + kvb, k0 + kr, sk, kv_rs, acc_v, 1.f);
-  store_rows<DH>(dk + kvb, k0 + kr, sk, kv_rs, acc_k, scale);
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: its first lane issues the loads
+    if (n_steps == 0) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_4d(s_k + p * C::KV_PANEL, &kmap, kv_full, p * 64,
+                            grp, k0, b);
+        hopper::tma_load_4d(s_v + p * C::KV_PANEL, &vmap, kv_full, p * 64,
+                            grp, k0, b);
+      }
+    }
+    for (int t = 0; t < n_steps; ++t) {
+      const int s = t % ST;
+      const int head = grp * rep + t / nq, q0 = q_first + (t % nq) * BQ;
+      uint8_t* st = s_ring + s * C::STAGE_BYTES;
+      hopper::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
+        for (int p = 0; p < NP; ++p) {
+          hopper::tma_load_4d(st + p * C::Q_PANEL, &qmap, &full[s], p * 64,
+                              head, q0, b);
+          hopper::tma_load_4d(st + C::Q_BYTES + p * C::Q_PANEL, &domap,
+                              &full[s], p * 64, head, q0, b);
+        }
+      }
+      // every lane copies rows of L (in log2 units) and D, 0 past Sq (a
+      // TMA box of them would start off 16 bytes wherever Sq is not a
+      // multiple of 4)
+      float* ls = reinterpret_cast<float*>(st + 2 * C::Q_BYTES);
+      const long long row = (static_cast<long long>(b) * h + head) * sq + q0;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < sq;
+        ls[i] = in ? lse[row + i] * LOG2E : 0.f;
+        ls[BQ + i] = in ? dsum[row + i] : 0.f;
+      }
+      hopper::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: 64 keys; this thread holds keys kr, kr + 8.
+  // In S^T and dP^T (keys x queries) its element i sits at key
+  // kr + 8 ((i / 2) % 2) and query 8 (i / 4) + 2 t4 + i % 2 of the step
+  const int t4 = lane % 4, kr = 16 * warp + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float dva[DH / 2], dka[DH / 2], sa[BQ / 2], dpa[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dva[i] = dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) sa[i] = dpa[i] = 0.f;
+
+  if (n_steps > 0) hopper::mbar_wait(kv_full, 0);
+  for (int t = 0; t < n_steps; ++t) {
+    const int s = t % ST, q0 = q_first + (t % nq) * BQ;
+    hopper::mbar_wait(&full[s], (t / ST) & 1);
+    const uint8_t* qs = s_ring + s * C::STAGE_BYTES;
+    const uint8_t* dos = qs + C::Q_BYTES;
+    const float* ls = reinterpret_cast<const float*>(qs + 2 * C::Q_BYTES);
+    const float* ds = ls + BQ;
+    // S^T = K Q^T, then dP^T = V dO^T
+    hopper::wgmma_fence();
+    issue_rows_by_rows<BQ, DH>(sa, s_k, C::KV_PANEL, qs, C::Q_PANEL);
+    issue_rows_by_rows<BQ, DH>(dpa, s_v, C::KV_PANEL, dos, C::Q_PANEL);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sa);
+
+    // P^T = 2^(S^T scale log2 e - L), L a column's, while dP^T runs; the
+    // mask only on steps that cross the diagonal, a window edge, Sk or Sq
+    // (rows past Sq arrive as zeros, L and D as zeros: masked here)
+    const bool edge = k0 + 64 > sk || q0 + BQ > sq ||
+                      (causal && k0 + 63 > q_off + q0) ||
+                      (window && k0 <= q_off + q0 + BQ - 1 - window);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; i += 2) {
+      const int c = 8 * (i / 4) + 2 * t4;
+      const float2 l = *reinterpret_cast<const float2*>(ls + c);
+      float p0 = ex2(fmaf(sa[i], sl2, -l.x));
+      float p1 = ex2(fmaf(sa[i + 1], sl2, -l.y));
+      if (edge) {
+        const int key = k0 + kr + 8 * ((i / 2) % 2);
+        const int qp = q_off + q0 + c;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bool ok = key < sk && q0 + c + e < sq;
+          if (causal) ok = ok && key <= qp + e;
+          if (window) ok = ok && key > qp + e - window;
+          if (!ok) (e ? p1 : p0) = 0.f;
+        }
+      }
+      sa[i] = p0;
+      sa[i + 1] = p1;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpa);
+    // dS^T = P^T o (dP^T - D), D a column's; P^T and dS^T to bf16 A
+    // fragments, S^T's and dP^T's registers freed as they go
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; i += 2) {
+      const float2 d =
+          *reinterpret_cast<const float2*>(ds + 8 * (i / 4) + 2 * t4);
+      pa[i / 8][(i % 8) / 2] = pack_bf16(sa[i], sa[i + 1]);
+      da[i / 8][(i % 8) / 2] =
+          pack_bf16(sa[i] * (dpa[i] - d.x), sa[i + 1] * (dpa[i + 1] - d.y));
+    }
+    // dV += P^T dO and dK += dS^T Q, dO and Q read N-major
+    hopper::wgmma_fence();
+    issue_frags_by_tile<BQ, DH>(dva, pa, dos, C::Q_PANEL);
+    issue_frags_by_tile<BQ, DH>(dka, da, qs, C::Q_PANEL);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done
+  }
+
+  const long long kv_rs = static_cast<long long>(kvh) * DH;
+  const long long at = (static_cast<long long>(b) * sk + k0) * kv_rs +
+                       grp * DH;
+  store_acc<DH>(dv + at, kr, sk - k0, kv_rs, dva, 1.f);
+  store_acc<DH>(dk + at, kr, sk - k0, kv_rs, dka, scale);
 }
 
+// dQ: a block per (64 queries, head, batch row), the forward's shape
 template <int DH>
-__global__ void __launch_bounds__(128)
-bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ dsum,
-           bf16* __restrict__ dq, int sq, int sk, int h, int kvh,
-           int causal, int window, float scale) {
-  constexpr int DP = DH + 8, NT = DH / 8;
-  constexpr float LOG2E = 1.4426950408889634f;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + 64 * DP;
-  bf16* Ks = dOs + 64 * DP;
-  bf16* Vs = Ks + 64 * DP;
-  float* Ls = reinterpret_cast<float*>(Vs + 64 * DP);  // lse, log2 units
-  float* Ds = Ls + 64;
+struct QCfg {
+  static constexpr int BK = 64;  // keys a step
+  static constexpr int STAGES = DH == 64 ? 3 : 2;  // key tiles in the ring
+  static constexpr int MIN_BLOCKS = 2;  // blocks an SM
+  static constexpr int NP = DH / 64;
+  static constexpr int Q_PANEL = 64 * 128;
+  static constexpr int Q_BYTES = NP * Q_PANEL;   // Q (or dO)
+  static constexpr int KV_PANEL = BK * 128;
+  static constexpr int KV_BYTES = NP * KV_PANEL; // K (or V) of one step
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int THREADS = 128 + 32;
+  static constexpr size_t SMEM = 1024 + 2 * size_t(Q_BYTES) +
+                                 size_t(STAGES) * STAGE_BYTES +
+                                 8 * (1 + 2 * STAGES);
+};
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4, qr = 16 * warp;
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
-  const int rep = h / kvh, grp = head / rep, q_off = sk - sq;
-  const float scale_log2 = scale * LOG2E;
-  const long long q_rs = static_cast<long long>(h) * DH;
-  const long long kv_rs = static_cast<long long>(kvh) * DH;
-  const long long qh = static_cast<long long>(b) * sq * q_rs + head * DH;
-  const long long kvb = static_cast<long long>(b) * sk * kv_rs + grp * DH;
-  load_tile_async<DH>(Qs, q + qh, q0, sq, q_rs);
-  load_tile_async<DH>(dOs, dout + qh, q0, sq, q_rs);
-  hopper::cp_async_commit();
-  if (tid < BQ) {
-    const bool in = q0 + tid < sq;
-    const long long row = (static_cast<long long>(b) * h + head) * sq;
-    Ls[tid] = in ? lse[row + q0 + tid] * LOG2E : 0.f;
-    Ds[tid] = in ? dsum[row + q0 + tid] : 0.f;
-  }
+template <int DH>
+__global__ void __launch_bounds__(QCfg<DH>::THREADS, QCfg<DH>::MIN_BLOCKS)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap domap,
+             const float* __restrict__ lse, const float* __restrict__ dsum,
+             bf16* __restrict__ dq, int sq, int sk, int h, int kvh,
+             int causal, int window, float scale) {
+  using C = QCfg<DH>;
+  constexpr int BK = C::BK, NP = C::NP, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_q = smem;                       // [NP] panels of 64 rows
+  uint8_t* s_do = s_q + C::Q_BYTES;
+  uint8_t* s_kv = s_do + C::Q_BYTES;         // [ST] {K, V} [NP] panels
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_kv + ST * C::STAGE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
 
+  // query tiles slowest in the grid, the most keys first
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int q0 = qt * 64, grp = head / (h / kvh), q_off = sk - sq;
+  // keys that some row of this tile can see: [k_begin, k_end)
   const int pos_lo = q_off + q0;
-  const int pos_hi = q_off + min(q0 + BQ, sq) - 1;
+  const int pos_hi = q_off + min(q0 + 64, sq) - 1;
   const int k_end = causal ? min(sk, pos_hi + 1) : sk;
   const int k_begin = window ? (max(0, pos_lo - window + 1) / BK) * BK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's K and V are read
-    load_tile_async<DH>(Ks, k + kvb, k0, sk, kv_rs);
-    load_tile_async<DH>(Vs, v + kvb, k0, sk, kv_rs);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<0>();
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows_by_rows_t<DH>(s, Qs, qr, Ks);
-    mma_rows_by_rows_t<DH>(dp, dOs, qr, Vs);
-    // fragment element (n, e): query qr + g + 8 (e / 2), key 8 n + 2 t + e % 2
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = qr + g + 8 * (e / 2);
-        const int kpos = k0 + 8 * n + 2 * t + e % 2;
-        const bool ok = q0 + qi < sq && kpos < k_end &&
-                        visible(pos_lo + qi, kpos, causal, window);
-        const float p = ok ? exp2f(fmaf(s[n][e], scale_log2, -Ls[qi])) : 0.f;
-        dp[n][e] = p * (dp[n][e] - Ds[qi]);
-      }
-    uint32_t as[4][4];
-    to_a_frags(as, dp);
-    mma_frags_by_tile<DH>(acc, as, Ks);  // dQ += dS K
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::fence_barrier_init();
   }
-  hopper::cp_async_wait<0>();
-  store_rows<DH>(dq + qh, q0 + qr, sq, q_rs, acc, scale);
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_4d(s_q + p * C::Q_PANEL, &qmap, q_full, p * 64,
+                            head, q0, b);
+        hopper::tma_load_4d(s_do + p * C::Q_PANEL, &domap, q_full, p * 64,
+                            head, q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        hopper::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        uint8_t* ks = s_kv + s * C::STAGE_BYTES;
+        const int k0 = k_begin + t * BK;
+        for (int p = 0; p < NP; ++p) {
+          hopper::tma_load_4d(ks + p * C::KV_PANEL, &kmap, &full[s], p * 64,
+                              grp, k0, b);
+          hopper::tma_load_4d(ks + C::KV_BYTES + p * C::KV_PANEL, &vmap,
+                              &full[s], p * 64, grp, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: 64 queries; this thread holds rows r0, r0 + 8.
+  // Rows past Sq arrive as zeros, take L = D = 0, and are not stored: they
+  // touch no other row, so no mask needs them
+  const int t4 = lane % 4, r0 = 16 * warp + lane / 4;
+  const int qpos0 = pos_lo + r0, qpos1 = qpos0 + 8;
+  const float sl2 = scale * LOG2E;
+  const long long rows = (static_cast<long long>(b) * h + head) * sq + q0;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const bool in = q0 + r0 + 8 * hi < sq;
+    l2[hi] = in ? lse[rows + r0 + 8 * hi] * LOG2E : 0.f;
+    dd[hi] = in ? dsum[rows + r0 + 8 * hi] : 0.f;
+  }
+  float acc[DH / 2], sa[BK / 2], dpa[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sa[i] = dpa[i] = 0.f;
+
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % ST, k0 = k_begin + t * BK;
+    hopper::mbar_wait(&full[s], (t / ST) & 1);
+    const uint8_t* ks = s_kv + s * C::STAGE_BYTES;
+    const uint8_t* vs = ks + C::KV_BYTES;
+    // S = Q K^T, then dP = dO V^T
+    hopper::wgmma_fence();
+    issue_rows_by_rows<BK, DH>(sa, s_q, C::Q_PANEL, ks, C::KV_PANEL);
+    issue_rows_by_rows<BK, DH>(dpa, s_do, C::Q_PANEL, vs, C::KV_PANEL);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sa);
+    // element i: key k0 + 8 (i / 4) + 2 t4 + i % 2, row r0 + 8 ((i / 2) % 2)
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > pos_lo) ||
+                      (window && k0 <= pos_hi - window);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int hi = (i / 2) % 2;
+      float p = ex2(fmaf(sa[i], sl2, -l2[hi]));
+      if (edge) {
+        const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i % 2);
+        const int qpos = hi ? qpos1 : qpos0;
+        bool ok = kpos < sk;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window) ok = ok && kpos > qpos - window;
+        if (!ok) p = 0.f;
+      }
+      sa[i] = p;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpa);
+    // dS = P o (dP - D) as bf16 A fragments; dQ += dS K, K read N-major
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const float d = dd[(i / 2) % 2];
+      da[i / 8][(i % 8) / 2] =
+          pack_bf16(sa[i] * (dpa[i] - d), sa[i + 1] * (dpa[i + 1] - d));
+    }
+    hopper::wgmma_fence();
+    issue_frags_by_tile<BK, DH>(acc, da, ks, C::KV_PANEL);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  const long long q_rs = static_cast<long long>(h) * DH;
+  store_acc<DH>(dq + (static_cast<long long>(b) * sq + q0) * q_rs + head * DH,
+                r0, sq - q0, q_rs, acc, scale);
+}
+
+// a (dh, heads, seq, batch) map of a contiguous (batch, seq, heads, dh)
+// tensor, boxes of `rows` rows
+int rows_map(CUtensorMap* map, const void* base, int dh, int heads, int seq,
+             int batch, int rows) {
+  const long long ss = static_cast<long long>(heads) * dh;
+  return hopper::encode_rows_map(map, base, dh, heads, seq, batch, ss,
+                                 ss * seq, rows);
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* dsum, void* dq,
-               void* dk, void* dv, int batch, int sq, int sk, int h, int kvh,
-               int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = MmaSmem<DH>::bytes;
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* dsum, void* dq,
+                 void* dk, void* dv, int batch, int sq, int sk, int h,
+                 int kvh, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  using KC = KvCfg<DH>;
+  using QC = QCfg<DH>;
+  if (sq == 0 || sk == 0) {  // no (query, key) pair: every gradient is 0
+    const size_t qb = size_t(batch) * sq * h * DH * sizeof(bf16);
+    const size_t kb = size_t(batch) * sk * kvh * DH * sizeof(bf16);
+    cudaError_t err = cudaMemsetAsync(dq, 0, qb, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dk, 0, kb, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kb, stream);
+    return static_cast<int>(err);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_mma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      bwd_dkdv_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(KC::SMEM));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        bwd_dq_mma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        bwd_dq_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(QC::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
+  // each kernel's maps: q and dO in boxes of its query rows, k and v of
+  // its keys
+  CUtensorMap qkv, dokv, kkv, vkv, qq, doq, kq, vq;
+  const long long rows = static_cast<long long>(batch) * h * sq;
+  int e = rows_map(&qkv, q, DH, h, sq, batch, KC::BQ);
+  if (e == 0) e = rows_map(&dokv, dout, DH, h, sq, batch, KC::BQ);
+  if (e == 0) e = rows_map(&kkv, k, DH, kvh, sk, batch, 64);
+  if (e == 0) e = rows_map(&vkv, v, DH, kvh, sk, batch, 64);
+  if (e == 0) e = rows_map(&qq, q, DH, h, sq, batch, 64);
+  if (e == 0) e = rows_map(&doq, dout, DH, h, sq, batch, 64);
+  if (e == 0) e = rows_map(&kq, k, DH, kvh, sk, batch, QC::BK);
+  if (e == 0) e = rows_map(&vq, v, DH, kvh, sk, batch, QC::BK);
+  if (e != 0) return e;
   const bf16* dot = static_cast<const bf16*>(dout);
-  const float* lt = static_cast<const float*>(lse);
   float* dst = static_cast<float*>(dsum);
-  const long long rows = static_cast<long long>(batch) * sq * h;
-  if (rows > 0) {
-    bwd_dsum<bf16, DH><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                         stream>>>(static_cast<const bf16*>(o), dot, dst,
-                                   rows, sq, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (sk > 0) {
-    const dim3 grid((sk + BK - 1) / BK, kvh, batch);
-    bwd_dkdv_mma<DH><<<grid, 128, smem, stream>>>(
-        qt, kt, vt, dot, lt, dst, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), sq, sk, h, kvh, causal, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (sq > 0) {
-    const dim3 grid((sq + BQ - 1) / BQ, h, batch);
-    bwd_dq_mma<DH><<<grid, 128, smem, stream>>>(
-        qt, kt, vt, dot, lt, dst, static_cast<bf16*>(dq), sq, sk, h, kvh,
-        causal, window, scale);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+  bwd_dsum_bf16<DH><<<static_cast<unsigned>((rows * (DH / 8) + 255) / 256),
+                      256, 0, stream>>>(static_cast<const bf16*>(o), dot,
+                                        dst, rows, sq, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid(kvh, batch, (sk + 63) / 64);
+  bwd_dkdv_wgmma<DH><<<kv_grid, KC::THREADS, KC::SMEM, stream>>>(
+      qkv, kkv, vkv, dokv, static_cast<const float*>(lse), dst,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, h, kvh, causal,
+      window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid(h, batch, (sq + 63) / 64);
+  bwd_dq_wgmma<DH><<<q_grid, QC::THREADS, QC::SMEM, stream>>>(
+      qq, kq, vq, doq, static_cast<const float*>(lse), dst,
+      static_cast<bf16*>(dq), sq, sk, h, kvh, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DH>
@@ -750,12 +995,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   if (kvh <= 0 || h % kvh != 0 || (dh != 64 && dh != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
-  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernels
+  if constexpr (sizeof(T) == 2) {  // bf16: wgmma on TMA-fed tiles
     if (dh == 64)
-      return launch_mma<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
-                            sq, sk, h, kvh, causal, window, scale, st);
-    return launch_mma<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
-                           sq, sk, h, kvh, causal, window, scale, st);
+      return launch_wgmma<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
+                              sq, sk, h, kvh, causal, window, scale, st);
+    return launch_wgmma<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
+                             sq, sk, h, kvh, causal, window, scale, st);
   } else {
     if (dh == 64)
       return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,

@@ -2,7 +2,8 @@
 // named barriers, stores into another block of a cluster (`mapa`, `st.async`), TMA tile
 // loads, cp.async 16-byte copies, warp-level bf16 `mma.sync` with
 // `ldmatrix`, and bf16 `wgmma` with its shared-memory descriptors; on the
-// host, `cuTensorMapEncodeTiled` reached through the runtime.  Header-only;
+// host, `cuTensorMapEncodeTiled` reached through the runtime and the maps
+// the attention kernels share.  Header-only;
 // every device function is inline PTX.
 //
 // Layout conventions (those of CU_TENSOR_MAP_SWIZZLE_128B): a tile is kept
@@ -413,6 +414,29 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a (dh, heads, seq, batch) bf16 tensor, boxes of 64 x 1 x rows x 1 with
+// the 128-byte swizzle (one 64-column panel a box); strides in elements;
+// rows past seq read as zeros.  0, or TMAP_ERROR + the CUresult
+inline int encode_rows_map(CUtensorMap* map, const void* base, int dh,
+                           int heads, int seq, int batch, long long ss,
+                           long long sb, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return TMAP_ERROR + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
+                              cuuint64_t(seq), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(dh) * 2, cuuint64_t(ss) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + static_cast<int>(r);
 }
 
 }  // namespace hopper

@@ -9,12 +9,23 @@ gradient.  ``attention_lse_ref`` and ``attention_bwd_ref`` are the plain
 versions of the forward kernel's log-sum-exp output and of the backward
 kernel (``csrc/flash_attention_bwd.cu``), which the reference has no
 counterpart of: JAX differentiates its jnp attention.
+``attention_bwd_tiles`` models the bf16 backward kernel's own arithmetic
+(its roundings and its order of sums), so that the card can hold the
+kernel to it more tightly than to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_bwd_ref", "attention_lse_ref", "attention_ref"]
+__all__ = ["BWD_KV_STEP", "BWD_Q_STEP", "attention_bwd_ref",
+           "attention_bwd_tiles", "attention_lse_ref", "attention_ref"]
+
+# the bf16 backward kernel's steps (csrc/flash_attention_bwd.cu): query rows
+# a step of the dK/dV kernel (KvCfg::BQ), keys a step of the dQ kernel
+# (QCfg::BK)
+BWD_KV_STEP = 64
+BWD_Q_STEP = 64
+_LOG2E = 1.4426950408889634
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -95,3 +106,57 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = dk.reshape(b, sk, kvh, rep, dh).sum(3)
     dv = dv.reshape(b, sk, kvh, rep, dh).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> tuple:
+    """A plain model of the bf16 backward kernel's arithmetic on bf16
+    inputs: f32 (dq, dk, dv) as the kernel holds them before it rounds
+    them to bf16.  S = Q K^T and dP = dO V^T are f32 sums of exact
+    products; P = exp2(fma(S, scale log2 e, -lse log2 e)), 0 where masked;
+    D = rowsum(dO o O) in f32; dS = P o (dP - D).  P and dS are rounded to
+    bf16 before their products, as the kernel rounds its register A
+    operands.  Each kv head's dK and dV are summed in f32 over its group's
+    heads in head order and, within a head, over steps of
+    ``BWD_KV_STEP`` query rows in order; dQ over steps of
+    ``BWD_Q_STEP`` keys in order (steps no pair of which is visible add
+    zeros, which the kernel skips).  dq and dk carry the scale."""
+    _, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    f32 = torch.float32
+    scale = torch.tensor(dh ** -0.5, dtype=f32)
+    sl2 = (scale * torch.tensor(_LOG2E, dtype=f32)).double()
+    qf, kf, vf, dof = (t.to(f32) for t in (q, k, v, do))
+    kr = kf.repeat_interleave(rep, dim=2)
+    vr = vf.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    l2 = (lse.to(f32) * torch.tensor(_LOG2E, dtype=f32)).double()
+    mask = _mask(sq, sk, causal, window, q.device)
+    arg = (s.double() * sl2 - l2[..., None]).to(f32)        # one fma
+    # 2^arg exact in f64, then rounded: the kernel's ex2.approx is within
+    # 2 ulps of it
+    p = torch.where(mask, torch.exp2(arg.double()).to(f32), 0.0)
+    dsum = (dof * o.to(f32)).sum(-1).transpose(1, 2)         # (B, H, Sq)
+    ds = p * (dp - dsum[..., None])
+    pb, dsb = (t.to(torch.bfloat16).to(f32) for t in (p, ds))
+    del s, dp, arg, p, ds
+    dk = torch.zeros(k.shape[0], kvh, sk, dh, dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    step = BWD_KV_STEP
+    for hh in range(rep):
+        heads = torch.arange(kvh, device=q.device) * rep + hh
+        for q0 in range(0, sq, step):
+            rows = slice(q0, q0 + step)
+            dv += torch.einsum("bgqk,bqgd->bgkd", pb[:, heads, rows],
+                               dof[:, rows][:, :, heads])
+            dk += torch.einsum("bgqk,bqgd->bgkd", dsb[:, heads, rows],
+                               qf[:, rows][:, :, heads])
+    dq = torch.zeros(q.shape[0], h, sq, dh, dtype=f32, device=q.device)
+    for k0 in range(0, sk, BWD_Q_STEP):
+        keys = slice(k0, k0 + BWD_Q_STEP)
+        dq += torch.einsum("bhqk,bkhd->bhqd", dsb[..., keys], kr[:, keys])
+    return ((dq * scale).transpose(1, 2), (dk * scale).transpose(1, 2),
+            dv.transpose(1, 2))

@@ -5,10 +5,26 @@ The kernel (``kernels/csrc/flash_attention_bwd.cu``) computes dQ, dK and
 dV of the flash-attention forward kernel's function from q, k, v, the
 forward output and its rows' log-sum-exp, at head dims 64 and 128, in f32
 or bf16; it replaces no Pallas kernel (the reference differentiates its
-jnp attention).  :class:`repro_torch.kernels.flash_attention.ops.
-FlashAttention` calls :func:`attention_bwd` from its ``backward``.
-``launches`` counts the calls that ran the kernel (three CUDA launches
-each); nothing else adds to it.
+jnp attention).  Three CUDA launches a call: D = rowsum(dO o O), then dK
+and dV (a block per 64-key tile, the GQA group's heads summed in a fixed
+order), then dQ (a block per 64-query tile); no atomics, so two calls
+give the same bits.
+
+Bound: five products a visible (query, key) pair, 10 dh FLOP; the
+operations bound it (0.174 ms at Qwen's 8 x 2048, H 16, dh 64 on the
+tensor cores).  The split recomputes S and dP for dQ: 7 products (a
+0.243-ms floor there) and two exponentials a pair (0.128 ms on the
+special-function units).  bf16 runs ``wgmma`` on TMA-fed tiles, one
+consumer warpgroup and a producer warp a block, P and dS rounded to bf16
+in registers before their products: the only roundings beyond
+:func:`attention_bwd_ref`'s, which ``attention_bwd_tiles`` models.  f32
+stays on the CUDA cores: TF32 would not hold the f32 checks.  TMA and
+the D pass's 16-byte loads need 16-byte aligned bases: :func:`tma_ready`
+copies a bf16 input that is not (never to the plain version).
+
+:class:`repro_torch.kernels.flash_attention.ops.FlashAttention` calls
+:func:`attention_bwd` from its ``backward``.  ``launches`` counts the
+calls that ran the kernel; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -21,7 +37,7 @@ from .. import _build
 from ..flash_attention.ref import attention_bwd_ref
 
 __all__ = ["HEAD_DIMS", "attention_bwd", "attention_bwd_kernel", "launches",
-           "reset_launches"]
+           "reset_launches", "tma_ready"]
 
 HEAD_DIMS = (64, 128)
 
@@ -29,6 +45,7 @@ launches = 0
 
 _FNS = {torch.float32: "flash_attention_bwd_f32",
         torch.bfloat16: "flash_attention_bwd_bf16"}
+_TMAP_ERROR = 100000    # + CUresult: a tensor map the library could not encode
 
 
 def reset_launches() -> None:
@@ -48,6 +65,18 @@ def _entry(dtype: torch.dtype):
     return fn, lib.cuda_error_string
 
 
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the bf16 kernels' 16-byte loads (TMA tiles of q, k, v, dO;
+    the D pass's vector loads of O and dO) take it: contiguous, its base on
+    a 16-byte boundary (the rows of a contiguous (B, S, heads, dh) tensor
+    with dh 64 or 128 are then too).  Anything else is copied into a fresh
+    allocation, which the allocator aligns."""
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
 def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, lse: torch.Tensor,
                          do: torch.Tensor, causal: bool = True,
@@ -55,8 +84,9 @@ def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel.  q, o, do (B, Sq, H, dh) and k, v (B, Sk,
     KV, dh) CUDA tensors of one type (f32 or bf16), dh in
     :data:`HEAD_DIMS`; ``lse`` the forward's (B, H, Sq) f32 log-sum-exp.
-    Non-contiguous inputs are copied.  Returns new contiguous (dq, dk, dv)
-    in the inputs' type."""
+    Non-contiguous inputs are copied, and so in bf16 is any input whose
+    base is off a 16-byte boundary (:func:`tma_ready`).
+    Returns new contiguous (dq, dk, dv) in the inputs' type."""
     global launches
     ts = (q, k, v, o, do)
     if not all(t.device.type == "cuda" for t in ts + (lse,)):
@@ -80,7 +110,8 @@ def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"lse must be f32 (B, H, Sq) = {(b, h, sq)} (got "
                          f"{lse.dtype} {tuple(lse.shape)})")
-    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    prep = tma_ready if q.dtype == torch.bfloat16 else torch.Tensor.contiguous
+    q, k, v, o, do, lse = (prep(t) for t in (q, k, v, o, do, lse))
     fn, err_str = _entry(q.dtype)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -93,6 +124,9 @@ def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  b, sq, sk, h, kvh, dh, int(causal), int(window), dh ** -0.5,
                  stream)
+    if err >= _TMAP_ERROR:
+        raise RuntimeError(f"flash_attention_bwd: cuTensorMapEncodeTiled "
+                           f"failed (CUresult {err - _TMAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")

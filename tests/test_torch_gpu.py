@@ -39,8 +39,10 @@ The evaluation drivers (``repro_torch.benchmarks``) on the card against
 their CPU runs at the same bars.  The flash-attention backward kernel
 against its plain version (``attention_bwd_ref``): f32 within 1e-4 of each
 output's largest magnitude, bf16 within 1.25e-2 (1.6 bf16 ulps; the card's
-readings reach 6.9e-3 in ``chip_smoke.py``); the forward's
-log-sum-exp within 1e-5 of a plain logsumexp, -inf on the same rows.
+readings reach 6.9e-3 in ``chip_smoke.py``), and within a quarter of
+that of the plain model of its arithmetic (``attention_bwd_tiles``)
+beyond one bf16 rounding of each element; the forward's log-sum-exp within 1e-5 of a
+plain logsumexp, -inf on the same rows.
 """
 import numpy as np
 import pytest
@@ -55,6 +57,7 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_bwd_tiles,
                                                      attention_lse_ref,
                                                      attention_ref)
 from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
@@ -1496,6 +1499,11 @@ def test_twohop_fct_on_card_is_bitwise_the_cpus(monkeypatch):
 
 # -- training: the flash-attention backward kernel ---------------------------
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.25e-2}
+# bf16: the kernel against the plain model of its arithmetic
+# (attention_bwd_tiles), beyond one bf16 rounding of each element, within
+# this share of each output's largest magnitude (chip_smoke.TILE_TOL: a
+# quarter of the plain gate)
+TILE_TOL = BWD_TOL[torch.bfloat16] / 4
 
 
 def _bwd_close(got, want, dtype):
@@ -1504,6 +1512,14 @@ def _bwd_close(got, want, dtype):
     for g, w in zip(got, want):
         d = float((g.float() - w.float()).abs().max())
         assert d <= BWD_TOL[dtype] * float(w.float().abs().max())
+
+
+def _tile_close(got, model):
+    """Each bf16 output within one bf16 rounding of the tile model's f32
+    one (2^-8 of its magnitude) plus ``TILE_TOL`` of its largest."""
+    for g, m in zip(got, model):
+        over = (g.float() - m).abs() - m.abs() * 2.0 ** -8
+        assert float(over.max()) <= TILE_TOL * float(m.abs().max())
 
 
 @pytest.mark.gpu
@@ -1518,6 +1534,12 @@ def _bwd_close(got, want, dtype):
     (1, 256, 128, 2, 2, 64, True, 0),         # rows that see no key
     (2, 200, 200, 6, 6, 64, False, 0),        # non-causal
     (1, 100, 612, 8, 8, 128, True, 0),        # Sq < Sk, end-aligned
+    (1, 97, 161, 4, 2, 128, True, 0),         # off the steps, dh 128
+    (2, 333, 200, 6, 3, 64, False, 0),        # off the 64-row, 64-key steps
+    (2, 100, 30, 4, 2, 64, False, 0),         # Sk under one key tile
+    (1, 70, 20, 2, 2, 128, True, 0),          # Sk under a tile, causal
+    (1, 520, 520, 32, 8, 128, True, 0),       # rep 4, Mixtral's 32 / 8
+    (1, 700, 700, 32, 8, 128, True, 300),     # and its window
 ])
 def test_flash_bwd_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
                                         window):
@@ -1542,6 +1564,37 @@ def test_flash_bwd_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
     want = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
     _bwd_close(got, want, dt)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if dt == torch.bfloat16:
+        _tile_close(got, attention_bwd_tiles(q, k, v, o, lse, do, causal,
+                                             window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do", "lse"])
+def test_flash_bwd_kernel_copies_a_misaligned_input(which):
+    """A bf16 input whose base is one element off a 16-byte boundary is
+    copied by the wrapper: the gradient is the one of the aligned inputs,
+    bit for bit."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (_randn(gen, 1, 150, 4, 64, dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (_randn(gen, 1, 150, 2, 64, dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = flash_ops.attention_kernel(q, k, v, True, 0, with_lse=True)
+    args = dict(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    want = bwd_ops.attention_bwd_kernel(*args.values(), True, 0)
+    t = args[which]
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")
+    view = buf[1:1 + t.numel()].view(t.shape)   # one element in
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    args[which] = view
+    got = bwd_ops.attention_bwd_kernel(*args.values(), True, 0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    _bwd_close(got, attention_bwd_ref(q, k, v, o, lse, do, True, 0),
+               torch.bfloat16)
 
 
 @pytest.mark.gpu
