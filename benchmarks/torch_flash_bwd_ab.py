@@ -20,8 +20,9 @@ of ``chip_smoke.BWD_SHAPES``, it:
    ``chip_smoke.device_ms`` (CUDA-graph replay: the card's time alone), each
    variant once beside them, and ``scaled_dot_product_attention``'s
    backward under the same mask as ``chip_smoke.check_flash_bwd`` times it;
-3. prints each time beside its bound (``chip_smoke.attn_bound_ms``: 10 dh
-   FLOP a visible pair, the five products), the rate of those five products
+3. prints each time beside its bound (``chip_smoke.attn_bound_ms``:
+   2 (3 dqk + 2 dv) FLOP a visible pair, 10 dh where q, k and v are dh
+   wide, the five products), the rate of those five products
    in TFLOP/s, and the SFU floor of the exponentials (two a visible pair:
    the dK/dV and the dQ kernels each recompute P).
 
@@ -35,7 +36,8 @@ Variants (each keeps the arithmetic but ``exp2f``, so each is checked):
   two overlap (in the source both products issue once dS is formed,
   which keeps the dK/dV kernel within two blocks' registers at dh 64);
 - ``exp2f``: ``exp2f`` for ``ex2.approx.ftz``;
-- ``stages2``: rings of 2 stages at dh 64 too (3 in the source).
+- ``stages2``: rings of 2 stages at dh 64 and (96, 64) too (3 in the
+  source).
 
 Writes the results to ``--json`` (default ``build/ab/ab_flash_bwd.json``).
 Needs the card; exits 1 if a check fails.
@@ -69,14 +71,14 @@ BF16 = torch.bfloat16
 VARIANTS = {
     "kv_overlap": [(
         "    hopper::wgmma_fence();\n"
-        "    issue_frags_by_tile<BQ, DH>(dva, pa, dos, C::Q_PANEL);\n"
-        "    issue_frags_by_tile<BQ, DH>(dka, da, qs, C::Q_PANEL);\n",
+        "    issue_frags_by_tile<BQ, DV>(dva, pa, dos, C::Q_PANEL);\n"
+        "    issue_frags_by_tile<BQ, DQK>(dka, da, qs, C::Q_PANEL);\n",
         "    hopper::wgmma_fence();\n"
-        "    issue_frags_by_tile<BQ, DH>(dka, da, qs, C::Q_PANEL);\n"), (
+        "    issue_frags_by_tile<BQ, DQK>(dka, da, qs, C::Q_PANEL);\n"), (
         "    hopper::wgmma_wait<0>();\n    hopper::fence_regs(dpa);\n"
         "    // dS^T",
         "    hopper::wgmma_fence();\n"
-        "    issue_frags_by_tile<BQ, DH>(dva, pa, dos, C::Q_PANEL);\n"
+        "    issue_frags_by_tile<BQ, DV>(dva, pa, dos, C::Q_PANEL);\n"
         "    hopper::wgmma_wait<1>();\n    hopper::fence_regs(dpa);\n"
         "    // dS^T"), (
         "    uint32_t pa[BQ / 16][4], da[BQ / 16][4];\n#pragma unroll\n"
@@ -93,9 +95,9 @@ VARIANTS = {
         "    uint32_t pa[BQ / 16][4];\n"
         "    const bool edge = k0 + 64 > sk || q0 + BQ > sq ||")],
     "exp2f": [("= ex2(fmaf(", "= exp2f(fmaf(")],
-    "stages2": [("STAGES = DH == 64 ? 3 : 2;  // steps in the ring",
+    "stages2": [("STAGES = DQK == 128 ? 2 : 3;  // steps in the ring",
                  "STAGES = 2;  // steps in the ring"),
-                ("STAGES = DH == 64 ? 3 : 2;  // key tiles in the ring",
+                ("STAGES = DQK == 128 ? 2 : 3;  // key tiles in the ring",
                  "STAGES = 2;  // key tiles in the ring")],
 }
 SHAPES = [s for s in cs.BWD_SHAPES if BF16 in s[-1]]
@@ -148,19 +150,19 @@ def caller(lib):
     """The backward through ``lib``'s C interface, as
     ``attention_bwd_kernel`` calls it on contiguous inputs."""
     fn = lib.flash_attention_bwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def call(q, k, v, o, lse, do, causal, window):
         b, sq, h, dh = q.shape
-        sk, kvh = k.shape[1], k.shape[2]
+        sk, kvh, dvw = k.shape[1], k.shape[2], v.shape[3]
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
-                 kvh, dh, int(causal), int(window), dh ** -0.5,
+                 kvh, dh, dvw, int(causal), int(window), dh ** -0.5,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"flash_attention_bwd_bf16: error {err}")
@@ -168,14 +170,14 @@ def caller(lib):
     return call
 
 
-def inputs(b, sq, sk, h, kv, dh, causal, window):
+def inputs(b, sq, sk, h, kv, dh, dv, causal, window):
     """``chip_smoke.check_flash_bwd``'s inputs: the same seed, the forward
     kernel's output and log-sum-exp."""
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + sq + sk + h)
     rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                  device="cuda").to(BF16)
-    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
-    do = rnd(b, sq, h, dh)
+    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dv)
+    do = rnd(b, sq, h, dv)
     o, lse = flash_ops.attention_kernel(q, k, v, causal, window,
                                         with_lse=True)
     return q, k, v, o, lse, do
@@ -227,21 +229,21 @@ def run(libs: dict) -> tuple:
     calls = {name: caller(lib) for name, lib in libs.items()}
     ok, res = True, {}
     order = ["old", "new", "new", "old"]
-    for label, b, sq, sk, h, kv, dh, causal, window, _ in SHAPES:
-        args = inputs(b, sq, sk, h, kv, dh, causal, window)
-        want = attention_bwd_ref(*args, causal, window)
-        model = attention_bwd_tiles(*args, causal, window)
+    for label, b, sq, sk, h, kv, dh, dv, causal, window, _ in SHAPES:
+        args = inputs(b, sq, sk, h, kv, dh, dv, causal, window)
+        want = cs.by_rows(attention_bwd_ref, *args, causal, window)
+        model = cs.by_rows(attention_bwd_tiles, *args, causal, window)
         pairs = cs.visible_pairs(sq, sk, causal, window)
-        flop = 10.0 * b * h * dh * pairs
+        flop = 2.0 * b * h * (3 * dh + 2 * dv) * pairs
         bound, by = cs.attn_bound_ms(
-            (4 * b * sq * h + 4 * b * sk * kv) * dh * 2 + 4 * b * h * sq,
-            flop, BF16)
+            (2 * b * sq * h + 2 * b * sk * kv) * (dh + dv) * 2
+            + 4 * b * h * sq, flop, BF16)
         sfu = 2.0 * b * h * pairs / cs.SFU_EX2_PER_S * 1e3
-        key = f"{label} {b}x{sq}x{sk} H{h}/{kv} dh{dh}"
+        key = f"{label} {b}x{sq}x{sk} H{h}/{kv} dh{dh} dv{dv}"
         log(f"== {key} causal={int(causal)} window={window}: bound "
             f"{bound:.6f} ms ({by}), SFU floor {sfu:.6f} ms")
         row = {"bound_ms": bound, "bound_by": by, "flop": flop,
-               "sfu_floor_ms": sfu, "shape": [b, sq, sk, h, kv, dh],
+               "sfu_floor_ms": sfu, "shape": [b, sq, sk, h, kv, dh, dv],
                "causal": causal, "window": window}
         for name, call in calls.items():
             got = call(*args, causal, window)

@@ -155,8 +155,8 @@ and read just after:
    share of router decisions the two paths make differently, and the plain
    path against itself with q nudged by 2^-9 in its attention (the size of
    the bf16 kernels' roundings of P): the model's own sensitivity.
-6. Serving MiniCPM3-4B (``minicpm3-4b`` at full width and depth, 62
-   layers: d_model 2560, 40 heads of 64, MLA with
+6. Serving MiniCPM3-4B (``minicpm3-4b`` at full width, cut to 8 of its
+   62 layers by ``SERVED_LAYERS``: d_model 2560, 40 heads of 64, MLA with
    q_lora_rank 768, kv_lora_rank 256 and rope_head_dim 32, d_ff 6400,
    vocab 73,448) on Mixtral's long-context deployment.
    Every prefill runs the MLA prefill kernel and every decode step the MLA
@@ -190,7 +190,9 @@ and read just after:
    dV and the forward's log-sum-exp at Qwen's training shape 8 x 2048 in
    bf16 and f32, Mixtral's window 1 x 5000 (H 32 / KV 8, dh 128, window
    4096) in bf16 and f32, Whisper's encoder 8 x 1500^2 and cross-attention
-   8 x 448 x 1500, a ragged 1 x 130 x 1473; the GQA sum left out and the D
+   8 x 448 x 1500, a ragged 1 x 130 x 1473, MiniCPM3's 8 x 2048 (H 40, q/k
+   96 and v 64 wide: MLA's cacheless branch) and a ragged 1 x 1001 at its
+   widths in bf16 and f32; the GQA sum left out and the D
    term dropped as controls, at least 10x past the gate in each type; in
    bf16 also the plain model of the kernel's arithmetic,
    ``attention_bwd_tiles``, within ``TILE_TOL`` beyond one rounding).
@@ -210,7 +212,12 @@ and read just after:
    InternVL2-76B at full width cut to 4 of its 80 layers: ``forward`` and
    ``loss_fn`` with 256 vision tokens before 768 text tokens, B 2, under
    no_grad, f32 kernels against plain within 1e-3, bf16 by MiniCPM3's
-   nudge rule.
+   nudge rule.  MiniCPM3-4B at full width, cut to 32 of its 62 layers
+   (2,381,455,360 weights), through MLA's cacheless branch (the flash
+   kernels' (96, 64) instances): Qwen's f32 check at B 2 x 1024, then 4
+   bf16 ``Trainer`` steps at 8 x 2048 (warmup 1; its checkpoint left out:
+   28.6 GB of state), losses finite and falling, flash calls gated; then
+   a traced step.
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (Sinkhorn also bit for bit against
@@ -274,6 +281,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import certify  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.benchmarks import adaptive_bench  # noqa: E402
 from repro_torch.benchmarks import bound_convergence  # noqa: E402
 from repro_torch.benchmarks import fct_bench  # noqa: E402
@@ -570,9 +578,10 @@ DEPLOYMENTS = {MIXTRAL_ARCH: MIXTRAL_SERVING, MINICPM3_ARCH: MIXTRAL_SERVING}
 # its training phases stays well inside its 1,200-s limit: xLSTM to one of
 # its three 8-layer supercells (7 mLSTM, 1 sLSTM), Mixtral to 8 of its 32
 # layers; their host-bound phases had grown to 92 and 102 s on a slower
-# host.  Qwen, Jamba's supercell, MiniCPM3 and Whisper keep their depth;
-# Qwen also trains at full depth
-SERVED_LAYERS = {XLSTM_ARCH: 8, MIXTRAL_ARCH: 8}
+# host.  MiniCPM3 to 8 of its 62 layers (its host-bound phase took ~105 s
+# whole) when its training phase came.  Qwen, Jamba's supercell and
+# Whisper keep their depth; Qwen also trains at full depth
+SERVED_LAYERS = {XLSTM_ARCH: 8, MIXTRAL_ARCH: 8, MINICPM3_ARCH: 8}
 
 # H100 SXM's special-function units: 16 ex2 a clock on each of 132 SMs at
 # the 1.98 GHz boost clock (CUDA C programming guide, compute capability
@@ -852,15 +861,18 @@ def _end_aligned_mask(sq: int, sk: int, causal: bool, window: int,
 
 def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
                 dh: int, dtype: torch.dtype, causal: bool = True,
-                window: int = 0, reps: int = 20, seed: int = SEED) -> dict:
-    """The flash-attention kernel against its plain version on one input;
-    times kernel, plain version and ``scaled_dot_product_attention`` on the
-    card alone (:func:`device_ms`), and the kernel's calls with the host's
-    share (:func:`time_ms`)."""
+                window: int = 0, reps: int = 20, seed: int = SEED,
+                dv: int | None = None) -> dict:
+    """The flash-attention kernel against its plain version on one input,
+    q and k ``dh`` wide and v ``dv`` (default ``dh``); times kernel, plain
+    version and ``scaled_dot_product_attention`` (its backend logged) on
+    the card alone (:func:`device_ms`), and the kernel's calls with the
+    host's share (:func:`time_ms`)."""
+    dv = dh if dv is None else dv
     gen = torch.Generator(device=DEV).manual_seed(seed + sq + sk + h)
     q = torch.randn(b, sq, h, dh, generator=gen, device=DEV).to(dtype)
     k = torch.randn(b, sk, kv, dh, generator=gen, device=DEV).to(dtype)
-    v = torch.randn(b, sk, kv, dh, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(b, sk, kv, dv, generator=gen, device=DEV).to(dtype)
     got = flash_ops.attention_kernel(q, k, v, causal=causal, window=window)
     again = flash_ops.attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -878,27 +890,29 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
                          max(2, reps // 4))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if causal and sq == sk and not window:
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=h != kv)
+        mask = dict(is_causal=True)
     elif not causal and not window:     # every key visible: no mask
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, enable_gqa=h != kv)
+        mask = {}
     else:
-        mask = _end_aligned_mask(sq, sk, causal, window, DEV)
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+        mask = dict(attn_mask=_end_aligned_mask(sq, sk, causal, window, DEV))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, enable_gqa=h != kv, **mask)
     library_ms = device_ms(lib, reps)
+    backend = sdpa_backend(qt, kt, vt, mask.get("attn_mask"), 0.0,
+                           bool(mask.get("is_causal")), enable_gqa=h != kv)
     size = torch.finfo(dtype).bits // 8
     pairs = visible_pairs(sq, sk, causal, window)
+    # Q K^T and P V: 2 (dh + dv) FLOP a visible pair
     bound_ms, bound_by = attn_bound_ms(
-        (2 * b * sq * h + 2 * b * sk * kv) * dh * size,
-        4.0 * b * h * dh * pairs, dtype)
+        (b * sq * h + b * sk * kv) * (dh + dv) * size,
+        2.0 * b * h * (dh + dv) * pairs, dtype)
     log(f"  {label:14s} {_dname(dtype):8s} B={b} Sq={sq} Sk={sk} H={h} "
-        f"KV={kv} dh={dh} causal={int(causal)} window={window}: "
+        f"KV={kv} dh={dh}{'' if dv == dh else f' dv={dv}'} "
+        f"causal={int(causal)} window={window}: "
         f"max_abs_err={err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; "
         f"deterministic={same}; "
         f"kernel {ms:.4f} ms (with the host {call_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms ({backend}), bound "
         f"{bound_ms:.6f} ms ({bound_by}); x bound {ms / bound_ms:.1f}, "
         f"x sdpa {ms / library_ms:.2f}")
     if not ok:
@@ -908,9 +922,10 @@ def check_flash(label: str, b: int, sq: int, sk: int, h: int, kv: int,
         raise AssertionError(f"flash-attention kernel is not deterministic: "
                              f"{label} {_dname(dtype)}")
     return {"label": label, "dtype": _dname(dtype),
-            "shape": [b, sq, sk, h, kv, dh], "causal": causal,
+            "shape": [b, sq, sk, h, kv, dh], "dv": dv, "causal": causal,
             "window": window, "max_abs_err": err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_backend": backend,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1781,6 +1796,13 @@ def attention_phases() -> tuple:
         flash.append(check_flash("Mixtral prefill", 1, 5000, 5000, 32, 8,
                                  128, dt, window=mixtral.sliding_window,
                                  reps=5))
+        # MiniCPM3's training attention (MLA's cacheless branch: q/k 96,
+        # v 64, H = KV = 40) at the Trainer's 8 x 2048, and a ragged
+        # 1 x 1001 (tail tiles, Sq % 4 != 0)
+        for b, n in ((8, MINICPM3_TRAIN_SEQ), (1, 1001)):
+            flash.append(check_flash("MiniCPM3 train" if b > 1 else
+                                     "MiniCPM3 ragged", b, n, n, 40, 40, 96,
+                                     dt, dv=64, reps=10 if b > 1 else 5))
     log("== flash-decode kernel vs plain PyTorch version on the card")
     lanes, max_len = SERVING.lanes, SERVING.max_len
     mid = [len(r.prompt) + SERVING.new_tokens // 2 for r in reqs[:lanes]]
@@ -3732,17 +3754,25 @@ TILE_TOL = BWD_TOL[torch.bfloat16] / 4
 LSE_TOL = 1e-5
 # a broken backward must sit at least this many times past the gate
 CONTROL_FACTOR = 10.0
-# (label, B, Sq, Sk, H, KV, dh, causal, window, dtypes): Qwen's training
-# shape, Mixtral's window, Whisper's encoder and cross-attention, a ragged
-# cross shape; the controls run at every one (the GQA sum where H > KV)
+# (label, B, Sq, Sk, H, KV, dqk, dv, causal, window, dtypes): Qwen's
+# training shape, Mixtral's window, Whisper's encoder and cross-attention,
+# a ragged cross shape, MiniCPM3's training shape (MLA's cacheless branch:
+# q/k 96, v 64) and a ragged self-attention at its widths (tail tiles,
+# Sq % 4 != 0); the controls run at every one (the GQA sum where H > KV)
 BWD_SHAPES = (
-    ("qwen-train", 8, 2048, 2048, 16, 16, 64, True, 0,
+    ("qwen-train", 8, 2048, 2048, 16, 16, 64, 64, True, 0,
      (torch.bfloat16, torch.float32)),
-    ("mixtral-window", 1, 5000, 5000, 32, 8, 128, True, 4096,
+    ("mixtral-window", 1, 5000, 5000, 32, 8, 128, 128, True, 4096,
      (torch.bfloat16, torch.float32)),
-    ("whisper-encoder", 8, 1500, 1500, 6, 6, 64, False, 0, (torch.bfloat16,)),
-    ("whisper-cross", 8, 448, 1500, 6, 6, 64, False, 0, (torch.bfloat16,)),
-    ("ragged-cross", 1, 130, 1473, 6, 6, 64, False, 0,
+    ("whisper-encoder", 8, 1500, 1500, 6, 6, 64, 64, False, 0,
+     (torch.bfloat16,)),
+    ("whisper-cross", 8, 448, 1500, 6, 6, 64, 64, False, 0,
+     (torch.bfloat16,)),
+    ("ragged-cross", 1, 130, 1473, 6, 6, 64, 64, False, 0,
+     (torch.bfloat16, torch.float32)),
+    ("minicpm3-train", 8, 2048, 2048, 40, 40, 96, 64, True, 0,
+     (torch.bfloat16, torch.float32)),
+    ("minicpm3-ragged", 1, 1001, 1001, 40, 40, 96, 64, True, 0,
      (torch.bfloat16, torch.float32)),
 )
 
@@ -3766,6 +3796,17 @@ WHISPER_TRAIN = (2, 8, 448, 4)
 # logits), bf16 gated as the served models are
 VLM_ARCH, VLM_LAYERS, VLM_TEXT, VLM_BATCH = "internvl2-76b", 4, 768, 2
 VLM_F32_TOL = 1e-3
+# MiniCPM3-4B trained at full width through MLA's cacheless branch (the
+# flash kernels' (96, 64) instances), its depth cut from 62 to 32 layers:
+# 2,381,455,360 weights by param_count, whose f32 weights, gradients and
+# AdamW moments take ~38 GB (whole, the model's state alone is ~68 GB and
+# leaves no room on an 80 GB card).  The f32 gradient check at B 2 x 1024
+# (Qwen's gates), then the bf16 Trainer at 8 x 2048, warmup 1, 4 steps, its
+# checkpoint left out (a stub save: 28.6 GB of state; Qwen's phase drives
+# the checkpoint path), then one traced step
+MINICPM3_TRAIN_LAYERS = 32
+MINICPM3_GRAD_CHECK = (2, 1024)
+MINICPM3_TRAIN_BATCH, MINICPM3_TRAIN_SEQ, MINICPM3_TRAIN_STEPS = 8, 2048, 4
 CKPT_ROOT = Path(__file__).resolve().parent / "chiprun_out" / "train_ckpt"
 
 
@@ -3821,9 +3862,19 @@ def bwd_d_dropped(q, k, v, o, lse, do, causal, window):
                              window)
 
 
+def by_rows(fn, q, k, v, o, lse, do, causal, window) -> tuple:
+    """``fn``'s (dq, dk, dv) one batch row at a time, joined: the same
+    values (no row reads another's), with the (B, H, Sq, Sk) score tensors
+    of the plain versions and the tile model a row's size."""
+    parts = [fn(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
+                lse[i:i + 1], do[i:i + 1], causal, window)
+             for i in range(q.shape[0])]
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
 def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
-                    dh: int, dtype: torch.dtype, causal: bool, window: int,
-                    reps: int = 5) -> dict:
+                    dh: int, dv: int, dtype: torch.dtype, causal: bool,
+                    window: int, reps: int = 5) -> dict:
     """The backward kernel against its plain version on one input, after
     the forward kernel's log-sum-exp against a plain logsumexp; the two
     controls (the GQA sum left out where rep > 1, the D term dropped) must
@@ -3833,12 +3884,14 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     beside the bound.  Times the kernel on the card alone
     (:func:`device_ms`) and with the host, the plain version, and
     ``scaled_dot_product_attention``'s backward under the same mask on the
-    card alone."""
+    card alone.  q and k are ``dh`` wide, v, O and dO ``dv``.  The plain
+    versions and the tile model run a batch row at a time
+    (:func:`by_rows`)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + sq + sk + h)
     rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                  device=DEV).to(dtype)
-    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dh)
-    do = rnd(b, sq, h, dh)
+    q, k, v = rnd(b, sq, h, dh), rnd(b, sk, kv, dh), rnd(b, sk, kv, dv)
+    do = rnd(b, sq, h, dv)
     o, lse = flash_ops.attention_kernel(q, k, v, causal, window,
                                         with_lse=True)
     _, lse_ref = attention_lse_ref(q, k, v, causal, window)
@@ -3853,7 +3906,7 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     got = bwd_ops.attention_bwd_kernel(*args)
     again = bwd_ops.attention_bwd_kernel(*args)
     torch.cuda.synchronize()
-    want = attention_bwd_ref(*args)
+    want = by_rows(attention_bwd_ref, *args)
     rel = bwd_rel(got, want)
     ratio = bwd_ratio(got, want, dtype)
     err = max(float((g.float() - w.float()).abs().max())
@@ -3862,12 +3915,12 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     broken = {"d_dropped": bwd_d_dropped}
     if h != kv:
         broken["group_not_summed"] = bwd_group_not_summed
-    controls = {name: bwd_ratio(fn(*args), want, dtype)
+    controls = {name: bwd_ratio(by_rows(fn, *args), want, dtype)
                 for name, fn in broken.items()}
     del want
     tile = None
     if dtype == torch.bfloat16:
-        tile = tile_excess(got, attention_bwd_tiles(*args))
+        tile = tile_excess(got, by_rows(attention_bwd_tiles, *args))
     del got, again
     call = lambda: bwd_ops.attention_bwd_kernel(*args)  # noqa: E731
     ms = device_ms(call, reps)
@@ -3893,9 +3946,11 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
     del qt, kt, vt
     size = torch.finfo(dtype).bits // 8
     pairs = visible_pairs(sq, sk, causal, window)
-    flop = 10.0 * b * h * dh * pairs
+    # S, dK, dQ by dh and dP, dV by dv: 2 (3 dh + 2 dv) FLOP a visible pair;
+    # q, dq, k, dk dh wide, o, do, v, dv dv wide, lse
+    flop = 2.0 * b * h * (3 * dh + 2 * dv) * pairs
     bound_ms, bound_by = attn_bound_ms(
-        (4 * b * sq * h + 4 * b * sk * kv) * dh * size + 4 * b * h * sq,
+        (2 * b * sq * h + 2 * b * sk * kv) * (dh + dv) * size + 4 * b * h * sq,
         flop, dtype)
     # two exponentials a visible pair: the dK/dV and the dQ passes each
     # recompute P
@@ -3904,7 +3959,8 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
                 f"; beyond one rounding of the tile model {tile:.2e} (gate "
                 f"{TILE_TOL:g}) {'ok' if tile <= TILE_TOL else 'FAIL'}")
     log(f"  {label:16s} {_dname(dtype):8s} B={b} Sq={sq} Sk={sk} H={h} "
-        f"KV={kv} dh={dh} causal={int(causal)} window={window}: "
+        f"KV={kv} dh={dh}{'' if dv == dh else f' dv={dv}'} "
+        f"causal={int(causal)} window={window}: "
         f"max_abs_err={err:.3e}, of each output's largest (dq, dk, dv) "
         f"{', '.join(f'{x:.2e}' for x in rel)} ({ratio:.3f} of the gate "
         f"{BWD_TOL[dtype]:g}) "
@@ -3933,7 +3989,7 @@ def check_flash_bwd(label: str, b: int, sq: int, sk: int, h: int, kv: int,
                                  f"{r:.2f}x the gate (needs "
                                  f"{CONTROL_FACTOR}x)")
     return {"label": label, "dtype": _dname(dtype),
-            "shape": [b, sq, sk, h, kv, dh], "causal": causal,
+            "shape": [b, sq, sk, h, kv, dh], "dv": dv, "causal": causal,
             "window": window, "max_abs_err": err, "rel": rel,
             "x_gate": ratio, "tile_excess": tile,
             "lse_err": lse_err, "controls": controls, "ms": ms,
@@ -3950,9 +4006,10 @@ def flash_bwd_phases() -> tuple:
     log("== flash-attention backward kernel vs plain "
         "(attention_bwd_ref) on the card")
     out = []
-    for label, b, sq, sk, h, kv, dh, causal, window, dtypes in BWD_SHAPES:
+    for label, b, sq, sk, h, kv, dh, dv, causal, window, dtypes in \
+            BWD_SHAPES:
         for dt in dtypes:
-            out.append(check_flash_bwd(label, b, sq, sk, h, kv, dh, dt,
+            out.append(check_flash_bwd(label, b, sq, sk, h, kv, dh, dv, dt,
                                        causal, window))
             gc.collect()
             torch.cuda.empty_cache()
@@ -4051,7 +4108,8 @@ def grad_check(label: str, cfg, batch: dict) -> dict:
 def traced_train_step(cfg, tc) -> dict:
     """One bf16 train step of fresh weights, warmed by one untraced step,
     under the profiler: its wall time, device events, busy time by kind
-    and idle share, and the backward kernel's CUDA launches a call."""
+    and idle share, the flash kernels' calls (gated), the backward
+    kernel's CUDA launches a call and the step's peak memory."""
     p = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg, DEV)
     state = init_state(p, tc)
     step = make_train_step(cfg, tc, DEV)
@@ -4059,6 +4117,7 @@ def traced_train_step(cfg, tc) -> dict:
     state, m = step(state, batch)
     float(m["loss"])
     reset_flash()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=list(TRACE_ACTIVITIES)) as prof:
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -4066,6 +4125,8 @@ def traced_train_step(cfg, tc) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     calls = flash_calls()
+    peak = torch.cuda.max_memory_allocated()
+    expect_calls(f"{cfg.name} traced step", calls, flash_calls_per_pass(cfg))
     events, busy, by_kind = _device_time(prof)
     per_call = cuda_launches_per_call(
         prof, {"flash_attention": calls["forward"],
@@ -4073,14 +4134,25 @@ def traced_train_step(cfg, tc) -> dict:
     del state, p
     out = {"wall_s": wall, "device_events": events, "busy_s": busy,
            "idle_share": 1 - busy / wall, "busy_by_kind": by_kind,
-           "calls": calls, "cuda_launches_per_call": per_call}
+           "calls": calls, "cuda_launches_per_call": per_call,
+           "peak_mem_gib": peak / 2 ** 30}
     log(f"  traced step: {json.dumps(out)}")
     return out
 
 
-def trainer_runs(label: str, cfg, tc, fail_at: int | None) -> dict:
+class _NoSave:
+    """What a stub ``save`` returns: nothing is in flight."""
+
+    @staticmethod
+    def join() -> None:
+        return None
+
+
+def trainer_runs(label: str, cfg, tc, fail_at: int | None,
+                 save: bool = True) -> dict:
     """The Trainer from fresh weights to ``tc.total_steps``, checkpointing
-    only at its end, with the flash counts set to 0 just before and read
+    only at its end (``save=False``: not at all, ``ckpt.save`` a stub),
+    with the flash counts set to 0 just before and read
     just after; its tokens/s are every token over the run's wall time
     (start-up, data and the checkpoint included), beside the median step's.
     Then, with ``fail_at``, a run checkpointing every ``tc.ckpt_every``
@@ -4091,9 +4163,12 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None) -> dict:
     tc_a = dataclasses.replace(tc, ckpt_dir=str(CKPT_ROOT / "a"),
                                ckpt_every=tc.total_steps)
     torch.cuda.reset_peak_memory_stats()
+    stub = (contextlib.nullcontext() if save else
+            swapped(ckpt_mod, "save", lambda *a, **k: _NoSave()))
     reset_flash()
     t0 = time.perf_counter()
-    full = Trainer(cfg, tc_a).run()
+    with stub:
+        full = Trainer(cfg, tc_a).run()
     wall = time.perf_counter() - t0
     calls = flash_calls()
     peak = torch.cuda.max_memory_allocated()
@@ -4105,22 +4180,24 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None) -> dict:
     median_s = float(np.median(secs))
     tokens = tc.global_batch * tc.seq_len
     out = {"steps": steps, "batch": [tc.global_batch, tc.seq_len],
+           "checkpoint": save,
            "losses": losses, "step_s": secs, "median_step_s": median_s,
            "tokens_per_s": tokens * steps / wall,
            "median_step_tokens_per_s": tokens / median_s, "wall_s": wall,
            "peak_mem_gib": peak / 2 ** 30, "calls": calls,
            "calls_per_step": per}
     log(f"  {label}: losses {[round(x, 4) for x in losses]}; run wall "
-        f"{wall:.3f} s for {tokens * steps} tokens, "
+        f"{wall:.3f} s ({'one checkpoint' if save else 'no checkpoint'}) "
+        f"for {tokens * steps} tokens, "
         f"{out['tokens_per_s']:.1f} tokens/s; steps: first {secs[0]:.4f} "
         f"s, median {median_s:.4f} s ({tokens / median_s:.1f} tokens/s); "
         f"peak {peak / 2 ** 30:.2f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    if (fail_at is not None or not save) and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the last loss {losses[-1]} is not "
+                             f"below the first {losses[0]}")
     if fail_at is not None:
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"{label}: the last loss {losses[-1]} is "
-                                 f"not below the first {losses[0]}")
         tc_b = dataclasses.replace(tc, ckpt_dir=str(CKPT_ROOT / "b"))
         t0 = time.perf_counter()
         try:
@@ -4153,8 +4230,9 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None) -> dict:
 
 
 def training_phases() -> dict:
-    """Qwen1.5-0.5B and Whisper-tiny trained on the card and InternVL2-76B's
-    vision-prefixed forward and loss (see the module docstring)."""
+    """Qwen1.5-0.5B, Whisper-tiny and MiniCPM3-4B (32 layers) trained on
+    the card and InternVL2-76B's vision-prefixed forward and loss (see the
+    module docstring)."""
     out: dict = {}
     cfg = get_config(TRAIN_ARCH)
     log(f"== training {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
@@ -4190,6 +4268,39 @@ def training_phases() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["vlm"] = vlm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(minicpm3_training())
+    return out
+
+
+def minicpm3_training() -> dict:
+    """MiniCPM3-4B at full width, MINICPM3_TRAIN_LAYERS layers: the f32
+    gradient check, the bf16 Trainer without a checkpoint, a traced
+    step."""
+    out: dict = {}
+    mcfg = get_config(MINICPM3_ARCH).replace(n_layers=MINICPM3_TRAIN_LAYERS)
+    gb, gs = MINICPM3_GRAD_CHECK
+    log(f"== training {MINICPM3_ARCH} at full width (d {mcfg.d_model}, "
+        f"{mcfg.n_heads} heads, MLA q_lora {mcfg.q_lora_rank}, kv_lora "
+        f"{mcfg.kv_lora_rank}, rope {mcfg.rope_head_dim}: attention at q/k "
+        f"{mcfg.head_dim + mcfg.rope_head_dim}, v {mcfg.head_dim}), "
+        f"{MINICPM3_TRAIN_LAYERS} of 62 layers, {mcfg.param_count()} "
+        f"weights by param_count")
+    out["minicpm3_grad_check"] = grad_check(
+        f"{MINICPM3_ARCH} f32 {gb} x {gs}", mcfg.replace(dtype="float32"),
+        lm_batch(mcfg, gb, gs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtc = SizedTrainConfig(seq_len=MINICPM3_TRAIN_SEQ,
+                           global_batch=MINICPM3_TRAIN_BATCH, warmup_steps=1,
+                           total_steps=MINICPM3_TRAIN_STEPS,
+                           ckpt_every=MINICPM3_TRAIN_STEPS, seed=SEED)
+    out["minicpm3_trainer"] = trainer_runs(f"{MINICPM3_ARCH} bf16 Trainer",
+                                           mcfg, mtc, None, save=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["minicpm3_traced_step"] = traced_train_step(mcfg, mtc)
     return out
 
 
@@ -4475,7 +4586,8 @@ def main() -> int:
         for name, n in res["launches"].items():
             by_path.setdefault(name, {})[arch] = n
     for arch, key in ((TRAIN_ARCH, "trainer"),
-                      (WHISPER_ARCH, "whisper_trainer")):
+                      (WHISPER_ARCH, "whisper_trainer"),
+                      (MINICPM3_ARCH, "minicpm3_trainer")):
         calls = training[key]["calls"]
         by_path["flash_attention"][f"train {arch}"] = calls["forward"]
         by_path.setdefault("flash_attention_bwd", {})[f"train {arch}"] = \

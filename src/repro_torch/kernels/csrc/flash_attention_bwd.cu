@@ -8,7 +8,10 @@
 // of that kernel's function, softmax(Q K^T scale) V under the same
 // end-aligned causal / sliding-window mask (query row i sits at
 // Sk - Sq + i), with GQA (query head h reads kv head h / rep), with f32
-// sums, on f32 or bf16 inputs, at head dims 64 and 128.
+// sums, on f32 or bf16 inputs, at (q/k width, v width) = (dqk, dv) of
+// (64, 64), (128, 128) and (96, 64): the last is MLA's cacheless branch
+// (MiniCPM3's training; scale dqk^-0.5).  dQ and dK are dqk wide, dV, O
+// and dO dv wide.
 //
 // The forward kernel writes each row's log-sum-exp L (natural log, f32,
 // (B, H, Sq); -inf for a row that sees no key) when it is given a pointer
@@ -17,8 +20,9 @@
 //   dQ = dS K scale,  dK = dS^T Q scale.
 // A row that sees no key has P = 0 and so no gradient.
 //
-// Bound.  Five products of the visible (query, key) pairs by dh (S, dP, dV,
-// dK, dQ): 10 dh FLOP a pair, 2.5 times the forward's 4.  At the training
+// Bound.  Five products of the visible (query, key) pairs (S, dK, dQ by
+// dqk; dP, dV by dv): 2 (3 dqk + 2 dv) FLOP a pair, 10 dh at dqk = dv = dh,
+// 2.5 times the forward's 4 dh (832 against 320 at (96, 64)).  At the training
 // shape (B 8, S 2048, H 16, dh 64, causal: 2.686e8 visible pairs over the
 // batch and heads) that is 1.72e11 FLOP, 0.174 ms at the tensor cores'
 // 989 TFLOP/s, against ~67 MB of bf16 inputs and outputs (0.02 ms at
@@ -53,7 +57,8 @@
 // they reach their exponentials together).  The producer's first lane
 // issues TMA loads of 128-byte swizzled panels of 64 columns: in the dK/dV
 // kernel K and V once, then Q and dO of each step through a ring of
-// stages (3 at dh 64, 2 at 128, where 3 would leave one block an SM); in
+// stages (3 at dh 64 and at (96, 64), 2 at 128, where 3 would leave one
+// block an SM); in
 // the dQ kernel Q and dO once, then K and V of each key tile through the
 // ring.  Each stage has a full and an empty mbarrier.  Every lane of the
 // producer also copies the step's rows of L (times log2 e) and D into the
@@ -71,6 +76,14 @@
 // keeps the kernel within the 168 registers of two blocks an SM at dh 64
 // with no spill (issuing dV's product first, to overlap dS, spills there
 // and serialises the wgmma, C7512).  232 registers at dh 128: one block.
+// At (96, 64) dK's 64 x 96 and dV's 64 x 64 accumulators sit between: its
+// launch bounds ask for one block an SM, and at the 184 registers ptxas
+// gives it two still fit (58,880 registers and 2 x 100 KB of shared
+// memory).  A 96-wide Q or K tile is two
+// panels, the second holding columns 64-95 and 32 columns of TMA's zeros:
+// the products that contract over dqk run 6 slices of 16, and dK += dS^T Q
+// and dQ += dS K are `wgmma m64n96k16`, reading Q or K N-major over one
+// and a half panels.
 //   dQ, per key tile of 64: S = Q K^T and dP = dO V^T by `wgmma_ss`, P
 // while dP runs, dS = P o (dP - D) to bf16 A fragments, dQ += dS K by
 // `wgmma_rs` with K read N-major.  128 registers at dh 64, 160 at 128:
@@ -95,8 +108,8 @@
 // float in shared memory so that neighbouring threads hit neighbouring
 // banks.
 //
-// Inputs are contiguous (B, S, heads, dh) tensors (the wrapper makes them
-// so); dQ, dK, dV are written in the input type.
+// Inputs are contiguous (B, S, heads, width) tensors (the wrapper makes
+// them so); dQ, dK, dV are written in the input type.
 //
 // Plain C interface for ctypes: the entry points launch on the given
 // stream, do not synchronise, and return the first cudaGetLastError() that
@@ -127,22 +140,26 @@ __device__ __forceinline__ float ld(const bf16* p) {
 }
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 
-template <int DH>
+// q, k rows DQK wide; v, o, dO rows DV wide
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int KP = DH + 1;  // padded row of Q, dO, K, V
-  // four [64][KP] tiles, two [64][PP] tiles, two [64] row vectors
+  static constexpr int KPQ = DQK + 1;  // padded row of Q, K
+  static constexpr int KPV = DV + 1;   // padded row of dO, V
+  // two [64][KPQ] and two [64][KPV] tiles, two [64][PP] tiles, two [64] row
+  // vectors
   static constexpr size_t bytes =
-      (4 * size_t(64) * KP + 2 * size_t(64) * PP + 2 * 64) * sizeof(float);
+      (2 * size_t(64) * (KPQ + KPV) + 2 * size_t(64) * PP + 2 * 64) *
+      sizeof(float);
 };
 
-// `rows` rows of a (.., heads, DH) tensor starting at row r0 (row stride
-// `rs` elements), zero past `n`, into a [64][KP] f32 tile
-template <typename T, int DH>
+// `rows` rows of a (.., heads, D) tensor starting at row r0 (row stride
+// `rs` elements), zero past `n`, into a [64][D + 1] f32 tile
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int n, long long rs) {
-  constexpr int KP = DH + 1;
-  for (int e = threadIdx.x; e < 64 * DH; e += THREADS) {
-    const int r = e / DH, c = e % DH;
+  constexpr int KP = D + 1;
+  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
+    const int r = e / D, c = e % D;
     dst[r * KP + c] = r0 + r < n ? ld(src + (r0 + r) * rs + c) : 0.f;
   }
 }
@@ -155,18 +172,18 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int causal,
   return ok;
 }
 
-// s[i][j] = A[ty + TY i] . B[tx + TX j] over DH, A and B [64][KP] tiles
-template <int DH>
+// s[i][j] = A[ty + TY i] . B[tx + TX j] over D, A and B [64][D + 1] tiles
+template <int D>
 __device__ __forceinline__ void tile_dot(float (&s)[RPT][CPT],
                                          const float* A, const float* B) {
-  constexpr int KP = DH + 1;
+  constexpr int KP = D + 1;
   const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
+  for (int d = 0; d < D; ++d) {
     float av[RPT], bv[CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) av[i] = A[(ty + TY * i) * KP + d];
@@ -179,8 +196,9 @@ __device__ __forceinline__ void tile_dot(float (&s)[RPT][CPT],
   }
 }
 
-// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]; one warp a row
-template <typename T, int DH>
+// D[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d] over the DV-wide rows;
+// one warp a row
+template <typename T, int DV>
 __global__ void __launch_bounds__(256)
 bwd_dsum(const T* __restrict__ o, const T* __restrict__ dout,
          float* __restrict__ dsum, long long rows, int sq, int h) {
@@ -189,8 +207,8 @@ bwd_dsum(const T* __restrict__ o, const T* __restrict__ dout,
   if (r >= rows) return;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < DH; c += 32)
-    acc = fmaf(ld(o + r * DH + c), ld(dout + r * DH + c), acc);
+  for (int c = lane; c < DV; c += 32)
+    acc = fmaf(ld(o + r * DV + c), ld(dout + r * DV + c), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -202,18 +220,18 @@ bwd_dsum(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// the same for bf16 rows, 16-byte loads: DH / 8 lanes a row
-template <int DH>
+// the same for bf16 rows, 16-byte loads: DV / 8 lanes a row
+template <int DV>
 __global__ void __launch_bounds__(256)
 bwd_dsum_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
               float* __restrict__ dsum, long long rows, int sq, int h) {
-  constexpr int LANES = DH / 8;
+  constexpr int LANES = DV / 8;
   const long long r = (blockIdx.x * 256LL + threadIdx.x) / LANES;
   const int j = threadIdx.x % LANES;
   float acc = 0.f;
   if (r < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + r * DH + 8 * j);
-    const uint4 c = *reinterpret_cast<const uint4*>(dout + r * DH + 8 * j);
+    const uint4 a = *reinterpret_cast<const uint4*>(o + r * DV + 8 * j);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + r * DV + 8 * j);
     const bf16* x = reinterpret_cast<const bf16*>(&a);
     const bf16* y = reinterpret_cast<const bf16*>(&c);
 #pragma unroll
@@ -231,21 +249,22 @@ bwd_dsum_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ dsum,
          T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
          int kvh, int causal, int window, float scale) {
-  constexpr int KP = DH + 1;
-  constexpr int DPT = DH / TX;  // accumulator columns per thread
+  constexpr int KPQ = DQK + 1, KPV = DV + 1;
+  constexpr int DPQ = DQK / TX;  // dK columns per thread
+  constexpr int DPV = DV / TX;   // dV columns per thread
   extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][KP]
-  float* Vs = Ks + BK * KP;      // [BK][KP]
-  float* Qs = Vs + BK * KP;      // [BQ][KP]
-  float* dOs = Qs + BQ * KP;     // [BQ][KP]
-  float* Ps = dOs + BQ * KP;     // [BQ][PP]
+  float* Ks = smem;              // [BK][KPQ]
+  float* Vs = Ks + BK * KPQ;     // [BK][KPV]
+  float* Qs = Vs + BK * KPV;     // [BQ][KPQ]
+  float* dOs = Qs + BQ * KPQ;    // [BQ][KPV]
+  float* Ps = dOs + BQ * KPV;    // [BQ][PP]
   float* dSs = Ps + BQ * PP;     // [BQ][PP]
   float* Ls = dSs + BQ * PP;     // [BQ]
   float* Ds = Ls + BQ;           // [BQ]
@@ -253,33 +272,39 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int k0 = blockIdx.x * BK, g = blockIdx.y, b = blockIdx.z;
   const int rep = h / kvh, q_off = sk - sq;
-  const long long q_rs = static_cast<long long>(h) * DH;
-  const long long kv_rs = static_cast<long long>(kvh) * DH;
-  const T* kb = k + (static_cast<long long>(b) * sk) * kv_rs + g * DH;
-  const T* vb = v + (static_cast<long long>(b) * sk) * kv_rs + g * DH;
-  load_tile<T, DH>(Ks, kb, k0, sk, kv_rs);
-  load_tile<T, DH>(Vs, vb, k0, sk, kv_rs);
+  const long long q_rs = static_cast<long long>(h) * DQK;
+  const long long o_rs = static_cast<long long>(h) * DV;
+  const long long k_rs = static_cast<long long>(kvh) * DQK;
+  const long long v_rs = static_cast<long long>(kvh) * DV;
+  const T* kb = k + (static_cast<long long>(b) * sk) * k_rs + g * DQK;
+  const T* vb = v + (static_cast<long long>(b) * sk) * v_rs + g * DV;
+  load_tile<T, DQK>(Ks, kb, k0, sk, k_rs);
+  load_tile<T, DV>(Vs, vb, k0, sk, v_rs);
 
   // query rows [i_lo, i_hi) that see some key of [k0, min(k0 + BK, sk))
   const int k_last = min(k0 + BK, sk) - 1;
   const int i_lo = causal ? max(0, k0 - q_off) : 0;
   const int i_hi = window ? min(sq, k_last + window - q_off) : sq;
 
-  float acc_v[RPT][DPT], acc_k[RPT][DPT];
+  float acc_v[RPT][DPV], acc_k[RPT][DPQ];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < RPT; ++i) {
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc_v[i][j] = acc_k[i][j] = 0.f;
+    for (int j = 0; j < DPV; ++j) acc_v[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPQ; ++j) acc_k[i][j] = 0.f;
+  }
 
   for (int hh = 0; hh < rep; ++hh) {
     const int head = g * rep + hh;
-    const long long qh = (static_cast<long long>(b) * sq) * q_rs + head * DH;
+    const long long qh = (static_cast<long long>(b) * sq) * q_rs + head * DQK;
+    const long long oh = (static_cast<long long>(b) * sq) * o_rs + head * DV;
     const float* lrow = lse + (static_cast<long long>(b) * h + head) * sq;
     const float* drow = dsum + (static_cast<long long>(b) * h + head) * sq;
     for (int q0 = (i_lo / BQ) * BQ; q0 < i_hi; q0 += BQ) {
       __syncthreads();  // the previous tile's Q, dO, P, dS are used
-      load_tile<T, DH>(Qs, q + qh, q0, sq, q_rs);
-      load_tile<T, DH>(dOs, dout + qh, q0, sq, q_rs);
+      load_tile<T, DQK>(Qs, q + qh, q0, sq, q_rs);
+      load_tile<T, DV>(dOs, dout + oh, q0, sq, o_rs);
       if (tid < BQ) {
         const bool in = q0 + tid < sq;
         Ls[tid] = in ? lrow[q0 + tid] : 0.f;
@@ -287,8 +312,8 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       float s[RPT][CPT], dp[RPT][CPT];
-      tile_dot<DH>(s, Qs, Ks);
-      tile_dot<DH>(dp, dOs, Vs);
+      tile_dot<DQK>(s, Qs, Ks);
+      tile_dot<DV>(dp, dOs, Vs);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = ty + TY * i;
@@ -308,24 +333,25 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       // dV[c] += sum_r P[r][c] dO[r];  dK[c] += sum_r dS[r][c] Q[r]
 #pragma unroll 4
       for (int r = 0; r < BQ; ++r) {
-        float pv[RPT], sv[RPT], ov[DPT], qv[DPT];
+        float pv[RPT], sv[RPT], ov[DPV], qv[DPQ];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           pv[i] = Ps[r * PP + ty + TY * i];
           sv[i] = dSs[r * PP + ty + TY * i];
         }
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          ov[j] = dOs[r * KP + tx + TX * j];
-          qv[j] = Qs[r * KP + tx + TX * j];
-        }
+        for (int j = 0; j < DPV; ++j) ov[j] = dOs[r * KPV + tx + TX * j];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
+        for (int j = 0; j < DPQ; ++j) qv[j] = Qs[r * KPQ + tx + TX * j];
 #pragma unroll
-          for (int j = 0; j < DPT; ++j) {
+        for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+          for (int j = 0; j < DPV; ++j)
             acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
+#pragma unroll
+          for (int j = 0; j < DPQ; ++j)
             acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
+        }
       }
     }
   }
@@ -334,44 +360,47 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int key = k0 + ty + TY * i;
     if (key >= sk) continue;
-    const long long off =
-        (static_cast<long long>(b) * sk + key) * kv_rs + g * DH;
+    const long long row = static_cast<long long>(b) * sk + key;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      st(dv + off + tx + TX * j, acc_v[i][j]);
-      st(dk + off + tx + TX * j, acc_k[i][j] * scale);
-    }
+    for (int j = 0; j < DPV; ++j)
+      st(dv + row * v_rs + g * DV + tx + TX * j, acc_v[i][j]);
+#pragma unroll
+    for (int j = 0; j < DPQ; ++j)
+      st(dk + row * k_rs + g * DQK + tx + TX * j, acc_k[i][j] * scale);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ dsum,
        T* __restrict__ dq, int sq, int sk, int h, int kvh, int causal,
        int window, float scale) {
-  constexpr int KP = DH + 1;
-  constexpr int DPT = DH / TX;
+  constexpr int KPQ = DQK + 1, KPV = DV + 1;
+  constexpr int DPT = DQK / TX;
   extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][KP]
-  float* dOs = Qs + BQ * KP;     // [BQ][KP]
-  float* Ks = dOs + BQ * KP;     // [BK][KP]
-  float* Vs = Ks + BK * KP;      // [BK][KP]
-  float* dSs = Vs + BK * KP;     // [BQ][PP]
+  float* Qs = smem;              // [BQ][KPQ]
+  float* dOs = Qs + BQ * KPQ;    // [BQ][KPV]
+  float* Ks = dOs + BQ * KPV;    // [BK][KPQ]
+  float* Vs = Ks + BK * KPQ;     // [BK][KPV]
+  float* dSs = Vs + BK * KPV;    // [BQ][PP]
   float* Ls = dSs + 2 * BQ * PP; // [BQ] (the layout of bwd_dkdv)
   float* Ds = Ls + BQ;           // [BQ]
 
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
   const int rep = h / kvh, g = head / rep, q_off = sk - sq;
-  const long long q_rs = static_cast<long long>(h) * DH;
-  const long long kv_rs = static_cast<long long>(kvh) * DH;
-  const long long qh = (static_cast<long long>(b) * sq) * q_rs + head * DH;
-  const T* kb = k + (static_cast<long long>(b) * sk) * kv_rs + g * DH;
-  const T* vb = v + (static_cast<long long>(b) * sk) * kv_rs + g * DH;
-  load_tile<T, DH>(Qs, q + qh, q0, sq, q_rs);
-  load_tile<T, DH>(dOs, dout + qh, q0, sq, q_rs);
+  const long long q_rs = static_cast<long long>(h) * DQK;
+  const long long o_rs = static_cast<long long>(h) * DV;
+  const long long k_rs = static_cast<long long>(kvh) * DQK;
+  const long long v_rs = static_cast<long long>(kvh) * DV;
+  const long long qh = (static_cast<long long>(b) * sq) * q_rs + head * DQK;
+  const long long oh = (static_cast<long long>(b) * sq) * o_rs + head * DV;
+  const T* kb = k + (static_cast<long long>(b) * sk) * k_rs + g * DQK;
+  const T* vb = v + (static_cast<long long>(b) * sk) * v_rs + g * DV;
+  load_tile<T, DQK>(Qs, q + qh, q0, sq, q_rs);
+  load_tile<T, DV>(dOs, dout + oh, q0, sq, o_rs);
   if (tid < BQ) {
     const bool in = q0 + tid < sq;
     const long long row = (static_cast<long long>(b) * h + head) * sq;
@@ -393,12 +422,12 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // Q, dO staged; the previous tile's K, V, dS used
-    load_tile<T, DH>(Ks, kb, k0, sk, kv_rs);
-    load_tile<T, DH>(Vs, vb, k0, sk, kv_rs);
+    load_tile<T, DQK>(Ks, kb, k0, sk, k_rs);
+    load_tile<T, DV>(Vs, vb, k0, sk, v_rs);
     __syncthreads();
     float s[RPT][CPT], dp[RPT][CPT];
-    tile_dot<DH>(s, Qs, Ks);
-    tile_dot<DH>(dp, dOs, Vs);
+    tile_dot<DQK>(s, Qs, Ks);
+    tile_dot<DV>(dp, dOs, Vs);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = ty + TY * i;
@@ -421,7 +450,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) sv[i] = dSs[(ty + TY * i) * PP + c];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = Ks[c * KP + tx + TX * j];
+      for (int j = 0; j < DPT; ++j) kv[j] = Ks[c * KPQ + tx + TX * j];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -433,7 +462,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + ty + TY * i;
     if (row >= sq) continue;
-    T* out = dq + (static_cast<long long>(b) * sq + row) * q_rs + head * DH;
+    T* out = dq + (static_cast<long long>(b) * sq + row) * q_rs + head * DQK;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) st(out + tx + TX * j, acc[i][j] * scale);
   }
@@ -460,6 +489,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 96) hopper::wgmma_rs_n96(d, a, b);
   else hopper::wgmma_rs_n128(d, a, b);
 }
 
@@ -500,13 +530,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// this thread's two rows (r, r + 8) of a (64, DH) f32 accumulator, times
+// this thread's two rows (r, r + 8) of a (64, N) f32 accumulator, times
 // `mul`, as bf16 into rows of a tensor with row stride `rs`; rows past n
 // left out
-template <int DH>
+template <int N>
 __device__ __forceinline__ void store_acc(bf16* dst, int r, int n,
                                           long long rs,
-                                          const float (&acc)[DH / 2],
+                                          const float (&acc)[N / 2],
                                           float mul) {
   const int t4 = threadIdx.x % 4;
 #pragma unroll
@@ -514,35 +544,41 @@ __device__ __forceinline__ void store_acc(bf16* dst, int r, int n,
     if (r + 8 * hi >= n) continue;
     bf16* row = dst + (r + 8 * hi) * rs;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
           pack_bf16(acc[4 * j + 2 * hi] * mul, acc[4 * j + 2 * hi + 1] * mul);
   }
 }
 
 // dK/dV: a block per (64 keys, kv head, batch row), one consumer warpgroup
-// and one producer warp
-template <int DH>
+// and one producer warp; q and k rows DQK wide, v and dO rows DV wide
+template <int DQK, int DV>
 struct KvCfg {
   static constexpr int BQ = 64;  // queries a step
-  static constexpr int STAGES = DH == 64 ? 3 : 2;  // steps in the ring
-  static constexpr int MIN_BLOCKS = DH == 64 ? 2 : 1;  // blocks an SM
-  static constexpr int NP = DH / 64;             // 64-column panels a row
+  static constexpr int STAGES = DQK == 128 ? 2 : 3;  // steps in the ring
+  static constexpr int MIN_BLOCKS = DQK == 64 ? 2 : 1;  // blocks an SM
+  // 64-column panels of a Q or K row (a 96-wide row: two, the second
+  // half zeros) and of a V or dO row
+  static constexpr int NPQK = (DQK + 63) / 64;
+  static constexpr int NPV = DV / 64;
   static constexpr int KV_PANEL = 64 * 128;      // bytes: 64 keys x 128 B
-  static constexpr int KV_BYTES = NP * KV_PANEL;
+  static constexpr int K_BYTES = NPQK * KV_PANEL;
+  static constexpr int V_BYTES = NPV * KV_PANEL;
   static constexpr int Q_PANEL = BQ * 128;
-  static constexpr int Q_BYTES = NP * Q_PANEL;   // Q (or dO) of one step
+  static constexpr int Q_BYTES = NPQK * Q_PANEL;  // Q of one step
+  static constexpr int DO_BYTES = NPV * Q_PANEL;  // dO of one step
   // Q, dO, then L and D (f32, BQ each), padded so that the next stage's
   // panels stay 1024-byte aligned
-  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 1024;
+  static constexpr int STAGE_BYTES = Q_BYTES + DO_BYTES + 1024;
   static constexpr int THREADS = 128 + 32;
-  static constexpr size_t SMEM = 1024 + 2 * size_t(KV_BYTES) +
+  static constexpr size_t SMEM = 1024 + size_t(K_BYTES) + V_BYTES +
                                  size_t(STAGES) * STAGE_BYTES +
                                  8 * (1 + 2 * STAGES);
 };
 
-template <int DH>
-__global__ void __launch_bounds__(KvCfg<DH>::THREADS, KvCfg<DH>::MIN_BLOCKS)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(KvCfg<DQK, DV>::THREADS,
+                                  KvCfg<DQK, DV>::MIN_BLOCKS)
 bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
@@ -550,14 +586,14 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                const float* __restrict__ lse, const float* __restrict__ dsum,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
                int h, int kvh, int causal, int window, float scale) {
-  using C = KvCfg<DH>;
-  constexpr int BQ = C::BQ, NP = C::NP, ST = C::STAGES;
+  using C = KvCfg<DQK, DV>;
+  constexpr int BQ = C::BQ, ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* s_k = smem;                       // [NP] panels of 64 keys
-  uint8_t* s_v = s_k + C::KV_BYTES;
-  uint8_t* s_ring = s_v + C::KV_BYTES;       // [ST] {Q, dO, L, D}
+  uint8_t* s_k = smem;                       // [NPQK] panels of 64 keys
+  uint8_t* s_v = s_k + C::K_BYTES;           // [NPV] panels
+  uint8_t* s_ring = s_v + C::V_BYTES;        // [ST] {Q, dO, L, D}
   uint64_t* kv_full =
       reinterpret_cast<uint64_t*>(s_ring + ST * C::STAGE_BYTES);
   uint64_t* full = kv_full + 1;
@@ -591,13 +627,13 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   if (warp == 4) {  // the producer warp: its first lane issues the loads
     if (n_steps == 0) return;
     if (lane == 0) {
-      hopper::mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
-      for (int p = 0; p < NP; ++p) {
+      hopper::mbar_expect_tx(kv_full, C::K_BYTES + C::V_BYTES);
+      for (int p = 0; p < C::NPQK; ++p)
         hopper::tma_load_4d(s_k + p * C::KV_PANEL, &kmap, kv_full, p * 64,
                             grp, k0, b);
+      for (int p = 0; p < C::NPV; ++p)
         hopper::tma_load_4d(s_v + p * C::KV_PANEL, &vmap, kv_full, p * 64,
                             grp, k0, b);
-      }
     }
     for (int t = 0; t < n_steps; ++t) {
       const int s = t % ST;
@@ -605,18 +641,18 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       uint8_t* st = s_ring + s * C::STAGE_BYTES;
       hopper::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
       if (lane == 0) {
-        hopper::mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
-        for (int p = 0; p < NP; ++p) {
+        hopper::mbar_expect_tx(&full[s], C::Q_BYTES + C::DO_BYTES);
+        for (int p = 0; p < C::NPQK; ++p)
           hopper::tma_load_4d(st + p * C::Q_PANEL, &qmap, &full[s], p * 64,
                               head, q0, b);
+        for (int p = 0; p < C::NPV; ++p)
           hopper::tma_load_4d(st + C::Q_BYTES + p * C::Q_PANEL, &domap,
                               &full[s], p * 64, head, q0, b);
-        }
       }
       // every lane copies rows of L (in log2 units) and D, 0 past Sq (a
       // TMA box of them would start off 16 bytes wherever Sq is not a
       // multiple of 4)
-      float* ls = reinterpret_cast<float*>(st + 2 * C::Q_BYTES);
+      float* ls = reinterpret_cast<float*>(st + C::Q_BYTES + C::DO_BYTES);
       const long long row = (static_cast<long long>(b) * h + head) * sq + q0;
       for (int i = lane; i < BQ; i += 32) {
         const bool in = q0 + i < sq;
@@ -633,9 +669,11 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   // kr + 8 ((i / 2) % 2) and query 8 (i / 4) + 2 t4 + i % 2 of the step
   const int t4 = lane % 4, kr = 16 * warp + lane / 4;
   const float sl2 = scale * LOG2E;
-  float dva[DH / 2], dka[DH / 2], sa[BQ / 2], dpa[BQ / 2];
+  float dva[DV / 2], dka[DQK / 2], sa[BQ / 2], dpa[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dva[i] = dka[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DQK / 2; ++i) dka[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) sa[i] = dpa[i] = 0.f;
 
@@ -645,12 +683,13 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     hopper::mbar_wait(&full[s], (t / ST) & 1);
     const uint8_t* qs = s_ring + s * C::STAGE_BYTES;
     const uint8_t* dos = qs + C::Q_BYTES;
-    const float* ls = reinterpret_cast<const float*>(qs + 2 * C::Q_BYTES);
+    const float* ls =
+        reinterpret_cast<const float*>(dos + C::DO_BYTES);
     const float* ds = ls + BQ;
     // S^T = K Q^T, then dP^T = V dO^T
     hopper::wgmma_fence();
-    issue_rows_by_rows<BQ, DH>(sa, s_k, C::KV_PANEL, qs, C::Q_PANEL);
-    issue_rows_by_rows<BQ, DH>(dpa, s_v, C::KV_PANEL, dos, C::Q_PANEL);
+    issue_rows_by_rows<BQ, DQK>(sa, s_k, C::KV_PANEL, qs, C::Q_PANEL);
+    issue_rows_by_rows<BQ, DV>(dpa, s_v, C::KV_PANEL, dos, C::Q_PANEL);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sa);
 
@@ -695,8 +734,8 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     }
     // dV += P^T dO and dK += dS^T Q, dO and Q read N-major
     hopper::wgmma_fence();
-    issue_frags_by_tile<BQ, DH>(dva, pa, dos, C::Q_PANEL);
-    issue_frags_by_tile<BQ, DH>(dka, da, qs, C::Q_PANEL);
+    issue_frags_by_tile<BQ, DV>(dva, pa, dos, C::Q_PANEL);
+    issue_frags_by_tile<BQ, DQK>(dka, da, qs, C::Q_PANEL);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dva);
     hopper::fence_regs(dka);
@@ -706,33 +745,38 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done
   }
 
-  const long long kv_rs = static_cast<long long>(kvh) * DH;
-  const long long at = (static_cast<long long>(b) * sk + k0) * kv_rs +
-                       grp * DH;
-  store_acc<DH>(dv + at, kr, sk - k0, kv_rs, dva, 1.f);
-  store_acc<DH>(dk + at, kr, sk - k0, kv_rs, dka, scale);
+  const long long row0 = static_cast<long long>(b) * sk + k0;
+  const long long k_rs = static_cast<long long>(kvh) * DQK;
+  const long long v_rs = static_cast<long long>(kvh) * DV;
+  store_acc<DV>(dv + row0 * v_rs + grp * DV, kr, sk - k0, v_rs, dva, 1.f);
+  store_acc<DQK>(dk + row0 * k_rs + grp * DQK, kr, sk - k0, k_rs, dka,
+                 scale);
 }
 
 // dQ: a block per (64 queries, head, batch row), the forward's shape
-template <int DH>
+template <int DQK, int DV>
 struct QCfg {
   static constexpr int BK = 64;  // keys a step
-  static constexpr int STAGES = DH == 64 ? 3 : 2;  // key tiles in the ring
+  static constexpr int STAGES = DQK == 128 ? 2 : 3;  // key tiles in the ring
   static constexpr int MIN_BLOCKS = 2;  // blocks an SM
-  static constexpr int NP = DH / 64;
+  static constexpr int NPQK = (DQK + 63) / 64;
+  static constexpr int NPV = DV / 64;
   static constexpr int Q_PANEL = 64 * 128;
-  static constexpr int Q_BYTES = NP * Q_PANEL;   // Q (or dO)
+  static constexpr int Q_BYTES = NPQK * Q_PANEL;   // Q
+  static constexpr int DO_BYTES = NPV * Q_PANEL;   // dO
   static constexpr int KV_PANEL = BK * 128;
-  static constexpr int KV_BYTES = NP * KV_PANEL; // K (or V) of one step
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int K_BYTES = NPQK * KV_PANEL;  // K of one step
+  static constexpr int V_BYTES = NPV * KV_PANEL;   // V of one step
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int THREADS = 128 + 32;
-  static constexpr size_t SMEM = 1024 + 2 * size_t(Q_BYTES) +
+  static constexpr size_t SMEM = 1024 + size_t(Q_BYTES) + DO_BYTES +
                                  size_t(STAGES) * STAGE_BYTES +
                                  8 * (1 + 2 * STAGES);
 };
 
-template <int DH>
-__global__ void __launch_bounds__(QCfg<DH>::THREADS, QCfg<DH>::MIN_BLOCKS)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(QCfg<DQK, DV>::THREADS,
+                                  QCfg<DQK, DV>::MIN_BLOCKS)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
@@ -740,14 +784,14 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
              const float* __restrict__ lse, const float* __restrict__ dsum,
              bf16* __restrict__ dq, int sq, int sk, int h, int kvh,
              int causal, int window, float scale) {
-  using C = QCfg<DH>;
-  constexpr int BK = C::BK, NP = C::NP, ST = C::STAGES;
+  using C = QCfg<DQK, DV>;
+  constexpr int BK = C::BK, ST = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* s_q = smem;                       // [NP] panels of 64 rows
-  uint8_t* s_do = s_q + C::Q_BYTES;
-  uint8_t* s_kv = s_do + C::Q_BYTES;         // [ST] {K, V} [NP] panels
+  uint8_t* s_q = smem;                       // [NPQK] panels of 64 rows
+  uint8_t* s_do = s_q + C::Q_BYTES;          // [NPV] panels
+  uint8_t* s_kv = s_do + C::DO_BYTES;        // [ST] {K, V} panels
   uint64_t* q_full = reinterpret_cast<uint64_t*>(s_kv + ST * C::STAGE_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
@@ -776,25 +820,25 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   if (warp == 4) {
     if (lane == 0 && n_tiles > 0) {
-      hopper::mbar_expect_tx(q_full, 2 * C::Q_BYTES);
-      for (int p = 0; p < NP; ++p) {
+      hopper::mbar_expect_tx(q_full, C::Q_BYTES + C::DO_BYTES);
+      for (int p = 0; p < C::NPQK; ++p)
         hopper::tma_load_4d(s_q + p * C::Q_PANEL, &qmap, q_full, p * 64,
                             head, q0, b);
+      for (int p = 0; p < C::NPV; ++p)
         hopper::tma_load_4d(s_do + p * C::Q_PANEL, &domap, q_full, p * 64,
                             head, q0, b);
-      }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % ST;
         hopper::mbar_wait(&empty[s], ((t / ST) & 1) ^ 1);
         hopper::mbar_expect_tx(&full[s], C::STAGE_BYTES);
         uint8_t* ks = s_kv + s * C::STAGE_BYTES;
         const int k0 = k_begin + t * BK;
-        for (int p = 0; p < NP; ++p) {
+        for (int p = 0; p < C::NPQK; ++p)
           hopper::tma_load_4d(ks + p * C::KV_PANEL, &kmap, &full[s], p * 64,
                               grp, k0, b);
-          hopper::tma_load_4d(ks + C::KV_BYTES + p * C::KV_PANEL, &vmap,
+        for (int p = 0; p < C::NPV; ++p)
+          hopper::tma_load_4d(ks + C::K_BYTES + p * C::KV_PANEL, &vmap,
                               &full[s], p * 64, grp, k0, b);
-        }
       }
     }
     return;
@@ -814,9 +858,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     l2[hi] = in ? lse[rows + r0 + 8 * hi] * LOG2E : 0.f;
     dd[hi] = in ? dsum[rows + r0 + 8 * hi] : 0.f;
   }
-  float acc[DH / 2], sa[BK / 2], dpa[BK / 2];
+  float acc[DQK / 2], sa[BK / 2], dpa[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) sa[i] = dpa[i] = 0.f;
 
@@ -825,11 +869,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int s = t % ST, k0 = k_begin + t * BK;
     hopper::mbar_wait(&full[s], (t / ST) & 1);
     const uint8_t* ks = s_kv + s * C::STAGE_BYTES;
-    const uint8_t* vs = ks + C::KV_BYTES;
+    const uint8_t* vs = ks + C::K_BYTES;
     // S = Q K^T, then dP = dO V^T
     hopper::wgmma_fence();
-    issue_rows_by_rows<BK, DH>(sa, s_q, C::Q_PANEL, ks, C::KV_PANEL);
-    issue_rows_by_rows<BK, DH>(dpa, s_do, C::Q_PANEL, vs, C::KV_PANEL);
+    issue_rows_by_rows<BK, DQK>(sa, s_q, C::Q_PANEL, ks, C::KV_PANEL);
+    issue_rows_by_rows<BK, DV>(dpa, s_do, C::Q_PANEL, vs, C::KV_PANEL);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sa);
     // element i: key k0 + 8 (i / 4) + 2 t4 + i % 2, row r0 + 8 ((i / 2) % 2)
@@ -860,7 +904,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
           pack_bf16(sa[i] * (dpa[i] - d), sa[i + 1] * (dpa[i + 1] - d));
     }
     hopper::wgmma_fence();
-    issue_frags_by_tile<BK, DH>(acc, da, ks, C::KV_PANEL);
+    issue_frags_by_tile<BK, DQK>(acc, da, ks, C::KV_PANEL);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
     hopper::fence_regs(da);
@@ -868,9 +912,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  const long long q_rs = static_cast<long long>(h) * DH;
-  store_acc<DH>(dq + (static_cast<long long>(b) * sq + q0) * q_rs + head * DH,
-                r0, sq - q0, q_rs, acc, scale);
+  const long long q_rs = static_cast<long long>(h) * DQK;
+  store_acc<DQK>(dq + (static_cast<long long>(b) * sq + q0) * q_rs +
+                     head * DQK,
+                 r0, sq - q0, q_rs, acc, scale);
 }
 
 // a (dh, heads, seq, batch) map of a contiguous (batch, seq, heads, dh)
@@ -882,76 +927,77 @@ int rows_map(CUtensorMap* map, const void* base, int dh, int heads, int seq,
                                  ss * seq, rows);
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const void* lse, void* dsum, void* dq,
                  void* dk, void* dv, int batch, int sq, int sk, int h,
                  int kvh, int causal, int window, float scale,
                  cudaStream_t stream) {
-  using KC = KvCfg<DH>;
-  using QC = QCfg<DH>;
+  using KC = KvCfg<DQK, DV>;
+  using QC = QCfg<DQK, DV>;
   if (sq == 0 || sk == 0) {  // no (query, key) pair: every gradient is 0
-    const size_t qb = size_t(batch) * sq * h * DH * sizeof(bf16);
-    const size_t kb = size_t(batch) * sk * kvh * DH * sizeof(bf16);
+    const size_t qb = size_t(batch) * sq * h * DQK * sizeof(bf16);
+    const size_t kb = size_t(batch) * sk * kvh * DQK * sizeof(bf16);
+    const size_t vb = size_t(batch) * sk * kvh * DV * sizeof(bf16);
     cudaError_t err = cudaMemsetAsync(dq, 0, qb, stream);
     if (err == cudaSuccess) err = cudaMemsetAsync(dk, 0, kb, stream);
-    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kb, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, vb, stream);
     return static_cast<int>(err);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(KC::SMEM));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        bwd_dq_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_dq_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(QC::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   // each kernel's maps: q and dO in boxes of its query rows, k and v of
   // its keys
   CUtensorMap qkv, dokv, kkv, vkv, qq, doq, kq, vq;
   const long long rows = static_cast<long long>(batch) * h * sq;
-  int e = rows_map(&qkv, q, DH, h, sq, batch, KC::BQ);
-  if (e == 0) e = rows_map(&dokv, dout, DH, h, sq, batch, KC::BQ);
-  if (e == 0) e = rows_map(&kkv, k, DH, kvh, sk, batch, 64);
-  if (e == 0) e = rows_map(&vkv, v, DH, kvh, sk, batch, 64);
-  if (e == 0) e = rows_map(&qq, q, DH, h, sq, batch, 64);
-  if (e == 0) e = rows_map(&doq, dout, DH, h, sq, batch, 64);
-  if (e == 0) e = rows_map(&kq, k, DH, kvh, sk, batch, QC::BK);
-  if (e == 0) e = rows_map(&vq, v, DH, kvh, sk, batch, QC::BK);
+  int e = rows_map(&qkv, q, DQK, h, sq, batch, KC::BQ);
+  if (e == 0) e = rows_map(&dokv, dout, DV, h, sq, batch, KC::BQ);
+  if (e == 0) e = rows_map(&kkv, k, DQK, kvh, sk, batch, 64);
+  if (e == 0) e = rows_map(&vkv, v, DV, kvh, sk, batch, 64);
+  if (e == 0) e = rows_map(&qq, q, DQK, h, sq, batch, 64);
+  if (e == 0) e = rows_map(&doq, dout, DV, h, sq, batch, 64);
+  if (e == 0) e = rows_map(&kq, k, DQK, kvh, sk, batch, QC::BK);
+  if (e == 0) e = rows_map(&vq, v, DV, kvh, sk, batch, QC::BK);
   if (e != 0) return e;
   const bf16* dot = static_cast<const bf16*>(dout);
   float* dst = static_cast<float*>(dsum);
-  bwd_dsum_bf16<DH><<<static_cast<unsigned>((rows * (DH / 8) + 255) / 256),
+  bwd_dsum_bf16<DV><<<static_cast<unsigned>((rows * (DV / 8) + 255) / 256),
                       256, 0, stream>>>(static_cast<const bf16*>(o), dot,
                                         dst, rows, sq, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(kvh, batch, (sk + 63) / 64);
-  bwd_dkdv_wgmma<DH><<<kv_grid, KC::THREADS, KC::SMEM, stream>>>(
+  bwd_dkdv_wgmma<DQK, DV><<<kv_grid, KC::THREADS, KC::SMEM, stream>>>(
       qkv, kkv, vkv, dokv, static_cast<const float*>(lse), dst,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, h, kvh, causal,
       window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid(h, batch, (sq + 63) / 64);
-  bwd_dq_wgmma<DH><<<q_grid, QC::THREADS, QC::SMEM, stream>>>(
+  bwd_dq_wgmma<DQK, DV><<<q_grid, QC::THREADS, QC::SMEM, stream>>>(
       qq, kq, vq, doq, static_cast<const float*>(lse), dst,
       static_cast<bf16*>(dq), sq, sk, h, kvh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dsum, void* dq, void* dk,
            void* dv, int batch, int sq, int sk, int h, int kvh, int causal,
            int window, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<DH>::bytes;
+  const size_t smem = Smem<DQK, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_dq<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* qt = static_cast<const T*>(q);
@@ -962,7 +1008,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   float* dst = static_cast<float*>(dsum);
   const long long rows = static_cast<long long>(batch) * sq * h;
   if (rows > 0) {
-    bwd_dsum<T, DH><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+    bwd_dsum<T, DV><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                       stream>>>(static_cast<const T*>(o), dot, dst, rows, sq,
                                 h);
     err = cudaGetLastError();
@@ -970,7 +1016,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   if (sk > 0) {
     const dim3 grid((sk + BK - 1) / BK, kvh, batch);
-    bwd_dkdv<T, DH><<<grid, THREADS, smem, stream>>>(
+    bwd_dkdv<T, DQK, DV><<<grid, THREADS, smem, stream>>>(
         qt, kt, vt, dot, lt, dst, static_cast<T*>(dk), static_cast<T*>(dv),
         sq, sk, h, kvh, causal, window, scale);
     err = cudaGetLastError();
@@ -978,7 +1024,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   if (sq > 0) {
     const dim3 grid((sq + BQ - 1) / BQ, h, batch);
-    bwd_dq<T, DH><<<grid, THREADS, smem, stream>>>(
+    bwd_dq<T, DQK, DV><<<grid, THREADS, smem, stream>>>(
         qt, kt, vt, dot, lt, dst, static_cast<T*>(dq), sq, sk, h, kvh,
         causal, window, scale);
     err = cudaGetLastError();
@@ -986,27 +1032,43 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(err);
 }
 
+// the instance for (dqk, dv): bf16 the wgmma kernels, f32 the CUDA-core
+// ones; a pair with no instance is cudaErrorInvalidValue
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* dsum, void* dq,
              void* dk, void* dv, int batch, int sq, int sk, int h, int kvh,
-             int dh, int causal, int window, float scale, void* stream) {
+             int dqk, int dvw, int causal, int window, float scale,
+             void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (kvh <= 0 || h % kvh != 0 || (dh != 64 && dh != 128))
+  const bool pair = (dqk == 64 && dvw == 64) || (dqk == 128 && dvw == 128) ||
+                    (dqk == 96 && dvw == 64);
+  if (kvh <= 0 || h % kvh != 0 || !pair)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
   if constexpr (sizeof(T) == 2) {  // bf16: wgmma on TMA-fed tiles
-    if (dh == 64)
-      return launch_wgmma<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
-                              sq, sk, h, kvh, causal, window, scale, st);
-    return launch_wgmma<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
-                             sq, sk, h, kvh, causal, window, scale, st);
+    if (dqk == 64)
+      return launch_wgmma<64, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                  batch, sq, sk, h, kvh, causal, window,
+                                  scale, st);
+    if (dqk == 128)
+      return launch_wgmma<128, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                    batch, sq, sk, h, kvh, causal, window,
+                                    scale, st);
+    return launch_wgmma<96, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                batch, sq, sk, h, kvh, causal, window, scale,
+                                st);
   } else {
-    if (dh == 64)
-      return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
-                           sq, sk, h, kvh, causal, window, scale, st);
-    return launch<T, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch, sq,
-                          sk, h, kvh, causal, window, scale, st);
+    if (dqk == 64)
+      return launch<T, 64, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                               batch, sq, sk, h, kvh, causal, window, scale,
+                               st);
+    if (dqk == 128)
+      return launch<T, 128, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                 batch, sq, sk, h, kvh, causal, window, scale,
+                                 st);
+    return launch<T, 96, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch,
+                             sq, sk, h, kvh, causal, window, scale, st);
   }
 }
 
@@ -1014,26 +1076,27 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// q, o, dout, dq (B, Sq, H, dh) and k, v, dk, dv (B, Sk, KV, dh):
-// contiguous; lse and dsum (B, H, Sq) f32, dsum scratch the kernel fills.
+// q, dq (B, Sq, H, dqk), o, dout (B, Sq, H, dv), k, dk (B, Sk, KV, dqk)
+// and v, dv (B, Sk, KV, dv): contiguous; (dqk, dv) is (64, 64), (128, 128)
+// or (96, 64); lse and dsum (B, H, Sq) f32, dsum scratch the kernel fills.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dsum, void* dq, void* dk, void* dv,
-                            int batch, int sq, int sk, int h, int kvh, int dh,
-                            int causal, int window, float scale,
-                            void* stream) {
+                            int batch, int sq, int sk, int h, int kvh,
+                            int dqk, int dvw, int causal, int window,
+                            float scale, void* stream) {
   return dispatch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch, sq,
-                         sk, h, kvh, dh, causal, window, scale, stream);
+                         sk, h, kvh, dqk, dvw, causal, window, scale, stream);
 }
 
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dsum, void* dq, void* dk, void* dv,
                              int batch, int sq, int sk, int h, int kvh,
-                             int dh, int causal, int window, float scale,
-                             void* stream) {
+                             int dqk, int dvw, int causal, int window,
+                             float scale, void* stream) {
   return dispatch<bf16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, batch, sq,
-                        sk, h, kvh, dh, causal, window, scale, stream);
+                        sk, h, kvh, dqk, dvw, causal, window, scale, stream);
 }
 
 const char* cuda_error_string(int code) {

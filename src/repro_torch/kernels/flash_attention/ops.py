@@ -4,10 +4,13 @@ version on the CPU.
 Counterpart of ``repro.kernels.flash_attention.ops.attention``.  The kernel
 (``kernels/csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``flash_attention`` (``repro/kernels/flash_attention/flash_attention.py``)
-and is instantiated for f32 and bf16 at head dims 64 and 128: bf16 runs
-``wgmma`` on tiles that TMA loads, f32 the CUDA-core kernel.  TMA takes
-16-byte aligned base pointers and strides that are multiples of 16 bytes;
-:func:`tma_strides` checks them and raises where they fail.
+and is instantiated for f32 and bf16 at the (q/k width, v width) pairs of
+:data:`HEAD_DIMS`: (64, 64) and (128, 128), and (96, 64) for MLA's
+cacheless branch (MiniCPM3's training: a 64-wide nope part and a 32-wide
+RoPE part, v 64 wide).  bf16 runs ``wgmma`` on tiles that TMA loads, f32
+the CUDA-core kernel.  TMA takes 16-byte aligned base pointers and strides
+that are multiples of 16 bytes; :func:`tma_strides` checks them and raises
+where they fail.
 ``launches`` counts the calls that ran the kernel; nothing else adds to it.
 
 Under autograd (grad mode on and q, k or v requiring a gradient)
@@ -32,7 +35,8 @@ from .ref import attention_lse_ref, attention_ref
 __all__ = ["HEAD_DIMS", "FlashAttention", "attention", "attention_kernel",
            "launches", "reset_launches", "tma_strides"]
 
-HEAD_DIMS = (64, 128)
+# (dqk, dv): q and k dqk wide, v and the output dv wide
+HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 
 launches = 0
 
@@ -50,8 +54,8 @@ def reset_launches() -> None:
 def _entry(dtype: torch.dtype):
     lib = _build.load("flash_attention")
     fn = getattr(lib, _FNS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 6
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -90,12 +94,13 @@ def tma_strides(name: str, t: torch.Tensor) -> tuple:
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = True, window: int = 0,
                      with_lse: bool = False):
-    """Launch the CUDA kernel.  q (B, Sq, H, dh) and k/v (B, Sk, KV, dh)
-    CUDA tensors of one type (f32 or bf16), dh in :data:`HEAD_DIMS`, heads
-    packed and dh contiguous (batch and sequence strides are free, in bf16
-    as far as :func:`tma_strides` allows; k and v share theirs).  Returns a
-    new contiguous (B, Sq, H, dh) tensor; with ``with_lse``, also each
-    row's log-sum-exp of the scaled scores, f32 (B, H, Sq)."""
+    """Launch the CUDA kernel.  q (B, Sq, H, dqk), k (B, Sk, KV, dqk) and
+    v (B, Sk, KV, dv) CUDA tensors of one type (f32 or bf16), (dqk, dv) in
+    :data:`HEAD_DIMS`, heads packed and the last dim contiguous (batch and
+    sequence strides are free, each tensor its own, in bf16 as far as
+    :func:`tma_strides` allows).  Returns a new contiguous (B, Sq, H, dv)
+    tensor; with ``with_lse``, also each row's log-sum-exp of the scaled
+    scores, f32 (B, H, Sq)."""
     global launches
     if not (q.device.type == k.device.type == v.device.type == "cuda"):
         raise ValueError("attention_kernel needs CUDA tensors (got "
@@ -103,36 +108,34 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _FNS or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"attention_kernel takes float32 or bfloat16 q, k, v "
                         f"of one type (got {q.dtype}, {k.dtype}, {v.dtype})")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"attention_kernel takes q (B, Sq, H, dh) and k, v "
-                         f"(B, Sk, KV, dh) (got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)})")
-    b, sq, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != dh or kvh == 0 or h % kvh:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"attention_kernel takes q (B, Sq, H, dqk), k (B, "
+                         f"Sk, KV, dqk) and v (B, Sk, KV, dv) (got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)})")
+    b, sq, h, dqk = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[0] != b or k.shape[3] != dqk or kvh == 0 or h % kvh:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"attention_kernel takes head dims {HEAD_DIMS} "
-                         f"(got {dh})")
+    if (dqk, dv) not in HEAD_DIMS:
+        raise ValueError(f"attention_kernel takes head dims (dqk, dv) in "
+                         f"{HEAD_DIMS} (got {(dqk, dv)})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads_packed(name, t)
-    if k.stride() != v.stride():
-        raise ValueError("k and v must share their strides")
-    q_sb, q_ss = q.stride(0), q.stride(1)
-    kv_sb, kv_ss = k.stride(0), k.stride(1)
+    strides = [(t.stride(0), t.stride(1)) for t in (q, k, v)]
     if q.dtype == torch.bfloat16:
-        q_sb, q_ss = tma_strides("q", q)
-        kv_sb, kv_ss = tma_strides("k", k)
-        tma_strides("v", v)
+        strides = [tma_strides(name, t)
+                   for name, t in (("q", q), ("k", k), ("v", v))]
     fn, err_str = _entry(q.dtype)
-    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kvh, dh, q_sb, q_ss, kv_sb, kv_ss,
-                 int(causal), int(window), dh ** -0.5,
+                 b, sq, sk, h, kvh, dqk, dv, *strides[0], *strides[1],
+                 *strides[2], int(causal), int(window), dqk ** -0.5,
                  None if lse is None else lse.data_ptr(), stream)
     if err >= _TMAP_ERROR:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the flash-attention kernels: causal/windowed
 GQA attention with an f32 softmax, the same with each row's log-sum-exp,
-and its gradient.
+and its gradient.  q and k share one width (dqk) and v may have another
+(dv, as MLA's cacheless branch has: q/k 96, v 64); the output, dO and dV
+are dv wide, dQ and dK dqk wide, and the scale is dqk^-0.5.
 
 ``attention_ref`` is the counterpart of
 ``repro.kernels.flash_attention.ref.attention_ref``, line for line.  A
@@ -59,9 +61,9 @@ def _scores(q, k, causal, window):
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh).  Returns (B, Sq, H, dh)
-    in q's type.  Query positions are end-aligned: row i sits at
-    ``Sk - Sq + i``."""
+    """q: (B, Sq, H, dqk); k: (B, Sk, KV, dqk); v: (B, Sk, KV, dv).
+    Returns (B, Sq, H, dv) in q's type.  Query positions are end-aligned:
+    row i sits at ``Sk - Sq + i``."""
     h, kvh = q.shape[2], k.shape[2]
     vr = v.repeat_interleave(h // kvh, dim=2)
     s, _ = _scores(q, k, causal, window)
@@ -83,15 +85,16 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                       causal: bool = True, window: int = 0) -> tuple:
     """The gradient of :func:`attention_ref` by the explicit formula, in
-    f32 (f64 for f64 inputs), as the backward kernel computes it: with P = exp(S scale - lse)
-    (0 where masked) and D = rowsum(dO o O) from the forward output ``o``,
-    dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale,
-    each kv head's dK and dV summed over its group of query heads.
+    f32 (f64 for f64 inputs), as the backward kernel computes it: with
+    P = exp(S scale - lse) (0 where masked) and D = rowsum(dO o O) from
+    the forward output ``o``, dV = P^T dO, dS = P o (dO V^T - D),
+    dQ = dS K scale, dK = dS^T Q scale, each kv head's dK and dV summed
+    over its group of query heads.
     Returns (dq, dk, dv) in the inputs' types."""
-    b, sq, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    b, sq, h, dqk = q.shape
+    sk, kvh, dvw = k.shape[1], k.shape[2], v.shape[3]
     rep = h // kvh
-    scale = dh ** -0.5
+    scale = dqk ** -0.5
     kr = _wide(k.repeat_interleave(rep, dim=2))
     vr = _wide(v.repeat_interleave(rep, dim=2))
     s, mask = _scores(q, k, causal, window)
@@ -103,8 +106,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, _wide(q)) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dk = dk.reshape(b, sk, kvh, rep, dh).sum(3)
-    dv = dv.reshape(b, sk, kvh, rep, dh).sum(3)
+    dk = dk.reshape(b, sk, kvh, rep, dqk).sum(3)
+    dv = dv.reshape(b, sk, kvh, rep, dvw).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -122,11 +125,11 @@ def attention_bwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``BWD_KV_STEP`` query rows in order; dQ over steps of
     ``BWD_Q_STEP`` keys in order (steps no pair of which is visible add
     zeros, which the kernel skips).  dq and dk carry the scale."""
-    _, sq, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    _, sq, h, dqk = q.shape
+    sk, kvh, dvw = k.shape[1], k.shape[2], v.shape[3]
     rep = h // kvh
     f32 = torch.float32
-    scale = torch.tensor(dh ** -0.5, dtype=f32)
+    scale = torch.tensor(dqk ** -0.5, dtype=f32)
     sl2 = (scale * torch.tensor(_LOG2E, dtype=f32)).double()
     qf, kf, vf, dof = (t.to(f32) for t in (q, k, v, do))
     kr = kf.repeat_interleave(rep, dim=2)
@@ -143,8 +146,8 @@ def attention_bwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = p * (dp - dsum[..., None])
     pb, dsb = (t.to(torch.bfloat16).to(f32) for t in (p, ds))
     del s, dp, arg, p, ds
-    dk = torch.zeros(k.shape[0], kvh, sk, dh, dtype=f32, device=q.device)
-    dv = torch.zeros_like(dk)
+    dk = torch.zeros(k.shape[0], kvh, sk, dqk, dtype=f32, device=q.device)
+    dv = torch.zeros(k.shape[0], kvh, sk, dvw, dtype=f32, device=q.device)
     step = BWD_KV_STEP
     for hh in range(rep):
         heads = torch.arange(kvh, device=q.device) * rep + hh
@@ -154,7 +157,7 @@ def attention_bwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dof[:, rows][:, :, heads])
             dk += torch.einsum("bgqk,bqgd->bgkd", dsb[:, heads, rows],
                                qf[:, rows][:, :, heads])
-    dq = torch.zeros(q.shape[0], h, sq, dh, dtype=f32, device=q.device)
+    dq = torch.zeros(q.shape[0], h, sq, dqk, dtype=f32, device=q.device)
     for k0 in range(0, sk, BWD_Q_STEP):
         keys = slice(k0, k0 + BWD_Q_STEP)
         dq += torch.einsum("bhqk,bkhd->bhqd", dsb[..., keys], kr[:, keys])

@@ -249,6 +249,12 @@ def mla_decode_kernel(q_lat: torch.Tensor, q_rope: torch.Tensor,
     return out
 
 
+# what trains where the latent-cache kernels serve only
+_TRAINS_INSTEAD = ("MLA through its cacheless branch (models.layers."
+                   "mla_attention without a cache: the flash-attention "
+                   "forward and backward kernels)")
+
+
 def mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                 k_rope: torch.Tensor, scale: float) -> torch.Tensor:
     """Causal latent attention, end-aligned query positions.  CPU tensors
@@ -256,8 +262,8 @@ def mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
     the kernel, or raise if it does not take them."""
     if q_lat.device.type == "cpu":
         return mla_prefill_ref(q_lat, q_rope, c, k_rope, scale)
-    no_backward("MLA prefill", "item 9c: MLA's cacheless branch", q_lat,
-                q_rope, c, k_rope)
+    no_backward("MLA prefill", None, q_lat, q_rope, c, k_rope,
+                instead=_TRAINS_INSTEAD)
     return mla_prefill_kernel(q_lat, q_rope, c, k_rope, scale)
 
 
@@ -268,6 +274,6 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
     launch the kernels, or raise if they do not take them."""
     if q_lat.device.type == "cpu":
         return mla_decode_ref(q_lat, q_rope, c, k_rope, length, scale)
-    no_backward("MLA decode", "item 9c: MLA's cacheless branch", q_lat,
-                q_rope, c, k_rope)
+    no_backward("MLA decode", None, q_lat, q_rope, c, k_rope,
+                instead=_TRAINS_INSTEAD)
     return mla_decode_kernel(q_lat, q_rope, c, k_rope, length, scale)

@@ -10,8 +10,9 @@ Counterpart of ``repro.launch.train``, with the same flags, plus
 the CPU.  Weights are random, drawn from the trainer's seeded generator;
 batches are ``SyntheticLM``'s, 8 sequences of 64 tokens (the trainer's
 defaults).  ``--arch`` takes the families the port trains: dense and MoE
-attention models, Whisper and InternVL2 on the card, and xLSTM and Jamba on
-the CPU only (their kernels have no backward yet); MLA models raise.
+attention models, MLA models (MiniCPM3, through MLA's cacheless branch),
+Whisper and InternVL2 on the card, and xLSTM and Jamba on the CPU only
+(their kernels have no backward yet).
 """
 from __future__ import annotations
 

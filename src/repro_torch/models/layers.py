@@ -16,11 +16,13 @@ for holding the kernels against them on the card; serving never sets it.
 A sliding window (``cfg.sliding_window``) reaches both kernels.
 Cross-attention (an encoder-decoder's, ``cross_kv``) goes through the same
 two kernels with no mask: several queries through the flash kernel, one
-query through the decode kernel.  MLA attention takes the reference's
-weight-absorbed path over the latent cache, prefill through
+query through the decode kernel.  MLA attention with a cache takes the
+reference's weight-absorbed path over the latent cache, prefill through
 ``kernels.mla_attention.ops.mla_prefill`` and each decode step through
-``mla_decode``; its path without a cache (training's ``forward``) is not
-ported yet.
+``mla_decode``; without a cache (training's ``forward``) it up-projects
+K and V and attends through the flash kernel at q/k width
+``head_dim + rope_head_dim`` and v width ``head_dim`` (its forward and
+backward kernels' (96, 64) instances at MiniCPM3's widths).
 """
 from __future__ import annotations
 
@@ -217,24 +219,29 @@ def write_cache(caches: tuple, news: tuple, ln) -> None:
 def mla_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                   kv_cache: tuple | None = None, causal: bool = True,
                   plain: bool = False):
-    """MLA block over the latent cache ``kv_cache=(c_kv, k_rope, length)``
-    (``(B, max_len, kv_lora_rank)`` and ``(B, max_len, rope_head_dim)``,
-    updated in place); returns ``(out, (c_kv, k_rope, length + S))``.
+    """MLA block; returns ``(out, new_cache)``.
 
-    The reference's weight-absorbed path, step by step: the down and up
-    projections, RoPE on ``q_rope`` and the one-head ``k_rope``, the cache
-    write at ``length`` (:func:`write_cache`), ``q_lat =
-    q_nope . W_uk``, attention over the latent (scores ``(q_lat . c +
-    q_rope . k_rope) (head_dim + rope_head_dim)^-0.5``, causal from
+    With the latent cache ``kv_cache=(c_kv, k_rope, length)``
+    (``(B, max_len, kv_lora_rank)`` and ``(B, max_len, rope_head_dim)``,
+    updated in place), the reference's weight-absorbed path, step by step:
+    the down and up projections, RoPE on ``q_rope`` and the one-head
+    ``k_rope``, the cache write at ``length`` (:func:`write_cache`),
+    ``q_lat = q_nope . W_uk``, attention over the latent (scores ``(q_lat .
+    c + q_rope . k_rope) (head_dim + rope_head_dim)^-0.5``, causal from
     ``length``; ``S > 1`` tokens through ``mla_prefill`` over the cache
     prefix ``[0, length + S)``, one token through ``mla_decode``), the
-    context in the activation type, then ``W_uv`` and ``wo``.  ``plain=True``
-    is the check-only switch of :func:`gqa_attention`.  Without a cache
-    (training's ``forward``) it raises."""
-    if kv_cache is None:
-        raise NotImplementedError(
-            "MLA attention without a cache (training's forward) is not "
-            "ported yet (ROADMAP queue 1, item 9: training)")
+    context in the activation type, then ``W_uv`` and ``wo``; the cache
+    returned is ``(c_kv, k_rope, length + S)``.
+
+    Without a cache (training's ``forward``), the reference's other
+    branch: ``c_kv`` up-projected by ``w_ukv`` into ``k_nope`` and ``v``
+    per head, ``k = [k_nope, k_rope]`` with the one ``k_rope`` broadcast
+    over the heads, ``q = [q_nope, q_rope]``, attention over ``x``'s own
+    keys through ``flash_ops.attention`` (q/k ``head_dim + rope_head_dim``
+    wide, v ``head_dim``, scale the q/k width^-0.5; under grad its forward
+    and backward kernels), then ``wo``; no cache (None).  ``v`` is a
+    strided slice of the up-projection, copied contiguous for the kernel.
+    ``plain=True`` is the check-only switch of :func:`gqa_attention`."""
     b, s, _ = x.shape
     h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     rkv = cfg.kv_lora_rank
@@ -245,6 +252,15 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     c_kv = x @ p["w_dkv"].to(x.dtype)                   # (B, S, rkv)
     k_rope = rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0, :]           # (B, S, rd)
+    if kv_cache is None:
+        kv = (c_kv @ p["w_ukv"].to(x.dtype)).reshape(b, s, h, 2 * hd)
+        k_nope, v = kv[..., :hd], kv[..., hd:].contiguous()
+        k_full = torch.cat(
+            [k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        attend = attention_ref if plain else flash_ops.attention
+        o = attend(q_full, k_full, v, causal=causal)
+        return o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype), None
     cc, ckr, ln = kv_cache
     write_cache((cc, ckr), (c_kv, k_rope), ln)
     w_ukv = p["w_ukv"].to(x.dtype).reshape(rkv, h, 2 * hd)

@@ -1,7 +1,6 @@
 """High-level model API: init / prefill / decode / teacher-forced forward /
-loss, for dense and MoE attention models, MLA models (MiniCPM3; no
-forward or loss yet), xLSTM, the Jamba hybrid, the Whisper encoder-decoder
-and the InternVL2 VLM.
+loss, for dense and MoE attention models, MLA models (MiniCPM3), xLSTM,
+the Jamba hybrid, the Whisper encoder-decoder and the InternVL2 VLM.
 
 Counterpart of ``repro.models.model``.  Every entry point takes
 ``device=None``, meaning the card, and raises without one unless given

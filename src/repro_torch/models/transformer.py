@@ -340,8 +340,8 @@ def forward(params, cfg, tokens, frames=None, plain=False,
     losses, an f32 scalar), as the reference's ``forward``; an
     encoder-decoder model encodes ``frames`` first, and a VLM given
     ``vision_embeds`` (B, Nv, d) runs them as a prefix (S' = Nv + S).  MLA
-    models raise (:func:`repro_torch.models.layers.mla_attention` without
-    a cache)."""
+    models attend through :func:`repro_torch.models.layers.mla_attention`'s
+    cacheless branch."""
     x = embed_tokens(params, cfg, tokens, vision_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)

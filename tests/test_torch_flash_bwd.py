@@ -80,6 +80,74 @@ def test_gradcheck_f64(b, sq, sk, h, kv, dh, causal, window):
         (q, k, v))
 
 
+# q/k wider than v, as in MLA's cacheless branch: the smoke MiniCPM3's
+# (24, 16) and the full model's (96, 64); b, sq, sk, h, kv, causal, window
+SPLIT_WIDTHS = [(24, 16), (96, 64)]
+SPLIT_CASES = [
+    (2, 9, 9, 4, 4, True, 0),            # MiniCPM3's: H = KV, causal
+    (1, 12, 12, 4, 2, True, 5),          # sliding window, GQA
+    (1, 6, 13, 3, 3, False, 0),          # cross-attention shape
+    (1, 9, 4, 2, 1, True, 0),            # rows that see no key
+]
+
+
+def _split_inputs(b, sq, sk, h, kv, dqk, dv, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s), dtype=dtype, requires_grad=True)
+    return mk(b, sq, h, dqk), mk(b, sk, kv, dqk), mk(b, sk, kv, dv), \
+        torch.tensor(rng.standard_normal((b, sq, h, dv)), dtype=dtype)
+
+
+@pytest.mark.parametrize("dqk,dv", SPLIT_WIDTHS)
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", SPLIT_CASES)
+def test_split_widths_match_jax_vjp_of_chunked_attention(
+        dqk, dv, b, sq, sk, h, kv, causal, window):
+    """``attention`` under grad (the Function's plain forward and
+    backward) at q/k width ``dqk`` and v width ``dv``: the output (dv
+    wide), dQ and dK (dqk wide) and dV (dv wide) against ``jax.vjp`` of the
+    reference's ``chunked_attention`` on the same f32 values, each within
+    1e-5 of its largest magnitude (the f32 bar above: the two sum in
+    different orders)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax import vjp
+
+    from repro.models.layers import chunked_attention
+
+    q, k, v, do = _split_inputs(b, sq, sk, h, kv, dqk, dv, torch.float32)
+    out = flash_ops.attention(q, k, v, causal, window)
+    assert type(out.grad_fn).__name__.startswith("FlashAttention")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    j = [jnp.asarray(t.detach().numpy(), dtype=jnp.float32)
+         for t in (q, k, v, do)]
+    want_out, fn = vjp(lambda a, bb, c: chunked_attention(
+        a, bb, c, causal=causal, window=window, q_offset=sk - sq),
+        j[0], j[1], j[2])
+    want = fn(j[3])
+    assert out.shape == (b, sq, h, dv)
+    for g, w, t in zip((out,) + got, (want_out,) + tuple(want),
+                       (None, q, k, v)):
+        w = np.asarray(w)
+        assert g.shape == w.shape and (t is None or g.shape == t.shape)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g.detach().numpy() - w).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", [
+    (1, 5, 5, 2, 2, True, 0), (1, 4, 6, 2, 1, False, 0),
+    (1, 6, 6, 2, 2, True, 3)])
+def test_gradcheck_f64_split_widths(b, sq, sk, h, kv, causal, window):
+    """``gradcheck`` of ``FlashAttention`` in f64 at the smoke MiniCPM3's
+    widths, q/k 24 and v 16."""
+    q, k, v, _ = _split_inputs(b, sq, sk, h, kv, 24, 16, torch.float64,
+                               seed=1)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: flash_ops.FlashAttention.apply(q, k, v, causal,
+                                                       window),
+        (q, k, v))
+
+
 def test_fully_masked_rows_get_no_gradient():
     # Sq 9 over Sk 4, causal: rows 0-4 sit at positions -5..-1 and see no key
     q, k, v, do = _inputs(1, 9, 4, 2, 1, 8, torch.float32, seed=2)
@@ -169,6 +237,9 @@ def test_no_backward_refuses_only_under_grad():
     t = torch.zeros(2, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9b"):
         no_backward("mLSTM", "item 9b", t)
+    with pytest.raises(NotImplementedError,
+                       match="serves only.*training runs elsewhere"):
+        no_backward("MLA prefill", None, t, instead="elsewhere")
     with torch.no_grad():
         no_backward("mLSTM", "item 9b", t)
     no_backward("mLSTM", "item 9b", t.detach(), None)

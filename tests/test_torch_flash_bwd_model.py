@@ -99,6 +99,40 @@ def test_tile_model_matches_jax_gradient(b, sq, sk, h, kv, dh, causal,
     assert max(_rel(model, want)) <= JAX_TOL
 
 
+@pytest.mark.parametrize("dqk,dv", [(24, 16), (96, 64)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal", [
+    (1, 130, 130, 4, 4, True), (2, 70, 70, 2, 1, True),
+    (1, 40, 170, 2, 2, False)])
+def test_tile_model_at_split_widths(dqk, dv, b, sq, sk, h, kv, causal):
+    """q/k ``dqk`` and v ``dv`` wide (MLA's cacheless branch): dQ and dK
+    ``dqk`` wide, dV ``dv``; the model within ``BWD_TOL`` of the plain
+    backward (rounded to bf16) and within ``JAX_TOL`` of JAX's gradient of
+    the reference's attention."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.layers import chunked_attention
+
+    rng = np.random.default_rng(7)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+    q, k, v, do = mk(b, sq, h, dqk), mk(b, sk, kv, dqk), mk(b, sk, kv, dv), \
+        mk(b, sq, h, dv)
+    o, lse = attention_lse_ref(q, k, v, causal, 0)
+    model = attention_bwd_tiles(q, k, v, o, lse, do, causal, 0)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal, 0)
+    for m, w, t in zip(model, want, (q, k, v)):
+        assert m.shape == w.shape == t.shape
+    assert max(_rel([m.to(torch.bfloat16) for m in model], want)) <= BWD_TOL
+    j = [jnp.asarray(t.float().numpy(), dtype=jnp.float32)
+         for t in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda a, bb, c: chunked_attention(
+        a, bb, c, causal=causal, q_offset=sk - sq), j[0], j[1], j[2])
+    jax_grads = [torch.from_numpy(np.array(g, np.float32)) for g in vjp(j[3])]
+    assert max(_rel(model, jax_grads)) <= JAX_TOL
+
+
 def test_tile_model_rounds_where_the_kernel_does():
     """Without its bf16 roundings the model is the plain backward in f32
     (up to the order of its sums); with them it moves by about a bf16

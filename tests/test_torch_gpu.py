@@ -37,7 +37,8 @@ bits rtol 1e-5 (f32), refused bits equal; the degraded-service engine
 (f64): trajectory digests, counters and excisions equal, bits rtol 1e-9.
 The evaluation drivers (``repro_torch.benchmarks``) on the card against
 their CPU runs at the same bars.  The flash-attention backward kernel
-against its plain version (``attention_bwd_ref``): f32 within 1e-4 of each
+against its plain version (``attention_bwd_ref``), at q/k and v widths of
+(64, 64), (128, 128) and MLA's (96, 64): f32 within 1e-4 of each
 output's largest magnitude, bf16 within 1.25e-2 (1.6 bf16 ulps; the card's
 readings reach 6.9e-3 in ``chip_smoke.py``), and within a quarter of
 that of the plain model of its arithmetic (``attention_bwd_tiles``)
@@ -1569,6 +1570,125 @@ def test_flash_bwd_kernel_matches_plain(dtype, b, sq, sk, h, kv, dh, causal,
                                              window))
 
 
+# MLA's cacheless branch (MiniCPM3's training): q and k 96 wide (64 + a
+# 32-wide RoPE part), v 64; b, sq, sk, h, kv, causal, window
+SPLIT_SHAPES = [
+    (1, 63, 63, 4, 4, True, 0),               # one partial tile
+    (1, 65, 65, 8, 8, True, 0),               # a tile and one row
+    (2, 257, 257, 40, 40, True, 0),           # MiniCPM3's heads
+    (1, 1001, 1001, 40, 40, True, 0),         # tail tiles, Sq % 4 != 0
+    (1, 77, 301, 6, 3, True, 0),              # ragged Sq < Sk, GQA
+    (1, 300, 300, 8, 8, True, 100),           # window edges inside tiles
+    (2, 200, 200, 4, 4, False, 0),            # non-causal
+    (1, 130, 1473, 6, 6, False, 0),           # cross shape, Sk ragged
+    (1, 256, 128, 2, 2, True, 0),             # rows that see no key
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,window", SPLIT_SHAPES)
+def test_flash_kernels_at_split_widths_match_plain(dtype, b, sq, sk, h, kv,
+                                                   causal, window):
+    """The forward and backward kernels' (96, 64) instances against their
+    plain versions: the output (64 wide) and its log-sum-exp, dQ and dK (96
+    wide) and dV (64); in bf16 also the backward against its tile model;
+    each kernel one launch a call, two calls the same bits."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq * 3 + sk)
+    q = _randn(gen, b, sq, h, 96, dtype=dt)
+    k = _randn(gen, b, sk, kv, 96, dtype=dt)
+    v = _randn(gen, b, sk, kv, 64, dtype=dt)
+    do = _randn(gen, b, sq, h, 64, dtype=dt)
+    f0, b0 = flash_ops.launches, bwd_ops.launches
+    o, lse = flash_ops.attention_kernel(q, k, v, causal, window,
+                                        with_lse=True)
+    torch.cuda.synchronize()
+    assert o.shape == (b, sq, h, 64) and o.dtype == dt
+    want, lse_ref = attention_lse_ref(q, k, v, causal, window)
+    tol = ATTN_TOL[dt]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), seen)
+    torch.testing.assert_close(lse[seen], lse_ref[seen], rtol=0, atol=1e-5)
+    args = (q, k, v, o, lse, do, causal, window)
+    got = bwd_ops.attention_bwd_kernel(*args)
+    again = bwd_ops.attention_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches - f0, bwd_ops.launches - b0) == (1, 2)
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape)
+                                             for t in (q, k, v)]
+    _bwd_close(got, attention_bwd_ref(*args), dt)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if dt == torch.bfloat16:
+        _tile_close(got, attention_bwd_tiles(*args))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_take_only_their_width_pairs():
+    """(dqk, dv) pairs outside (64, 64), (128, 128) and (96, 64) raise in
+    both wrappers; v as a strided slice (heads not packed) raises in the
+    forward, which takes k's and v's strides apart."""
+    _card()
+    z = lambda *s: torch.zeros(*s, device="cuda")  # noqa: E731
+    for dqk, dv in ((96, 96), (64, 96), (128, 64), (32, 32)):
+        q, k, v = z(1, 8, 2, dqk), z(1, 8, 2, dqk), z(1, 8, 2, dv)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_ops.attention_kernel(q, k, v)
+        with pytest.raises(ValueError, match="head dims"):
+            bwd_ops.attention_bwd_kernel(q, k, v, z(1, 8, 2, dv),
+                                         z(1, 2, 8), z(1, 8, 2, dv))
+    kv = z(1, 8, 2, 128)
+    with pytest.raises(ValueError, match="packed"):
+        flash_ops.attention_kernel(z(1, 8, 2, 96), z(1, 8, 2, 96),
+                                   kv[..., 64:])
+    # k and v on strides of their own: k's heads not packed raises; k a
+    # view with a sequence stride of its own beside a contiguous v runs
+    base = torch.randn(1, 70, 2, 192, device="cuda")
+    q = torch.randn(1, 70, 2, 96, device="cuda")
+    k, v = base[..., :96], torch.randn(1, 70, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="packed"):
+        flash_ops.attention_kernel(q, k, v)
+    k = torch.randn(1, 140, 2, 96, device="cuda")[:, ::2]   # sequence stride
+    got = flash_ops.attention_kernel(q, k, v)
+    torch.testing.assert_close(got, attention_ref(q, k, v), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_minicpm3_loss_gradient_through_the_kernels_matches_plain():
+    """One MiniCPM3 layer at full width (d_model 2560, 40 heads, MLA's
+    cacheless branch: attention at q/k 96 and v 64) in f32 on the card:
+    ``loss_fn`` and every gradient leaf through the flash kernels against
+    the plain path (loss rtol 1e-5, each leaf within 1e-3 of its largest
+    magnitude, ``chip_smoke``'s bars); the forward kernel once a layer plus
+    once under remat, the backward kernel once a layer."""
+    _card()
+    cfg = get_config("minicpm3-4b").replace(n_layers=1, vocab=4096,
+                                            dtype="float32")
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=300,
+                                   global_batch=2, seed=1)).batch_at(0)
+
+    def value_and_grads(plain):
+        pt = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = loss_fn(pt, cfg, batch, plain=plain)
+        return loss.detach(), dict(zip(
+            (k for k, _ in flatten_with_keys(pt)),
+            torch.autograd.grad(loss, leaves(pt))))
+
+    f0, b0 = flash_ops.launches, bwd_ops.launches
+    loss, got = value_and_grads(False)
+    torch.cuda.synchronize()
+    assert (flash_ops.launches - f0, bwd_ops.launches - b0) == (2, 1)
+    loss_p, want = value_and_grads(True)
+    assert float((loss - loss_p).abs()) <= 1e-5 * float(loss_p.abs())
+    for key, g in got.items():
+        w = want[key]
+        assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max()), key
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["q", "k", "v", "o", "do", "lse"])
 def test_flash_bwd_kernel_copies_a_misaligned_input(which):
@@ -1660,9 +1780,9 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card():
     qr = torch.zeros(1, 4, 40, 32, device=dev)
     c = torch.zeros(1, 4, 256, device=dev)
     kr = torch.zeros(1, 4, 32, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="cacheless branch"):
         mla_ops.mla_prefill(ql, qr, c, kr, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="cacheless branch"):
         mla_ops.mla_decode(ql[:, :1], qr[:, :1], c, kr, 3, 0.1)
     with pytest.raises(NotImplementedError, match="decode-attention"):
         decode_ops.decode_attn(x, x, x, 3)

@@ -370,11 +370,46 @@ def test_mla_layer_decode_per_lane_matches(model):
     assert torch.equal(tc[2:, :-1], _t(cc[2:, :-1]))
 
 
-def test_mla_without_a_cache_raises_naming_training(model):
-    _, _, cfg, p = _layer(model, 1)
-    x = torch.zeros(1, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="training"):
-        L.mla_attention(p, x, cfg, torch.zeros(1, 3, dtype=torch.int32))
+@pytest.mark.parametrize("s,causal", [(9, True), (1, True), (20, True),
+                                      (7, False)])
+def test_mla_layer_without_a_cache_matches_with_gradients(model, s, causal):
+    """MLA's cacheless branch (training's forward: K and V up-projected,
+    attention at q/k width head_dim + rope_head_dim = 24 and v width 16)
+    against ``JL.mla_attention(kv_cache=None)``: the output within 2e-5,
+    and the gradients of x and of every MLA weight (``jax.vjp`` against
+    autograd through the port's ``FlashAttention`` on the CPU) each within
+    1e-4 of its largest magnitude (of the largest of any, where the
+    reference's is 0).  No cache comes back."""
+    jcfg, jp, cfg, p = _layer(model, 11 + s)
+    b = 2
+    rng = np.random.default_rng(s)
+    x = rng.standard_normal((b, s, cfg.d_model), dtype=np.float32)
+    dout = rng.standard_normal((b, s, cfg.d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(s), (b, s)).astype(np.int32)
+    keys = sorted(jp)
+    want, vjp = jax.vjp(
+        lambda params, xx: JL.mla_attention(params, xx, jcfg,
+                                            jnp.asarray(pos, jnp.int32),
+                                            causal=causal)[0],
+        {k: _j(jp[k]) for k in keys}, _j(x))
+    jg_p, jg_x = vjp(_j(dout))
+    pt = {k: p[k].clone().requires_grad_() for k in keys}
+    xt = _t(x).requires_grad_()
+    got, cache = L.mla_attention(pt, xt, cfg, torch.from_numpy(pos),
+                                 causal=causal)
+    assert cache is None and got.shape == (b, s, cfg.d_model)
+    _close(got.detach(), want, 2e-5)
+    grads = torch.autograd.grad(got, [xt] + [pt[k] for k in keys],
+                                _t(dout))
+    want_g = [np.asarray(w) for w in [jg_x] + [jg_p[k] for k in keys]]
+    largest = max(float(np.abs(w).max()) for w in want_g)
+    for name, g, w in zip(["x"] + keys, grads, want_g):
+        assert g.shape == w.shape, name
+        # one token: its one key takes all the weight, so the query's
+        # weights have gradient 0 in exact arithmetic; the port's rounding
+        # noise there is held to the largest gradient of any leaf
+        scale = float(np.abs(w).max()) or largest
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * scale, name
 
 
 # -- the model ------------------------------------------------------------------

@@ -173,13 +173,6 @@ def test_sliding_window_prefill_matches_and_decode_raises(arch):
         _close(ck, jk, 2e-5)
 
 
-def test_unported_attention_kinds_raise():
-    cfg = get_config("minicpm3-4b", smoke=True)
-    x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*training"):
-        L.mla_attention({}, x, cfg, None)
-
-
 # -- the model -------------------------------------------------------------
 def test_prefill_and_decode_logits_match(model):
     jcfg, jp, cfg, p = model

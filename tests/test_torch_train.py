@@ -47,7 +47,8 @@ from repro_torch.train import (AdamW, InjectedFailure, StragglerMonitor,
 from repro_torch.tree import flatten_with_keys, leaves, tree_map
 
 LOSS_ARCHS = ["qwen1.5-0.5b", "llama3.2-3b", "mixtral-8x7b", "whisper-tiny",
-              "internvl2-76b", "xlstm-350m", "jamba-1.5-large-398b"]
+              "internvl2-76b", "xlstm-350m", "jamba-1.5-large-398b",
+              "minicpm3-4b"]
 
 
 def _np(tree):
@@ -233,7 +234,8 @@ def test_loss_fn_value_and_gradients_match_reference(arch):
     """``loss_fn`` and every gradient leaf against
     ``jax.value_and_grad(repro loss_fn)``: dense (QKV bias; GQA), MoE (its
     aux loss), Whisper (frames), InternVL2 (the vision prefix), xLSTM and
-    Jamba (their kernels' plain versions on the CPU)."""
+    Jamba (their kernels' plain versions on the CPU), MiniCPM3 (MLA's
+    cacheless branch: q/k 24 and v 16 wide through ``FlashAttention``)."""
     jcfg, jp, cfg, p = _pair(arch)
     _loss_and_grads_match(jcfg, jp, cfg, p, _batch(cfg))
 
@@ -360,6 +362,35 @@ def test_train_steps_match_reference(variant):
         assert np.linalg.norm(got - w) <= 1e-5 * np.linalg.norm(w), key
 
 
+def test_minicpm3_train_steps_match_reference():
+    """Three ``make_train_step`` steps of the smoke MiniCPM3 (MLA's
+    cacheless branch under grad) from the same weights on the same
+    batches: the loss and grad norm each step (rtol 1e-5), and each
+    parameter leaf after within 1e-5 of the reference's norm-wise (see
+    :func:`test_train_steps_match_reference`)."""
+    jcfg, jp, cfg, p = _pair("minicpm3-4b", seed=1)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    jtc, tc = JTrainConfig(**kw), TrainConfig(**kw)
+    jstep = jax.jit(j_make_train_step(jcfg, jtc))
+    step = make_train_step(cfg, tc, device="cpu")
+    js, st = j_init_state(jp, jtc), init_state(p, tc)
+    for i in range(3):
+        batch = _batch(cfg, b=4, s=16, step=i, masked=False)
+        js, jm = jstep(js, {k: jnp.asarray(v, dtype=v.dtype)
+                            for k, v in batch.items()})
+        st, m = step(st, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+    assert int(st.opt.step) == 3
+    want = j_flatten(js.params)
+    for key, leaf in flatten_with_keys(st.params):
+        w = want[key]
+        assert np.linalg.norm(leaf.numpy() - w) <= 1e-5 * np.linalg.norm(w), \
+            key
+
+
 # -- the trainer (tests/test_train.py's cases) -----------------------------
 def test_straggler_monitor():
     mon = StragglerMonitor(n_hosts=4, threshold=1.5)
@@ -423,6 +454,15 @@ def test_launch_train_smoke_on_cpu(tmp_path, capsys):
     assert len(out["losses"]) == 4 and all(np.isfinite(out["losses"]))
     assert "final loss" in capsys.readouterr().out
     assert sorted(p.name for p in (tmp_path / "ck").iterdir())[0] == "LATEST"
+
+
+def test_launch_train_minicpm3_smoke_on_cpu(tmp_path, capsys):
+    """``--arch minicpm3-4b`` trains: MLA through its cacheless branch."""
+    out = launch_train.main(["--arch", "minicpm3-4b", "--smoke",
+                             "--steps", "3", "--device", "cpu",
+                             "--ckpt-dir", str(tmp_path / "ck")])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
 
 
 def test_training_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):

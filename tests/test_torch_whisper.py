@@ -331,10 +331,12 @@ def test_full_size_prefill_and_decode_match_reference(full_size):
 # -- forward for the decoder-only families ---------------------------------
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama3.2-3b",
                                   "mixtral-8x7b", "llama4-maverick-400b-a17b",
-                                  "xlstm-350m", "jamba-1.5-large-398b"])
+                                  "xlstm-350m", "jamba-1.5-large-398b",
+                                  "minicpm3-4b"])
 def test_forward_matches_reference_decoder_only(arch):
-    """Dense, MoE (the aux loss too), xLSTM and Jamba: the port's
-    teacher-forced forward against the reference's hidden states."""
+    """Dense, MoE (the aux loss too), xLSTM, Jamba and MiniCPM3 (MLA's
+    cacheless branch): the port's teacher-forced forward against the
+    reference's hidden states."""
     jcfg, jp, cfg, p = _models(arch, seed=2)
     tokens = _tokens(cfg.vocab, 2, 24, seed=8)
     jh, jaux = JT.forward(jp, jcfg, jnp.asarray(tokens, jnp.int32))
@@ -345,13 +347,6 @@ def test_forward_matches_reference_decoder_only(arch):
                                atol=1e-6)
     if cfg.n_experts:
         assert float(taux) > 0
-
-
-def test_forward_refuses_mla():
-    cfg = get_config("minicpm3-4b", smoke=True)
-    p = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        forward(p, cfg, torch.zeros((1, 3), dtype=torch.int64), device="cpu")
 
 
 # -- refusals --------------------------------------------------------------
