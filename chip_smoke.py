@@ -218,6 +218,24 @@ and read just after:
    bf16 ``Trainer`` steps at 8 x 2048 (warmup 1; its checkpoint left out:
    28.6 GB of state), losses finite and falling, flash calls gated; then
    a traced step.
+9. Training xLSTM-350M and Jamba (``xlstm_training``, ``jamba_training``),
+   after the mLSTM and scan backward kernels are held against their plain
+   versions (``mlstm_bwd_phases``, ``mamba_bwd_phases``: every gradient
+   within 1e-4 of its largest magnitude, bitwise on repeat, two broken
+   plain backwards as controls at least 10x past the gate; the mLSTM at
+   xLSTM-350M's 8 x 2048, H 4, dh 512, S 2, 63, 64, 65, 256, 300 and 1100,
+   dh 32-512 and q, k, v, out, dout off a 16-byte boundary; the scan at
+   Jamba's 2 x 2048, D 16384, N 16 with u in bf16 and f32, S = 1, ragged S,
+   S 16, 17, 64, 65, N 8, a narrow and an odd D).  xLSTM-350M whole (21
+   mLSTM and 3 sLSTM layers, 556,154,880 weights): Qwen's f32 check at B
+   2 x 1024, 4 bf16 ``Trainer`` steps at 8 x 2048 (warmup 1, no
+   checkpoint; a step 42 mLSTM forward and 21 backward calls, gated), a
+   traced step, and the sLSTM blocks' share of a step (timed alone).
+   Jamba at full width cut to layers 0-1 of its supercell (two Mamba
+   layers, a dense and an MoE FFN holding one of 16 experts: 3,088,875,520
+   weights): the f32 check at B 1 x 1024, the first gradient of the MoE
+   dispatch on the card, then 4 bf16 steps at 2 x 2048 (4 scan forward
+   and 2 backward calls a step), a traced step.
 
 Before the serving paths each kernel is held against its plain version at
 the main path's shapes and beside them (Sinkhorn also bit for bit against
@@ -338,9 +356,17 @@ from repro_torch.kernels.mla_attention.ref import (  # noqa: E402
     mla_decode_ref,
     mla_prefill_ref,
 )
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    selective_scan_bwd_ref,
+    selective_scan_ref,
+)
+from repro_torch.kernels.mamba_scan_bwd import ops as scan_bwd_ops  # noqa: E402
 from repro_torch.kernels.mlstm import ops as mlstm_ops  # noqa: E402
-from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref  # noqa: E402
+from repro_torch.kernels.mlstm.ref import (  # noqa: E402
+    mlstm_chunkwise_bwd_ref,
+    mlstm_chunkwise_ref,
+)
+from repro_torch.kernels.mlstm_bwd import ops as mlstm_bwd_ops  # noqa: E402
 from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops  # noqa: E402
 from repro_torch.kernels.sinkhorn.ref import (  # noqa: E402
     sinkhorn_kernel_order,
@@ -359,6 +385,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     InjectedFailure,
@@ -470,6 +497,9 @@ JITTER_SLOTS = 40
 ENGINE_RTOL = 1e-9
 
 TRACE_ACTIVITIES = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+# a traced train step reads device events alone; recording the host's ops
+# too doubled the events of an xLSTM step (its sLSTM loops: ~10^6)
+TRAIN_TRACE_ACTIVITIES = (ProfilerActivity.CUDA,)
 
 # the card; the attention and serving phases read it (a rehearsal on the
 # CPU sets it to "cpu")
@@ -1605,7 +1635,11 @@ KERNEL_EVENTS = {"sinkhorn": ("sinkhorn_",),
                  "flash_attention": ("flash_fwd",),
                  "flash_attention_bwd": ("bwd_dsum", "bwd_dkdv", "bwd_dq"),
                  "decode_attention": ("decode_partial", "decode_combine"),
-                 "mlstm": ("mlstm_",), "mamba_scan": ("mamba_scan_fwd",),
+                 "mlstm": ("mlstm_gates", "mlstm_states", "mlstm_scores",
+                           "mlstm_outputs"),
+                 "mlstm_bwd": ("mlstm_bwd_",),
+                 "mamba_scan": ("mamba_scan_fwd",),
+                 "mamba_scan_bwd": ("mamba_scan_bwd",),
                  "mla_prefill": ("mla_prefill_fwd",),
                  "mla_decode": ("mla_decode_",)}
 
@@ -1851,21 +1885,33 @@ def _device_kind(name: str) -> str:
                                KERNEL_EVENTS["flash_attention_bwd"]) else
             "mla_prefill" if "mla_prefill_fwd" in name else
             "mla_decode" if "mla_decode_" in name else
+            "mlstm_bwd" if "mlstm_bwd_" in name else
             "mlstm" if "mlstm_" in name else   # its four passes
             "mamba_scan_fwd" if "mamba_scan_fwd" in name else
+            "mamba_scan_bwd" if "mamba_scan_bwd" in name else
             "decode_partial" if "decode_partial" in name else
             "decode_combine" if "decode_combine" in name else
             "gemm" if "gemm" in name.lower() or "nvjet" in name else
             "other")
 
 
+def device_events(prof) -> list:
+    """(name, seconds) of each event a profile recorded on the card, read
+    from the profiler's raw results: parsing them into ``prof.events()``
+    takes minutes at an xLSTM training step's ~10^6 events (its sLSTM
+    loops), and these reads need no more than the name and duration."""
+    return [(e.name(), e.duration_ns() / 1e9)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def _device_time(prof) -> tuple:
     """(events on the card, busy s, busy s by kind) of a profile."""
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    on_dev = device_events(prof)
     by_kind: dict = {}
-    for e in on_dev:
-        key = _device_kind(e.name)
-        by_kind[key] = by_kind.get(key, 0.0) + e.time_range.elapsed_us() / 1e6
+    for name, secs in on_dev:
+        key = _device_kind(name)
+        by_kind[key] = by_kind.get(key, 0.0) + secs
     return len(on_dev), sum(by_kind.values()), by_kind
 
 
@@ -1874,8 +1920,7 @@ def cuda_launches_per_call(prof, calls: dict) -> dict:
     events of its kernels (:data:`KERNEL_EVENTS`) over its calls in that
     run (``calls``: wrapper name -> calls); None where the profiler
     recorded no device events."""
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    names = [name for name, _ in device_events(prof)]
     return {w: (sum(any(k in nm for k in KERNEL_EVENTS[w]) for nm in names)
                 / c if names else None)
             for w, c in calls.items() if c}
@@ -3807,6 +3852,74 @@ VLM_F32_TOL = 1e-3
 MINICPM3_TRAIN_LAYERS = 32
 MINICPM3_GRAD_CHECK = (2, 1024)
 MINICPM3_TRAIN_BATCH, MINICPM3_TRAIN_SEQ, MINICPM3_TRAIN_STEPS = 8, 2048, 4
+# xLSTM-350M trained whole (24 layers: 21 mLSTM through the forward and
+# backward kernels, 3 sLSTM as a plain per-token loop): the f32 gradient
+# check at B 2 x 1024 (Qwen's gates), then the bf16 Trainer at 8 x 2048,
+# warmup 1, 4 steps, no checkpoint (Qwen's phase drives that path), a
+# traced step and the sLSTM blocks' share of a step
+XLSTM_GRAD_CHECK = (2, 1024)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 2048, 4
+# Jamba-1.5-Large at full width (d_model 8192, d_inner 16384, N 16), cut to
+# layers 0-1 of its 8-layer supercell: two Mamba layers, layer 0's dense FFN
+# and layer 1's MoE FFN holding expert 0 of 16 (its router keeps 16 outputs
+# and top-2, as the served cut's): 3,088,875,520 weights by param_count.
+# With experts 0-1 held (3,692,855,296 weights) the bf16 Trainer's step at
+# 2 x 2048 ran out of the card's memory in AdamW's update, so one expert
+# is held.  The
+# model is built a supercell at a time, so the cut is a supercell of two
+# layers: the attention layer's period set to 2 at an offset no layer
+# takes (attn_every 2, attn_offset 2), which leaves both layers Mamba.
+# The cut keeps the card's memory for the training step (the served cut's
+# 8 layers and 8 experts are 48 GiB of bf16 weights alone); it drops the
+# supercell's attention layer, which Qwen's and MiniCPM3's phases train.
+# The f32 gradient check at B 1 x 1024 (the first training of the MoE
+# dispatch's index_add_ on the card), then the bf16 Trainer at 2 x 2048,
+# warmup 1, 4 steps, no checkpoint, and a traced step
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_EXPERTS = 2, 1
+JAMBA_GRAD_CHECK = (1, 1024)
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 2, 2048, 4
+# the learning rate scaled from TrainConfig's 3e-4 by Qwen's width over
+# Jamba's (1024 / 8192): AdamW's first step moves every weight by about
+# the rate whatever its gradient, and at d 8192 the default's step moved
+# each logit by ~2.5 (the loss rose 12.75 -> 19.63, then fell to 13.53 by
+# step 4, above the first)
+JAMBA_TRAIN_LR = 3e-4 * 1024 / 8192
+# the mLSTM and scan backward kernels against their plain versions, each
+# gradient within this share of its largest magnitude (f32: the two sum in
+# other orders; a bf16 du beyond one bf16 rounding of each element)
+RECURRENT_BWD_TOL = 1e-4
+# (label, B, S, H, dh, q/k/v/out/dout off a 16-byte boundary): xLSTM-350M's
+# training shape (32 of the kernel's 64-position chunks, past its window of
+# 16), S at the kernel's chunk edges and the shortest it takes, ragged past
+# the plain version's 256, past one window, the other head dims
+MLSTM_BWD_SHAPES = (
+    ("xlstm-train", 8, 2048, 4, 512, False),
+    ("s2", 1, 2, 4, 512, False),
+    ("s63", 2, 63, 4, 512, False),
+    ("s64", 2, 64, 4, 512, False),
+    ("s65", 2, 65, 4, 512, False),
+    ("s256", 2, 256, 4, 128, False),
+    ("s300", 2, 300, 4, 128, False),
+    ("s1100", 1, 1100, 4, 64, False),
+    ("dh32", 2, 300, 4, 32, False),
+    ("misaligned", 1, 300, 4, 512, True),
+)
+# (label, B, S, D, N, u type): Jamba's training shape with u in bf16 and in
+# f32, S = 1, a ragged S, S at a lane's 16 and a tile's 64 positions and
+# one past each, N 8, B 2 at a narrow D, an odd D
+SCAN_BWD_SHAPES = (
+    ("jamba-train", 2, 2048, 16384, 16, torch.bfloat16),
+    ("jamba-train-f32", 2, 2048, 16384, 16, torch.float32),
+    ("s1", 1, 1, 16384, 16, torch.bfloat16),
+    ("ragged", 1, 333, 16384, 16, torch.bfloat16),
+    ("s16", 1, 16, 16384, 16, torch.bfloat16),
+    ("s17", 1, 17, 16384, 16, torch.bfloat16),
+    ("s64", 1, 64, 16384, 16, torch.bfloat16),
+    ("s65", 1, 65, 16384, 16, torch.bfloat16),
+    ("n8", 2, 300, 256, 8, torch.float32),
+    ("narrow", 2, 130, 96, 16, torch.float32),
+    ("odd-d", 2, 130, 101, 16, torch.bfloat16),
+)
 CKPT_ROOT = Path(__file__).resolve().parent / "chiprun_out" / "train_ckpt"
 
 
@@ -4023,33 +4136,49 @@ def flash_bwd_phases() -> tuple:
 
 
 def expect_calls(path: str, got: dict, want: dict) -> None:
-    """The flash kernels' wrapper calls on a training path, against the
-    count its layers give."""
-    log(f"  {path}: flash wrapper calls {got} (expected {want})")
+    """The kernels' wrapper calls on a training path, against the count its
+    layers give."""
+    log(f"  {path}: kernel wrapper calls {got} (expected {want})")
     if got != want:
-        raise AssertionError(f"{path} called the flash kernels {got} times "
+        raise AssertionError(f"{path} called the kernels {got} times "
                              f"(expected {want})")
 
 
-def flash_calls_per_pass(cfg) -> dict:
-    """Flash forward and backward calls of one loss and gradient: each
-    attention call once forward and once backward, and the decoder's
-    forward once more where ``remat`` recomputes it (the encoder runs
-    outside the checkpointed blocks)."""
-    dec = sum(k == "attn" for k in cfg.layer_kinds())
+def calls_per_pass(cfg) -> dict:
+    """The kernels' calls in one loss and gradient: each attention call's
+    flash forward (``forward``) and backward (``backward``), each mLSTM and
+    Mamba layer's forward and backward kernel, once each, and every
+    decoder block's forward once more where ``remat`` recomputes it (the
+    encoder runs outside the checkpointed blocks)."""
+    kinds = cfg.layer_kinds()
+    again = 2 if cfg.remat == "block" else 1
+    dec = sum(k == "attn" for k in kinds)
     dec *= 2 if cfg.is_encdec else 1       # self- and cross-attention
     enc = cfg.n_enc_layers if cfg.is_encdec else 0
-    fwd = enc + dec * (2 if cfg.remat == "block" else 1)
-    return {"forward": fwd, "backward": enc + dec}
+    n_mlstm, n_mamba = kinds.count("mlstm"), kinds.count("mamba")
+    return {"forward": enc + dec * again, "backward": enc + dec,
+            "mlstm": n_mlstm * again, "mlstm_bwd": n_mlstm,
+            "mamba_scan": n_mamba * again, "mamba_scan_bwd": n_mamba}
 
 
-def flash_calls() -> dict:
-    return {"forward": flash_ops.launches, "backward": bwd_ops.launches}
+# the wrappers a training path calls, by the names calls_per_pass gives
+TRAIN_WRAPPERS = {"forward": flash_ops, "backward": bwd_ops,
+                  "mlstm": mlstm_ops, "mlstm_bwd": mlstm_bwd_ops,
+                  "mamba_scan": mamba_ops, "mamba_scan_bwd": scan_bwd_ops}
+# and the kernel each runs, as the kernel line names it
+TRAIN_KERNELS = {"forward": "flash_attention",
+                 "backward": "flash_attention_bwd", "mlstm": "mlstm",
+                 "mlstm_bwd": "mlstm_bwd", "mamba_scan": "mamba_scan",
+                 "mamba_scan_bwd": "mamba_scan_bwd"}
 
 
-def reset_flash() -> None:
-    flash_ops.reset_launches()
-    bwd_ops.reset_launches()
+def kernel_calls() -> dict:
+    return {k: m.launches for k, m in TRAIN_WRAPPERS.items()}
+
+
+def reset_kernels() -> None:
+    for m in TRAIN_WRAPPERS.values():
+        m.reset_launches()
 
 
 def lm_batch(cfg, b: int, s: int, step: int = 0) -> dict:
@@ -4077,9 +4206,9 @@ def grad_check(label: str, cfg, batch: dict) -> dict:
         torch.cuda.synchronize()
         return loss.detach(), gs, time.perf_counter() - t0
 
-    reset_flash()
+    reset_kernels()
     loss, gs, secs = value_and_grad(False)
-    calls = flash_calls()
+    calls = kernel_calls()
     loss_p, gs_p, secs_p = value_and_grad(True)
     loss_rel = float((loss - loss_p).abs() / loss_p.abs())
     worst, worst_key = 0.0, None
@@ -4094,7 +4223,7 @@ def grad_check(label: str, cfg, batch: dict) -> dict:
         f"{float(loss_p):.6f}, rel {loss_rel:.2e}); worst gradient leaf "
         f"{worst_key} at {worst:.2e} of its largest magnitude; loss and "
         f"gradient {secs:.3f} s through the kernels, {secs_p:.3f} s plain")
-    expect_calls(label, calls, flash_calls_per_pass(cfg))
+    expect_calls(label, calls, calls_per_pass(cfg))
     if loss_rel > GRAD_LOSS_RTOL or worst > GRAD_LEAF_TOL:
         raise AssertionError(f"{label}: kernels' loss / gradients differ "
                              f"from the plain path's (loss rel "
@@ -4105,32 +4234,32 @@ def grad_check(label: str, cfg, batch: dict) -> dict:
             "calls": calls}
 
 
-def traced_train_step(cfg, tc) -> dict:
-    """One bf16 train step of fresh weights, warmed by one untraced step,
-    under the profiler: its wall time, device events, busy time by kind
-    and idle share, the flash kernels' calls (gated), the backward
-    kernel's CUDA launches a call and the step's peak memory."""
+def traced_train_step(cfg, tc, warm: bool = True) -> dict:
+    """One bf16 train step of fresh weights, warmed by one untraced step
+    (``warm``), under the profiler: its wall time, device events, busy time
+    by kind and idle share, the kernels' calls (gated), each kernel's CUDA
+    launches a call and the step's peak memory."""
     p = init_params(torch.Generator(device=DEV).manual_seed(SEED), cfg, DEV)
     state = init_state(p, tc)
     step = make_train_step(cfg, tc, DEV)
     batch = lm_batch(cfg, tc.global_batch, tc.seq_len)
-    state, m = step(state, batch)
-    float(m["loss"])
-    reset_flash()
+    if warm:
+        state, m = step(state, batch)
+        float(m["loss"])
+    reset_kernels()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=list(TRACE_ACTIVITIES)) as prof:
+    with profile(activities=list(TRAIN_TRACE_ACTIVITIES)) as prof:
         t0 = time.perf_counter()
         state, m = step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    calls = flash_calls()
+    calls = kernel_calls()
     peak = torch.cuda.max_memory_allocated()
-    expect_calls(f"{cfg.name} traced step", calls, flash_calls_per_pass(cfg))
+    expect_calls(f"{cfg.name} traced step", calls, calls_per_pass(cfg))
     events, busy, by_kind = _device_time(prof)
     per_call = cuda_launches_per_call(
-        prof, {"flash_attention": calls["forward"],
-               "flash_attention_bwd": calls["backward"]})
+        prof, {TRAIN_KERNELS[k]: n for k, n in calls.items()})
     del state, p
     out = {"wall_s": wall, "device_events": events, "busy_s": busy,
            "idle_share": 1 - busy / wall, "busy_by_kind": by_kind,
@@ -4152,7 +4281,7 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None,
                  save: bool = True) -> dict:
     """The Trainer from fresh weights to ``tc.total_steps``, checkpointing
     only at its end (``save=False``: not at all, ``ckpt.save`` a stub),
-    with the flash counts set to 0 just before and read
+    with the kernels' counts set to 0 just before and read
     just after; its tokens/s are every token over the run's wall time
     (start-up, data and the checkpoint included), beside the median step's.
     Then, with ``fail_at``, a run checkpointing every ``tc.ckpt_every``
@@ -4165,15 +4294,15 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None,
     torch.cuda.reset_peak_memory_stats()
     stub = (contextlib.nullcontext() if save else
             swapped(ckpt_mod, "save", lambda *a, **k: _NoSave()))
-    reset_flash()
+    reset_kernels()
     t0 = time.perf_counter()
     with stub:
         full = Trainer(cfg, tc_a).run()
     wall = time.perf_counter() - t0
-    calls = flash_calls()
+    calls = kernel_calls()
     peak = torch.cuda.max_memory_allocated()
     steps = tc.total_steps
-    per = flash_calls_per_pass(cfg)
+    per = calls_per_pass(cfg)
     expect_calls(label, calls, {k: n * steps for k, n in per.items()})
     losses = full["losses"]
     secs = full["step_seconds"]
@@ -4230,9 +4359,9 @@ def trainer_runs(label: str, cfg, tc, fail_at: int | None,
 
 
 def training_phases() -> dict:
-    """Qwen1.5-0.5B, Whisper-tiny and MiniCPM3-4B (32 layers) trained on
-    the card and InternVL2-76B's vision-prefixed forward and loss (see the
-    module docstring)."""
+    """Qwen1.5-0.5B, Whisper-tiny, MiniCPM3-4B (32 layers), xLSTM-350M and
+    Jamba (2 layers, 1 expert) trained on the card and InternVL2-76B's
+    vision-prefixed forward and loss (see the module docstring)."""
     out: dict = {}
     cfg = get_config(TRAIN_ARCH)
     log(f"== training {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
@@ -4271,6 +4400,12 @@ def training_phases() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out.update(minicpm3_training())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(xlstm_training())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(jamba_training())
     return out
 
 
@@ -4369,6 +4504,282 @@ def vlm_phase() -> dict:
                              f"plain path by {rel:.3e}")
     if not np.isfinite([f32["loss"], out["bf16"]["loss"]]).all():
         raise AssertionError(f"{VLM_ARCH}: a loss is not finite")
+    return out
+
+
+def mlstm_bwd_bound_ms(b: int, s: int, h: int, dh: int) -> tuple:
+    """(least ms for the mLSTM's gradient on this card, "bytes" |
+    "operations"): q, k, v, out, dout and the gates read once, dq, dk, dv
+    and the gates' gradients written once, over HBM rate; against the
+    recurrent form's gradient, ~4 dh^2 multiply-adds a position and head
+    (the reverse state's update, its products with v and k, q's with the
+    forward state), over the f32 peak of the CUDA cores."""
+    t_bytes = 4 * (8 * b * s * h * dh + 4 * b * s * h) / HBM_BPS
+    t_ops = 2 * 4 * dh * dh * b * s * h / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_bwd_bound_ms(b: int, s: int, d: int, n: int, u_bytes: int) -> tuple:
+    """(least ms for the scan's gradient on this card, "bytes" |
+    "operations"): dt, a, B, C, u and dy read once and their gradients
+    written once, over HBM rate; against one exponential (a_bar) a
+    (position, channel, state) on the special-function units."""
+    small = 4 * (b * s + d * n + 2 * b * s * n)
+    t_bytes = (2 * small + 4 * b * s * d + 2 * u_bytes * b * s * d) / HBM_BPS
+    t_ops = b * s * d * n / SFU_EX2_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def recurrent_rel(got, want) -> list:
+    """Each gradient's max |diff| over its largest magnitude; a bf16
+    gradient's beyond one bf16 rounding of each element (2^-8 of it)."""
+    out = []
+    for g, w in zip(got, want):
+        w = w.float()
+        diff = (g.float() - w).abs()
+        if g.dtype == torch.bfloat16:
+            diff = (diff - w.abs() * 2.0 ** -8).clamp_min(0)
+        out.append(float(diff.max()) / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def check_recurrent_bwd(name: str, label: str, shape: list, kernel, plain,
+                        args: tuple, controls: dict, bound: tuple,
+                        reps: int = 3) -> dict:
+    """A backward kernel (``kernel(*args)``) against its plain version
+    (``plain(*args)``): every gradient within RECURRENT_BWD_TOL of its
+    largest magnitude (:func:`recurrent_rel`), two calls bitwise, each
+    control (``plain(*args, **kw)``) at least CONTROL_FACTOR past the gate.
+    Times the kernel on the card alone (:func:`device_ms`) and with the
+    host, and one call of the plain version (CUDA events: it is a loop of
+    small launches).  No single PyTorch call computes either gradient: no
+    library time."""
+    got = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    rel = recurrent_rel(got, want)
+    ratio = max(rel) / RECURRENT_BWD_TOL
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del got, again
+    ctl = {}
+    for cname, kw in controls.items():
+        broken = plain(*args, **kw)
+        ctl[cname] = max(recurrent_rel(broken, want)) / RECURRENT_BWD_TOL
+        del broken
+    del want
+    call = lambda: kernel(*args)  # noqa: E731
+    ms = device_ms(call, reps)
+    call_ms = time_ms(call, reps)
+    plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
+    bound_ms, bound_by = bound
+    log(f"  {label:16s} {shape}: max_abs_err={err:.3e}, of each gradient's "
+        f"largest {', '.join(f'{x:.2e}' for x in rel)} ({ratio:.3f} of the "
+        f"gate {RECURRENT_BWD_TOL:g}) {'ok' if ratio <= 1 else 'FAIL'}; "
+        f"deterministic={same}; controls (x the gate) "
+        f"{json.dumps({k: round(x, 1) for k, x in ctl.items()})}; kernel "
+        f"{ms:.4f} ms (with the host {call_ms:.4f}), plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.6f} ms ({bound_by}), x bound "
+        f"{ms / bound_ms:.1f}")
+    if ratio > 1:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version: {label} {shape}")
+    if not same:
+        raise AssertionError(f"{name} kernel is not deterministic: {label}")
+    for cname, r in ctl.items():
+        if r < CONTROL_FACTOR:
+            raise AssertionError(f"control {cname} at {label} is within "
+                                 f"{r:.2f}x the gate (needs "
+                                 f"{CONTROL_FACTOR}x)")
+    return {"label": label, "shape": shape, "max_abs_err": err, "rel": rel,
+            "x_gate": ratio, "controls": ctl, "deterministic": same,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mlstm_bwd_phases() -> tuple:
+    """The mLSTM backward kernel against ``mlstm_chunkwise_bwd_ref`` at
+    every shape of :data:`MLSTM_BWD_SHAPES`, on the forward kernel's output
+    and a seeded cotangent, with two controls: the floor ``e^{-m_t}`` held
+    constant (no gradient through the stabiliser) and, past one 64-position
+    chunk, dC and dn not carried from chunk to chunk.  Returns (instances,
+    the training shape's)."""
+    log("== mLSTM backward kernel vs plain (mlstm_chunkwise_bwd_ref) on the "
+        "card, f32")
+    out = []
+    for label, b, s, h, dh, misaligned in MLSTM_BWD_SHAPES:
+        t0 = time.perf_counter()
+        ins, _ = mlstm_inputs(b, s, h, dh, "none")
+        o, _ = mlstm_ops.mlstm_kernel(*ins)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 7 * s + dh)
+        dout = torch.randn(b, s, h, dh, generator=gen, device=DEV)
+        args = (*ins, o, dout)
+        if misaligned:
+            args = (*map(_off_boundary, args[:3]), *args[3:5],
+                    *map(_off_boundary, args[5:]))
+        controls = {"stabiliser_dropped": {"drop_stabiliser": True}}
+        if s > 64:
+            controls["carry_dropped"] = {"drop_carry": True, "chunk": 64}
+        inst = check_recurrent_bwd(
+            "mlstm_bwd", label, [b, s, h, dh], mlstm_bwd_ops.mlstm_bwd_kernel,
+            mlstm_chunkwise_bwd_ref, args, controls,
+            mlstm_bwd_bound_ms(b, s, h, dh))
+        inst.update(dtype="float32", misaligned=misaligned,
+                    s=time.perf_counter() - t0)
+        out.append(inst)
+        del ins, o, dout, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    caught = {c for inst in out for c in inst["controls"]}
+    if caught != {"stabiliser_dropped", "carry_dropped"}:
+        raise AssertionError(f"mLSTM backward controls run: {sorted(caught)}")
+    return out, out[0]
+
+
+def mamba_bwd_phases() -> tuple:
+    """The selective-scan backward kernel against ``selective_scan_bwd_ref``
+    at every shape of :data:`SCAN_BWD_SHAPES` with a seeded cotangent, with
+    two controls: past the first position, ddt without its ``a a_bar h``
+    term, and past one 64-position tile, dh not carried from tile to
+    tile.  Returns
+    (instances, the bf16 training shape's)."""
+    log("== selective-scan backward kernel vs plain (selective_scan_bwd_ref) "
+        "on the card")
+    out = []
+    for label, b, s, d, n, u_dtype in SCAN_BWD_SHAPES:
+        t0 = time.perf_counter()
+        dt, a, bmat, cmat, u, _ = mamba_inputs(b, s, d, n, u_dtype, "none")
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 7 * s + d)
+        dy = torch.randn(b, s, d, generator=gen, device=DEV)
+        # at S = 1 the term is 0 (h_{-1} = 0), within one tile no carry
+        controls = {"decay_term_dropped": {"drop_decay_term": True}} \
+            if s > 1 else {}
+        if s > 64:
+            controls["carry_dropped"] = {"drop_carry": True, "chunk": 64}
+        inst = check_recurrent_bwd(
+            "mamba_scan_bwd", label, [b, s, d, n],
+            scan_bwd_ops.selective_scan_bwd_kernel, selective_scan_bwd_ref,
+            (dt, a, bmat, cmat, u, dy), controls,
+            scan_bwd_bound_ms(b, s, d, n, u.element_size()))
+        inst.update(dtype="float32", u_dtype=_dname(u_dtype),
+                    s=time.perf_counter() - t0)
+        out.append(inst)
+        del dt, a, bmat, cmat, u, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    caught = {c for inst in out for c in inst["controls"]}
+    if caught != {"decay_term_dropped", "carry_dropped"}:
+        raise AssertionError(f"scan backward controls run: {sorted(caught)}")
+    return out, out[0]
+
+
+def slstm_share(cfg, tc, traced_s: float, median_s: float) -> dict:
+    """The sLSTM blocks' share of a bf16 train step: one block's forward
+    without a gradient (remat's first pass) and its forward and backward
+    (the recompute and the gradient), timed alone at the step's shape on
+    seeded weights (the Trainer has just run that shape), times the
+    model's sLSTM blocks, over the traced step's wall time and over the
+    Trainer's median step.  The sLSTM is a plain per-token loop under
+    autograd, as the reference's ``lax.scan`` is."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    dtype = getattr(torch, cfg.dtype)
+    p = {k: v.requires_grad_() for k, v in
+         X.init_slstm(gen, cfg, dtype).items()}
+    x = torch.randn(tc.global_batch, tc.seq_len, cfg.d_model, generator=gen,
+                    device=DEV).to(dtype).requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        X.slstm_block(p, x, cfg)
+    y, _ = X.slstm_block(p, x, cfg)
+    torch.autograd.grad(y.float().sum(), [x, *p.values()])
+    torch.cuda.synchronize()
+    block_s = time.perf_counter() - t0
+    n = cfg.layer_kinds().count("slstm")
+    out = {"blocks": n, "block_s": block_s, "blocks_s": n * block_s,
+           "traced_step_s": traced_s, "median_step_s": median_s,
+           "share_of_traced_step": n * block_s / traced_s,
+           "share_of_median_step": n * block_s / median_s}
+    log(f"  sLSTM blocks' share of a step: {json.dumps(out)}")
+    return out
+
+
+def xlstm_training() -> dict:
+    """xLSTM-350M at full width and depth: the f32 gradient check, the bf16
+    Trainer without a checkpoint, a traced step, the sLSTM's share."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    kinds = cfg.layer_kinds()
+    log(f"== training {XLSTM_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers: {kinds.count('mlstm')} mLSTM, {kinds.count('slstm')} "
+        f"sLSTM; d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.mamba_expand * cfg.d_model // cfg.n_heads}), "
+        f"{cfg.param_count()} weights by param_count")
+    gb, gs = XLSTM_GRAD_CHECK
+    out["xlstm_grad_check"] = grad_check(
+        f"{XLSTM_ARCH} f32 {gb} x {gs}", cfg.replace(dtype="float32"),
+        lm_batch(cfg, gb, gs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = SizedTrainConfig(seq_len=XLSTM_TRAIN_SEQ,
+                          global_batch=XLSTM_TRAIN_BATCH, warmup_steps=1,
+                          total_steps=XLSTM_TRAIN_STEPS,
+                          ckpt_every=XLSTM_TRAIN_STEPS, seed=SEED)
+    out["xlstm_trainer"] = trainer_runs(f"{XLSTM_ARCH} bf16 Trainer", cfg, tc,
+                                        None, save=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # not warmed: the Trainer has just run this shape, and a step is ~19 s
+    out["xlstm_traced_step"] = traced_train_step(cfg, tc, warm=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["xlstm_slstm_share"] = slstm_share(
+        cfg, tc, out["xlstm_traced_step"]["wall_s"],
+        out["xlstm_trainer"]["median_step_s"])
+    out["xlstm_wall_s"] = time.perf_counter() - t0
+    log(f"  {XLSTM_ARCH} training phase wall {out['xlstm_wall_s']:.1f} s")
+    return out
+
+
+def jamba_training() -> dict:
+    """Jamba at full width, JAMBA_TRAIN_LAYERS layers holding
+    JAMBA_TRAIN_EXPERTS experts: the f32 gradient check (the MoE dispatch's
+    gradient on the card included) before anything is timed, the bf16
+    Trainer without a checkpoint, a traced step."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    cfg = get_config(JAMBA_ARCH).replace(
+        n_layers=JAMBA_TRAIN_LAYERS, attn_every=JAMBA_TRAIN_LAYERS,
+        attn_offset=JAMBA_TRAIN_LAYERS, experts_held=JAMBA_TRAIN_EXPERTS,
+        expert_offset=0)
+    log(f"== training {JAMBA_ARCH} at full width (d {cfg.d_model}, d_inner "
+        f"{cfg.mamba_expand * cfg.d_model}, N {cfg.d_state}), layers "
+        f"{cfg.layer_kinds()} of its supercell, {JAMBA_TRAIN_EXPERTS} of "
+        f"its {cfg.n_experts} experts held (top-{cfg.top_k}), "
+        f"{cfg.param_count()} weights by param_count")
+    gb, gs = JAMBA_GRAD_CHECK
+    out["jamba_grad_check"] = grad_check(
+        f"{JAMBA_ARCH} f32 {gb} x {gs}", cfg.replace(dtype="float32"),
+        lm_batch(cfg, gb, gs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = SizedTrainConfig(seq_len=JAMBA_TRAIN_SEQ,
+                          global_batch=JAMBA_TRAIN_BATCH, lr=JAMBA_TRAIN_LR,
+                          warmup_steps=1,
+                          total_steps=JAMBA_TRAIN_STEPS,
+                          ckpt_every=JAMBA_TRAIN_STEPS, seed=SEED)
+    out["jamba_trainer"] = trainer_runs(f"{JAMBA_ARCH} bf16 Trainer", cfg, tc,
+                                        None, save=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["jamba_traced_step"] = traced_train_step(cfg, tc)
+    out["jamba_wall_s"] = time.perf_counter() - t0
+    log(f"  {JAMBA_ARCH} training phase wall {out['jamba_wall_s']:.1f} s")
     return out
 
 
@@ -4577,6 +4988,10 @@ def main() -> int:
     # -- 5g. training: the backward kernel, Qwen, Whisper, InternVL2 --------
     bwd, bwd_main = flash_bwd_phases()
     mark("flash_bwd_checks")
+    mlstm_bwd, mlstm_bwd_main = mlstm_bwd_phases()
+    mark("mlstm_bwd_checks")
+    scan_bwd, scan_bwd_main = mamba_bwd_phases()
+    mark("scan_bwd_checks")
     training = training_phases()
     mark("training")
     # each kernel's launches on every serving path that runs it, each path
@@ -4587,11 +5002,12 @@ def main() -> int:
             by_path.setdefault(name, {})[arch] = n
     for arch, key in ((TRAIN_ARCH, "trainer"),
                       (WHISPER_ARCH, "whisper_trainer"),
-                      (MINICPM3_ARCH, "minicpm3_trainer")):
-        calls = training[key]["calls"]
-        by_path["flash_attention"][f"train {arch}"] = calls["forward"]
-        by_path.setdefault("flash_attention_bwd", {})[f"train {arch}"] = \
-            calls["backward"]
+                      (MINICPM3_ARCH, "minicpm3_trainer"),
+                      (XLSTM_ARCH, "xlstm_trainer"),
+                      (JAMBA_ARCH, "jamba_trainer")):
+        for k, n in training[key]["calls"].items():
+            if n:
+                by_path.setdefault(TRAIN_KERNELS[k], {})[f"train {arch}"] = n
 
     # -- 6. results -----------------------------------------------------------
     log(f"total wall {time.perf_counter() - t_start:.1f} s; by phase (s) "
@@ -4607,6 +5023,8 @@ def main() -> int:
         log(f"serving {arch}: {json.dumps(res)}")
     log(f"serving {WHISPER_ARCH}: {json.dumps(whisper)}")
     log(f"flash_bwd instances: {json.dumps(bwd)}")
+    log(f"mlstm_bwd instances: {json.dumps(mlstm_bwd)}")
+    log(f"mamba_scan_bwd instances: {json.dumps(scan_bwd)}")
     log(f"training: {json.dumps(training)}")
     log("adaptive: " + json.dumps(adaptive))
     log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
@@ -4652,8 +5070,9 @@ def main() -> int:
                        res.get("traced_cuda_launches_per_call", {})):
             for name, n in traced.items():
                 per_call.setdefault(name, n)
-    for name, n in training["traced_step"]["cuda_launches_per_call"].items():
-        per_call.setdefault(name, n)
+    for key in ("traced_step", "xlstm_traced_step", "jamba_traced_step"):
+        for name, n in training[key]["cuda_launches_per_call"].items():
+            per_call.setdefault(name, n)
     # the MLA kernels replace no Pallas kernel: the reference computes that
     # attention in jnp (its layers.py, mla_attention's kv_cache branch)
     for name, inst, replaces in (
@@ -4666,9 +5085,13 @@ def main() -> int:
              "src/repro/kernels/mamba_scan/mamba_scan.py:54"),
             ("mla_prefill", mla_pre_main, "src/repro/models/layers.py:228"),
             ("mla_decode", mla_dec_main, "src/repro/models/layers.py:228"),
-            # the gradient JAX takes of the reference's jnp attention
+            # the gradients JAX takes of the reference's jnp attention,
+            # mLSTM and scan
             ("flash_attention_bwd", bwd_main,
-             "src/repro/models/layers.py:56")):
+             "src/repro/models/layers.py:56"),
+            ("mlstm_bwd", mlstm_bwd_main, "src/repro/models/xlstm.py:62"),
+            ("mamba_scan_bwd", scan_bwd_main,
+             "src/repro/models/mamba.py:47")):
         source = "mla_attention" if name.startswith("mla_") else name
         kernels.append({
             "name": name, "route": "cuda",

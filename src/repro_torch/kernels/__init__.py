@@ -2,10 +2,12 @@
 version (``ref.py``) and a wrapper (``ops.py``) that takes the plain version
 for a CPU tensor and launches the kernel for a CUDA tensor.
 
-Only flash attention has a backward kernel.  The other wrappers refuse a
-CUDA tensor that needs a gradient (:func:`no_backward`): a ctypes launch
-returns a tensor without one, and a loss through it would silently train
-nothing below it."""
+Flash attention, the chunkwise mLSTM and the selective scan have backward
+kernels (``flash_attention_bwd``, ``mlstm_bwd``, ``mamba_scan_bwd``), each
+behind a ``torch.autograd.Function``.  The wrappers of the MLA and
+decode-attention kernels, which serve only, refuse a CUDA tensor that needs
+a gradient (:func:`no_backward`): a ctypes launch returns a tensor without
+one, and a loss through it would silently train nothing below it."""
 from __future__ import annotations
 
 __all__ = ["no_backward"]

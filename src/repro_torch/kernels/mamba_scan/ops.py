@@ -11,6 +11,16 @@ by 16-byte copies and bf16 u as pairs of channels: B and C are taken as
 contiguous f32 and copied when they do not start on a 16-byte boundary (a
 new tensor does), and bf16 u with an odd D or address is widened to f32.
 ``launches`` counts the calls that ran the kernel; nothing else adds to it.
+
+Under autograd (grad mode on and an input requiring a gradient)
+:func:`selective_scan` goes through :class:`SelectiveScan`: its forward is
+the same kernel, its backward the kernel of ``csrc/mamba_scan_bwd.cu``
+(``kernels.mamba_scan_bwd``); on CPU tensors the same Function runs the
+plain versions (:func:`selective_scan_ref`, ``selective_scan_bwd_ref``).
+The gradient starts from the zero state and leaves the final state out, as
+training runs the layer: an ``h0``, or a gradient arriving for ``h_last``,
+raises ``NotImplementedError``.  Serving runs without a gradient, and its
+launches are unchanged.
 """
 from __future__ import annotations
 
@@ -18,11 +28,12 @@ import ctypes
 
 import torch
 
-from .. import _build, no_backward
+from .. import _build
+from ..mamba_scan_bwd import ops as bwd_ops
 from .ref import selective_scan_ref
 
-__all__ = ["D_STATES", "launches", "reset_launches", "selective_scan",
-           "selective_scan_kernel"]
+__all__ = ["D_STATES", "SelectiveScan", "launches", "reset_launches",
+           "selective_scan", "selective_scan_kernel"]
 
 D_STATES = (8, 16)   # the reference test's and the models' d_state
 
@@ -105,15 +116,54 @@ def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
     return y, h_last
 
 
+class SelectiveScan(torch.autograd.Function):
+    """The selective scan from the zero state with a gradient: the forward
+    kernel, the backward kernel (``kernels.mamba_scan_bwd``); their plain
+    versions on CPU tensors.  ``apply(dt, a, bmat, cmat, u) -> (y,
+    h_last)``; ``h_last`` takes no gradient.  Each input's gradient comes
+    back in its own type (bf16 ``bmat``, ``cmat`` slices of the model's
+    projection, bf16 ``u``)."""
+
+    @staticmethod
+    def forward(ctx, dt, a, bmat, cmat, u):
+        if u.device.type == "cpu":
+            y, h_last = selective_scan_ref(dt, a, bmat, cmat, u)
+        else:
+            y, h_last = selective_scan_kernel(dt, a, bmat, cmat, u)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, a, bmat, cmat, u)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if dh_last is not None:
+            raise NotImplementedError(
+                "the selective scan's backward takes no gradient of the "
+                "final state h_last: training drops it")
+        ins = ctx.saved_tensors
+        if dy is None:
+            return (None,) * 5
+        grads = bwd_ops.selective_scan_bwd(*ins, dy)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, ins))
+
+
 def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
                    cmat: torch.Tensor, u: torch.Tensor,
                    h0: torch.Tensor | None = None) -> tuple:
     """The selective scan with the discretisation fused, a state in and
     out: (y (B, S, D), h_last (B, D, N)), f32.  CPU tensors take the plain
     version (:func:`selective_scan_ref`); CUDA tensors launch the kernel,
-    or raise if it does not take them."""
+    or raise if it does not take them.  Where a gradient is wanted the call
+    goes through :class:`SelectiveScan`, from the zero state only."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (dt, a, bmat, cmat, u, h0)):
+        if h0 is not None:
+            raise NotImplementedError(
+                "the selective scan's backward starts from the zero state: "
+                "a state h0 takes no gradient; pass h0=None, or call under "
+                "torch.no_grad()")
+        return SelectiveScan.apply(dt, a, bmat, cmat, u)
     if u.device.type == "cpu":
         return selective_scan_ref(dt, a, bmat, cmat, u, h0)
-    no_backward("selective-scan", "item 9b: the mLSTM and scan backward "
-                "kernels", dt, a, bmat, cmat, u, h0)
     return selective_scan_kernel(dt, a, bmat, cmat, u, h0)

@@ -12,6 +12,16 @@ passes, ``mlstm.cu``) on a workspace allocated for the call.  The kernel
 reads q, k and v by 16-byte copies: one that does not start on a 16-byte
 boundary is copied first (a new tensor does).  ``launches`` counts the
 calls that ran the kernel, one a call; nothing else adds to it.
+
+Under autograd (grad mode on and an input requiring a gradient)
+:func:`mlstm` goes through :class:`MLSTM`: its forward is the same kernel,
+its backward the kernel of ``csrc/mlstm_bwd.cu`` (``kernels.mlstm_bwd``);
+on CPU tensors the same Function runs the plain versions
+(:func:`mlstm_chunkwise_ref`, ``mlstm_chunkwise_bwd_ref``).  The gradient
+starts from the zero state and leaves the final state out, as training
+runs the layer: a state in, or a gradient arriving for the final state,
+raises ``NotImplementedError``.  Serving runs without a gradient, and its
+launches are unchanged.
 """
 from __future__ import annotations
 
@@ -19,10 +29,11 @@ import ctypes
 
 import torch
 
-from .. import _build, no_backward
+from .. import _build
+from ..mlstm_bwd import ops as bwd_ops
 from .ref import M_INIT, mlstm_chunkwise_ref, pads
 
-__all__ = ["HEAD_DIMS", "launches", "mlstm", "mlstm_kernel",
+__all__ = ["HEAD_DIMS", "MLSTM", "launches", "mlstm", "mlstm_kernel",
            "reset_launches"]
 
 HEAD_DIMS = (32, 64, 128, 512)   # the tests' and xLSTM-350M's
@@ -119,14 +130,52 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (c1, n1, m1)
 
 
+class MLSTM(torch.autograd.Function):
+    """The chunkwise mLSTM from the zero state with a gradient: the forward
+    kernel, the backward kernel (``kernels.mlstm_bwd``); their plain
+    versions on CPU tensors.  ``apply(q, k, v, logi, logf) -> (out, C, n,
+    m)``; the final state takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf):
+        if q.device.type == "cpu":
+            out, (c, n, m) = mlstm_chunkwise_ref(q, k, v, logi, logf)
+        else:
+            out, (c, n, m) = mlstm_kernel(q, k, v, logi, logf)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, logi, logf, out)
+        return out, c, n, m
+
+    @staticmethod
+    def backward(ctx, dout, dc, dn, dm):
+        if dc is not None or dn is not None or dm is not None:
+            raise NotImplementedError(
+                "the mLSTM's backward takes no gradient of the final state "
+                "(C, n, m): training drops it")
+        ins = ctx.saved_tensors
+        if dout is None:
+            return (None,) * 5
+        grads = bwd_ops.mlstm_bwd(*ins, dout)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, ins))
+
+
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           logi: torch.Tensor, logf: torch.Tensor,
           state: tuple | None = None) -> tuple:
     """Chunkwise mLSTM with a state in and out: (out, (C, n, m)).  CPU
     tensors take the plain version (:func:`mlstm_chunkwise_ref`); CUDA
-    tensors launch the kernel, or raise if it does not take them."""
+    tensors launch the kernel, or raise if it does not take them.  Where a
+    gradient is wanted the call goes through :class:`MLSTM`, from the zero
+    state only."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, logi, logf, *(state or ()))):
+        if state is not None:
+            raise NotImplementedError(
+                "the mLSTM's backward starts from the zero state: a state "
+                "(C, n, m) in takes no gradient; pass state=None, or call "
+                "under torch.no_grad()")
+        out, c, n, m = MLSTM.apply(q, k, v, logi, logf)
+        return out, (c, n, m)
     if q.device.type == "cpu":
         return mlstm_chunkwise_ref(q, k, v, logi, logf, state)
-    no_backward("mLSTM", "item 9b: the mLSTM and scan backward kernels",
-                q, k, v, logi, logf, *(state or ()))
     return mlstm_kernel(q, k, v, logi, logf, state)

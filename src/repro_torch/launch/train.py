@@ -9,10 +9,11 @@ Counterpart of ``repro.launch.train``, with the same flags, plus
 ``--device cpu``).  ``--smoke`` gives a narrow model of the same kind for
 the CPU.  Weights are random, drawn from the trainer's seeded generator;
 batches are ``SyntheticLM``'s, 8 sequences of 64 tokens (the trainer's
-defaults).  ``--arch`` takes the families the port trains: dense and MoE
-attention models, MLA models (MiniCPM3, through MLA's cacheless branch),
-Whisper and InternVL2 on the card, and xLSTM and Jamba on the CPU only
-(their kernels have no backward yet).
+defaults).  ``--arch`` takes the families the port trains, all on the card: dense
+and MoE attention models, MLA models (MiniCPM3, through MLA's cacheless
+branch), Whisper, InternVL2, xLSTM (the mLSTM through its forward and
+backward kernels) and Jamba (the selective scan through its forward and
+backward kernels).
 """
 from __future__ import annotations
 

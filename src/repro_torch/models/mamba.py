@@ -8,8 +8,12 @@ buffer.  A multi-token call (prefill) runs the scan, its discretisation
 fused in, through ``kernels.mamba_scan.ops.selective_scan``, which
 launches the hand-written CUDA kernel on the card and takes its plain
 version on the CPU; ``plain=True`` calls the plain version on any device
-(a check-only switch; serving never sets it).  One token with a state is
-the reference's plain recurrence step, as in its decode.
+(a check-only switch; serving never sets it).  Under a gradient (training,
+from the zero state) the same call goes through the ``SelectiveScan``
+autograd Function, whose backward is the hand-written backward kernel on
+the card (``kernels.mamba_scan_bwd``), so Jamba's Mamba layers train on
+the card.  One token with a state is the reference's plain recurrence
+step, as in its decode.
 """
 from __future__ import annotations
 

@@ -6,9 +6,13 @@ and states (arXiv:2405.04517).  A multi-token mLSTM call (prefill) runs the
 chunkwise form through ``kernels.mlstm.ops.mlstm``, which launches the
 hand-written CUDA kernel on the card and takes its plain version on the
 CPU; ``plain=True`` calls the plain version on any device (a check-only
-switch; serving never sets it).  One token with a state is the sequential
-recurrence, and the sLSTM is a per-token loop, both plain PyTorch, as the
-reference computes them outside any Pallas kernel.  Every state is f32.
+switch; serving never sets it).  Under a gradient (training, from the zero
+state) the same call goes through the ``MLSTM`` autograd Function, whose
+backward is the hand-written backward kernel on the card
+(``kernels.mlstm_bwd``), so xLSTM trains on the card.  One token with a
+state is the sequential recurrence, and the sLSTM is a per-token loop, both
+plain PyTorch (the sLSTM under autograd), as the reference computes them
+outside any Pallas kernel.  Every state is f32.
 """
 from __future__ import annotations
 

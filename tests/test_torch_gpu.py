@@ -43,7 +43,13 @@ output's largest magnitude, bf16 within 1.25e-2 (1.6 bf16 ulps; the card's
 readings reach 6.9e-3 in ``chip_smoke.py``), and within a quarter of
 that of the plain model of its arithmetic (``attention_bwd_tiles``)
 beyond one bf16 rounding of each element; the forward's log-sum-exp within 1e-5 of a
-plain logsumexp, -inf on the same rows.
+plain logsumexp, -inf on the same rows.  The mLSTM and selective-scan
+backward kernels against their plain versions (``mlstm_chunkwise_bwd_ref``,
+``selective_scan_bwd_ref``): each f32 gradient within 1e-4 of its largest
+magnitude, a bf16 du beyond one bf16 rounding of each element likewise;
+a narrow xLSTM's and Jamba's f32 loss and gradients through the kernels
+against the plain path within 1e-4 of the largest gradient leaf (loss rtol
+1e-5).
 """
 import numpy as np
 import pytest
@@ -63,14 +69,18 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                selective_scan_ref)
+from repro_torch.kernels.mamba_scan_bwd import ops as scan_bwd_ops
 from repro_torch.kernels.mlstm import ops as mlstm_ops
+from repro_torch.kernels.mlstm_bwd import ops as mlstm_bwd_ops
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.mla_attention.ref import (mla_decode_ref,
                                                    mla_decode_splits,
                                                    mla_prefill_ref,
                                                    mla_prefill_tiles)
-from repro_torch.kernels.mlstm.ref import mlstm_chunkwise_ref
+from repro_torch.kernels.mlstm.ref import (mlstm_chunkwise_bwd_ref,
+                                           mlstm_chunkwise_ref)
 from repro_torch.kernels.sinkhorn import ops
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_kernel_order,
                                               sinkhorn_ref)
@@ -1769,13 +1779,26 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card():
     dev = "cuda"
     x = torch.zeros(1, 4, 2, 32, device=dev, requires_grad=True)
     gates = torch.zeros(1, 4, 2, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlstm_ops.mlstm(x, x, x, gates, gates)
-    dt = torch.zeros(1, 4, 8, device=dev, requires_grad=True)
-    a = torch.zeros(8, 4, device=dev)
-    bm = torch.zeros(1, 4, 4, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mamba_ops.selective_scan(dt, a, bm, bm, dt)
+    # the mLSTM and the scan train, from the zero state only: a state in,
+    # or a gradient of the final state, is refused
+    st = (torch.zeros(1, 2, 32, 32, device=dev),
+          torch.zeros(1, 2, 32, device=dev),
+          torch.full((1, 2), -1e9, device=dev))
+    with pytest.raises(NotImplementedError, match="state"):
+        mlstm_ops.mlstm(x, x, x, gates, gates, st)
+    out, (c, _, _) = mlstm_ops.mlstm(x, x, x, gates, gates)
+    with pytest.raises(NotImplementedError, match="final state"):
+        (out.sum() + c.sum()).backward()
+    u = torch.zeros(1, 4, 8, device=dev, requires_grad=True)
+    dt = torch.full((1, 4), 0.5, device=dev)
+    a = -torch.ones(8, 8, device=dev)
+    bm = torch.zeros(1, 4, 8, device=dev)
+    h0 = torch.zeros(1, 8, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="h0"):
+        mamba_ops.selective_scan(dt, a, bm, bm, u, h0)
+    y, h_last = mamba_ops.selective_scan(dt, a, bm, bm, u)
+    with pytest.raises(NotImplementedError, match="h_last"):
+        (y.sum() + h_last.sum()).backward()
     ql = torch.zeros(1, 4, 40, 256, device=dev, requires_grad=True)
     qr = torch.zeros(1, 4, 40, 32, device=dev)
     c = torch.zeros(1, 4, 256, device=dev)
@@ -1787,7 +1810,202 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card():
     with pytest.raises(NotImplementedError, match="decode-attention"):
         decode_ops.decode_attn(x, x, x, 3)
     with torch.no_grad():
-        mlstm_ops.mlstm(x, x, x, gates, gates)
+        mlstm_ops.mlstm(x, x, x, gates, gates, st)
+        mamba_ops.selective_scan(dt, a, bm, bm, u, h0)
+
+
+def _rel_each(got, want):
+    """max |got - want| / max |want| of each gradient."""
+    return [float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,dh", [
+    (1, 2, 2, 32),        # the shortest sequence it takes
+    (2, 65, 2, 64),       # one past the kernel's 64-position chunk
+    (2, 300, 2, 128),     # ragged past the plain version's 256
+    (1, 1100, 1, 64),     # past one window of 16 chunks
+    (2, 130, 4, 512),     # xLSTM-350M's head dim
+])
+def test_mlstm_bwd_kernel_matches_plain(b, s, h, dh):
+    """dq, dk, dv, dlogi, dlogf against ``mlstm_chunkwise_bwd_ref``, each
+    within 1e-4 of its largest magnitude, the same bits on repeat."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(s + dh)
+    ins, _ = _mlstm_inputs(gen, b, s, h, dh, "none")
+    out, _ = mlstm_ops.mlstm_kernel(*ins)
+    dout = _randn(gen, b, s, h, dh, dtype=torch.float32)
+    before = mlstm_bwd_ops.launches
+    got = mlstm_bwd_ops.mlstm_bwd(*ins, out, dout)
+    again = mlstm_bwd_ops.mlstm_bwd(*ins, out, dout)
+    torch.cuda.synchronize()
+    assert mlstm_bwd_ops.launches == before + 2
+    want = mlstm_chunkwise_bwd_ref(*ins, out, dout)
+    assert max(_rel_each(got, want)) <= MLSTM_TOL
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_mlstm_bwd_kernel_rejects_bad_input_and_copies_misaligned():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    (q, k, v, li, lf), _ = _mlstm_inputs(gen, 1, 130, 2, 64, "none")
+    out, _ = mlstm_ops.mlstm_kernel(q, k, v, li, lf)
+    dout = _randn(gen, 1, 130, 2, 64, dtype=torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_bwd_ops.mlstm_bwd_kernel(q, k, v, li, lf, out, dout.double())
+    with pytest.raises(ValueError, match="head dims"):
+        mlstm_bwd_ops.mlstm_bwd_kernel(*(t[..., :48].contiguous() for t in (
+            q, k, v)), li, lf, *(t[..., :48].contiguous() for t in (
+                out, dout)))
+    with pytest.raises(ValueError, match="S >= 2"):
+        mlstm_bwd_ops.mlstm_bwd_kernel(*(t[:, :1].contiguous() for t in (
+            q, k, v, li, lf, out, dout)))
+    with pytest.raises(ValueError, match="contiguous"):
+        mlstm_bwd_ops.mlstm_bwd_kernel(
+            q.transpose(1, 2).contiguous().transpose(1, 2), k, v, li, lf,
+            out, dout)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlstm_bwd_ops.mlstm_bwd_kernel(q.cpu(), k, v, li, lf, out, dout)
+    want = mlstm_bwd_ops.mlstm_bwd_kernel(q, k, v, li, lf, out, dout)
+    shifted = []
+    for t in (q, k, v, out, dout):
+        s = torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t)
+        s.copy_(t)
+        shifted.append(s)
+    got = mlstm_bwd_ops.mlstm_bwd_kernel(*shifted[:3], li, lf, *shifted[3:])
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _scan_bwd_close(got, want, u_dtype):
+    """Each f32 gradient within 1e-4 of its largest magnitude; a bf16 du
+    beyond one bf16 rounding of each element (2^-8 of it) likewise."""
+    rel = _rel_each(got[:4], want[:4])
+    assert max(rel) <= 1e-4, rel
+    du, wdu = got[4].float(), want[4].float()
+    slack = wdu.abs() * 2.0 ** -8 if u_dtype == torch.bfloat16 else 0.0
+    over = ((du - wdu).abs() - slack).clamp_min(0)
+    assert float(over.max()) <= 1e-4 * float(wdu.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,n,u_dtype", [
+    (1, 1, 64, 16, "float32"),          # S = 1
+    (2, 17, 40, 8, "float32"),          # one past a lane, N 8
+    (2, 130, 200, 16, "bfloat16"),      # ragged tiles
+    (1, 300, 67, 16, "float32"),        # an odd D
+    (2, 65, 16384, 16, "bfloat16"),     # Jamba's width, one past a tile
+])
+def test_scan_bwd_kernel_matches_plain(b, s, d, n, u_dtype):
+    """ddt, da, dB, dC, du against ``selective_scan_bwd_ref``, the same
+    bits on repeat; du in u's type."""
+    _card()
+    ud = getattr(torch, u_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(s + d + n)
+    dt, a, bmat, cmat, u, _ = _scan_inputs(gen, b, s, d, n, ud, "none")
+    dy = _randn(gen, b, s, d, dtype=torch.float32)
+    before = scan_bwd_ops.launches
+    got = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy)
+    again = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy)
+    torch.cuda.synchronize()
+    assert scan_bwd_ops.launches == before + 2
+    assert got[4].dtype == ud
+    _scan_bwd_close(got, selective_scan_bwd_ref(dt, a, bmat, cmat, u, dy), ud)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_scan_bwd_kernel_rejects_bad_input():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt, a, bmat, cmat, u, _ = _scan_inputs(gen, 1, 8, 64, 16, torch.float32,
+                                           "none")
+    dy = torch.zeros_like(u)
+    with pytest.raises(ValueError, match="d_state"):
+        scan_bwd_ops.selective_scan_bwd_kernel(
+            dt, a[:, :4].contiguous(), bmat[..., :4], cmat[..., :4], u, dy)
+    with pytest.raises(TypeError, match="u must be"):
+        scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u.half(),
+                                               dy)
+    with pytest.raises(ValueError, match="dy must have shape"):
+        scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u,
+                                               dy[..., :32])
+    with pytest.raises(TypeError, match="dy must be float32|float32"):
+        scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u,
+                                               dy.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_bwd_ops.selective_scan_bwd_kernel(
+            dt, a, bmat, cmat,
+            u.transpose(1, 2).contiguous().transpose(1, 2), dy)
+
+
+def _loss_grads_on_the_card(cfg, counters):
+    """``loss_fn`` and every gradient leaf of seeded f32 weights through
+    the kernels and through the plain path on the card; the kernels'
+    launches (``counters``: name -> module with ``launches``) in the
+    kernels' pass."""
+    p = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=300,
+                                   global_batch=2, seed=1)).batch_at(0)
+
+    def value_and_grads(plain):
+        pt = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = loss_fn(pt, cfg, batch, plain=plain)
+        return loss.detach(), dict(zip(
+            (k for k, _ in flatten_with_keys(pt)),
+            torch.autograd.grad(loss, leaves(pt), allow_unused=True)))
+
+    start = {k: m.launches for k, m in counters.items()}
+    loss, got = value_and_grads(False)
+    torch.cuda.synchronize()
+    calls = {k: m.launches - start[k] for k, m in counters.items()}
+    loss_p, want = value_and_grads(True)
+    assert float((loss - loss_p).abs()) <= 1e-5 * float(loss_p.abs())
+    largest = max(float(w.abs().max()) for w in want.values()
+                  if w is not None)
+    for key, g in got.items():
+        w = want[key]
+        if w is None:
+            assert g is None, key
+            continue
+        assert float((g - w).abs().max()) <= 1e-4 * largest, key
+    return calls
+
+
+@pytest.mark.gpu
+def test_xlstm_loss_gradient_through_the_kernels_matches_plain():
+    """A narrow xLSTM (head dim 128) in f32: loss and gradients through the
+    mLSTM's forward and backward kernels against the plain path; under
+    remat each mLSTM layer's forward kernel runs twice and its backward
+    kernel once."""
+    _card()
+    cfg = get_config("xlstm-350m", smoke=True).replace(d_model=256,
+                                                       dtype="float32")
+    n_mlstm = sum(k == "mlstm" for k in cfg.layer_kinds())
+    calls = _loss_grads_on_the_card(
+        cfg, {"fwd": mlstm_ops, "bwd": mlstm_bwd_ops})
+    fwd = n_mlstm * (2 if cfg.remat == "block" else 1)
+    assert calls == {"fwd": fwd, "bwd": n_mlstm}
+
+
+@pytest.mark.gpu
+def test_jamba_loss_gradient_through_the_kernels_matches_plain():
+    """A narrow Jamba (head dim 128, 2 of its 4 experts held) in f32: loss
+    and gradients through the scan's forward and backward kernels and the
+    flash kernels against the plain path; under remat each Mamba layer's
+    forward kernel runs twice and its backward kernel once."""
+    _card()
+    cfg = get_config("jamba-1.5-large", smoke=True).replace(
+        d_model=256, n_heads=2, n_kv_heads=1, head_dim=0, dtype="float32",
+        experts_held=2, expert_offset=0)
+    kinds = cfg.layer_kinds()
+    n_mamba = sum(k == "mamba" for k in kinds)
+    calls = _loss_grads_on_the_card(
+        cfg, {"fwd": mamba_ops, "bwd": scan_bwd_ops})
+    fwd = n_mamba * (2 if cfg.remat == "block" else 1)
+    assert calls == {"fwd": fwd, "bwd": n_mamba}
 
 
 @pytest.mark.gpu

@@ -391,6 +391,37 @@ def test_minicpm3_train_steps_match_reference():
             key
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_recurrent_train_steps_match_reference(arch):
+    """Three ``make_train_step`` steps of the smoke xLSTM (mLSTM and sLSTM
+    blocks) and the smoke Jamba (Mamba, attention and MoE layers) from the
+    same weights on the same batches, the mLSTM's and the scan's gradients
+    through their ``MLSTM`` / ``SelectiveScan`` Functions (the plain
+    backward on the CPU): the loss and grad norm each step (rtol 1e-5), and
+    each parameter leaf after within 1e-5 of the reference's norm-wise (see
+    :func:`test_train_steps_match_reference`)."""
+    jcfg, jp, cfg, p = _pair(arch, seed=1)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    jtc, tc = JTrainConfig(**kw), TrainConfig(**kw)
+    jstep = jax.jit(j_make_train_step(jcfg, jtc))
+    step = make_train_step(cfg, tc, device="cpu")
+    js, st = j_init_state(jp, jtc), init_state(p, tc)
+    for i in range(3):
+        batch = _batch(cfg, b=2, s=16, step=i, masked=False)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        st, m = step(st, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+    assert int(st.opt.step) == 3
+    want = j_flatten(js.params)
+    for key, leaf in flatten_with_keys(st.params):
+        w = want[key]
+        assert np.linalg.norm(leaf.numpy() - w) <= 1e-5 * np.linalg.norm(w), \
+            key
+
+
 # -- the trainer (tests/test_train.py's cases) -----------------------------
 def test_straggler_monitor():
     mon = StragglerMonitor(n_hosts=4, threshold=1.5)
@@ -463,6 +494,36 @@ def test_launch_train_minicpm3_smoke_on_cpu(tmp_path, capsys):
                              "--ckpt-dir", str(tmp_path / "ck")])
     assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
     assert "final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_launch_train_recurrent_smoke_on_cpu(arch, tmp_path, capsys):
+    """``--arch xlstm-350m`` and ``--arch jamba-1.5-large-398b`` train: the
+    mLSTM's and the scan's gradients through their Functions."""
+    out = launch_train.main(["--arch", arch, "--smoke", "--steps", "2",
+                             "--device", "cpu",
+                             "--ckpt-dir", str(tmp_path / "ck")])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert "final loss" in capsys.readouterr().out
+
+
+def test_torch_train_lm_example_on_cpu(tmp_path, capsys):
+    """``examples/torch_train_lm.py``, the port of ``examples/train_lm.py``:
+    its ~100M qwen-family model, two Trainer steps on the CPU, and its
+    checkpoint at the end."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_train_lm.py"
+    spec = importlib.util.spec_from_file_location("torch_train_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--steps", "2", "--device", "cpu",
+                    "--ckpt-dir", str(tmp_path / "ck")])
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    printed = capsys.readouterr().out
+    assert "params: " in printed and "last-1  mean loss" in printed
+    assert (tmp_path / "ck" / "LATEST").exists()
 
 
 def test_training_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
