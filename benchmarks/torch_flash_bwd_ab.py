@@ -47,17 +47,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "src"))
+import torch
+import torch.nn.functional as F
 
-import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
+from torch_ab_common import ROOT, build, kernel_split, log, substituted
+
+sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -103,47 +101,15 @@ VARIANTS = {
 SHAPES = [s for s in cs.BWD_SHAPES if BF16 in s[-1]]
 
 
-def log(msg: str = "") -> None:
-    print(msg, flush=True)
-
-
-def build(old: Path, out: Path) -> dict:
-    """Every source built at once; returns the loaded libraries by name
-    and each build's ptxas lines."""
-    out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+def sources(old: Path) -> dict:
+    """The parent, this tree's source and its variants, by name."""
     text = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    sources = {"old": old.read_text(), "new": text}
+    out = {"old": old.read_text(), "new": text}
     for name, subs in VARIANTS.items():
-        t = text
-        for a, b in subs:
-            if a not in t:
-                raise SystemExit(f"variant {name}: anchor not in the source: "
-                                 f"{a[:60]!r}")
-            t = t.replace(a, b)   # every occurrence
-        sources[name] = t
-    procs = {}
-    for name, t in sources.items():
-        (out / f"bwd_{name}.cu").write_text(t)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(out / f"bwd_{name}.so"), str(out / f"bwd_{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, reports = {}, {}
-    for name, p in procs.items():
-        report, _ = p.communicate()
-        log(f"== nvcc {name}: rc {p.returncode}")
-        keep = [line.strip() for line in report.splitlines()
-                if "error" in line.lower() or "warning" in line.lower()
-                or "Used" in line or "Compiling entry" in line
-                or "spill" in line or "C75" in line]
-        for line in keep:
-            log(f"  {line}")
-        reports[name] = keep
-        if p.returncode == 0:
-            libs[name] = ctypes.CDLL(str(out / f"bwd_{name}.so"))
-    log(f"build wall {time.perf_counter() - t0:.1f} s")
-    return libs, reports
+        t = substituted(text, subs, name)
+        if t is not None:
+            out[name] = t
+    return out
 
 
 def caller(lib):
@@ -203,28 +169,6 @@ def sdpa_bwd_ms(q, k, v, do, causal, window) -> float:
         sdpa(), (qt, kt, vt), dot), 5) - cs.device_ms(sdpa, 5)
 
 
-def kernel_split(call, args) -> dict:
-    """Device ms a call of each of the three kernels (``bwd_dsum``,
-    ``bwd_dkdv*``, ``bwd_dq*``), from a profiler trace of three calls;
-    empty if the trace holds no device events."""
-    from torch.profiler import ProfilerActivity, profile
-    call(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            call(*args)
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        for part in ("bwd_dsum", "bwd_dkdv", "bwd_dq"):
-            if part in e.key and us:
-                out[part] = out.get(part, 0.0) + us / 3 / 1e3
-    return out
-
-
 def run(libs: dict) -> tuple:
     calls = {name: caller(lib) for name, lib in libs.items()}
     ok, res = True, {}
@@ -280,10 +224,10 @@ def run(libs: dict) -> tuple:
         row["split_ms"] = {}
         for name in ("old", "new"):
             split = kernel_split(lambda *a: calls[name](*a, causal, window),
-                                 args)
+                                 args, r"bwd_(?:dsum|dkdv|dq)")
             row["split_ms"][name] = split
-            log(f"  {name} by kernel (profiler, ms a call): "
-                f"{json.dumps({k: round(x, 4) for k, x in split.items()})}")
+            log(f"  {name} by kernel (profiler: ms a launch, launches a "
+                f"call): {json.dumps(split)}")
         row["ms"] = times
         row["library_ms"] = lib_ms
         res[key] = row
@@ -304,7 +248,7 @@ def main(argv=None) -> int:
         return 1
     card = cs.nvidia_smi()
     log(f"card: {card}")
-    libs, reports = build(args.old, args.build)
+    libs, reports = build(sources(args.old), args.build)
     if "new" not in libs or "old" not in libs:
         log("a build failed")
         return 1

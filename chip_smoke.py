@@ -405,6 +405,8 @@ HORIZON, SEED = 2000, 1
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
               torch.bfloat16: 989e12}
+# the tensor cores' TF32 rate (f32 operands read as TF32)
+PEAK_TF32_FLOPS = 495e12
 
 # kernel vs plain tolerances: f32 as in tests/test_kernels.py (reduction
 # order only), f64 near its precision (200 iterations of it)
@@ -2039,6 +2041,8 @@ def mlstm_phases() -> tuple:
     inst.append(check_mlstm("65 chunks", 1, 4097, h, dh, "carried", reps=2))
     inst.append(check_mlstm("q, k, v off 16 B", 1, 130, h, dh, "carried",
                             misaligned=True))
+    # xLSTM-350M's training shape (the forward under grad, no state)
+    inst.append(check_mlstm("xlstm-train", 8, 2048, h, dh, "none", reps=3))
     log("  no single PyTorch call computes the mLSTM: library time n/a")
     return inst, main
 
@@ -4509,15 +4513,21 @@ def vlm_phase() -> dict:
 
 def mlstm_bwd_bound_ms(b: int, s: int, h: int, dh: int) -> tuple:
     """(least ms for the mLSTM's gradient on this card, "bytes" |
-    "operations"): q, k, v, out, dout and the gates read once, dq, dk, dv
-    and the gates' gradients written once, over HBM rate; against the
-    recurrent form's gradient, ~4 dh^2 multiply-adds a position and head
-    (the reverse state's update, its products with v and k, q's with the
-    forward state), over the f32 peak of the CUDA cores."""
+    "operations", ms of the operations on the CUDA cores in f32): q, k, v,
+    out, dout and the gates read once, dq, dk, dv and the gates' gradients
+    written once, over HBM rate; against the recurrent form's gradient,
+    ~4 dh^2 multiply-adds a position and head (the reverse state's update,
+    its products with v and k, q's with the forward state) at f32
+    accuracy, the faster of the CUDA cores' f32 peak and three TF32
+    passes (hi*hi + hi*lo + lo*hi, as the kernel forms them) at the tensor
+    cores' TF32 peak."""
     t_bytes = 4 * (8 * b * s * h * dh + 4 * b * s * h) / HBM_BPS
-    t_ops = 2 * 4 * dh * dh * b * s * h / PEAK_FLOPS[torch.float32]
+    flops = 2 * 4 * dh * dh * b * s * h
+    t_f32 = flops / PEAK_FLOPS[torch.float32]
+    t_ops = min(t_f32, 3 * flops / PEAK_TF32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, t_f32) * 1e3)
 
 
 def scan_bwd_bound_ms(b: int, s: int, d: int, n: int, u_bytes: int) -> tuple:
@@ -4576,7 +4586,9 @@ def check_recurrent_bwd(name: str, label: str, shape: list, kernel, plain,
     ms = device_ms(call, reps)
     call_ms = time_ms(call, reps)
     plain_ms = time_ms(lambda: plain(*args), 1, warm=1)
-    bound_ms, bound_by = bound
+    bound_ms, bound_by, *f32 = bound
+    extra = (f"; on the CUDA cores in f32 {f32[0]:.6f} ms, x "
+             f"{ms / f32[0]:.1f}" if f32 else "")
     log(f"  {label:16s} {shape}: max_abs_err={err:.3e}, of each gradient's "
         f"largest {', '.join(f'{x:.2e}' for x in rel)} ({ratio:.3f} of the "
         f"gate {RECURRENT_BWD_TOL:g}) {'ok' if ratio <= 1 else 'FAIL'}; "
@@ -4584,7 +4596,7 @@ def check_recurrent_bwd(name: str, label: str, shape: list, kernel, plain,
         f"{json.dumps({k: round(x, 1) for k, x in ctl.items()})}; kernel "
         f"{ms:.4f} ms (with the host {call_ms:.4f}), plain {plain_ms:.4f} "
         f"ms, bound {bound_ms:.6f} ms ({bound_by}), x bound "
-        f"{ms / bound_ms:.1f}")
+        f"{ms / bound_ms:.1f}{extra}")
     if ratio > 1:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version: {label} {shape}")
@@ -4598,7 +4610,8 @@ def check_recurrent_bwd(name: str, label: str, shape: list, kernel, plain,
     return {"label": label, "shape": shape, "max_abs_err": err, "rel": rel,
             "x_gate": ratio, "controls": ctl, "deterministic": same,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"bound_f32_ms": f32[0]} if f32 else {})}
 
 
 def mlstm_bwd_phases() -> tuple:
@@ -4641,12 +4654,13 @@ def mlstm_bwd_phases() -> tuple:
 
 
 def mamba_bwd_phases() -> tuple:
-    """The selective-scan backward kernel against ``selective_scan_bwd_ref``
-    at every shape of :data:`SCAN_BWD_SHAPES` with a seeded cotangent, with
-    two controls: past the first position, ddt without its ``a a_bar h``
-    term, and past one 64-position tile, dh not carried from tile to
-    tile.  Returns
-    (instances, the bf16 training shape's)."""
+    """The selective-scan backward kernel, given the tile states the
+    forward kernel keeps (as training calls it), against
+    ``selective_scan_bwd_ref`` at every shape of :data:`SCAN_BWD_SHAPES`
+    with a seeded cotangent, with two controls: past the first position,
+    ddt without its ``a a_bar h`` term, and past one 64-position tile, dh
+    not carried from tile to tile.  Returns (instances, the bf16 training
+    shape's)."""
     log("== selective-scan backward kernel vs plain (selective_scan_bwd_ref) "
         "on the card")
     out = []
@@ -4655,6 +4669,10 @@ def mamba_bwd_phases() -> tuple:
         dt, a, bmat, cmat, u, _ = mamba_inputs(b, s, d, n, u_dtype, "none")
         gen = torch.Generator(device=DEV).manual_seed(SEED + 7 * s + d)
         dy = torch.randn(b, s, d, generator=gen, device=DEV)
+        # the tile states the forward kernel keeps under a gradient, as the
+        # training path hands them to the backward kernel
+        *_, hs = mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u,
+                                                 keep_states=True)
         # at S = 1 the term is 0 (h_{-1} = 0), within one tile no carry
         controls = {"decay_term_dropped": {"drop_decay_term": True}} \
             if s > 1 else {}
@@ -4662,13 +4680,14 @@ def mamba_bwd_phases() -> tuple:
             controls["carry_dropped"] = {"drop_carry": True, "chunk": 64}
         inst = check_recurrent_bwd(
             "mamba_scan_bwd", label, [b, s, d, n],
-            scan_bwd_ops.selective_scan_bwd_kernel, selective_scan_bwd_ref,
+            functools.partial(scan_bwd_ops.selective_scan_bwd_kernel,
+                              hs=hs), selective_scan_bwd_ref,
             (dt, a, bmat, cmat, u, dy), controls,
             scan_bwd_bound_ms(b, s, d, n, u.element_size()))
         inst.update(dtype="float32", u_dtype=_dname(u_dtype),
                     s=time.perf_counter() - t0)
         out.append(inst)
-        del dt, a, bmat, cmat, u, dy
+        del dt, a, bmat, cmat, u, dy, hs
         gc.collect()
         torch.cuda.empty_cache()
     caught = {c for inst in out for c in inst["controls"]}

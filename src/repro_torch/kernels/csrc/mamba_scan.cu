@@ -53,7 +53,9 @@
 // once and u widened to f32 there.  y goes back through shared memory as
 // coalesced rows.  Padded positions of the last tile have dt = 0, the
 // identity pair.  Every sum runs in a fixed order: repeated runs give the
-// same bits.  128 registers a thread, 2 blocks an SM.
+// same bits.  128 registers a thread, 2 blocks an SM.  Under a gradient
+// it also writes the state entering each tile (hs), for the backward pass:
+// a separate instance (KEEP), so that the serving path's is unchanged.
 //
 // Plain C interface for ctypes: the entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -91,13 +93,13 @@ constexpr size_t smem_bytes() {
   return (2 * stage_floats<N>() + raw_floats<N>() + N * CH) * sizeof(float);
 }
 
-template <int N, typename U>
+template <int N, typename U, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 2)
 mamba_scan_fwd(const float* __restrict__ dt, const float* __restrict__ a,
                const float* __restrict__ bm, const float* __restrict__ cm,
                const U* __restrict__ u, const float* __restrict__ h0,
-               float* __restrict__ y, float* __restrict__ h_last, int s,
-               int dim) {
+               float* __restrict__ y, float* __restrict__ h_last,
+               float* __restrict__ hs, int s, int dim) {
   extern __shared__ __align__(16) float smem[];
   float* raw = smem + 2 * stage_floats<N>();
   U* raw_u = reinterpret_cast<U*>(raw + TS + 2 * TS * N);
@@ -178,6 +180,13 @@ mamba_scan_fwd(const float* __restrict__ dt, const float* __restrict__ a,
     __syncthreads();
   }
   for (int t0 = 0, it = 0; t0 < s; t0 += TS, ++it) {
+    if (KEEP && live) {   // the state entering the tile
+      float* hp = hs + ((static_cast<long long>(b) * ((s + TS - 1) / TS) + it)
+                        * dim + d) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        if (n % L == j) hp[n] = hc[n];
+    }
     const int stg = it & 1;
     const bool more = t0 + TS < s;
     if (more) issue(t0 + TS);
@@ -266,15 +275,18 @@ mamba_scan_fwd(const float* __restrict__ dt, const float* __restrict__ a,
 template <int N, typename U>
 int launch(const float* dt, const float* a, const float* bm,
            const float* cm, const void* u, const float* h0, float* y,
-           float* h_last, int batch, int s, int dim, cudaStream_t stream) {
+           float* h_last, float* hs, int batch, int s, int dim,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<N>();
+  const auto kernel = hs != nullptr ? mamba_scan_fwd<N, U, true>
+                                    : mamba_scan_fwd<N, U, false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_fwd<N, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((dim + CH - 1) / CH, batch);
-  mamba_scan_fwd<N, U><<<grid, THREADS, smem, stream>>>(
-      dt, a, bm, cm, static_cast<const U*>(u), h0, y, h_last, s, dim);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      dt, a, bm, cm, static_cast<const U*>(u), h0, y, h_last, hs, s, dim);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,11 +296,14 @@ extern "C" {
 
 // dt (B, S), a (D, N), bm, cm (B, S, N), h0 and h_last (B, D, N), y
 // (B, S, D): contiguous float32; u (B, S, D) contiguous float32, or bfloat16
-// when u_bf16 is nonzero; h0 may be null (zero state).  N is 8 or 16.  The
-// outputs do not alias the inputs.
+// when u_bf16 is nonzero; h0 may be null (zero state).  hs, when not null,
+// (B, ceil(S / 64), D, N) float32: the state entering each 64-position
+// tile, which the backward pass (mamba_scan_bwd.cu) takes instead of its own
+// forward sweep.  N is 8 or 16.  The outputs do not alias the inputs.
 int mamba_scan(const void* dt, const void* a, const void* bm, const void* cm,
                const void* u, const void* h0, void* y, void* h_last,
-               int batch, int s, int dim, int n, int u_bf16, void* stream) {
+               void* hs, int batch, int s, int dim, int n, int u_bf16,
+               void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (batch < 0 || s < 0 || dim < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -298,7 +313,8 @@ int mamba_scan(const void* dt, const void* a, const void* bm, const void* cm,
   static_cast<const float*>(dt), static_cast<const float*>(a),           \
       static_cast<const float*>(bm), static_cast<const float*>(cm), u,   \
       static_cast<const float*>(h0), static_cast<float*>(y),             \
-      static_cast<float*>(h_last), batch, s, dim, st
+      static_cast<float*>(h_last), static_cast<float*>(hs), batch, s, dim, \
+      st
   switch (n * 2 + (u_bf16 != 0)) {
     case 16: return launch<8, float>(SCAN_ARGS);
     case 17: return launch<8, __nv_bfloat16>(SCAN_ARGS);

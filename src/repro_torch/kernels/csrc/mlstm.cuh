@@ -1,10 +1,11 @@
-// Pieces of the chunkwise mLSTM kernels shared by the forward pass
-// (mlstm.cu) and the backward pass (mlstm_bwd.cu): the chunk and window
-// sizes, the gates pass (A), the 64 x C tile product on the CUDA cores,
-// the staging of 64-position slabs of q or k, and the partial scores pass
-// (S).  mlstm.cu says what each computes.  The passes are device functions:
-// each file wraps them in kernels of its own names, so that a trace tells
-// the forward's launches from the backward's.
+// Pieces of the chunkwise mLSTM kernels: the chunk and window sizes, the
+// gates pass (A) that the forward pass (mlstm.cu) and the backward pass
+// (mlstm_bwd.cu) share, the forward's 64 x C tile product on the CUDA cores,
+// its staging of 64-position slabs of q or k and its partial scores pass
+// (S), and the backward's f32 products on the tensor cores (three TF32
+// passes).  mlstm.cu says what each pass computes.  The passes are device
+// functions: each file wraps them in kernels of its own names, so that a
+// trace tells the forward's launches from the backward's.
 
 #pragma once
 
@@ -70,6 +71,75 @@ __device__ __forceinline__ void zero(float (&acc)[4][8]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// ---- f32 products on the tensor cores: three TF32 passes ----------------------
+// x = hi + lo with hi = x rounded to TF32 (10 mantissa bits, to nearest, ties
+// away from zero: cvt.rna) and lo = (x - hi) rounded likewise; a product's
+// hi hi + hi lo + lo hi keeps ~2^-21 of f32's 2^-24 (lo lo, ~2^-22 of the
+// product, is dropped), where one pass keeps ~2^-11.  Fragments of
+// mma.m16n8k8 (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g);
+// C c0 (g, 2 t), c1 (g, 2 t + 1), c2 (g + 8, 2 t), c3 (g + 8, 2 t + 1).  The
+// sum runs over k in any order, so a product whose A and B both take k
+// columns 2 t, 2 t + 1 for t, t + 4 (a float2 each) is the same product.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32, row) B (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the two small passes: lo hi and hi lo
+__device__ __forceinline__ void mma_small(float (&d)[4], const FragA& a,
+                                          const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+}
+
+// d += a b, the small passes first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_small(d, a, b);
+  mma_tf32(d, a.hi, b.hi);
 }
 
 // ---- A. gates ----------------------------------------------------------------
@@ -214,20 +284,6 @@ struct Slab {
       dst[(4 * d4 + 1) * Q + t] = r[l].y * mul;
       dst[(4 * d4 + 2) * Q + t] = r[l].z * mul;
       dst[(4 * d4 + 3) * Q + t] = r[l].w * mul;
-    }
-  }
-  // the same with position t's row scaled by mul[t]
-  __device__ __forceinline__ void store_rows(float* dst, const float* mul,
-                                             int tid) const {
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      const int e = tid + l * NT;
-      const int t = e % Q, d4 = e / Q;
-      const float m = mul[t];
-      dst[(4 * d4 + 0) * Q + t] = r[l].x * m;
-      dst[(4 * d4 + 1) * Q + t] = r[l].y * m;
-      dst[(4 * d4 + 2) * Q + t] = r[l].z * m;
-      dst[(4 * d4 + 3) * Q + t] = r[l].w * m;
     }
   }
 };

@@ -30,39 +30,46 @@
 // and head, ~4 dh^2 multiply-adds (twice the forward's 2 dh^2: the reverse
 // state's update and its products with v and k, and q's with the forward
 // state).  At xLSTM-350M's training shape (B 8 x 2048, H 4, dh 512) that is
-// ~137 GFLOP, ~2.05 ms at 67 TFLOP/s on the CUDA cores; the bytes (q, k, v,
-// out, dout and the gradients, ~0.6 GB) take ~0.18 ms.
+// ~137 GFLOP, ~2.05 ms at 67 TFLOP/s on the CUDA cores, ~0.83 ms as three
+// TF32 passes at the tensor cores' 495 TFLOP/s; the bytes (q, k, v, out,
+// dout and the gradients, ~0.6 GB) take ~0.18 ms.
 //
-// Design: the forward's passes run again and the backward's follow, each
-// pass filling the card, in windows of SLOTS chunks of 64 positions (the
-// workspace holds one window's states: ~1.2 GB at the training shape),
-// windows from the last to the first:
+// Design: every dh^2 product on the tensor cores at f32 accuracy (three
+// TF32 passes, mlstm.cuh), each state walked once, in seven launches:
 //   A. gates, one block per (batch row, head): the forward's pass;
-//   K. the forward's states, one block per 64 x 64 tile of C, walking every
-//      chunk once and keeping the state at each window's start (the last
-//      window's states stay in the slots);
-//   then per window:
-//   B. the forward's states again from the window's start (not for the
-//      last window), one block per 64 x 64 tile;
-//   S. partial q k^T and dout v^T over quarters of dh, one block per
-//      (chunk, head, quarter): the forward's scores pass, twice;
-//   R. per position (a warp a position, a block a chunk): W and its row sum,
-//      q . n, dout . out, den, Z, dden, dm, and dS;
-//   V. the reverse states: one block per 64 x 64 tile of dC, walking the
-//      window's chunks backwards from the carry of the window after it,
-//      keeping dC leaving each chunk;
-//   G. dq, dk, dv: one block per (chunk, head, 64 columns, which of the
-//      three), each a 64 x 64 product with the chunk's dS or W and a 64 x dh
-//      by dh x 64 product with a state; dk's blocks also write their share
-//      of k . dk;
-//   and after the last window
+//   N. each chunk's own share of n, sum_p e^{a_p - G_end} k_p, one block per
+//      (chunk, head);
+//   R. per chunk (a block per (chunk, head)): q k^T and dout v^T on the
+//      tensor cores; n entering the chunk from N's shares; per position
+//      (a warp a position) W and its row sum, q . n, dout . out, den, Z,
+//      dden, dm and dS; out to device memory go the per-position scalars
+//      and each consumer's 64 x 64 A operand: dS / sqrt(dh) for dq, its
+//      transpose for dk, (W / Z)^T for dv;
+//   W. the two walks, one launch, a block per (64 rows of the state, head,
+//      direction), the block's 64 x dh rows of the state in shared memory:
+//      forward, C from the first chunk to the last, each chunk's dq columns
+//      from C entering it (dout C^T) and the chunk's dS k; reverse, dC from
+//      the last chunk to the first, each chunk's dk columns from dC leaving
+//      it (v dC^T), dS^T q and dn, their share of k . dk, and dC leaving the
+//      chunk written once for dv;
+//   V. dv, a block per (chunk, head, 64 columns): k dC leaving the chunk and
+//      (W / Z)^T dout;
 //   D. the gates' gradients, one block per (batch row, head): k . dk summed
 //      over the column blocks in order, G's gradient run-summed to each new
-//      running max, and the reverse running sum for dlogf (one thread walks
-//      the positions, staged through shared memory).
-// Every product is a 64 x 64 tile in 128 threads on the CUDA cores (f32: the
-// gate is 1e-4 of the plain version), every sum in a fixed order, and no
-// atomics: two calls give the same bits.
+//      running max, and the reverse running sum for dlogf, both as scans of
+//      (a, b) pairs in a fixed tree order.
+// A walk streams the chunk's 64 positions of the two wide operands in
+// pieces of 32 columns (double-buffered cp.async); each warp owns 16 rows x
+// 16 columns of each piece, so the dq (dk) product reads the state tile the
+// warp is about to update, from its registers, and no warp waits on
+// another within a chunk; the two halves of the product meet in shared
+// memory once a chunk, in a fixed order.  A product over more than one
+// piece (the walks', dv's, the scores) is summed a piece at a time in a fresh
+// accumulator and added in f32 arithmetic: the tensor cores' own
+// accumulation drifts toward zero over many products (summed whole, dlogf
+// came to 8.2e-5 of its largest at the training shape against the plain
+// version, 5.1e-5 this way, the CUDA-core kernel's 5.0e-5).  Every sum runs
+// in a fixed order, with no atomics: two calls give the same bits.
 //
 // Plain C interface for ctypes: the entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -75,64 +82,88 @@
 namespace {
 
 using namespace mlstm;
+using hopper::cp_async_16;
 
 constexpr int NPOS = 4;          // per position: 1/Z, dden, dm, q . dq
 constexpr float EPS = 1e-6f;
 constexpr float M_INIT = -1e30f;
-constexpr int ROW_THREADS = 256;
 constexpr int GB_THREADS = 256;
-constexpr int GB_WIN = 2048;      // positions the gates' pass stages at once
+constexpr int GB_PER = 8;        // positions a thread of the gates' pass
+constexpr int GB_WIN = GB_THREADS * GB_PER;   // positions a window of it
+constexpr int NMAT = 3;          // A operands a chunk: dq's, dk's, dv's
+constexpr int LA = Q + 4;        // row stride of a staged A operand
+constexpr int PE = 32;           // columns of a piece
+constexpr int LP = PE + 8;       // row stride of a staged piece
+constexpr int KSUM_THREADS = 128;
 
 template <int DH>
-struct Tile {
-  static constexpr int T = DH < 64 ? DH : 64;   // columns (and rows) a block
-  static constexpr int TX = T / 8;
-  static constexpr int TILES = DH / T;
-  static constexpr int THREADS = TX * (Q / 4);       // 64 rows x T columns
-  static constexpr int WALK_THREADS = TX * (T / 4);  // T x T (the states)
+struct Walk {
+  static constexpr int RT = DH < 64 ? DH : 64;   // state rows a block
+  static constexpr int TILES = DH / RT;
+  static constexpr int RW = RT / 16;             // warps along the rows
+  static constexpr int THREADS = 64 * RW;        // and two along the columns
+  static constexpr int NP = DH / PE;             // pieces a chunk
+  static constexpr int LX = DH + 8;              // state row stride
+  static constexpr int LXK = RT + 8;             // chunk tile row stride
+  static constexpr int STAGE = 2 * Q * LP;       // a piece of each operand
+  static constexpr size_t floats =
+      RT * LX + 2 * STAGE + Q * LXK + Q * LA + 4 * Q + RT + RW * Q;
+  static constexpr size_t bytes = floats * sizeof(float);
+};
+
+template <int DH>
+struct Rows {
+  static constexpr int THREADS = 256;
+  static constexpr int LD = PE + 4;              // staged operand row stride
+  static constexpr int STAGE = 4 * Q * LD;       // q, k, dout, v pieces
+  static constexpr int LS = Q + 1;               // S and P tiles' stride
+  static constexpr size_t bytes = (2 * STAGE + DH) * sizeof(float);
+};
+
+template <int DH>
+struct Dv {
+  static constexpr int ET = DH < 64 ? DH : 64;   // dv columns a block
+  static constexpr int THREADS = 128;            // 2 warps along u x 2 along e
+  static constexpr int NTW = ET / 16;            // n-tiles a warp
+  static constexpr int LK = PE + 4;              // k piece [Q][LK]
+  static constexpr int LC = ET + 8;              // dC piece, dout tile
+  static constexpr int STAGE = Q * LK + PE * LC;
+  static constexpr size_t bytes =
+      (2 * STAGE + Q * LA + Q * LC + Q) * sizeof(float);
 };
 
 struct Work {
   float* gates;   // [B H][gate_stride]
   float* pos;     // [B H][NPOS][padded S]
-  float* kdk;     // [B H][padded S][column blocks]: k . dk by block
+  float* kdk;     // [B H][padded S][row tiles]: k . dk by tile
   float* m01;     // [2][B H]: the gates pass's m in (M_INIT) and out
-  float* scores;  // [window chunk][B H][split][Q][Q]: q k^T
-  float* dvs;     // [window chunk][B H][split][Q][Q]: dout v^T
-  float* wds;     // [window chunk][B H][2][Q][Q]: W and dS
-  float* ckc;     // [window + 1][B H][dh][dh]: C at each window's start
-  float* ckn;     // [window + 1][B H][dh]
-  float* cs;      // [window chunk][B H][dh][dh]: C entering each chunk
-  float* ns;      // [window chunk][B H][dh]
-  float* dcs;     // [window chunk][B H][dh][dh]: dC leaving each chunk
-  float* dns;     // [window chunk][B H][dh]
-  float* dc;      // [B H][dh][dh]: dC carried between windows
-  float* dn;      // [B H][dh]
+  float* ksum;    // [chunk][B H][dh]: each chunk's share of n
+  float* amat;    // [chunk][B H][NMAT][Q][Q]: the A operands
+  float* dcs;     // [chunk][B H][dh][dh]: dC leaving each chunk
 };
 
-long long workspace_floats(int batch, int s, int h, int dh, int splits,
-                           int tiles, float* base, Work* w) {
+long long workspace_floats(int batch, int s, int h, int dh, int tiles,
+                           float* base, Work* w) {
   const int nc = n_chunks(s);
-  const int win = nc < SLOTS ? nc : SLOTS;
-  const int nw = (nc + SLOTS - 1) / SLOTS;
   const long long bh = static_cast<long long>(batch) * h;
   const long long sp = static_cast<long long>(nc) * Q;
-  const long long dd = static_cast<long long>(dh) * dh;
-  const long long sizes[] = {
-      bh * gate_stride(nc), bh * NPOS * sp, bh * sp * tiles, 2 * bh,
-      win * bh * splits * Q * Q, win * bh * splits * Q * Q,
-      win * bh * 2 * Q * Q, (nw + 1) * bh * dd, (nw + 1) * bh * dh,
-      win * bh * dd, win * bh * dh, win * bh * dd, win * bh * dh, bh * dd,
-      bh * dh};
-  float** parts[] = {&w->gates, &w->pos, &w->kdk, &w->m01, &w->scores,
-                     &w->dvs, &w->wds, &w->ckc, &w->ckn, &w->cs, &w->ns,
-                     &w->dcs, &w->dns, &w->dc, &w->dn};
+  const long long sizes[] = {bh * gate_stride(nc), bh * NPOS * sp,
+                             bh * sp * tiles,      2 * bh,
+                             nc * bh * dh,         nc * bh * NMAT * Q * Q,
+                             nc * bh * dh * dh};
+  float** parts[] = {&w->gates, &w->pos,  &w->kdk, &w->m01,
+                     &w->ksum,  &w->amat, &w->dcs};
   long long off = 0;
-  for (int i = 0; i < 15; ++i) {
+  for (int i = 0; i < 7; ++i) {
     if (base != nullptr) *parts[i] = base + off;
     off += round_up(sizes[i], 64);
   }
   return off;
+}
+
+__device__ __forceinline__ long long row_of(int b, int t, int s, int h,
+                                            int head, int dh) {
+  return ((static_cast<long long>(b) * s + t) * h + head) * dh;
 }
 
 __global__ void mlstm_bwd_fill(float* x, int n, float value) {
@@ -140,7 +171,7 @@ __global__ void mlstm_bwd_fill(float* x, int n, float value) {
   if (i < n) x[i] = value;
 }
 
-// A and S: the forward's passes (mlstm.cuh), under names of this file's
+// A: the forward's pass (mlstm.cuh), under a name of this file's
 __global__ void __launch_bounds__(GATE_THREADS)
 mlstm_bwd_fgates(const float* __restrict__ gate_i,
                  const float* __restrict__ gate_f, const float* __restrict__ m0,
@@ -149,134 +180,21 @@ mlstm_bwd_fgates(const float* __restrict__ gate_i,
   gates_pass(gate_i, gate_f, m0, m1, gates, s, h, nc, 0);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(SCORE_THREADS)
-mlstm_bwd_scores(const float* __restrict__ q, const float* __restrict__ k,
-                 float* __restrict__ scores, int s, int h, int j0) {
-  scores_pass<DH>(q, k, scores, s, h, j0);
-}
-
-// ---- K, B, V. a walk of the states over a window's chunks ------------------
-// Per chunk j in the walk's order, the state before the chunk goes to slot
-// j - j0 (when `write_slots`), then
-//   X = decay_j X + sum_p (rc_p rscale x_p) (x) (cc_p y_p)
-//   x = decay_j x + sum_p (rc_p rscale x_p) nw_p
-// over the chunk's positions p, rc the gates' array at `rc_off` (cc and nw
-// per position arrays of `pos`, or null for 1).  Forward: x = k, rc = the
-// coefficients e^{a_p - G_end}, y = v.  Reverse: x = q, rc = e^{G_{j-1} -
-// G_p}, rscale = 1/sqrt(dh), y = dout, cc = 1/Z, nw = dden.
-template <int DH>
-__global__ void __launch_bounds__(Tile<DH>::WALK_THREADS)
-mlstm_bwd_walk(const float* __restrict__ x, const float* __restrict__ y,
-            const float* __restrict__ gates, int rc_off, float rscale,
-            const float* __restrict__ cc, const float* __restrict__ nwt,
-            const float* cin, const float* nin, float* cout, float* nout,
-            float* __restrict__ cs, float* __restrict__ ns, int write_slots,
-            int s, int h, int nc, int j0, int jn, int reverse) {
-  constexpr int T = Tile<DH>::T;
-  constexpr int TX = Tile<DH>::TX;
-  constexpr int NT = Tile<DH>::WALK_THREADS;
-  constexpr int T4 = T / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                // [2][Q][T]: rows of the state
-  float* ys = smem + 2 * Q * T;    // [2][Q][T]: columns of the state
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const int tiles = DH / T;
-  const int r0 = (blockIdx.x / tiles) * T, e0 = (blockIdx.x % tiles) * T;
-  const bool carries_n = e0 == 0;
-  const int bh = blockIdx.y, nbh = gridDim.y, b = bh / h, head = bh % h;
-  const long long sp = static_cast<long long>(nc) * Q;
-  const float* gw = gates + bh * gate_stride(nc);
-  const float* rc = gw + rc_off;
-  const float* decay = gw + NGATE * sp;
-  const float* pcc = cc == nullptr ? nullptr : cc + bh * NPOS * sp;
-  const float* pnw = nwt == nullptr ? nullptr : nwt + bh * NPOS * sp;
-  const long long cbase = static_cast<long long>(bh) * DH * DH;
-
-  float cst[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      cst[i][j] = cin[cbase + static_cast<long long>(r0 + 4 * ty + i) * DH +
-                      e0 + col<T>(tx, j)];
-  float nst = (carries_n && tid < T) ? nin[bh * DH + r0 + tid] : 0.f;
-
-  auto load = [&](int j, int st) {
-    const int t0 = j * Q, len = min(Q, s - t0);
-    for (int e = tid; e < Q * T4; e += NT) {
-      const int u = e / T4, c = 4 * (e % T4);
-      const bool ok = u < len;
-      const long long row =
-          ((static_cast<long long>(b) * s + t0 + (ok ? u : 0)) * h + head) *
-          DH;
-      cp_async_16_or_zero(xs + (st * Q + u) * T + c, x + row + r0 + c, ok);
-      cp_async_16_or_zero(ys + (st * Q + u) * T + c, y + row + e0 + c, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int count = jn - j0;
-  load(reverse ? jn - 1 : j0, 0);
-  for (int i = 0; i < count; ++i) {
-    const int j = reverse ? jn - 1 - i : j0 + i;
-    const int jl = j - j0, st = i & 1;
-    if (write_slots) {
-      float* cslot = cs + (static_cast<long long>(jl) * nbh + bh) * DH * DH;
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        float* row =
-            cslot + static_cast<long long>(r0 + 4 * ty + ii) * DH + e0;
-        *reinterpret_cast<float4*>(row + col<T>(tx, 0)) =
-            make_float4(cst[ii][0], cst[ii][1], cst[ii][2], cst[ii][3]);
-        *reinterpret_cast<float4*>(row + col<T>(tx, 4)) =
-            make_float4(cst[ii][4], cst[ii][5], cst[ii][6], cst[ii][7]);
-      }
-      if (carries_n && tid < T)
-        ns[(static_cast<long long>(jl) * nbh + bh) * DH + r0 + tid] = nst;
-    }
-    if (i + 1 < count) {
-      load(reverse ? j - 1 : j + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    float* xc = xs + st * Q * T;
-    float* yc = ys + st * Q * T;
-    for (int e = tid; e < Q * T; e += NT) {
-      const int u = j * Q + e / T;
-      xc[e] *= rc[u] * rscale;
-      if (pcc != nullptr) yc[e] *= pcc[u];
-    }
-    __syncthreads();
-    float acc[4][8];
-    zero(acc);
-#pragma unroll 4
-    for (int u = 0; u < Q; ++u)
-      fma_step<T>(acc, xc + u * T, yc + u * T, ty, tx);
-    const float dc = decay[j];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        cst[ii][jj] = dc * cst[ii][jj] + acc[ii][jj];
-    if (carries_n && tid < T) {
-      float a = 0.f;
-      for (int u = 0; u < Q; ++u)
-        a += xc[u * T + tid] * (pnw != nullptr ? pnw[j * Q + u] : 1.f);
-      nst = dc * nst + a;
-    }
-    __syncthreads();   // stage st is refilled by the next iteration's load
+// ---- N. each chunk's share of n ---------------------------------------------
+__global__ void __launch_bounds__(KSUM_THREADS)
+mlstm_bwd_ksum(const float* __restrict__ k, const float* __restrict__ gates,
+               float* __restrict__ ksum, int s, int h, int nc, int dh) {
+  const int j = blockIdx.x, bh = blockIdx.y, nbh = gridDim.y;
+  const int b = bh / h, head = bh % h;
+  const int t0 = j * Q, len = min(Q, s - t0);
+  const float* coeff = gates + bh * gate_stride(nc) + 4LL * nc * Q + t0;
+  float* dst = ksum + (static_cast<long long>(j) * nbh + bh) * dh;
+  for (int d = threadIdx.x; d < dh; d += KSUM_THREADS) {
+    float acc = 0.f;
+    for (int p = 0; p < len; ++p)
+      acc = fmaf(coeff[p], k[row_of(b, t0 + p, s, h, head, dh) + d], acc);
+    dst[d] = acc;
   }
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    float* row = cout + cbase + static_cast<long long>(r0 + 4 * ty + ii) * DH +
-                 e0;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) row[col<T>(tx, jj)] = cst[ii][jj];
-  }
-  if (carries_n && tid < T) nout[bh * DH + r0 + tid] = nst;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -285,57 +203,138 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ---- R. per position: den, Z, the two branches' gradients, W and dS --------
+// ---- R. per chunk: the scores, the per-position scalars, the A operands ----
 template <int DH>
-__global__ void __launch_bounds__(ROW_THREADS)
-mlstm_bwd_rows(const float* __restrict__ q, const float* __restrict__ out,
+__global__ void __launch_bounds__(Rows<DH>::THREADS)
+mlstm_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ out,
                const float* __restrict__ dout,
                const float* __restrict__ gates,
-               const float* __restrict__ scores,
-               const float* __restrict__ dvs, const float* __restrict__ ns,
-               float* __restrict__ pos, float* __restrict__ wds, int s, int h,
-               int nc, int j0, float scale) {
-  constexpr int KS = score_splits<DH>();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int jl = blockIdx.x, j = j0 + jl;
-  const int bh = blockIdx.y, nbh = gridDim.y, b = bh / h, head = bh % h;
-  const int t0 = j * Q;
+               const float* __restrict__ ksum, float* __restrict__ pos,
+               float* __restrict__ amat, int s, int h, int nc, float scale) {
+  using R = Rows<DH>;
+  constexpr int NT = R::THREADS, LD = R::LD, LS = R::LS;
+  extern __shared__ __align__(16) float smem[];
+  float* nj = smem + 2 * R::STAGE;   // [DH]: n entering the chunk
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int j = blockIdx.x, bh = blockIdx.y, nbh = gridDim.y;
+  const int b = bh / h, head = bh % h;
+  const int t0 = j * Q, len = min(Q, s - t0);
   const long long sp = static_cast<long long>(nc) * Q;
   const float* gw = gates + bh * gate_stride(nc);
   const float* src = gw;
   const float* gg = gw + sp;
   const float* mt = gw + 2 * sp;
   const float* inter = gw + 3 * sp;
-  const long long slot = static_cast<long long>(jl) * nbh + bh;
-  const float* sc = scores + slot * KS * Q * Q;
-  const float* dv = dvs + slot * KS * Q * Q;
-  const float* nslot = ns + slot * DH;
+  const float* decay = gw + NGATE * sp;
+
+  // four pieces of PE columns: q, k, dout, v rows of the chunk
+  auto load = [&](int d0, int st) {
+    float* base = smem + st * R::STAGE;
+    const float* srcs[4] = {q, k, dout, v};
+    for (int e = tid; e < 4 * Q * (PE / 4); e += NT) {
+      const int m = e / (Q * (PE / 4)), r = e % (Q * (PE / 4));
+      const int u = r / (PE / 4), c = 4 * (r % (PE / 4));
+      const bool ok = u < len;
+      cp_async_16_or_zero(
+          base + (m * Q + u) * LD + c,
+          srcs[m] + row_of(b, t0 + (ok ? u : 0), s, h, head, DH) + d0 + c,
+          ok);
+    }
+    cp_async_commit();
+  };
+  load(0, 0);
+  // n entering the chunk: the chunks' shares before it, decayed in order
+  for (int d = tid; d < DH; d += NT) {
+    float n = 0.f;
+    for (int i = 0; i < j; ++i)
+      n = fmaf(decay[i], n, ksum[(static_cast<long long>(i) * nbh + bh) * DH +
+                                 d]);
+    nj[d] = n;
+  }
+
+  // warps 0-3: S = q k^T, warps 4-7: P = dout v^T; a 32 x 32 quarter each
+  const int which = warp >> 2, mh = warp & 1, nh = (warp >> 1) & 1;
+  float acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[a][c][x] = 0.f;
+  constexpr int NPC = DH / PE;
+  for (int i = 0; i < NPC; ++i) {
+    if (i + 1 < NPC) {
+      load(PE * (i + 1), (i + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* as = smem + (i & 1) * R::STAGE + (2 * which) * Q * LD;
+    const float* bs = as + Q * LD;
+    float part[2][4][4] = {};   // the piece's share, added in f32
+#pragma unroll
+    for (int ks = 0; ks < PE / 8; ++ks) {
+      FragA fa[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* r0 = as + (32 * mh + 16 * m + g) * LD + 8 * ks + t4;
+        fa[m] = frag_a(r0[0], r0[8 * LD], r0[4], r0[8 * LD + 4]);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* c0 = bs + (32 * nh + 8 * n + g) * LD + 8 * ks + t4;
+        const FragB fb = frag_b(c0[0], c0[4]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma3(part[m][n], fa[m], fb);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][n][c] += part[m][n][c];
+    __syncthreads();   // the stage is refilled by the next load
+  }
+  // S and P into shared memory (the stages are free)
+  float* sm = smem;              // [Q][LS]: S, then W / Z
+  float* pm = smem + Q * LS;     // [Q][LS]: P, then dS / sqrt(dh)
+  {
+    float* dst = which ? pm : sm;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int r = 32 * mh + 16 * m + g, c = 32 * nh + 8 * n + 2 * t4;
+        dst[r * LS + c] = acc[m][n][0];
+        dst[r * LS + c + 1] = acc[m][n][1];
+        dst[(r + 8) * LS + c] = acc[m][n][2];
+        dst[(r + 8) * LS + c + 1] = acc[m][n][3];
+      }
+  }
+  __syncthreads();
+
   float* pw = pos + bh * NPOS * sp;
-  float* wslot = wds + slot * 2 * Q * Q;
-  for (int t = warp; t < Q; t += ROW_THREADS / 32) {
+  for (int t = warp; t < Q; t += NT / 32) {
     const int p = t0 + t;
-    const bool valid = p < s;
-    const float g = gg[p];
+    const bool valid = t < len;
+    const float gt = gg[p];
     float w[2], dnv[2], dd[2];
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int u = lane + 32 * x;
-      float a = 0.f, c = 0.f;
-#pragma unroll
-      for (int k = 0; k < KS; ++k) {
-        a += sc[(k * Q + t) * Q + u];
-        c += dv[(k * Q + t) * Q + u];
-      }
-      dd[x] = (valid && u <= t) ? expf(src[t0 + u] - g) : 0.f;
-      w[x] = a * scale * dd[x];
-      dnv[x] = c;
+      dd[x] = (valid && u <= t) ? expf(src[t0 + u] - gt) : 0.f;
+      w[x] = sm[t * LS + u] * scale * dd[x];
+      dnv[x] = pm[t * LS + u];
     }
     float qn = 0.f, doo = 0.f;
     if (valid) {
-      const long long row =
-          ((static_cast<long long>(b) * s + p) * h + head) * DH;
+      const long long row = row_of(b, p, s, h, head, DH);
       for (int d = lane; d < DH; d += 32) {
-        qn = fmaf(q[row + d], nslot[d], qn);
+        qn = fmaf(q[row + d], nj[d], qn);
         doo = fmaf(dout[row + d], out[row + d], doo);
       }
     }
@@ -363,201 +362,543 @@ mlstm_bwd_rows(const float* __restrict__ q, const float* __restrict__ out,
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int u = lane + 32 * x;
-      wslot[t * Q + u] = w[x];
-      wslot[Q * Q + t * Q + u] = (dnv[x] * invz + dden) * dd[x];
+      sm[t * LS + u] = w[x] * invz;
+      pm[t * LS + u] = scale * (dnv[x] * invz + dden) * dd[x];
     }
+  }
+  __syncthreads();
+  // the A operands: dq's dS / sqrt(dh) [t][u], dk's its transpose [u][t],
+  // dv's (W / Z)^T [u][t]
+  float* am = amat + (static_cast<long long>(j) * nbh + bh) * NMAT * Q * Q;
+  for (int e = tid; e < Q * Q; e += NT) {
+    const int r = e / Q, c = e % Q;
+    am[e] = pm[r * LS + c];
+    am[Q * Q + e] = pm[c * LS + r];
+    am[2 * Q * Q + e] = sm[c * LS + r];
   }
 }
 
-// ---- G. dq, dk, dv ----------------------------------------------------------
-// mode 0 (dq): rows t, A = dS / sqrt(dh), X = k; Y = dout e^{G_{j-1} - G_t}
-//   / (Z_t sqrt(dh)), M = C_j^T; + e^{G_{j-1} - G_t} dden_t / sqrt(dh) n_j.
-// mode 1 (dk): rows u, A = dS^T / sqrt(dh), X = q; Y = v coeff_u, M =
-//   dC_{j+1}^T; + coeff_u dn_{j+1}; and each row's share of k . dk.
-// mode 2 (dv): rows u, A = (W / Z)^T, X = dout; Y = k coeff_u, M = dC_{j+1}.
-// out[r][c] = sum_p A[r][p] X[p][c] + sum_e Y[r][e] M[e][c] (+ the n term),
-// for the block's T columns c.
+// ---- W. the walks -------------------------------------------------------------
+// Direction 0 (forward): X = C, rows r of the block's column slice of k;
+//   X = decay_j X + sum_p (e^{a_p - G_end} k_p)[r] v_p, and before it
+//   dq_t[r] = e^{G_{j-1} - G_t} / (Z_t sqrt(dh)) sum_e dout_t[e] X[r][e]
+//             + (dS k / sqrt(dh))_t[r] + e^{G_{j-1} - G_t} dden_t / sqrt(dh)
+//               n_j[r].
+// Direction 1 (reverse): X = dC, rows d of the slice of q;
+//   X = decay_j X + sum_t (e^{G_{j-1} - G_t} q_t / (Z_t sqrt(dh)))[d] dout_t,
+//   and before it dk_u[d] = e^{a_u - G_end} (sum_e v_u[e] X[d][e] + dn[d])
+//             + (dS^T q / sqrt(dh))_u[d]; X goes to dcs for dv.
+// Both: the chunk's own term's A operand (R's) against the chunk's x rows.
 template <int DH>
-struct GradTile {
-  static constexpr int T = Tile<DH>::T;
-  static constexpr int THREADS = Tile<DH>::THREADS;
-  // A [Q p][Q r], X [Q][T], k [Q][T] (mode 1), Y slab [DK][Q], M slab
-  // [DK][T], two row scales
-  static constexpr size_t floats = Q * Q + 2 * Q * T + DK * Q + DK * T + 2 * Q;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
-
-template <int DH>
-__global__ void __launch_bounds__(GradTile<DH>::THREADS)
-mlstm_bwd_grads(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ gates,
-                const float* __restrict__ pos, const float* __restrict__ wds,
-                const float* __restrict__ cs, const float* __restrict__ ns,
-                const float* __restrict__ dcs, const float* __restrict__ dns,
-                float* __restrict__ dq, float* __restrict__ dk,
-                float* __restrict__ dv, float* __restrict__ kdk, int s, int h,
-                int nc, int j0, float scale) {
-  constexpr int T = Tile<DH>::T;
-  constexpr int TX = Tile<DH>::TX;
-  constexpr int TILES = Tile<DH>::TILES;
-  constexpr int NT = GradTile<DH>::THREADS;
-  constexpr int T4 = T / 4;
-  constexpr int MLOADS = DK * T4 / NT;   // float4s of an M slab a thread
+__global__ void __launch_bounds__(Walk<DH>::THREADS, 1)
+mlstm_bwd_walk(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ gates, const float* __restrict__ pos,
+               const float* __restrict__ ksum, const float* __restrict__ amat,
+               float* __restrict__ dq, float* __restrict__ dk,
+               float* __restrict__ kdk, float* __restrict__ dcs, int s,
+               int h, int nc, float scale) {
+  using W = Walk<DH>;
+  constexpr int RT = W::RT, RW = W::RW, NT = W::THREADS, NP = W::NP;
+  constexpr int LX = W::LX, LXK = W::LXK;
   extern __shared__ __align__(16) float smem[];
-  float* aq = smem;                 // [Q p][Q r]
-  float* xs = aq + Q * Q;           // [Q p][T]
-  float* xk = xs + Q * T;           // [Q r][T]: k (mode 1)
-  float* ys = xk + Q * T;           // [DK][Q r]
-  float* ms = ys + DK * Q;          // [DK][T]
-  float* row_b = ms + DK * T;       // [Q]: Y's row scale
-  float* row_c = row_b + Q;         // [Q]: the n term's row scale
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const int mode = blockIdx.z / TILES, c0 = (blockIdx.z % TILES) * T;
-  const int jl = blockIdx.x, j = j0 + jl;
+  float* xs = smem;                    // [RT][LX]: the state's rows
+  float* stage = xs + RT * LX;         // [2][z piece [Q][LP], y piece]
+  float* xt = stage + 2 * W::STAGE;    // [Q][LXK]: the chunk's x columns
+  float* at = xt + Q * LXK;            // [Q][LA]: the chunk's A operand
+  float* ca = at + Q * LA;             // [Q]: the update's coefficients
+  float* rsv = ca + Q;                 // [Q]: the product's row scales
+  float* rcn = rsv + Q;                // [Q]: the n term's row scales
+  float* wdn = rcn + Q;                // [Q]: dn's weights (reverse)
+  float* nin = wdn + Q;                // [RT]: n (dn) before the chunk
+  float* kd = nin + RT;                // [RW][Q]: k . dk by warp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = warp % RW, hw = warp / RW;
+  const int rt = blockIdx.x, r0 = rt * RT;
   const int bh = blockIdx.y, nbh = gridDim.y, b = bh / h, head = bh % h;
-  const int t0 = j * Q, len = min(Q, s - t0);
+  const bool rev = blockIdx.z != 0;
+  const float* x = rev ? q : k;        // the update's rows
+  const float* y = rev ? dout : v;     // the update's columns
+  const float* z = rev ? v : dout;     // the product's rows
+  float* dst = rev ? dk : dq;
+  const int mat = rev ? 1 : 0;
   const long long sp = static_cast<long long>(nc) * Q;
   const float* gw = gates + bh * gate_stride(nc);
   const float* inter = gw + 3 * sp;
   const float* coeff = gw + 4 * sp;
+  const float* decay = gw + NGATE * sp;
   const float* pw = pos + bh * NPOS * sp;
   const float* invz = pw;
-  const float* dden = pw + sp;
-  const long long slot = static_cast<long long>(jl) * nbh + bh;
-  const float* wslot = wds + slot * 2 * Q * Q;
+  const float* ddn = pw + sp;
 
-  // X (and k for mode 1) by cp.async, in flight while A is formed
-  const float* xsrc = mode == 0 ? k : (mode == 1 ? q : dout);
-  for (int e = tid; e < Q * T4; e += NT) {
-    const int u = e / T4, c = 4 * (e % T4);
-    const bool ok = u < len;
-    const long long row =
-        ((static_cast<long long>(b) * s + t0 + (ok ? u : 0)) * h + head) * DH +
-        c0 + c;
-    cp_async_16_or_zero(xs + u * T + c, xsrc + row, ok);
-    if (mode == 1) cp_async_16_or_zero(xk + u * T + c, k + row, ok);
-  }
+  auto load_tiles = [&](int j) {
+    const int t0 = j * Q, len = min(Q, s - t0);
+    for (int e = tid; e < Q * (RT / 4); e += NT) {
+      const int u = e / (RT / 4), c = 4 * (e % (RT / 4));
+      const bool ok = u < len;
+      cp_async_16_or_zero(
+          xt + u * LXK + c,
+          x + row_of(b, t0 + (ok ? u : 0), s, h, head, DH) + r0 + c, ok);
+    }
+    const float* am =
+        amat + ((static_cast<long long>(j) * nbh + bh) * NMAT + mat) * Q * Q;
+    for (int e = tid; e < Q * (Q / 4); e += NT) {
+      const int u = e / (Q / 4), c = 4 * (e % (Q / 4));
+      cp_async_16(at + u * LA + c, am + u * Q + c);
+    }
+  };
+  auto load_piece = [&](int j, int i, int st) {
+    const int t0 = j * Q, len = min(Q, s - t0);
+    float* zs = stage + st * W::STAGE;
+    float* ys = zs + Q * LP;
+    for (int e = tid; e < Q * (PE / 4); e += NT) {
+      const int u = e / (PE / 4), c = 4 * (e % (PE / 4));
+      const bool ok = u < len;
+      const long long row =
+          row_of(b, t0 + (ok ? u : 0), s, h, head, DH) + PE * i + c;
+      cp_async_16_or_zero(zs + u * LP + c, z + row, ok);
+      cp_async_16_or_zero(ys + u * LP + c, y + row, ok);
+    }
+  };
+
+  for (int e = tid; e < RT * LX; e += NT) xs[e] = 0.f;
+  float nrun = 0.f;   // thread r < RT: n (dn) entering the next chunk
+  const int jfirst = rev ? nc - 1 : 0;
+  load_tiles(jfirst);
+  load_piece(jfirst, 0, 0);
   cp_async_commit();
-  for (int r = tid; r < Q; r += NT) {
-    const int p = t0 + r;
-    if (mode == 0) {
-      row_b[r] = scale * inter[p] * invz[p];
-      row_c[r] = scale * inter[p] * dden[p];
-    } else {
-      row_b[r] = coeff[p];
-      row_c[r] = mode == 1 ? coeff[p] : 0.f;
+  int item = 0;       // pieces walked, over all chunks: the stage's parity
+  for (int ci = 0; ci < nc; ++ci) {
+    const int j = rev ? nc - 1 - ci : ci;
+    const int jn = rev ? j - 1 : j + 1;
+    const bool more = ci + 1 < nc;
+    const int t0 = j * Q, len = min(Q, s - t0);
+    for (int p = tid; p < Q; p += NT) {
+      const int t = t0 + p;   // padded positions carry zeros
+      const float co = coeff[t];
+      const float qz = scale * inter[t] * invz[t];
+      const float qd = scale * inter[t] * ddn[t];
+      ca[p] = rev ? qz : co;
+      rsv[p] = rev ? co : qz;
+      rcn[p] = rev ? co : qd;
+      wdn[p] = qd;
     }
-  }
-  for (int e = tid; e < Q * Q; e += NT) {
-    const int t = e / Q, u = e % Q;
-    if (mode == 0)
-      aq[u * Q + t] = scale * wslot[Q * Q + e];
-    else if (mode == 1)
-      aq[e] = scale * wslot[Q * Q + e];
-    else
-      aq[e] = wslot[e] * invz[t0 + t];
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  float acc[4][8];
-  zero(acc);
-#pragma unroll 4
-  for (int p = 0; p < Q; ++p) fma_step<T>(acc, aq + p * Q, xs + p * T, ty, tx);
-
-  // sum_e Y[r][e] M[e][c] over slabs of DK
-  const float* ysrc = mode == 0 ? dout : (mode == 1 ? v : k);
-  const float* mst = (mode == 0 ? cs : dcs) + slot * DH * DH;
-  Slab<NT> py;
-  float4 pm[MLOADS];
-  auto fetch_m = [&](int e0) {
-#pragma unroll
-    for (int l = 0; l < MLOADS; ++l) {
-      const int e = tid + l * NT;
-      if (mode == 2) {           // M[d][c] = dC[d][c0 + c]
-        const int d = e / T4, c = 4 * (e % T4);
-        pm[l] = *reinterpret_cast<const float4*>(
-            mst + static_cast<long long>(e0 + d) * DH + c0 + c);
-      } else {                   // M[e][c] = St[c0 + c][e]
-        const int c = e / (DK / 4), d4 = e % (DK / 4);
-        pm[l] = *reinterpret_cast<const float4*>(
-            mst + static_cast<long long>(c0 + c) * DH + e0 + 4 * d4);
-      }
-    }
-  };
-  auto store_m = [&]() {
-#pragma unroll
-    for (int l = 0; l < MLOADS; ++l) {
-      const int e = tid + l * NT;
-      if (mode == 2) {
-        *reinterpret_cast<float4*>(ms + (e / T4) * T + 4 * (e % T4)) = pm[l];
-      } else {
-        const int c = e / (DK / 4), d4 = e % (DK / 4);
-        ms[(4 * d4 + 0) * T + c] = pm[l].x;
-        ms[(4 * d4 + 1) * T + c] = pm[l].y;
-        ms[(4 * d4 + 2) * T + c] = pm[l].z;
-        ms[(4 * d4 + 3) * T + c] = pm[l].w;
-      }
-    }
-  };
-  py.fetch(ysrc, b, t0, s, h, head, DH, 0, tid);
-  fetch_m(0);
-  for (int e0 = 0; e0 < DH; e0 += DK) {
-    __syncthreads();   // the slab before is used
-    py.store_rows(ys, row_b, tid);
-    store_m();
+    cp_async_wait<0>();
     __syncthreads();
-    if (e0 + DK < DH) {
-      py.fetch(ysrc, b, t0, s, h, head, DH, e0 + DK, tid);
-      fetch_m(e0 + DK);
+    const float dc = decay[j];
+    if (tid < RT) {
+      nin[tid] = nrun;
+      float add = 0.f;
+      if (rev) {
+        for (int p = 0; p < Q; ++p) add = fmaf(wdn[p], xt[p * LXK + tid], add);
+      } else {
+        add = ksum[(static_cast<long long>(j) * nbh + bh) * DH + r0 + tid];
+      }
+      nrun = fmaf(dc, nrun, add);
     }
-#pragma unroll 8
-    for (int d = 0; d < DK; ++d) fma_step<T>(acc, ys + d * Q, ms + d * T, ty, tx);
-  }
-
-  const float* nvec =
-      mode == 0 ? ns + slot * DH : (mode == 1 ? dns + slot * DH : nullptr);
-  float* dst = mode == 0 ? dq : (mode == 1 ? dk : dv);
+    // the update's A operand, x^T scaled by position, held for the chunk
+    FragA ka[Q / 8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    float o[8];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      o[jj] = acc[i][jj];
-      if (nvec != nullptr) o[jj] += row_c[r] * nvec[c0 + col<T>(tx, jj)];
+    for (int ks = 0; ks < Q / 8; ++ks) {
+      const int p0 = 8 * ks + t4, r = 16 * rw + g;
+      const float c0 = ca[p0], c1 = ca[p0 + 4];
+      ka[ks] = frag_a(c0 * xt[p0 * LXK + r], c0 * xt[p0 * LXK + r + 8],
+                      c1 * xt[(p0 + 4) * LXK + r],
+                      c1 * xt[(p0 + 4) * LXK + r + 8]);
     }
-    if (r < len) {
-      float* row = dst +
-                   ((static_cast<long long>(b) * s + t0 + r) * h + head) * DH +
-                   c0;
-      *reinterpret_cast<float4*>(row + col<T>(tx, 0)) =
-          make_float4(o[0], o[1], o[2], o[3]);
-      *reinterpret_cast<float4*>(row + col<T>(tx, 4)) =
-          make_float4(o[4], o[5], o[6], o[7]);
-    }
-    if (mode == 1) {
-      float kd = 0.f;
+    // the chunk's own term, this warp's half of its 64 positions
+    float ai[4][2][4], acc[4][2][4];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        kd = fmaf(o[jj], xk[r * T + col<T>(tx, jj)], kd);
+    for (int m = 0; m < 4; ++m)
 #pragma unroll
-      for (int off = 1; off < TX; off <<= 1)
-        kd += __shfl_xor_sync(FULL, kd, off);
-      if (tx == 0)
-        kdk[(bh * sp + t0 + r) * TILES + c0 / T] = r < len ? kd : 0.f;
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ai[m][n][c] = acc[m][n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int u0 = 32 * hw + 8 * kk + t4;
+      FragB fb[2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int r = 16 * rw + 8 * n + g;
+        fb[n] = frag_b(xt[u0 * LXK + r], xt[(u0 + 4) * LXK + r]);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float* a0 = at + (16 * m + g) * LA + u0;
+        const FragA fa = frag_a(a0[0], a0[8 * LA], a0[4], a0[8 * LA + 4]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma3(ai[m][n], fa, fb[n]);
+      }
     }
+    for (int i = 0; i < NP; ++i, ++item) {
+      __syncthreads();   // the stage refilled below is used; at i = 0 the
+                         // chunk's tiles are too
+      if (i + 1 < NP)
+        load_piece(j, i + 1, (item + 1) & 1);
+      else if (more)
+        load_piece(jn, 0, (item + 1) & 1);
+      if (i == 0 && more) load_tiles(jn);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* zs = stage + (item & 1) * W::STAGE;
+      const float* ys = zs + Q * LP;
+      const int cl = 16 * hw;           // this warp's columns in the piece
+      const int e0 = PE * i + cl;       // and in the state
+      float xa[2][4];
+      float* xr0 = xs + (16 * rw + g) * LX + e0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 lo = *reinterpret_cast<const float2*>(xr0 + 8 * n);
+        const float2 hi = *reinterpret_cast<const float2*>(xr0 + 8 * LX + 8 * n);
+        xa[n][0] = lo.x;
+        xa[n][1] = lo.y;
+        xa[n][2] = hi.x;
+        xa[n][3] = hi.y;
+      }
+      if (rev) {   // dC leaving chunk j, for dv
+        float* dr = dcs +
+                    ((static_cast<long long>(j) * nbh + bh) * DH + r0 +
+                     16 * rw + g) * DH + e0 + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          *reinterpret_cast<float2*>(dr + 8 * n) = make_float2(xa[n][0], xa[n][1]);
+          *reinterpret_cast<float2*>(dr + 8 * DH + 8 * n) =
+              make_float2(xa[n][2], xa[n][3]);
+        }
+      }
+      // the product over this warp's 16 columns, the state from registers
+      // (k columns 2 t, 2 t + 1 of each 8)
+      FragB xb[2][2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        xb[n][0] = frag_b(xa[n][0], xa[n][1]);
+        xb[n][1] = frag_b(xa[n][2], xa[n][3]);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float part[2][4] = {};   // the piece's share, added in f32
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* zr = zs + (16 * m + g) * LP + cl + 8 * kk + 2 * t4;
+          const float2 z0 = *reinterpret_cast<const float2*>(zr);
+          const float2 z1 = *reinterpret_cast<const float2*>(zr + 8 * LP);
+          const FragA fa = frag_a(z0.x, z1.x, z0.y, z1.y);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) mma3(part[n], fa, xb[kk][n]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][n][c] += part[n][c];
+      }
+      // the update: X = decay X + x^T y over the chunk's 64 positions, the
+      // chunk's sum in fresh accumulators (the big and the small passes
+      // apart), the state's own update in f32 arithmetic
+      float big[2][4], small[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) big[n][c] = small[n][c] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < Q / 8; ++ks) {
+        const int p0 = 8 * ks + t4;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int c = cl + 8 * n + g;
+          const FragB fb = frag_b(ys[p0 * LP + c], ys[(p0 + 4) * LP + c]);
+          mma_small(small[n], ka[ks], fb);
+          mma_tf32(big[n], ka[ks].hi, fb.hi);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float2* lo = reinterpret_cast<float2*>(xr0 + 8 * n);
+        float2* hi = reinterpret_cast<float2*>(xr0 + 8 * LX + 8 * n);
+        const float2 x0 = *lo, x1 = *hi;
+        *lo = make_float2(fmaf(dc, x0.x, big[n][0] + small[n][0]),
+                          fmaf(dc, x0.y, big[n][1] + small[n][1]));
+        *hi = make_float2(fmaf(dc, x1.x, big[n][2] + small[n][2]),
+                          fmaf(dc, x1.y, big[n][3] + small[n][3]));
+      }
+    }
+    // the chunk's rows: each warp's product scaled by position plus its half
+    // of the chunk's own term; the column halves meet in the last stage
+    __syncthreads();
+    constexpr int LE = RT + 8;
+    float* ex = stage + ((item - 1) & 1) * W::STAGE;   // [Q][LE]
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int tr = 16 * m + g + 8 * hr;
+        const float sc = rsv[tr];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          acc[m][n][2 * hr] = fmaf(sc, acc[m][n][2 * hr], ai[m][n][2 * hr]);
+          acc[m][n][2 * hr + 1] =
+              fmaf(sc, acc[m][n][2 * hr + 1], ai[m][n][2 * hr + 1]);
+          if (hw == 1)
+            *reinterpret_cast<float2*>(ex + tr * LE + 16 * rw + 8 * n +
+                                       2 * t4) =
+                make_float2(acc[m][n][2 * hr], acc[m][n][2 * hr + 1]);
+        }
+      }
+    __syncthreads();
+    if (hw == 0) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int tr = 16 * m + g + 8 * hr;
+          const bool ok = tr < len;
+          const long long row = row_of(b, t0 + (ok ? tr : 0), s, h, head, DH);
+          float kdot = 0.f;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int c = 16 * rw + 8 * n + 2 * t4;
+            const float2 o =
+                *reinterpret_cast<const float2*>(ex + tr * LE + c);
+            const float v0 = acc[m][n][2 * hr] + o.x + rcn[tr] * nin[c];
+            const float v1 =
+                acc[m][n][2 * hr + 1] + o.y + rcn[tr] * nin[c + 1];
+            if (ok) {
+              *reinterpret_cast<float2*>(dst + row + r0 + c) =
+                  make_float2(v0, v1);
+              if (rev) {
+                const float2 kv =
+                    *reinterpret_cast<const float2*>(k + row + r0 + c);
+                kdot = fmaf(v0, kv.x, kdot);
+                kdot = fmaf(v1, kv.y, kdot);
+              }
+            }
+          }
+          if (rev) {
+            kdot += __shfl_xor_sync(FULL, kdot, 1);
+            kdot += __shfl_xor_sync(FULL, kdot, 2);
+            if (t4 == 0) kd[rw * Q + tr] = kdot;
+          }
+        }
+    }
+    __syncthreads();
+    if (rev && tid < Q) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) sum += kd[w * Q + tid];
+      kdk[(bh * sp + t0 + tid) * W::TILES + rt] = tid < len ? sum : 0.f;
+    }
+    __syncthreads();   // the chunk's scalars are read
   }
 }
 
+// ---- V. dv -------------------------------------------------------------------
+// dv_u[e] = e^{a_u - G_end} sum_d k_u[d] dC_{j+1}[d][e] + ((W / Z)^T dout)_u[e]
+template <int DH>
+__global__ void __launch_bounds__(Dv<DH>::THREADS)
+mlstm_bwd_dv(const float* __restrict__ k, const float* __restrict__ dout,
+             const float* __restrict__ gates, const float* __restrict__ amat,
+             const float* __restrict__ dcs, float* __restrict__ dv, int s,
+             int h, int nc) {
+  using V = Dv<DH>;
+  constexpr int ET = V::ET, NT = V::THREADS, NTW = V::NTW, LK = V::LK;
+  constexpr int LC = V::LC, NPC = DH / PE;
+  extern __shared__ __align__(16) float smem[];
+  float* at = smem + 2 * V::STAGE;   // [Q][LA]: (W / Z)^T
+  float* dt = at + Q * LA;           // [Q][LC]: the chunk's dout columns
+  float* cf = dt + Q * LC;           // [Q]: e^{a_u - G_end}
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mh = warp & 1, nh = warp >> 1;
+  const int j = blockIdx.x, bh = blockIdx.y, nbh = gridDim.y;
+  const int e0 = blockIdx.z * ET;
+  const int b = bh / h, head = bh % h;
+  const int t0 = j * Q, len = min(Q, s - t0);
+  const long long sp = static_cast<long long>(nc) * Q;
+  const float* coeff = gates + bh * gate_stride(nc) + 4 * sp + t0;
+  const float* dc =
+      dcs + (static_cast<long long>(j) * nbh + bh) * DH * DH + e0;
+
+  {   // the chunk's own term's operands
+    const float* am =
+        amat + ((static_cast<long long>(j) * nbh + bh) * NMAT + 2) * Q * Q;
+    for (int e = tid; e < Q * (Q / 4); e += NT) {
+      const int u = e / (Q / 4), c = 4 * (e % (Q / 4));
+      cp_async_16(at + u * LA + c, am + u * Q + c);
+    }
+    for (int e = tid; e < Q * (ET / 4); e += NT) {
+      const int u = e / (ET / 4), c = 4 * (e % (ET / 4));
+      const bool ok = u < len;
+      cp_async_16_or_zero(
+          dt + u * LC + c,
+          dout + row_of(b, t0 + (ok ? u : 0), s, h, head, DH) + e0 + c, ok);
+    }
+    for (int u = tid; u < Q; u += NT) cf[u] = coeff[u];
+  }
+  auto load = [&](int i, int st) {
+    float* ks = smem + st * V::STAGE;
+    float* cs = ks + Q * LK;
+    const int d0 = PE * i;
+    for (int e = tid; e < Q * (PE / 4); e += NT) {
+      const int u = e / (PE / 4), c = 4 * (e % (PE / 4));
+      const bool ok = u < len;
+      cp_async_16_or_zero(
+          ks + u * LK + c,
+          k + row_of(b, t0 + (ok ? u : 0), s, h, head, DH) + d0 + c, ok);
+    }
+    for (int e = tid; e < PE * (ET / 4); e += NT) {
+      const int d = e / (ET / 4), c = 4 * (e % (ET / 4));
+      cp_async_16(cs + d * LC + c,
+                  dc + static_cast<long long>(d0 + d) * DH + c);
+    }
+    cp_async_commit();
+  };
+  load(0, 0);
+
+  float acc[2][NTW][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][n][c] = 0.f;
+  for (int i = 0; i < NPC; ++i) {
+    if (i + 1 < NPC) {
+      load(i + 1, (i + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ks = smem + (i & 1) * V::STAGE;
+    const float* cs = ks + Q * LK;
+    float part[2][NTW][4] = {};   // the piece's share, added in f32
+#pragma unroll
+    for (int kk = 0; kk < PE / 8; ++kk) {
+      FragA fa[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* a0 = ks + (32 * mh + 16 * m + g) * LK + 8 * kk + t4;
+        fa[m] = frag_a(a0[0], a0[8 * LK], a0[4], a0[8 * LK + 4]);
+      }
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const float* b0 = cs + (8 * kk + t4) * LC + (ET / 2) * nh + 8 * n + g;
+        const FragB fb = frag_b(b0[0], b0[4 * LC]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma3(part[m][n], fa[m], fb);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NTW; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][n][c] += part[m][n][c];
+    __syncthreads();   // the stage is refilled by the next load
+  }
+  // scaled by position, then the chunk's own term
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int u = 32 * mh + 16 * m + g;
+    const float c0 = cf[u], c1 = cf[u + 8];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      acc[m][n][0] *= c0;
+      acc[m][n][1] *= c0;
+      acc[m][n][2] *= c1;
+      acc[m][n][3] *= c1;
+    }
+  }
+  float part[2][NTW][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < Q / 8; ++kk) {
+    FragA fa[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* a0 = at + (32 * mh + 16 * m + g) * LA + 8 * kk + t4;
+      fa[m] = frag_a(a0[0], a0[8 * LA], a0[4], a0[8 * LA + 4]);
+    }
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const float* b0 = dt + (8 * kk + t4) * LC + (ET / 2) * nh + 8 * n + g;
+      const FragB fb = frag_b(b0[0], b0[4 * LC]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma3(part[m][n], fa[m], fb);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][n][c] += part[m][n][c];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int u = 32 * mh + 16 * m + g + 8 * hr;
+      if (u >= len) continue;
+      float* row = dv + row_of(b, t0 + u, s, h, head, DH) + e0 + (ET / 2) * nh;
+#pragma unroll
+      for (int n = 0; n < NTW; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n + 2 * t4) =
+            make_float2(acc[m][n][2 * hr], acc[m][n][2 * hr + 1]);
+    }
+}
+
 // ---- D. the gates' gradients -------------------------------------------------
+// Two reverse recurrences x_t = b_t + a_t x_{t+1} over the positions: G's
+// gradient summed over each run of one running max into its first position,
+// R_t = (dm_t - rowv_t) + [t + 1 is no new max] R_{t+1}, dlogi_t = k . dk
+// + [t is a new max] R_t (a new max: the later at a tie, as torch.cummax);
+// and dlogf_t = (dm_t - dlogi_t) + dlogf_{t+1}.  Each is a scan of the pairs
+// (a, b), composed (a1, b1) o (a2, b2) = (a1 a2, b1 + a1 b2): a thread's 8
+// positions in turn, a warp's threads by shuffles, the warps' totals from
+// the last warp back, a window of 2048 positions at a time from the last,
+// the carry from the window after entering at its end.  A fixed order.
+
+// the composition of the threads after this one in the block (identity for
+// the last), given this thread's pair
+__device__ __forceinline__ void after_scan(float a, float b, float& ea,
+                                           float& eb, float* sa, float* sb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float oa = __shfl_down_sync(FULL, a, off);
+    const float ob = __shfl_down_sync(FULL, b, off);
+    if (lane + off < 32) {
+      b = fmaf(a, ob, b);
+      a *= oa;
+    }
+  }
+  if (lane == 0) {
+    sa[warp] = a;
+    sb[warp] = b;
+  }
+  __syncthreads();
+  float ta = 1.f, tb = 0.f;   // the warps after this one
+  for (int w = GB_THREADS / 32 - 1; w > warp; --w) {
+    tb = fmaf(sa[w], tb, sb[w]);
+    ta *= sa[w];
+  }
+  const float ia = a * ta, ib = fmaf(a, tb, b);
+  ea = __shfl_down_sync(FULL, ia, 1);
+  eb = __shfl_down_sync(FULL, ib, 1);
+  if (lane == 31) {
+    ea = ta;
+    eb = tb;
+  }
+  __syncthreads();   // sa, sb are read
+}
+
 __global__ void __launch_bounds__(GB_THREADS)
 mlstm_bwd_gates(const float* __restrict__ gates, const float* __restrict__ pos,
                 const float* __restrict__ kdk, float* dli, float* dlf, int s,
                 int h, int nc, int tiles) {
-  __shared__ float sg[GB_WIN];
-  __shared__ unsigned char srec[GB_WIN];
+  __shared__ float sa[GB_THREADS / 32], sb[GB_THREADS / 32];
+  __shared__ float carry[2];
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / h, head = bh % h;
   const long long sp = static_cast<long long>(nc) * Q;
@@ -569,53 +910,66 @@ mlstm_bwd_gates(const float* __restrict__ gates, const float* __restrict__ pos,
   const float* dm = pw + 2 * sp;
   const float* rowv = pw + 3 * sp;
   const long long base = static_cast<long long>(b) * s * h + head;
-  // da = k . dk, and G's gradient summed over each run of one running max
-  // into the run's first position (a new max: the later at a tie, as
-  // torch.cummax)
-  float acc = 0.f;
-  int r = -1;
-  for (int w0 = 0; w0 < s; w0 += GB_WIN) {
-    const int wn = min(GB_WIN, s - w0);
-    for (int i = tid; i < wn; i += GB_THREADS) {
-      const int t = w0 + i;
-      float da = 0.f;
-      for (int x = 0; x < tiles; ++x) da += kdk[(bh * sp + t) * tiles + x];
-      const float prev = (t % Q) != 0 ? gg[t - 1] : (t ? mt[t - 1] : M_INIT);
-      dli[base + static_cast<long long>(t) * h] = da;
-      sg[i] = dm[t] - rowv[t];
-      srec[i] = src[t] >= prev;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int i = 0; i < wn; ++i) {
-        if (srec[i]) {
-          if (r >= 0) dli[base + static_cast<long long>(r) * h] += acc;
-          r = w0 + i;
-          acc = 0.f;
-        }
-        acc += sg[i];
-      }
-      if (w0 + wn == s && r >= 0)
-        dli[base + static_cast<long long>(r) * h] += acc;
-    }
-    __syncthreads();
-  }
-  // dlogf: the reverse running sum of dm - dlogi
-  float run = 0.f;
+  auto is_max = [&](int t) {
+    const float prev = (t % Q) != 0 ? gg[t - 1] : (t ? mt[t - 1] : M_INIT);
+    return src[t] >= prev;
+  };
+  float cr = 0.f, cf = 0.f;   // R and dlogf after the window
   for (int w1 = s; w1 > 0; w1 -= GB_WIN) {
-    const int w0 = max(0, w1 - GB_WIN), wn = w1 - w0;
-    for (int i = tid; i < wn; i += GB_THREADS)
-      sg[i] = dm[w0 + i] - dli[base + static_cast<long long>(w0 + i) * h];
-    __syncthreads();
-    if (tid == 0) {
-      for (int i = wn - 1; i >= 0; --i) {
-        run += sg[i];
-        sg[i] = run;
+    const int w0 = max(0, w1 - GB_WIN);
+    const int t0 = w0 + GB_PER * tid;
+    float dg[GB_PER], ra[GB_PER], da[GB_PER];
+    bool rec[GB_PER];
+    float a = 1.f, bb = 0.f;
+#pragma unroll
+    for (int x = GB_PER - 1; x >= 0; --x) {
+      const int t = t0 + x;
+      rec[x] = false;
+      dg[x] = da[x] = 0.f;
+      ra[x] = 1.f;
+      if (t < w1) {
+        rec[x] = is_max(t);
+        dg[x] = dm[t] - rowv[t];
+        ra[x] = (t + 1 < s && !is_max(t + 1)) ? 1.f : 0.f;
+        float sum = 0.f;
+        for (int i = 0; i < tiles; ++i) sum += kdk[(bh * sp + t) * tiles + i];
+        da[x] = sum;
+      }
+      bb = fmaf(ra[x], bb, dg[x]);
+      a *= ra[x];
+    }
+    float ea, eb;
+    after_scan(a, bb, ea, eb, sa, sb);
+    float r = fmaf(ea, cr, eb);   // R after this thread's positions
+    float dfc[GB_PER];
+#pragma unroll
+    for (int x = GB_PER - 1; x >= 0; --x) {
+      const int t = t0 + x;
+      dfc[x] = 0.f;
+      if (t < w1) {
+        r = fmaf(ra[x], r, dg[x]);
+        const float d = rec[x] ? da[x] + r : da[x];
+        dli[base + static_cast<long long>(t) * h] = d;
+        dfc[x] = dm[t] - d;
       }
     }
+    if (tid == 0) carry[0] = r;
+    // dlogf: the reverse running sum of dm - dlogi
+    float f = 0.f;
+#pragma unroll
+    for (int x = GB_PER - 1; x >= 0; --x) f += dfc[x];
+    after_scan(1.f, f, ea, eb, sa, sb);
+    float y = eb + cf;
+#pragma unroll
+    for (int x = GB_PER - 1; x >= 0; --x) {
+      const int t = t0 + x;
+      y += dfc[x];
+      if (t < w1) dlf[base + static_cast<long long>(t) * h] = y;
+    }
+    if (tid == 0) carry[1] = y;
     __syncthreads();
-    for (int i = tid; i < wn; i += GB_THREADS)
-      dlf[base + static_cast<long long>(w0 + i) * h] = sg[i];
+    cr = carry[0];
+    cf = carry[1];
     __syncthreads();
   }
 }
@@ -631,95 +985,55 @@ int launch(const float* q, const float* k, const float* v, const float* li,
            const float* lf, const float* out, const float* dout, float* dq,
            float* dk, float* dv, float* dli, float* dlf, float* work,
            int batch, int s, int h, float scale, cudaStream_t stream) {
-  constexpr int KS = score_splits<DH>();
-  constexpr int T = Tile<DH>::T;
-  constexpr int TILES = Tile<DH>::TILES;
-  constexpr int WT = Tile<DH>::WALK_THREADS;
-  constexpr size_t walk_bytes = 2 * 2 * Q * T * sizeof(float);
+  using Wk = Walk<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       mlstm_bwd_walk<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(walk_bytes));
+      static_cast<int>(Wk::bytes));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mlstm_bwd_grads<DH>,
+    err = cudaFuncSetAttribute(mlstm_bwd_rows<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(GradTile<DH>::bytes));
+                               static_cast<int>(Rows<DH>::bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlstm_bwd_dv<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Dv<DH>::bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const int nc = n_chunks(s), bh = batch * h;
-  const int nw = (nc + SLOTS - 1) / SLOTS;
-  const long long sp = static_cast<long long>(nc) * Q;
-  const long long dd = static_cast<long long>(DH) * DH;
   Work w;
-  workspace_floats(batch, s, h, DH, KS, TILES, work, &w);
+  workspace_floats(batch, s, h, DH, Wk::TILES, work, &w);
   float* m0 = w.m01;
   float* m1 = w.m01 + bh;
   mlstm_bwd_fill<<<(bh + 255) / 256, 256, 0, stream>>>(m0, bh, M_INIT);
   CHECK_LAUNCH();
-  if ((err = cudaMemsetAsync(w.ckc, 0, bh * dd * sizeof(float), stream)) !=
-          cudaSuccess ||
-      (err = cudaMemsetAsync(w.ckn, 0, bh * DH * sizeof(float), stream)) !=
-          cudaSuccess ||
-      (err = cudaMemsetAsync(w.dc, 0, bh * dd * sizeof(float), stream)) !=
-          cudaSuccess ||
-      (err = cudaMemsetAsync(w.dn, 0, bh * DH * sizeof(float), stream)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
   // A. gates
   mlstm_bwd_fgates<<<bh, GATE_THREADS, 0, stream>>>(li, lf, m0, m1, w.gates,
                                                     s, h, nc);
   CHECK_LAUNCH();
-  const dim3 wgrid(TILES * TILES, bh);
-  const int coeff_off = static_cast<int>(4 * sp);
-  const int inter_off = static_cast<int>(3 * sp);
-  // K. the forward's states, a checkpoint at each window's start; the last
-  // window's states stay in the slots
-  for (int wi = 0; wi < nw; ++wi) {
-    const int j0 = wi * SLOTS, jn = min(nc, j0 + SLOTS);
-    mlstm_bwd_walk<DH><<<wgrid, WT, walk_bytes, stream>>>(
-        k, v, w.gates, coeff_off, 1.f, nullptr, nullptr, w.ckc + wi * bh * dd,
-        w.ckn + wi * bh * DH, w.ckc + (wi + 1) * bh * dd,
-        w.ckn + (wi + 1) * bh * DH, w.cs, w.ns, wi == nw - 1, s, h, nc, j0,
-        jn, 0);
-    CHECK_LAUNCH();
-  }
-  for (int wi = nw - 1; wi >= 0; --wi) {
-    const int j0 = wi * SLOTS, jn = min(nc, j0 + SLOTS), cn = jn - j0;
-    if (wi != nw - 1) {
-      // B. the window's states again from its checkpoint
-      mlstm_bwd_walk<DH><<<wgrid, WT, walk_bytes, stream>>>(
-          k, v, w.gates, coeff_off, 1.f, nullptr, nullptr,
-          w.ckc + wi * bh * dd, w.ckn + wi * bh * DH,
-          w.ckc + (wi + 1) * bh * dd, w.ckn + (wi + 1) * bh * DH, w.cs, w.ns,
-          1, s, h, nc, j0, jn, 0);
-      CHECK_LAUNCH();
-    }
-    // S. partial q k^T and dout v^T
-    mlstm_bwd_scores<DH><<<dim3(cn, bh, KS), SCORE_THREADS, 0, stream>>>(
-        q, k, w.scores, s, h, j0);
-    CHECK_LAUNCH();
-    mlstm_bwd_scores<DH><<<dim3(cn, bh, KS), SCORE_THREADS, 0, stream>>>(
-        dout, v, w.dvs, s, h, j0);
-    CHECK_LAUNCH();
-    // R. per position
-    mlstm_bwd_rows<DH><<<dim3(cn, bh), ROW_THREADS, 0, stream>>>(
-        q, out, dout, w.gates, w.scores, w.dvs, w.ns, w.pos, w.wds, s, h, nc,
-        j0, scale);
-    CHECK_LAUNCH();
-    // V. the reverse states, from the carry of the window after
-    mlstm_bwd_walk<DH><<<wgrid, WT, walk_bytes, stream>>>(
-        q, dout, w.gates, inter_off, scale, w.pos, w.pos + sp, w.dc, w.dn,
-        w.dc, w.dn, w.dcs, w.dns, 1, s, h, nc, j0, jn, 1);
-    CHECK_LAUNCH();
-    // G. dq, dk, dv
-    mlstm_bwd_grads<DH><<<dim3(cn, bh, 3 * TILES), GradTile<DH>::THREADS,
-                          GradTile<DH>::bytes, stream>>>(
-        q, k, v, dout, w.gates, w.pos, w.wds, w.cs, w.ns, w.dcs, w.dns, dq, dk,
-        dv, w.kdk, s, h, nc, j0, scale);
-    CHECK_LAUNCH();
-  }
+  // N. each chunk's share of n
+  mlstm_bwd_ksum<<<dim3(nc, bh), KSUM_THREADS, 0, stream>>>(k, w.gates,
+                                                            w.ksum, s, h, nc,
+                                                            DH);
+  CHECK_LAUNCH();
+  // R. the scores and the per-position scalars
+  mlstm_bwd_rows<DH><<<dim3(nc, bh), Rows<DH>::THREADS, Rows<DH>::bytes,
+                       stream>>>(q, k, v, out, dout, w.gates, w.ksum, w.pos,
+                                 w.amat, s, h, nc, scale);
+  CHECK_LAUNCH();
+  // W. the forward walk (dq) and the reverse walk (dk, dC for dv)
+  mlstm_bwd_walk<DH><<<dim3(Wk::TILES, bh, 2), Wk::THREADS, Wk::bytes,
+                       stream>>>(q, k, v, dout, w.gates, w.pos, w.ksum,
+                                 w.amat, dq, dk, w.kdk, w.dcs, s, h, nc,
+                                 scale);
+  CHECK_LAUNCH();
+  // V. dv
+  mlstm_bwd_dv<DH><<<dim3(nc, bh, DH / Dv<DH>::ET), Dv<DH>::THREADS,
+                     Dv<DH>::bytes, stream>>>(k, dout, w.gates, w.amat, w.dcs,
+                                              dv, s, h, nc);
+  CHECK_LAUNCH();
   // D. the gates' gradients
   mlstm_bwd_gates<<<bh, GB_THREADS, 0, stream>>>(w.gates, w.pos, w.kdk, dli,
-                                                 dlf, s, h, nc, TILES);
+                                                 dlf, s, h, nc, Wk::TILES);
   CHECK_LAUNCH();
   return static_cast<int>(cudaSuccess);
 }
@@ -733,14 +1047,14 @@ extern "C" {
 long long mlstm_bwd_workspace_floats(int batch, int s, int h, int dh) {
   Work w;
   switch (dh) {
-    case 32: return workspace_floats(batch, s, h, 32, score_splits<32>(),
-                                     Tile<32>::TILES, nullptr, &w);
-    case 64: return workspace_floats(batch, s, h, 64, score_splits<64>(),
-                                     Tile<64>::TILES, nullptr, &w);
-    case 128: return workspace_floats(batch, s, h, 128, score_splits<128>(),
-                                      Tile<128>::TILES, nullptr, &w);
-    case 512: return workspace_floats(batch, s, h, 512, score_splits<512>(),
-                                      Tile<512>::TILES, nullptr, &w);
+    case 32: return workspace_floats(batch, s, h, 32, Walk<32>::TILES,
+                                     nullptr, &w);
+    case 64: return workspace_floats(batch, s, h, 64, Walk<64>::TILES,
+                                     nullptr, &w);
+    case 128: return workspace_floats(batch, s, h, 128, Walk<128>::TILES,
+                                      nullptr, &w);
+    case 512: return workspace_floats(batch, s, h, 512, Walk<512>::TILES,
+                                      nullptr, &w);
     default: return -1;
   }
 }

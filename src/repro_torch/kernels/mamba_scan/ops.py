@@ -14,9 +14,11 @@ new tensor does), and bf16 u with an odd D or address is widened to f32.
 
 Under autograd (grad mode on and an input requiring a gradient)
 :func:`selective_scan` goes through :class:`SelectiveScan`: its forward is
-the same kernel, its backward the kernel of ``csrc/mamba_scan_bwd.cu``
-(``kernels.mamba_scan_bwd``); on CPU tensors the same Function runs the
-plain versions (:func:`selective_scan_ref`, ``selective_scan_bwd_ref``).
+the same kernel, which then also keeps the state entering each 64-position
+tile, its backward the kernel of ``csrc/mamba_scan_bwd.cu``
+(``kernels.mamba_scan_bwd``), which takes those states; on CPU tensors the
+same Function runs the plain versions (:func:`selective_scan_ref`,
+``selective_scan_bwd_ref``).
 The gradient starts from the zero state and leaves the final state out, as
 training runs the layer: an ``h0``, or a gradient arriving for ``h_last``,
 raises ``NotImplementedError``.  Serving runs without a gradient, and its
@@ -48,7 +50,7 @@ def reset_launches() -> None:
 def _entry():
     lib = _build.load("mamba_scan")
     fn = lib.mamba_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -59,11 +61,15 @@ def _entry():
 def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
                           bmat: torch.Tensor, cmat: torch.Tensor,
                           u: torch.Tensor,
-                          h0: torch.Tensor | None = None) -> tuple:
+                          h0: torch.Tensor | None = None,
+                          keep_states: bool = False) -> tuple:
     """Launch the CUDA kernel.  dt (B, S) and a (D, N) f32; bmat, cmat
     (B, S, N), any float type (cast to f32 here: they are small); u
     (B, S, D) f32 or bf16; h0 (B, D, N) f32 or None (zero state); all on one
-    card.  Returns (y (B, S, D), h_last (B, D, N)), new f32 tensors."""
+    card.  Returns (y (B, S, D), h_last (B, D, N)), new f32 tensors, and
+    with ``keep_states`` also the state entering each 64-position tile,
+    (B, ceil(S / 64), D, N) f32, which the backward kernel takes in place of
+    its own forward sweep."""
     global launches
     ins = {"dt": dt, "a": a, "bmat": bmat, "cmat": cmat, "u": u}
     if h0 is not None:
@@ -102,18 +108,21 @@ def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
     fn, err_str = _entry()
     y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=u.device)
+    hs = (torch.empty((b, -(-s // bwd_ops.TILE), d, n),
+                      dtype=torch.float32, device=u.device)
+          if keep_states else None)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), u.data_ptr(),
                  0 if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 h_last.data_ptr(), b, s, d, n,
-                 int(u.dtype == torch.bfloat16), stream)
+                 h_last.data_ptr(), 0 if hs is None else hs.data_ptr(), b,
+                 s, d, n, int(u.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
                            f"{err} ({err_str(err).decode()})")
     launches += 1
-    return y, h_last
+    return (y, h_last, hs) if keep_states else (y, h_last)
 
 
 class SelectiveScan(torch.autograd.Function):
@@ -126,12 +135,14 @@ class SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dt, a, bmat, cmat, u):
+        hs = None
         if u.device.type == "cpu":
             y, h_last = selective_scan_ref(dt, a, bmat, cmat, u)
         else:
-            y, h_last = selective_scan_kernel(dt, a, bmat, cmat, u)
+            y, h_last, hs = selective_scan_kernel(dt, a, bmat, cmat, u,
+                                                  keep_states=True)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(dt, a, bmat, cmat, u)
+        ctx.save_for_backward(dt, a, bmat, cmat, u, hs)
         return y, h_last
 
     @staticmethod
@@ -140,10 +151,10 @@ class SelectiveScan(torch.autograd.Function):
             raise NotImplementedError(
                 "the selective scan's backward takes no gradient of the "
                 "final state h_last: training drops it")
-        ins = ctx.saved_tensors
+        *ins, hs = ctx.saved_tensors
         if dy is None:
             return (None,) * 5
-        grads = bwd_ops.selective_scan_bwd(*ins, dy)
+        grads = bwd_ops.selective_scan_bwd(*ins, dy, hs)
         return tuple(g.to(x.dtype) for g, x in zip(grads, ins))
 
 

@@ -4,17 +4,19 @@ plain version on the CPU.
 The kernel (``kernels/csrc/mlstm_bwd.cu``) computes dq, dk, dv, dlogi and
 dlogf of the forward kernel's output from a zero state in, the final state
 unused (:func:`~repro_torch.kernels.mlstm.ref.mlstm_chunkwise_bwd_ref`), in
-f32 on the CUDA cores, at the forward's head dims (:data:`HEAD_DIMS`);
-it replaces no Pallas kernel (the reference differentiates its jnp
-``mlstm_chunkwise``).  A call makes several CUDA launches (the forward's
-gates and states again, then the backward's passes, in windows of 16
-64-position chunks) on a workspace allocated for the call (~1.2 GB at
-xLSTM-350M's training shape, B 8 x 2048, H 4, dh 512); no atomics, so two
-calls give the same bits.
+f32, every dh^2 product on the tensor cores as three TF32 passes, at the
+forward's head dims (:data:`HEAD_DIMS`); it replaces no Pallas kernel (the
+reference differentiates its jnp ``mlstm_chunkwise``).  A call makes seven
+CUDA launches (the forward's gates, each chunk's share of n, the scores
+and per-position scalars, the forward and reverse walks of the states in
+one launch, dv, the gates' gradients) on a workspace allocated for the
+call (~1.13 GB at xLSTM-350M's training shape, B 8 x 2048, H 4, dh 512,
+most of it dC leaving each chunk); no atomics, so two calls give the same
+bits.
 
 Bound: ~4 dh^2 multiply-adds a position and head (the recurrent form's
 gradient), ~137 GFLOP at the training shape, ~2.05 ms at the CUDA cores'
-f32 peak.
+f32 peak, ~0.83 ms as three TF32 passes at the tensor cores' peak.
 
 :class:`repro_torch.kernels.mlstm.ops.MLSTM` calls :func:`mlstm_bwd` from
 its ``backward``.  ``launches`` counts the calls that ran the kernel;

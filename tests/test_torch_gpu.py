@@ -1826,8 +1826,10 @@ def _rel_each(got, want):
     (1, 2, 2, 32),        # the shortest sequence it takes
     (2, 65, 2, 64),       # one past the kernel's 64-position chunk
     (2, 300, 2, 128),     # ragged past the plain version's 256
-    (1, 1100, 1, 64),     # past one window of 16 chunks
+    (1, 1100, 1, 64),     # past 16 chunks
     (2, 130, 4, 512),     # xLSTM-350M's head dim
+    (2, 65, 2, 32),       # a tensor-core tile's ragged tail at dh 32
+    (1, 1100, 2, 32),     # and past 16 chunks
 ])
 def test_mlstm_bwd_kernel_matches_plain(b, s, h, dh):
     """dq, dk, dv, dlogi, dlogf against ``mlstm_chunkwise_bwd_ref``, each
@@ -1897,23 +1899,55 @@ def _scan_bwd_close(got, want, u_dtype):
     (2, 130, 200, 16, "bfloat16"),      # ragged tiles
     (1, 300, 67, 16, "float32"),        # an odd D
     (2, 65, 16384, 16, "bfloat16"),     # Jamba's width, one past a tile
+    (2, 130, 33, 8, "bfloat16"),        # an odd D past a block, N 8
+    (1, 71, 31, 8, "float32"),          # D under one block, N 8
 ])
 def test_scan_bwd_kernel_matches_plain(b, s, d, n, u_dtype):
-    """ddt, da, dB, dC, du against ``selective_scan_bwd_ref``, the same
-    bits on repeat; du in u's type."""
+    """ddt, da, dB, dC, du, given the forward kernel's kept tile states,
+    against ``selective_scan_bwd_ref``, the same bits on repeat; du in u's
+    type."""
     _card()
     ud = getattr(torch, u_dtype)
     gen = torch.Generator(device="cuda").manual_seed(s + d + n)
     dt, a, bmat, cmat, u, _ = _scan_inputs(gen, b, s, d, n, ud, "none")
     dy = _randn(gen, b, s, d, dtype=torch.float32)
+    *_, hs = mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u,
+                                             keep_states=True)
     before = scan_bwd_ops.launches
-    got = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy)
-    again = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy)
+    got = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy, hs)
+    again = scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy, hs)
     torch.cuda.synchronize()
     assert scan_bwd_ops.launches == before + 2
     assert got[4].dtype == ud
     _scan_bwd_close(got, selective_scan_bwd_ref(dt, a, bmat, cmat, u, dy), ud)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d,n,u_dtype", [
+    (2, 130, 200, 16, "bfloat16"),      # ragged tiles
+    (1, 193, 33, 8, "float32"),         # an odd D, N 8, one past 3 tiles
+])
+def test_scan_forward_keeps_the_tile_states(b, s, d, n, u_dtype):
+    """``keep_states`` (the ``SelectiveScan`` Function's forward under a
+    gradient) leaves y and h_last bit for bit as they were, and its states
+    are the plain scan's final states over each tile's prefix (the zero
+    state for the first), within the forward's tolerance."""
+    _card()
+    ud = getattr(torch, u_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(s + d + n + 1)
+    dt, a, bmat, cmat, u, _ = _scan_inputs(gen, b, s, d, n, ud, "none")
+    y, h_last = mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u)
+    y2, h2, hs = mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u,
+                                                 keep_states=True)
+    assert torch.equal(y, y2) and torch.equal(h_last, h2)
+    assert hs.shape == (b, -(-s // 64), d, n)
+    assert not hs[:, 0].any()
+    for i in range(1, hs.shape[1]):
+        p = 64 * i
+        _, want = selective_scan_ref(dt[:, :p].contiguous(), a, bmat[:, :p],
+                                     cmat[:, :p], u[:, :p].contiguous())
+        torch.testing.assert_close(hs[:, i], want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -1923,22 +1957,30 @@ def test_scan_bwd_kernel_rejects_bad_input():
     dt, a, bmat, cmat, u, _ = _scan_inputs(gen, 1, 8, 64, 16, torch.float32,
                                            "none")
     dy = torch.zeros_like(u)
+    *_, hs = mamba_ops.selective_scan_kernel(dt, a, bmat, cmat, u,
+                                             keep_states=True)
     with pytest.raises(ValueError, match="d_state"):
         scan_bwd_ops.selective_scan_bwd_kernel(
-            dt, a[:, :4].contiguous(), bmat[..., :4], cmat[..., :4], u, dy)
+            dt, a[:, :4].contiguous(), bmat[..., :4], cmat[..., :4], u, dy,
+            hs[..., :4].contiguous())
     with pytest.raises(TypeError, match="u must be"):
         scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u.half(),
-                                               dy)
+                                               dy, hs)
     with pytest.raises(ValueError, match="dy must have shape"):
         scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u,
-                                               dy[..., :32])
+                                               dy[..., :32], hs)
     with pytest.raises(TypeError, match="dy must be float32|float32"):
         scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u,
-                                               dy.bfloat16())
+                                               dy.bfloat16(), hs)
     with pytest.raises(ValueError, match="contiguous"):
         scan_bwd_ops.selective_scan_bwd_kernel(
             dt, a, bmat, cmat,
-            u.transpose(1, 2).contiguous().transpose(1, 2), dy)
+            u.transpose(1, 2).contiguous().transpose(1, 2), dy, hs)
+    with pytest.raises(ValueError, match="hs must have shape"):
+        scan_bwd_ops.selective_scan_bwd_kernel(dt, a, bmat, cmat, u, dy,
+                                               hs[:, :, :32].contiguous())
+    with pytest.raises(ValueError, match="tile states"):
+        scan_bwd_ops.selective_scan_bwd(dt, a, bmat, cmat, u, dy, None)
 
 
 def _loss_grads_on_the_card(cfg, counters):

@@ -7,8 +7,9 @@ autograd Function.
 
 Bars: against autograd 1e-10 of each gradient's largest magnitude in f64
 and 1e-5 in f32 (the same arithmetic in another order); against the
-reference 1e-4 in f32; the kernel's model 1e-5 in f64 and 1e-4 in f32,
-the kernel's own bar on the card.
+reference 1e-4 in f32; the kernel's model 1e-5 in f64 and 1e-4 in f32
+(in f32 with the kernel's three TF32 passes a product), the kernel's own
+bar on the card.
 """
 import numpy as np
 import pytest
@@ -129,25 +130,77 @@ def test_function_passes_gradcheck():
 
 
 # -- a model of the backward kernel's passes (kernels/csrc/mlstm_bwd.cu) -------
-Q, SLOTS, T = 64, 16, 64     # chunk, chunks a window, columns a block
+Q, T = 64, 64     # chunk, state rows (and dk's column block) a walk block
+GB_PER, GB_WIN = 8, 2048    # the gates' pass: positions a thread, a window
+
+
+def _after_scan(a, b):
+    """For pairs (a, b) of x_t = b_t + a_t x_{t+1}, one a thread of the
+    gates' pass (last dim, 256 threads), the composition of the threads after
+    each, in the kernel's order: a warp's 32 by shuffles (offsets 1 to 16),
+    the warps' totals from the last warp back, the next thread's result (the
+    later warps' for a warp's last lane)."""
+    lead = a.shape[:-1]
+    a, b = a.reshape(*lead, 8, 32), b.reshape(*lead, 8, 32)
+    off = 1
+    while off < 32:
+        oa = torch.nn.functional.pad(a[..., off:], (0, off), value=1.0)
+        ob = torch.nn.functional.pad(b[..., off:], (0, off), value=0.0)
+        b = a * ob + b
+        a = a * oa
+        off *= 2
+    ta = [None] * 8
+    tb = [None] * 8
+    ca, cb = torch.ones_like(a[..., 0, 0]), torch.zeros_like(b[..., 0, 0])
+    for w in reversed(range(8)):
+        ta[w], tb[w] = ca, cb
+        cb = a[..., w, 0] * cb + b[..., w, 0]
+        ca = a[..., w, 0] * ca
+    ta, tb = torch.stack(ta, -1)[..., None], torch.stack(tb, -1)[..., None]
+    ia, ib = a * ta, a * tb + b
+    ea = torch.cat([ia[..., 1:], ta], -1).reshape(*lead, 256)
+    eb = torch.cat([ib[..., 1:], tb], -1).reshape(*lead, 256)
+    return ea, eb
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero, in f32: the kernel's ``cvt.rna.tf32.f32``."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a, b):
+    """``a @ b`` as the kernel's tensor cores take it: in f32 three TF32
+    passes, lo hi + hi lo + hi hi (hi = a rounded to TF32, lo = the rest
+    rounded likewise), summed in f32; in f64 the exact product (the passes'
+    order alone)."""
+    if a.dtype != torch.float32:
+        return a @ b
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def _kernel_bwd(q, k, v, logi, logf, out, dout):
-    """mlstm_bwd.cu's passes in plain PyTorch, in the dtype of the inputs:
-    A. each 64-position chunk's gates (the stabiliser carried as a scalar);
-    K. the forward states over every chunk, a checkpoint at each window of
-    SLOTS chunks; per window from the last: B. the window's states again
-    from its checkpoint, R. per position W's row sum, q . n, dout . out, Z,
-    dden, dm and dS, V. the reverse states (dC, dn leaving each chunk) from
-    the carry of the window after it, G. dq, dk, dv from the chunk's dS or
-    W and the states, k . dk by blocks of T columns; D. the gates: k . dk
-    summed over the blocks in order, G's gradient summed over each run of
-    one running max into its first position, dlogf's reverse running sum
-    one position at a time."""
+    """mlstm_bwd.cu's passes in plain PyTorch, in the dtype of the inputs
+    (every dh^2 and 64 x 64 product through :func:`_mm`): A. each
+    64-position chunk's gates (the stabiliser carried as a scalar); N. each
+    chunk's share of n, sum_p e^{a_p - G_end} k_p; R. per chunk n entering
+    it from the shares before it, q k^T and dout v^T, per position W's row
+    sum, q . n, dout . out, Z, dden, dm and dS, and the A operands dS /
+    sqrt(dh), its transpose and (W / Z)^T; W. the forward walk (C from the
+    first chunk on, each chunk's dq from C entering it, its dS k and n) and
+    the reverse walk (dC and dn from the last chunk back, each chunk's dk
+    from dC leaving it, its dS^T q and dn; k . dk by blocks of T columns;
+    dC leaving each chunk kept); V. dv from dC leaving the chunk and (W /
+    Z)^T dout; D. the gates: k . dk summed over the blocks in order, G's
+    gradient summed over each run of one running max into its first
+    position and dlogf's reverse running sum, both as the kernel's scans
+    (:func:`_after_scan`) over windows of GB_WIN positions from the last."""
     b, s, h, dh = q.shape
     dt = q.dtype
     nc = -(-s // Q)
-    nw = -(-nc // SLOTS)
     pad = nc * Q - s
     P = lambda x: torch.nn.functional.pad(  # noqa: E731
         x, (0, 0) * (x.dim() - 2) + (0, pad))
@@ -158,6 +211,7 @@ def _kernel_bwd(q, k, v, logi, logf, out, dout):
     chunked = lambda x: x.reshape(b, nc, Q, h).permute(0, 3, 1, 2)  # noqa
     valid = (torch.arange(nc * Q) < s).reshape(nc, Q)
     zero = torch.zeros((), dtype=dt)
+    tr = lambda x: x.transpose(-1, -2)  # noqa: E731
     # A. gates (B, H, chunk, Q)
     f = torch.cumsum(chunked(lf), dim=-1)
     src = chunked(li) - f
@@ -176,120 +230,155 @@ def _kernel_bwd(q, k, v, logi, logf, out, dout):
     mt = f + g
     inter = torch.where(valid, torch.exp(m_prev[..., None] - g), zero)
     coeff = torch.where(valid, torch.exp(src - g_last[..., None]), zero)
-
-    def walk(c, n, js, x, rc, y, cc=None, nwt=None):
-        """States before each chunk of ``js`` in order, and the last."""
-        before = []
-        for j in js:
-            before.append((c, n))
-            xc = rc[..., j, :, None] * rows(x, j)
-            yc = rows(y, j) if cc is None else cc[..., j, :, None] * rows(y, j)
-            c = decay[j][..., None, None] * c + xc.transpose(-1, -2) @ yc
-            wgt = 1.0 if nwt is None else nwt[..., j, :, None]
-            n = decay[j][..., None] * n + (xc * wgt).sum(-2)
-        return before, (c, n)
-
-    state = (torch.zeros((b, h, dh, dh), dtype=dt),
-             torch.zeros((b, h, dh), dtype=dt))
-    ck = [state]
-    for w in range(nw):                      # K.
-        _, state = walk(*state, range(w * SLOTS, min(nc, (w + 1) * SLOTS)),
-                        k, coeff, v)
-        ck.append(state)
+    # N. each chunk's share of n; n entering each chunk
+    ksum = [(coeff[..., j, :, None] * rows(k, j)).sum(-2) for j in range(nc)]
+    n_in, n = [], torch.zeros((b, h, dh), dtype=dt)
+    for j in range(nc):
+        n_in.append(n)
+        n = decay[j][..., None] * n + ksum[j]
+    # R. per chunk
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
-    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
-    kdk = torch.zeros((b, h, nc, Q, dh // T), dtype=dt)
     invz, dden, dm, rowv = (torch.zeros((b, h, nc, Q), dtype=dt)
                             for _ in range(4))
-    carry = (torch.zeros((b, h, dh, dh), dtype=dt),
-             torch.zeros((b, h, dh), dtype=dt))
-    for w in reversed(range(nw)):
-        js = range(w * SLOTS, min(nc, (w + 1) * SLOTS))
-        fwd, _ = walk(*ck[w], js, k, coeff, v)                     # B.
-        wd = {}
-        for j, (_, n_in) in zip(js, fwd):                          # S., R.
-            qj, kj, vj = rows(q, j), rows(k, j), rows(v, j)
-            dj, oj = rows(dout, j), rows(out, j)
-            dmat = torch.where(mask & valid[j][:, None], torch.exp(
-                src[..., j, None, :] - g[..., j, :, None]), zero)
-            wm = (qj @ kj.transpose(-1, -2)) * scale * dmat
-            den = wm.sum(-1) + inter[..., j, :] * (
-                (qj @ n_in[..., None])[..., 0] * scale)
-            floor = torch.exp(-mt[..., j, :])
-            z = torch.maximum(den.abs(), floor) + 1e-6
-            doo = (dj * oj).sum(-1)
-            dz = -doo / z
-            share = torch.where(den.abs() == floor, 0.5, 1.0).to(dt)
-            dd = torch.where(den.abs() >= floor, dz * share * torch.sign(den),
-                             zero)
-            ok = valid[j]
-            dden[..., j, :] = torch.where(ok, dd, zero)
-            dm[..., j, :] = torch.where(ok & (den.abs() <= floor),
-                                        -dz * share * floor, zero)
-            invz[..., j, :] = torch.where(ok, 1.0 / z, zero)
-            rowv[..., j, :] = torch.where(ok, doo + dd * den, zero)
-            ds = ((dj @ vj.transpose(-1, -2)) * invz[..., j, :, None]
-                  + dden[..., j, :, None]) * dmat
-            wd[j] = (wm, ds)
-        rev, carry = walk(*carry, reversed(js), q, inter * scale, dout,
-                          invz, dden)                               # V.
-        rev = dict(zip(reversed(js), rev))
-        for j, (c_in, n_in) in zip(js, fwd):                        # G.
-            wm, ds = wd[j]
-            dc, dn = rev[j]
-            qj, kj, vj, dj = rows(q, j), rows(k, j), rows(v, j), rows(dout, j)
-            it = inter[..., j, :, None]
-            cf = coeff[..., j, :, None]
-            gq = (scale * ds @ kj + (dj * (scale * it * invz[..., j, :, None]))
-                  @ c_in.transpose(-1, -2)
-                  + scale * it * dden[..., j, :, None] * n_in[..., None, :])
-            gk = (scale * ds.transpose(-1, -2) @ qj
-                  + (vj * cf) @ dc.transpose(-1, -2) + cf * dn[..., None, :])
-            gv = ((wm * invz[..., j, :, None]).transpose(-1, -2) @ dj
-                  + (kj * cf) @ dc)
-            for dst, grad in ((dq, gq), (dk, gk), (dv, gv)):
-                dst[:, j * Q:(j + 1) * Q] = grad.transpose(1, 2)
-            kdk[..., j, :, :] = (gk * kj).reshape(b, h, Q, dh // T, T).sum(-1)
-    # D. the gates, one (batch row, head) at a time
-    da = kdk.sum(-1) if dh // T == 1 else sum(
-        kdk[..., x] for x in range(dh // T))
-    flat = lambda x: x.reshape(b, h, nc * Q)  # noqa: E731
-    da, dg = flat(da).clone(), flat(dm - rowv)
-    srcf, gf, mtf = flat(src), flat(g), flat(mt)
+    amat = []
+    for j in range(nc):
+        qj, kj, vj = rows(q, j), rows(k, j), rows(v, j)
+        dj, oj = rows(dout, j), rows(out, j)
+        dmat = torch.where(mask & valid[j][:, None], torch.exp(
+            src[..., j, None, :] - g[..., j, :, None]), zero)
+        wm = _mm(qj, tr(kj)) * scale * dmat
+        den = wm.sum(-1) + inter[..., j, :] * (
+            (qj @ n_in[j][..., None])[..., 0] * scale)
+        floor = torch.exp(-mt[..., j, :])
+        z = torch.maximum(den.abs(), floor) + 1e-6
+        doo = (dj * oj).sum(-1)
+        dz = -doo / z
+        share = torch.where(den.abs() == floor, 0.5, 1.0).to(dt)
+        dd = torch.where(den.abs() >= floor, dz * share * torch.sign(den),
+                         zero)
+        ok = valid[j]
+        dden[..., j, :] = torch.where(ok, dd, zero)
+        dm[..., j, :] = torch.where(ok & (den.abs() <= floor),
+                                    -dz * share * floor, zero)
+        invz[..., j, :] = torch.where(ok, 1.0 / z, zero)
+        rowv[..., j, :] = torch.where(ok, doo + dd * den, zero)
+        ds = scale * (_mm(dj, tr(vj)) * invz[..., j, :, None]
+                      + dden[..., j, :, None]) * dmat
+        amat.append((ds, tr(ds), tr(wm * invz[..., j, :, None])))
+    qz = scale * inter * invz            # dq's row scale, dC's weights
+    qd = scale * inter * dden            # dq's n term, dn's weights
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    tc = min(T, dh)
+    kdk = torch.zeros((b, h, nc, Q, dh // tc), dtype=dt)
+    # W. forward: C entering each chunk
+    c = torch.zeros((b, h, dh, dh), dtype=dt)
+    for j in range(nc):
+        qj, kj, vj, dj = rows(q, j), rows(k, j), rows(v, j), rows(dout, j)
+        gq = (qz[..., j, :, None] * _mm(dj, tr(c)) + _mm(amat[j][0], kj)
+              + qd[..., j, :, None] * n_in[j][..., None, :])
+        dq[:, j * Q:(j + 1) * Q] = gq.transpose(1, 2)
+        c = decay[j][..., None, None] * c + _mm(
+            tr(coeff[..., j, :, None] * kj), vj)
+    # W. reverse: dC and dn leaving each chunk
+    dc = torch.zeros((b, h, dh, dh), dtype=dt)
+    dn = torch.zeros((b, h, dh), dtype=dt)
+    dcs = [None] * nc
+    for j in reversed(range(nc)):
+        qj, kj, vj, dj = rows(q, j), rows(k, j), rows(v, j), rows(dout, j)
+        cf = coeff[..., j, :, None]
+        gk = (cf * _mm(vj, tr(dc)) + _mm(amat[j][1], qj)
+              + cf * dn[..., None, :])
+        dk[:, j * Q:(j + 1) * Q] = gk.transpose(1, 2)
+        kdk[..., j, :, :] = (gk * kj).reshape(b, h, Q, dh // tc, tc).sum(-1)
+        dcs[j] = dc
+        dc = decay[j][..., None, None] * dc + _mm(
+            tr(qz[..., j, :, None] * qj), dj)
+        dn = decay[j][..., None] * dn + (qd[..., j, :, None] * qj).sum(-2)
+    # V. dv
+    for j in range(nc):
+        kj, dj = rows(k, j), rows(dout, j)
+        gv = (coeff[..., j, :, None] * _mm(kj, dcs[j])
+              + _mm(amat[j][2], dj))
+        dv[:, j * Q:(j + 1) * Q] = gv.transpose(1, 2)
+    # D. the gates: k . dk over the blocks in order; R and dlogf by scans
+    da = kdk[..., 0]
+    for x in range(1, dh // tc):
+        da = da + kdk[..., x]
+    flat = lambda x: x.reshape(b, h, nc * Q)[..., :s]  # noqa: E731
+    da, dg, dmf = flat(da), flat(dm - rowv), flat(dm)
+    srcf, gf, mtf = (x.reshape(b, h, nc * Q) for x in (src, g, mt))
+    t_ = torch.arange(s)
+    prev = torch.where(t_ % Q != 0, gf[..., (t_ - 1).clamp(min=0)],
+                       torch.where(t_ > 0, mtf[..., (t_ - 1).clamp(min=0)],
+                                   torch.full((), M_INIT, dtype=dt)))
+    rec = srcf[..., :s] >= prev
+    ra = torch.cat([(~rec[..., 1:]).to(dt), torch.zeros((b, h, 1), dtype=dt)],
+                   -1)
     dli = torch.zeros((b, h, s), dtype=dt)
     dlf = torch.zeros((b, h, s), dtype=dt)
-    for bi in range(b):
-        for hi in range(h):
-            dl = da[bi, hi, :s].clone()
-            acc, r = 0.0, -1
-            for t in range(s):
-                prev = (gf[bi, hi, t - 1] if t % Q else
-                        (mtf[bi, hi, t - 1] if t else M_INIT))
-                if srcf[bi, hi, t] >= prev:
-                    if r >= 0:
-                        dl[r] += acc
-                    r, acc = t, 0.0
-                acc = acc + dg[bi, hi, t]
-            dl[r] += acc
-            dli[bi, hi] = dl
-            runsum = 0.0
-            for t in reversed(range(s)):
-                runsum = runsum + (flat(dm)[bi, hi, t] - dl[t])
-                dlf[bi, hi, t] = runsum
+    cr = cf = torch.zeros((b, h), dtype=dt)
+    for w1 in range(s, 0, -GB_WIN):
+        w0 = max(0, w1 - GB_WIN)
+        cut = lambda x, fill: torch.nn.functional.pad(  # noqa: E731
+            x[..., w0:w1], (0, GB_WIN - (w1 - w0)), value=fill).reshape(
+                b, h, GB_WIN // GB_PER, GB_PER)
+        wdg, wra, wda, wrec = (cut(dg, 0.0), cut(ra, 1.0), cut(da, 0.0),
+                               cut(rec.to(dt), 0.0) > 0)
+        a, bb = torch.ones((b, h, GB_WIN // GB_PER), dtype=dt), 0 * wdg[..., 0]
+        for x in reversed(range(GB_PER)):
+            bb = wra[..., x] * bb + wdg[..., x]
+            a = a * wra[..., x]
+        ea, eb = _after_scan(a, bb)
+        r = ea * cr[..., None] + eb
+        dfc = torch.zeros_like(wdg)
+        wdl = torch.zeros_like(wdg)
+        for x in reversed(range(GB_PER)):
+            r = wra[..., x] * r + wdg[..., x]
+            wdl[..., x] = torch.where(wrec[..., x], wda[..., x] + r,
+                                      wda[..., x])
+            dfc[..., x] = cut(dmf, 0.0)[..., x] - wdl[..., x]
+        cr = r[..., 0]
+        f = torch.zeros_like(a)
+        for x in reversed(range(GB_PER)):
+            f = f + dfc[..., x]
+        _, eb = _after_scan(torch.ones_like(f), f)
+        y = eb + cf[..., None]
+        wdf = torch.zeros_like(wdg)
+        for x in reversed(range(GB_PER)):
+            y = y + dfc[..., x]
+            wdf[..., x] = y
+        cf = y[..., 0]
+        dli[..., w0:w1] = wdl.reshape(b, h, GB_WIN)[..., :w1 - w0]
+        dlf[..., w0:w1] = wdf.reshape(b, h, GB_WIN)[..., :w1 - w0]
     return (dq[:, :s], dk[:, :s], dv[:, :s], dli.permute(0, 2, 1),
             dlf.permute(0, 2, 1))
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The model's TF32 rounding: 10 mantissa bits, a tie away from zero
+    (as ``cvt.rna``), the rest exact in f32."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
+                      1 + 3 * 2 ** -11, 3.0, -2.0 ** -130])
+    want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1.0,
+                         1 + 2 * 2 ** -10, 3.0, -2.0 ** -130])
+    assert torch.equal(_tf32(x), want)
+    y = torch.randn(1000, dtype=torch.float32)
+    hi = _tf32(y)
+    lo = _tf32(y - hi)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) < 2 ** -20
 
 
 @pytest.mark.parametrize("s", [2, 63, 64, 65, 300, 1100])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-5),
                                        (torch.float32, 1e-4)])
 def test_kernel_passes_match_the_explicit_backward(s, dtype, tol):
-    """The kernel's decomposition (64-position chunks, windows of 16 chunks
-    with the forward states again from each window's checkpoint, the
-    reverse states carried across windows, dq/dk/dv from the chunk's own
-    rows and states, k . dk by 64-column blocks, the gates' runs) against
-    ``mlstm_chunkwise_bwd_ref`` (256-position chunks): 1e-5 in f64, 1e-4
-    in f32; S at the chunk edge, past the 256 chunk and past one window."""
+    """The kernel's decomposition (64-position chunks, n from each chunk's
+    share, the forward walk's dq from the state entering each chunk, the
+    reverse walk's dk from dC leaving it, dv from the kept dC, k . dk by
+    64-column blocks, the gates' runs; in f32 every product as three TF32
+    passes) against ``mlstm_chunkwise_bwd_ref`` (256-position chunks): 1e-5
+    in f64, 1e-4 in f32; S at the chunk edge, past the 256 chunk and past
+    16 chunks."""
     b, h, dh = 1, 2, 128 if s < 1000 else 64
     ins = _inputs(s + 1, b, s, h, dh)
     q, k, v, li, lf, dout = (torch.tensor(x) for x in ins)
@@ -297,6 +386,24 @@ def test_kernel_passes_match_the_explicit_backward(s, dtype, tol):
     want = mlstm_chunkwise_bwd_ref(q, k, v, li, lf, out, dout)
     got = _kernel_bwd(*(x.to(dtype) for x in (q, k, v, li, lf, out, dout)))
     _held(got, want, tol)
+
+
+@pytest.mark.parametrize("s", [65, 300])
+@pytest.mark.parametrize("dh", [32, 128])
+def test_kernel_split_matches_the_reference_vjp(s, dh):
+    """The kernel's passes with its three TF32 passes, in f32, against
+    ``jax.vjp`` of the reference's ``mlstm_chunkwise`` on the same inputs
+    (the reference's forward output): each gradient within 1e-4 of its
+    largest."""
+    ins = [x.astype(np.float32) for x in _inputs(s + dh, 1, s, 2, dh)]
+    q, k, v, li, lf, dout = ins
+    jout, vjp = jax.vjp(lambda *a: j_mlstm_chunkwise(*a)[0],
+                        *map(jnp.asarray, (q, k, v, li, lf)))
+    want = vjp(jnp.asarray(dout))
+    got = _kernel_bwd(*(torch.from_numpy(x) for x in (q, k, v, li, lf)),
+                      torch.from_numpy(np.asarray(jout)),
+                      torch.from_numpy(dout))
+    _held(got, want, 1e-4)
 
 
 # -- the routing ------------------------------------------------------------

@@ -126,27 +126,35 @@ def test_controls_move_the_gradients():
 
 
 # -- a model of the backward kernel's order of work ---------------------------
-LANES, PER_LANE, CH = 4, 16, 64   # lanes a channel, positions a lane, a block
+LANES, PER_LANE, CH = 8, 8, 32    # lanes a channel, positions a lane, a block
+WARP_CH = 4                       # channels a warp
 LOG2E = 1.4426950408889634
 
 
 def _channel_sum(x):
-    """Sum over the last dim (channels) in the kernel's order: a warp's 8
-    channels by a butterfly, the block's 8 warps in order, the blocks in
-    order (the second launch)."""
+    """Sum over the last dim (channels) in the kernel's order: a warp's 4
+    channels by its reduce-scatter ((c0 + c2) + (c1 + c3)), the block's 8
+    warps in order, the blocks in order (the second launch)."""
     d = x.shape[-1]
     nblk = -(-d // CH)
     x = torch.nn.functional.pad(x, (0, nblk * CH - d))
-    x = x.reshape(*x.shape[:-1], nblk, CH // 8, 8)        # blocks, warps, g
-    x = x.reshape(*x.shape[:-1], 4, 2).sum(-1).reshape(
-        *x.shape[:-1], 2, 2).sum(-1).sum(-1)
+    x = x.reshape(*x.shape[:-1], nblk, CH // WARP_CH, WARP_CH)
+    x = (x[..., 0] + x[..., 2]) + (x[..., 1] + x[..., 3])
     out = torch.zeros(x.shape[:-2], dtype=x.dtype)
     for k in range(nblk):
         part = torch.zeros_like(out)
-        for w in range(CH // 8):
+        for w in range(CH // WARP_CH):
             part = part + x[..., k, w]
         out = out + part
     return out
+
+
+def _butterfly_sum(x):
+    """Sum over the last dim (the states) as the second launch's butterfly:
+    neighbours first, then pairs of pairs."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
 
 
 def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
@@ -157,8 +165,10 @@ def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
     again from the tile's entering state, its reverse steps E_t = a_bar_t
     (E_{t+1} + C_t dy_t) composed into one pair, the lanes' pairs scanned
     from the last lane, the carry from the tile after entering at the last
-    lane, and each lane's positions walked backwards; the sums over
-    channels by :func:`_channel_sum`, da over the batch rows in order."""
+    lane, and each lane's positions walked backwards; dB's, dC's and ddt's
+    a-term's sums over channels by :func:`_channel_sum`, ddt's B-term as
+    sum_n B_t[n] dB_t[n] / dt_t by :func:`_butterfly_sum`, da by lane over
+    the tiles in reverse, then the lanes and the batch rows in order."""
     b, s = dt.shape
     d, n = a.shape
     ts = LANES * PER_LANE
@@ -196,7 +206,7 @@ def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
     tb = torch.zeros((b, nt * ts, n, d), dtype=dt.dtype)
     tc = torch.zeros_like(tb)
     tt = torch.zeros_like(up)
-    da_rows = torch.zeros((b, d, n), dtype=dt.dtype)
+    da_lanes = torch.zeros((b, LANES, d, n), dtype=dt.dtype)
     ec = torch.zeros((b, d, n), dtype=dt.dtype)
     lanes = torch.arange(LANES) * PER_LANE
     for it in reversed(range(nt)):
@@ -223,8 +233,9 @@ def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
         full = qa * ec[:, None] + qb
         e = torch.cat([full[:, 1:], ec[:, None]], dim=1)
         ec = full[:, 0]
-        U, Dy, Bl, Dtb = (lane(x, t0) for x in (up, dyp, bp, dtb))
+        U, Dy, Dtb = (lane(x, t0) for x in (up, dyp, dtb))
         dtl = lane(dtp[..., None], t0)[..., 0]
+        dan = torch.zeros_like(da_lanes)
         for x in reversed(range(PER_LANE)):
             dh = e + beta[:, :, x]
             e = A[:, :, x] * dh
@@ -232,16 +243,20 @@ def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
             dab = dh * hp[x] * A[:, :, x]
             pos = t0 + lanes + x
             du[:, pos] = (dh * Dtb[:, :, x, None, :]).sum(-1)
-            tt[:, pos] = (dab * a + dh * Bl[:, :, x, None, :]
-                          * U[:, :, x, :, None]).sum(-1)
-            da_rows += (dab * dtl[:, :, x, None, None]).sum(1)
+            tt[:, pos] = (dab * a).sum(-1)
+            dan = dan + dab * dtl[:, :, x, None, None]
             tb[:, pos] = (dh * U[:, :, x, :, None]).transpose(-1, -2)
             tc[:, pos] = (ht * Dy[:, :, x, :, None]).transpose(-1, -2)
+        da_lanes = da_lanes + dan
     da = torch.zeros((d, n), dtype=dt.dtype)
     for bi in range(b):
-        da = da + da_rows[bi]
-    return (_channel_sum(tt)[:, :s], da,
-            _channel_sum(tb)[:, :s] * dt[..., None], _channel_sum(tc)[:, :s],
+        row = torch.zeros((d, n), dtype=dt.dtype)
+        for j in range(LANES):
+            row = row + da_lanes[bi, j]
+        da = da + row
+    dbu = _channel_sum(tb)[:, :s]                 # sum_d dh u, (B, S, N)
+    ddt = _channel_sum(tt)[:, :s] + _butterfly_sum(bmat * dbu)
+    return (ddt, da, dbu * dt[..., None], _channel_sum(tc)[:, :s],
             du[:, :s])
 
 
@@ -250,11 +265,12 @@ def _kernel_scan_bwd(dt, a, bmat, cmat, u, dy):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-5),
                                        (torch.float32, 1e-4)])
 def test_kernel_order_matches_the_explicit_backward(s, n, dtype, tol):
-    """The kernel's composition (16 positions a lane, 4 lanes a channel,
+    """The kernel's composition (8 positions a lane, 8 lanes a channel,
     64-position tiles, the reverse steps' pairs scanned from the last lane,
-    the sums over 64-channel blocks in order) against
-    ``selective_scan_bwd_ref``: 1e-5 in f64, 1e-4 in f32; S at the lane and
-    tile edges and one past each, D = 72 (a block and part of one)."""
+    the sums over 4-channel warps and 32-channel blocks in order, ddt's
+    B-term from dB's sums) against ``selective_scan_bwd_ref``: 1e-5 in f64,
+    1e-4 in f32; S at the lane and tile edges and one past each, D = 72
+    (two blocks and part of one)."""
     ins = [torch.tensor(x) for x in _inputs(s * n, 2, s, 72, n)]
     want = selective_scan_bwd_ref(*ins)
     got = _kernel_scan_bwd(*(x.to(dtype) for x in ins))
