@@ -80,17 +80,18 @@ and read just after:
    flap), sanitized, FCTs within the sweep's bar and bits rtol 1e-5; the
    drain loses no bits, the failure some.  ``run_faults`` as
    ``benchmarks/adaptive_bench.py`` builds it (n = 16, d_hat = 4, load
-   0.95, 4500 slots, epochs of 150, faults at slot 1500: plane_down /
-   tor_fail / tor_drain x severity 1 / 2 x repair / blind / oblivious,
-   cut to its stationary train: 21 cases) with its headline on the card (one
-   plane down on the stationary train: the repair loop excises it and
-   recovers at or above the oblivious baseline, which stays above the
-   blind loop); grid (b)'s sizes under ``collision="fullest"`` at every
-   gather and one jittered activation window under ``receiver``, every
-   rebuild through the Sinkhorn kernel (launches counted).  The
-   degraded-service engine's rows equal the CPU's in trajectory,
-   counters and excisions, bits within rtol 1e-9, FCTs within the
-   sweep's bar.
+   0.95, epochs of 150: plane_down / tor_fail / tor_drain x severity 1 /
+   2 x repair / blind / oblivious, cut to its stationary train: 21 cases,
+   and to 2100 slots with the faults at slot 900, from 4500 and 1500)
+   with its headline on the card (one plane down on the stationary train:
+   the repair loop excises it and recovers at or above the oblivious
+   baseline, which stays above the blind loop); grid (b)'s sizes under
+   ``collision="fullest"`` at every gather and one jittered activation
+   window under ``receiver`` (cut to 1500 slots, the phase train shifting
+   every 500), every rebuild through the Sinkhorn kernel (launches
+   counted).  The degraded-service engine's rows equal the CPU's in
+   trajectory, counters and excisions, bits within rtol 1e-9, FCTs within
+   the sweep's bar.
 1e. The paper's evaluation drivers (``evaluation_phases``), each on the
    card against the port's CPU run of the same driver: Fig. 5/6 as
    ``repro_torch.benchmarks.fct_bench.run`` builds it at its defaults
@@ -104,6 +105,22 @@ and read just after:
    ``free-euler`` row gated; the clock-charged rows read), at the adaptive
    loop's bars, with the reference's summary lines; Fig. 10's
    ``schedule_time.run`` at n 16-256 (host only, 0 launches).
+1f. The port's analysis and examples (``analysis_phases``): the
+   quickstart (``examples/torch_quickstart.py``, the reference
+   quickstart's nine sections: n = 16, d_hat = 4, k = 3) on the card and
+   on the CPU, every printed line equal but for the device's name, its
+   lint of ``src/repro_torch/core`` clean, its certificate ok and its
+   saturate schedule through the Sinkhorn kernel; the op-level analyzer
+   (``repro_torch.analysis.ir``) over the five slot kernels on the card,
+   each report equal to the CPU's field by field and within the port's
+   ``ir_budget.json``; the serving example
+   (``examples/torch_serve_decode.py``: Qwen1.5-0.5B at full width, 2
+   lanes of 64, five requests of 4-12 tokens, 8 new tokens each) through
+   the flash and decode kernels, and the same as ``--smoke``, the
+   reference's example (2 layers, 4 heads of 64); every distinct flash and
+   decode call each run made (its shapes, type and lane lengths: a cache
+   of 64, prompts of 4-12) held against the plain version on seeded
+   inputs.
 2. Serving: ``ServeEngine`` with Qwen1.5-0.5B at full width and depth
    (24 layers, d_model 1024, 16 heads, vocab 151,936) on seeded random
    weights, bf16, 8 lanes of 2048 positions, 16 requests with prompts of
@@ -280,6 +297,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import shutil
@@ -299,6 +317,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import certify  # noqa: E402
+from repro_torch.analysis import ir as ir_mod  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.benchmarks import adaptive_bench  # noqa: E402
 from repro_torch.benchmarks import bound_convergence  # noqa: E402
@@ -485,9 +504,8 @@ THETA_RTOL, BVN_LAM_ATOL = 1e-9, 1e-9
 # schedule) under four fault scenarios firing at slot 600 (a flap lasts 200
 # slots), card vs CPU bits rtol 1e-5 (the sweep's f32 VOQ);
 # benchmarks/adaptive_bench.py's run_faults grid, as the port's
-# adaptive_bench.faults_cases builds it (n = 16, d_hat = 4, load 0.95, 4500
-# slots, epochs of 150, faults at slot 1500, dark windows of 40, hysteresis
-# 0.3, the shifting train shifting every 1500 slots); grid (b) under
+# adaptive_bench.faults_cases builds it (n = 16, d_hat = 4, load 0.95,
+# epochs of 150, dark windows of 40, hysteresis 0.3); grid (b) under
 # fullest and one jittered activation window of 40 slots; the
 # degraded-service engine (f64 VOQ) card vs CPU bits rtol 1e-9
 FAULT_SLOT, FAULT_FLAP, SWEEP_FAULT_RTOL = 600, 200, 1e-5
@@ -495,6 +513,14 @@ FAULT_SLOT, FAULT_FLAP, SWEEP_FAULT_RTOL = 600, 200, 1e-5
 # too (42 cases) the phase took 204 s of the script on an NVIDIA H100
 # 80GB HBM3 at 700 W, over its ~120-s allowance (PERF.md section 4)
 RF_TRAINS = ("stationary",)
+# run_faults cut from 4500 slots with the faults at slot 1500 to 2100 and
+# 900 (8 epochs after the fault's), and grid (b) under fullest from 3000
+# slots shifting every 1000 to 1500 shifting every 500, to make room for
+# the analysis and examples phase: the faults phase took 101.8 s of an
+# 801.7-s script on an NVIDIA H100 80GB HBM3 at 700 W, 67 s of it
+# run_faults on the card and the CPU (PERF.md section 5)
+RF_HORIZON, RF_FAULT_SLOT = 2100, 900
+FAULT_GRID_B_HORIZON, FAULT_GRID_B_SHIFT = 1500, 500
 JITTER_SLOTS = 40
 ENGINE_RTOL = 1e-9
 
@@ -3563,7 +3589,9 @@ def faults_phases(sched, wl) -> dict:
     # -- run_faults as the repo builds it, and its headline ----------------
     sinkhorn_ops.reset_launches()
     res = engine_run(f"run_faults (trains {', '.join(RF_TRAINS)})",
-                     adaptive_bench.faults_cases(trains=RF_TRAINS))
+                     adaptive_bench.faults_cases(
+                         horizon=RF_HORIZON, fault_slot=RF_FAULT_SLOT,
+                         trains=RF_TRAINS))
     launches += res["launches"]
     rf = {r.label: r for r in res.pop("rows")}
     rep, bli, obl = (post_fault_util(rf[f"stationary-plane_down1-{p}"])
@@ -3587,9 +3615,9 @@ def faults_phases(sched, wl) -> dict:
 
     # -- grid (b) under the new arbiter, and activation jitter -------------
     wl_b = phase_shifting_workload(
-        DISAGREE_N, ADAPTIVE_LOAD, ADAPTIVE_HORIZON, BITS_PER_SLOT,
+        DISAGREE_N, ADAPTIVE_LOAD, FAULT_GRID_B_HORIZON, BITS_PER_SLOT,
         d_hat=DISAGREE_D_HAT, seed=SEED, phases=ADAPTIVE_PHASES,
-        shift_period=ADAPTIVE_SHIFT)
+        shift_period=FAULT_GRID_B_SHIFT)
     common = dict(wl=wl_b, epoch_slots=DISAGREE_EPOCH, policy="adaptive",
                   k=K, d_hat=DISAGREE_D_HAT, recfg_frac=RECFG, seed=SEED,
                   alpha=0.5, normalize="saturate")
@@ -3776,6 +3804,169 @@ def evaluation_phases() -> dict:
     out["launches"] = launches
     secs["phase_s"] = time.perf_counter() - t_phase
     log("  seconds: " + json.dumps(secs))
+    return out
+
+
+# -- the port's analysis and its examples on the card -------------------------
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples`` is no package)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def captured(fn, *args) -> tuple:
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+@contextlib.contextmanager
+def calls_seen(module, name: str, key):
+    """``module.name`` wrapped to add ``key(*args, **kwargs)`` of each of
+    its calls to the set the block gets."""
+    seen: set = set()
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        seen.add(key(*args, **kwargs))
+        return fn(*args, **kwargs)
+    with swapped(module, name, rec):
+        yield seen
+
+
+def flash_call(q, k, v, causal=True, window=0, with_lse=False) -> tuple:
+    """A flash-attention call's shapes, type and mask."""
+    return (tuple(q.shape), tuple(k.shape), v.shape[-1], q.dtype,
+            bool(causal), int(window))
+
+
+def decode_call(q, k, v, length, window=0) -> tuple:
+    """A flash-decode call's shapes, type, lane lengths and window."""
+    lens = torch.as_tensor(length, dtype=torch.int64).expand(
+        q.shape[0]).tolist()
+    return (tuple(q.shape), tuple(k.shape), q.dtype, tuple(lens),
+            int(window))
+
+
+def analysis_phases() -> dict:
+    """The port's quickstart (``examples/torch_quickstart.py``) on the card
+    and on the CPU, the same printed numbers (only the device's name
+    differs), its lint clean and its certificate ok, its saturate schedule
+    through the Sinkhorn kernel; the op-level analyzer's reports of the
+    five slot kernels on the card equal to the CPU's and within the port's
+    budget; ``examples/torch_serve_decode.py`` serving its five requests
+    on the card through the flash and decode kernels, at full width and
+    as ``--smoke`` (the reference's example)."""
+    out: dict = {}
+    t_phase = time.perf_counter()
+    quickstart = load_example("torch_quickstart")
+    log("== the port's quickstart (examples/torch_quickstart.py) on the "
+        "card")
+    sinkhorn_ops.reset_launches()
+    t0 = time.perf_counter()
+    res, text = captured(quickstart.main, [])
+    card_s = time.perf_counter() - t0
+    launches = sinkhorn_ops.launches
+    for line in text.splitlines():
+        log(f"  | {line}")
+    t0 = time.perf_counter()
+    res_cpu, text_cpu = captured(quickstart.main, ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    diff = [(a, b) for a, b in zip(text.replace("cuda", "cpu").splitlines(),
+                                   text_cpu.splitlines()) if a != b]
+    log(f"  card {card_s:.6f} s, CPU {cpu_s:.6f} s; lines that differ "
+        f"beyond the device's name: {len(diff)}; lint exit "
+        f"{res['lint_rc']}, certificate ok {res['certificate'].ok}, "
+        f"sinkhorn launches {launches}")
+    for a, b in diff:
+        log(f"  card: {a}\n  CPU:  {b}")
+    if diff or len(text.splitlines()) != len(text_cpu.splitlines()):
+        raise AssertionError("the quickstart's numbers on the card differ "
+                             "from the CPU's")
+    if res["lint_rc"] != 0 or not res["certificate"].ok \
+            or res_cpu["lint_rc"] != 0:
+        raise AssertionError("the quickstart's lint or certificate failed")
+    if launches < 1:
+        raise AssertionError("the quickstart's saturate schedule launched "
+                             "no sinkhorn kernel")
+    out["quickstart"] = {"card_s": card_s, "cpu_s": cpu_s,
+                         "launches": launches}
+
+    log("== the op-level analyzer (repro_torch.analysis.ir), card vs CPU")
+    t0 = time.perf_counter()
+    reports = ir_mod.analyze_all(device=DEV)
+    ir_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reports_cpu = ir_mod.analyze_all(device="cpu")
+    ir_cpu_s = time.perf_counter() - t0
+    violations = ir_mod.check_budget(reports, ir_mod.load_budget())
+    for r, rc in zip(reports, reports_cpu):
+        log(f"  {r.kernel}: flops {r.flops}, dot {r.dot_flops}, moved "
+            f"{r.bytes_moved} B, peak {r.peak_bytes} B, carry "
+            f"{r.carry_bytes} B (~n^{r.carry_exponent}), leaks "
+            f"{len(r.dtype_leaks)}, unknown ops {r.unknown_prims}; equal "
+            f"to the CPU's: {r.to_dict() == rc.to_dict()}")
+    log(f"  card {ir_card_s:.6f} s, CPU {ir_cpu_s:.6f} s; budget "
+        f"violations {violations}")
+    unequal = [r.kernel for r, rc in zip(reports, reports_cpu)
+               if r.to_dict() != rc.to_dict()]
+    if unequal or violations:
+        raise AssertionError(f"IR reports differ from the CPU's on "
+                             f"{unequal}, budget violations {violations}")
+    out["ir"] = {"card_s": ir_card_s, "cpu_s": ir_cpu_s,
+                 "reports": [r.to_dict() for r in reports]}
+
+    serve_decode = load_example("torch_serve_decode")
+    out["serve_decode"] = {}
+    out["flash"], out["decode"] = [], []
+    for argv in ([], ["--smoke"]):
+        label = " ".join(["torch_serve_decode"] + argv)
+        log(f"== the port's serving example ({label}) on the card")
+        flash_ops.reset_launches()
+        decode_ops.reset_launches()
+        t0 = time.perf_counter()
+        with calls_seen(flash_ops, "attention_kernel", flash_call) as fc, \
+                calls_seen(decode_ops, "decode_kernel", decode_call) as dc:
+            done, text = captured(serve_decode.main, argv)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = {"flash_attention": flash_ops.launches,
+                  "decode_attention": decode_ops.launches}
+        for line in text.splitlines():
+            log(f"  | {line}")
+        log(f"  {len(done)} requests in {serve_s:.6f} s; launches {counts}; "
+            f"distinct calls: flash {len(fc)}, decode {len(dc)}")
+        if sorted(r.rid for r in done) != list(range(5)) \
+                or any(len(r.out_tokens) != 8 for r in done):
+            raise AssertionError(f"{label} did not complete its five "
+                                 "requests with 8 tokens each")
+        if not all(counts.values()):
+            raise AssertionError(f"{label} bypassed a kernel: {counts}")
+        out["serve_decode"][label] = {"s": serve_s, "launches": counts}
+        # each distinct call the example made, held against the plain
+        # version at its shapes, type and lane lengths (on seeded inputs)
+        tag = "smoke" if argv else "example"
+        log(f"== {label}'s kernel calls vs the plain versions")
+        for qs, ks, dv, dt, causal, window in sorted(fc, key=str):
+            out["flash"].append(check_flash(
+                f"{tag} prefill", qs[0], qs[1], ks[1], qs[2], ks[2], qs[3],
+                dt, causal=causal, window=window, reps=3, dv=dv))
+        for qs, ks, dt, lens, window in sorted(dc, key=str):
+            out["decode"].append(check_decode(
+                f"{tag} decode", list(lens), ks[1], qs[2], ks[2], qs[3], dt,
+                window=window, reps=3))
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  analysis and examples phase wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -4987,8 +5178,15 @@ def main() -> int:
     gc.collect()
     mark("evaluation")
 
+    # -- 5e2. the port's analysis, the quickstart and the serving example ---
+    analysis = analysis_phases()
+    gc.collect()
+    mark("analysis_examples")
+
     # -- 5f. the attention, mLSTM, scan and MLA kernels; the serving paths ---
     flash, flash_main, decode, decode_main = attention_phases()
+    flash += analysis.pop("flash")
+    decode += analysis.pop("decode")
     mark("attention_checks")
     mlstm, mlstm_main = mlstm_phases()
     mamba, mamba_main = mamba_phases()
@@ -5019,6 +5217,9 @@ def main() -> int:
     for arch, res in {**served, WHISPER_ARCH: whisper}.items():
         for name, n in res["launches"].items():
             by_path.setdefault(name, {})[arch] = n
+    for label, res in analysis["serve_decode"].items():
+        for name, n in res["launches"].items():
+            by_path[name][label] = n
     for arch, key in ((TRAIN_ARCH, "trainer"),
                       (WHISPER_ARCH, "whisper_trainer"),
                       (MINICPM3_ARCH, "minicpm3_trainer"),
@@ -5052,12 +5253,14 @@ def main() -> int:
     log("throughput: " + json.dumps(throughput))
     log("faults: " + json.dumps(faults))
     log("evaluation: " + json.dumps(evaluation))
+    log("analysis_examples: " + json.dumps(analysis))
     sinkhorn_by_path = {"sweep": launches, "sweep_n64": n64["launches"],
                         "adaptive_a": adaptive["a"]["launches"],
                         "adaptive_b": adaptive["b"]["launches"],
                         **throughput["launches"],
                         "faults": faults["launches"],
-                        "evaluation": evaluation["launches"]}
+                        "evaluation": evaluation["launches"],
+                        "quickstart": analysis["launches"]}
     kernels = [{
         "name": "sinkhorn",
         "route": "cuda",
@@ -5073,8 +5276,8 @@ def main() -> int:
     }]
     # sinkhorn's `launches` counts wrapper calls on the sweep's schedules,
     # the two adaptive grids, the throughput analysis's four card paths,
-    # the faults phase and the evaluation drivers, each read between its
-    # own resets
+    # the faults phase, the evaluation drivers and the quickstart, each
+    # read between its own resets
     # (`launches_by_path`), its `cuda_launches_per_call` those of one traced
     # schedule; for the others `launches` counts wrapper calls on the
     # serving paths, summed

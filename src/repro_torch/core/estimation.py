@@ -340,11 +340,11 @@ def fleet_update_quantize(
     _check_k(k)
     dev = resolve_device(device)
     a = np.float32(alpha)
-    keep = torch.tensor(np.float32(1.0) - a, device=dev)
-    new_ewma = keep * _f32(ewma, dev) + torch.tensor(a, device=dev) * _f32(
-        period_bits, dev)
+    keep = torch.tensor(np.float32(1.0) - a, dtype=torch.float32, device=dev)
+    new_ewma = keep * _f32(ewma, dev) + torch.tensor(
+        a, dtype=torch.float32, device=dev) * _f32(period_bits, dev)
     k_scale = torch.tensor(np.float32(((k - 1) / k) / bits_per_slot),
-                           device=dev)
+                           dtype=torch.float32, device=dev)
     q = torch.clamp(torch.floor(new_ewma * k_scale), 0.0, 65535.0)
     return new_ewma, q.to(torch.uint16)
 
@@ -356,5 +356,5 @@ def dequantize_device(q: torch.Tensor, k: int,
     ``dequantize_jax``."""
     _check_k(k)
     unit = torch.tensor(np.float32(bits_per_slot * k / (k - 1)),
-                        device=q.device)
+                        dtype=torch.float32, device=q.device)
     return q.to(torch.float32) * unit

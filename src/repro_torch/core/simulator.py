@@ -67,6 +67,7 @@ control plane are the port's own copies of the reference's.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import time
 from dataclasses import dataclass, field
 
@@ -708,7 +709,7 @@ def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
     d_cap = torch.from_numpy(p_cap).to(dev)
     d_apid = torch.from_numpy(apid).to(dev)
     d_asz = torch.from_numpy(asz).to(dev)
-    voq = torch.zeros(len(wls) * n * n, dtype=DATA_DTYPE, device=dev)
+    voq = torch.zeros(len(wls) * n * n, dtype=DATA_DTYPE, device=dev)  # lint: allow-dense
     tx = torch.empty(p_pid.shape, dtype=DATA_DTYPE, device=dev)
     drained = torch.empty(p_pid.shape, dtype=torch.bool, device=dev)
     fault_lost = torch.zeros(len(wls), dtype=torch.float64, device=dev)
@@ -723,8 +724,8 @@ def _serve(wls: list[Workload], horizons: np.ndarray, p_pid: np.ndarray,
                           torch.from_numpy(cases).to(dev))
     _sync(dev)
     lap("upload_s")
-    singlehop(voq, d_apid, d_asz, bucket, d_pid, d_cap, tx, drained,
-              flush=d_flush, fault_lost=fault_lost)
+    _launch("singlehop", singlehop, voq, d_apid, d_asz, bucket, d_pid,
+            d_cap, tx, drained, flush=d_flush, fault_lost=fault_lost)
     _sync(dev)
     lap("device_loop_s")
     tx_h = tx.cpu().numpy()
@@ -1018,9 +1019,9 @@ def simulate_aggregate(sched: Schedule, arrivals: np.ndarray,
     cap_idx = (np.arange(horizon) % caps.shape[0]).reshape(horizon, 1)
     voq = torch.zeros((1, sched.n, sched.n), dtype=DATA_DTYPE, device=dev)
     delivered = torch.empty((horizon, 1), dtype=DATA_DTYPE, device=dev)
-    agg(voq, torch.from_numpy(caps).to(dev),
-        torch.from_numpy(cap_idx).to(dev),
-        torch.from_numpy(arrivals).to(dev).unsqueeze(1), delivered)
+    _launch("agg", agg, voq, torch.from_numpy(caps).to(dev),
+            torch.from_numpy(cap_idx).to(dev),
+            torch.from_numpy(arrivals).to(dev).unsqueeze(1), delivered)
     return delivered[:, 0].cpu().numpy(), voq[0].cpu().numpy()
 
 
@@ -1389,13 +1390,13 @@ def _twohop_batch(
     else:
         args = (up(caps_flat), up(cap_idx), up(apid), up(asz), bucket)
     d_direct = up(direct)
-    voq = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)
+    voq = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)  # lint: allow-dense
     second = torch.empty((H, B), dtype=DATA_DTYPE, device=dev)
     if route == "twohop_fct":
-        relay = torch.zeros((B, n, n, n), dtype=DATA_DTYPE, device=dev)
-        out = torch.empty((H, B, n, n), dtype=DATA_DTYPE, device=dev)
+        relay = torch.zeros((B, n, n, n), dtype=DATA_DTYPE, device=dev)  # lint: allow-dense
+        out = torch.empty((H, B, n, n), dtype=DATA_DTYPE, device=dev)  # lint: allow-dense
     else:
-        relay = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)
+        relay = torch.zeros((B, n, n), dtype=DATA_DTYPE, device=dev)  # lint: allow-dense
         out = torch.empty((H, B), dtype=DATA_DTYPE, device=dev)
     if route == "twohop_sparse":
         relay = relay.view(B * n, n)
@@ -1403,12 +1404,14 @@ def _twohop_batch(
     _sync(dev)
     lap("upload_s")
     if route == "twohop_fct":
-        twohop_fct(voq, relay, *args, d_direct, out, second)
+        _launch(route, twohop_fct, voq, relay, *args, d_direct, out,
+                second)
     elif route == "twohop_dense":
-        twohop_dense(voq, relay, *args, d_direct, out, second)
+        _launch(route, twohop_dense, voq, relay, *args, d_direct, out,
+                second)
     else:
-        twohop_sparse(voq, relay, *args, plan_idx, plan_bounds, plan,
-                      d_direct, out, second)
+        _launch(route, twohop_sparse, voq, relay, *args, plan_idx,
+                plan_bounds, plan, d_direct, out, second)
     _sync(dev)
     lap("device_loop_s")
     out64 = np.asarray(out.cpu().numpy(), np.float64)
@@ -1467,6 +1470,94 @@ def _twohop_batch(
                 label=f"{dev.type}:twohop_fct:credit", float32=True)
         lap("sanitize_s")
     return results
+
+
+# ---------------------------------------------------------------------------
+# The slot kernels as one table, for the op-level analyzer
+# ---------------------------------------------------------------------------
+
+# The arguments each slot kernel carries from slot to slot: the state whose
+# footprint repro_torch.analysis.ir measures at two fabric sizes.
+KERNEL_CARRIES = {
+    "agg": ("voq",),
+    "singlehop": ("voq",),
+    "twohop_dense": ("voq", "relay"),
+    "twohop_fct": ("voq", "relay3"),
+    "twohop_sparse": ("voq", "relay"),
+}
+
+
+def slot_kernels() -> dict:
+    """The five slot kernels by name: the counterpart of the reference's
+    ``jax_kernels`` table, which :mod:`repro_torch.analysis.ir` runs."""
+    return {"agg": agg, "singlehop": singlehop, "twohop_dense": twohop_dense,
+            "twohop_fct": twohop_fct, "twohop_sparse": twohop_sparse}
+
+
+# The analyzer's stand-in for a slot kernel's call (:func:`drive_slot_kernel`):
+# while set, ``hook(name, fn, kwargs)`` runs in place of ``fn(**kwargs)``.
+_slot_hook = None
+
+
+def _launch(name: str, fn, *args, **kwargs):
+    """Run the slot kernel ``fn`` (``name`` in :func:`slot_kernels`), or hand
+    it and its arguments by name to the analyzer's hook where one is set."""
+    if _slot_hook is None:
+        return fn(*args, **kwargs)
+    bound = inspect.signature(fn).bind(*args, **kwargs)
+    return _slot_hook(name, fn, bound.arguments)
+
+
+# The small batch the analyzer drives: the reference bucket's 128 slots,
+# the quickstart's slot of 100 Gb/s x 4.5 us, websearch flows at load 0.6.
+_DRIVE_BITS = 100e9 * 4.5e-6
+_DRIVE_LOAD = 0.6
+
+
+def drive_slot_kernel(kernel: str, hook, *, B: int = 2, n: int = 8,
+                      device=None) -> None:
+    """Drive the engine path that launches slot kernel ``kernel`` once, on a
+    seeded batch, with ``hook(kernel, fn, kwargs)`` called in place of the
+    kernel (``kwargs``: its arguments by name, as the engine built them).
+
+    The counterpart of the reference's ``kernel_abstract_inputs``: what the
+    hook sees is the engine's own layout and carry, not a copy of it.  The
+    batch is ``B`` cases of ``n`` nodes over 128 slots, case b a uniform
+    websearch workload (seed b) on the oblivious schedule with two port
+    planes.  ``singlehop`` runs through :func:`_singlehop_batch`, the two-hop
+    kernels through :func:`_twohop_batch` on their own routes (the cases
+    alternate ``rotorlb`` and ``vlb``), and ``agg`` through
+    :func:`simulate_aggregate`, which serves one case: ``B`` must be 1
+    there.  On ``device`` (``None``: the card)."""
+    global _slot_hook
+    if kernel not in KERNEL_CARRIES:
+        raise ValueError(f"unknown kernel {kernel!r} "
+                         f"(have {sorted(KERNEL_CARRIES)})")
+    if kernel == "agg" and B != 1:
+        raise ValueError(f"agg's engine path serves one case (got B={B})")
+    dev = resolve_device(device)
+    sched = oblivious_schedule(n, d_hat=2)
+    wls = [websearch_workload(n, _DRIVE_LOAD, _PAD_H, _DRIVE_BITS,
+                              d_hat=2, seed=b, pattern="uniform")
+           for b in range(B)]
+    prev, _slot_hook = _slot_hook, hook
+    try:
+        if kernel == "agg":
+            simulate_aggregate(sched, wls[0].arrival_matrix(), _DRIVE_BITS,
+                               device=dev)
+        elif kernel == "singlehop":
+            _singlehop_batch([(sched, wl) for wl in wls], _DRIVE_BITS, dev)
+        else:
+            force = {"twohop_fct": None, "twohop_dense": "dense",
+                     "twohop_sparse": "sparse"}[kernel]
+            if force is None and _twohop_route(B, n, _PAD_H) != kernel:
+                raise ValueError(f"B={B}, n={n} is past twohop_fct's "
+                                 "attribution bound")
+            _twohop_batch([(sched, wl) for wl in wls], _DRIVE_BITS,
+                          [("rotorlb", "vlb")[b % 2] for b in range(B)],
+                          dev, kernel=force)
+    finally:
+        _slot_hook = prev
 
 
 def simulate(

@@ -183,7 +183,7 @@ def states():
     jp = j_init_params(jax.random.PRNGKey(0), jcfg)
     rng = np.random.default_rng(0)
     noise = lambda x: jnp.asarray(  # noqa: E731
-        rng.standard_normal(x.shape).astype(np.float32))
+        rng.standard_normal(x.shape).astype(np.float32), dtype=jnp.float32)
     js = j_init_state(jp, jtc)
     js = js._replace(opt=js.opt._replace(
         step=jnp.int32(5), mu=jax.tree.map(noise, js.opt.mu),

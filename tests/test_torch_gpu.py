@@ -2086,3 +2086,57 @@ def test_whisper_one_token_loss_trains_on_the_card():
     for key in ("cross/attn/wq", "cross/attn/wk", "cross/attn/wv",
                 "encoder/attn/wq", "enc_pos"):
         assert float(got[key].abs().max()) > 0, key
+
+
+# -- the port's analysis and examples on the card ---------------------------
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["agg", "singlehop", "twohop_dense",
+                                    "twohop_fct", "twohop_sparse"])
+def test_ir_report_on_the_card_equals_the_cpu(kernel):
+    """The op-level analyzer counts the aten ops a slot kernel issues: the
+    same ops run on the card as on the CPU, so every field of the report
+    is equal, and within the checked-in budget."""
+    _card()
+    from repro_torch.analysis import ir
+    got = ir.analyze_kernel(kernel, device="cuda")
+    want = ir.analyze_kernel(kernel, device="cpu")
+    assert got.to_dict() == want.to_dict()
+    assert ir.check_budget([got], ir.load_budget()) == []
+
+
+@pytest.mark.gpu
+def test_serve_decode_example_on_the_card():
+    """``examples/torch_serve_decode.py``: Qwen1.5-0.5B at full width on
+    the card serves its five requests, 8 tokens each, through the flash
+    and decode kernels."""
+    _card()
+    f0, d0 = flash_ops.launches, decode_ops.launches
+    done = _example("torch_serve_decode").main([])
+    torch.cuda.synchronize()
+    assert sorted(r.rid for r in done) == list(range(5))
+    assert all(len(r.out_tokens) == 8 for r in done)
+    assert flash_ops.launches > f0 and decode_ops.launches > d0
+
+
+@pytest.mark.gpu
+def test_serve_decode_smoke_on_the_card():
+    """``--smoke``, the reference's example (4 heads of 64), on the card:
+    its five requests through the flash and decode kernels."""
+    _card()
+    f0, d0 = flash_ops.launches, decode_ops.launches
+    done = _example("torch_serve_decode").main(["--smoke"])
+    torch.cuda.synchronize()
+    assert sorted(r.rid for r in done) == list(range(5))
+    assert all(len(r.out_tokens) == 8 for r in done)
+    assert flash_ops.launches > f0 and decode_ops.launches > d0

@@ -114,7 +114,7 @@ def test_explicit_backward_matches_the_reference_vjp(s):
     q, k, v, li, lf, dout = ins
     jout, vjp = jax.vjp(lambda *a: j_mlstm_chunkwise(*a)[0],
                         *map(jnp.asarray, (q, k, v, li, lf)))
-    want = vjp(jnp.asarray(dout))
+    want = vjp(jnp.asarray(dout, dtype=jnp.float32))
     got = mlstm_chunkwise_bwd_ref(*(torch.from_numpy(x) for x in (
         q, k, v, li, lf)), torch.from_numpy(np.asarray(jout)),
         torch.from_numpy(dout))
@@ -399,7 +399,7 @@ def test_kernel_split_matches_the_reference_vjp(s, dh):
     q, k, v, li, lf, dout = ins
     jout, vjp = jax.vjp(lambda *a: j_mlstm_chunkwise(*a)[0],
                         *map(jnp.asarray, (q, k, v, li, lf)))
-    want = vjp(jnp.asarray(dout))
+    want = vjp(jnp.asarray(dout, dtype=jnp.float32))
     got = _kernel_bwd(*(torch.from_numpy(x) for x in (q, k, v, li, lf)),
                       torch.from_numpy(np.asarray(jout)),
                       torch.from_numpy(dout))

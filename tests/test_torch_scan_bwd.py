@@ -88,7 +88,8 @@ def _reference_y(dt, a, bmat, cmat, u):
     a_bar = jnp.exp(dt[..., None, None] * a[None, None])
     b_bar = dt[..., None, None] * bmat[:, :, None, :] * u[..., None]
     hs, _ = JM._chunked_selective_scan(
-        a_bar, b_bar, jnp.zeros(a_bar.shape[:1] + a_bar.shape[2:]), JM.CHUNK)
+        a_bar, b_bar, jnp.zeros(a_bar.shape[:1] + a_bar.shape[2:],
+                                jnp.float32), JM.CHUNK)
     return jnp.einsum("bsdn,bsn->bsd", hs, cmat)
 
 
@@ -98,7 +99,7 @@ def test_explicit_backward_matches_the_reference_vjp(s):
     (its padding of a ragged last chunk with a = 1, b = 0)."""
     ins = [x.astype(np.float32) for x in _inputs(s + 3, 2, s, 12, 16)]
     _, vjp = jax.vjp(_reference_y, *map(jnp.asarray, ins[:5]))
-    want = vjp(jnp.asarray(ins[5]))
+    want = vjp(jnp.asarray(ins[5], dtype=jnp.float32))
     got = selective_scan_bwd_ref(*(torch.from_numpy(x) for x in ins))
     _held(got, want, 1e-4)
 

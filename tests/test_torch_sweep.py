@@ -207,7 +207,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.train.optimizer', 'repro_torch.train.compression',"
         " 'repro_torch.train.train_step', 'repro_torch.train.trainer',"
         " 'repro_torch.launch.train', 'repro_torch.tree',"
-        " 'repro_torch.kernels.flash_attention_bwd.ops'} <= set(mods), mods\n"
+        " 'repro_torch.kernels.flash_attention_bwd.ops',"
+        " 'repro_torch.analysis.lint', 'repro_torch.analysis.ir'}"
+        " <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=SRC)

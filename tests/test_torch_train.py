@@ -80,7 +80,8 @@ def test_global_norm_matches_reference():
     t = _tree_np(np.random.default_rng(0), SHAPES)
     np.testing.assert_allclose(
         float(global_norm({k: torch.from_numpy(v) for k, v in t.items()})),
-        float(j_global_norm({k: jnp.asarray(v) for k, v in t.items()})),
+        float(j_global_norm({k: jnp.asarray(v, dtype=jnp.float32)
+                             for k, v in t.items()})),
         rtol=1e-6)
 
 
@@ -96,13 +97,13 @@ def test_adamw_matches_reference(clip, lr):
     opt = AdamW(lr=sched, grad_clip=clip)
     jopt = JAdamW(lr=jsched, grad_clip=clip)
     p = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
-    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    jp = {k: jnp.asarray(v, dtype=jnp.float32) for k, v in p0.items()}
     st, jst = opt.init(p), jopt.init(jp)
     for g in grads:
         p, st = opt.update({k: torch.from_numpy(v) for k, v in g.items()},
                            st, p)
-        jp, jst = jopt.update({k: jnp.asarray(v) for k, v in g.items()},
-                              jst, jp)
+        jp, jst = jopt.update({k: jnp.asarray(v, dtype=jnp.float32)
+                               for k, v in g.items()}, jst, jp)
     assert int(st.step) == int(jst.step) == 3
     for got, want in ((p, jp), (st.mu, jst.mu), (st.nu, jst.nu)):
         for k in SHAPES:
@@ -147,12 +148,14 @@ def test_int8_compression_matches_reference():
     gs = [_tree_np(rng, SHAPES) for _ in range(3)]
     err = compression.init_error({k: torch.zeros(s) for k, s in
                                   SHAPES.items()})
-    jerr = JC.init_error({k: jnp.zeros(s) for k, s in SHAPES.items()})
+    jerr = JC.init_error({k: jnp.zeros(s, jnp.float32)
+                          for k, s in SHAPES.items()})
     for g in gs:
         (q, s), err = compression.compress_grads(
             {k: torch.from_numpy(v) for k, v in g.items()}, err)
         (jq, js), jerr = JC.compress_grads(
-            {k: jnp.asarray(v) for k, v in g.items()}, jerr)
+            {k: jnp.asarray(v, dtype=jnp.float32) for k, v in g.items()},
+            jerr)
         for k in SHAPES:
             assert q[k].dtype == torch.int8
             np.testing.assert_array_equal(q[k].numpy(), np.asarray(jq[k]))
@@ -213,10 +216,11 @@ def test_chunked_softmax_xent_matches_reference():
     mask = (rng.random((b, s)) > 0.3).astype(np.float32)
     for chunk in (8, 512):
         jfn = lambda hh, w: JT.chunked_softmax_xent(  # noqa: E731
-            {**jp, "unembed": w}, jcfg, hh, jnp.asarray(labels),
-            jnp.asarray(mask), chunk=chunk)
+            {**jp, "unembed": w}, jcfg, hh,
+            jnp.asarray(labels, dtype=jnp.int32),
+            jnp.asarray(mask, dtype=jnp.float32), chunk=chunk)
         want, (jgh, jgw) = jax.value_and_grad(jfn, argnums=(0, 1))(
-            jnp.asarray(h), jp["unembed"])
+            jnp.asarray(h, dtype=jnp.float32), jp["unembed"])
         ht = torch.from_numpy(h).requires_grad_()
         wt = p["unembed"].clone().requires_grad_()
         got = T.chunked_softmax_xent({**p, "unembed": wt}, cfg, ht,
@@ -247,7 +251,7 @@ def _loss_and_grads_match(jcfg, jp, cfg, p, batch, zero=()):
     reference's is 0): the port's rounding noise there is held within 1e-4
     of the largest gradient of any leaf."""
     (jl, jm), jg = jax.value_and_grad(
-        lambda pp: j_loss_fn(pp, jcfg, {k: jnp.asarray(v)
+        lambda pp: j_loss_fn(pp, jcfg, {k: jnp.asarray(v, dtype=v.dtype)
                                         for k, v in batch.items()}),
         has_aux=True)(jp)
     pt = tree_map(lambda t: t.requires_grad_(), p)
@@ -345,7 +349,8 @@ def test_train_steps_match_reference(variant):
     js, st = j_init_state(jp, jtc), init_state(p, tc)
     for i in range(3):
         batch = _batch(cfg, b=4, s=16, step=i, masked=False)
-        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        js, jm = jstep(js, {k: jnp.asarray(v, dtype=v.dtype)
+                            for k, v in batch.items()})
         st, m = step(st, batch)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=1e-5)
@@ -408,7 +413,8 @@ def test_recurrent_train_steps_match_reference(arch):
     js, st = j_init_state(jp, jtc), init_state(p, tc)
     for i in range(3):
         batch = _batch(cfg, b=2, s=16, step=i, masked=False)
-        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in batch.items()})
+        js, jm = jstep(js, {k: jnp.asarray(v, dtype=v.dtype)
+                            for k, v in batch.items()})
         st, m = step(st, batch)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=1e-5)

@@ -77,9 +77,9 @@ def test_forward_hidden_states_match(vlm, with_vision):
     jcfg, jp, cfg, p = vlm
     tokens, vis = _inputs(cfg)
     ve = vis if with_vision else None
-    jh, jaux = JT.forward(jp, jcfg, jnp.asarray(tokens),
+    jh, jaux = JT.forward(jp, jcfg, jnp.asarray(tokens, dtype=jnp.int32),
                           vision_embeds=None if ve is None
-                          else jnp.asarray(ve))
+                          else jnp.asarray(ve, dtype=jnp.float32))
     h, aux = forward(p, cfg, tokens, device="cpu", vision_embeds=ve)
     s = tokens.shape[1] + (cfg.n_vision_tokens if with_vision else 0)
     assert h.shape == (2, s, cfg.d_model)
@@ -93,7 +93,8 @@ def test_embed_tokens_puts_the_projection_first(vlm):
     tokens, vis = _inputs(cfg, seed=1)
     x = T.embed_tokens(p, cfg, torch.from_numpy(tokens),
                        torch.from_numpy(vis))
-    want = JT.embed_tokens(jp, jcfg, jnp.asarray(tokens), jnp.asarray(vis))
+    want = JT.embed_tokens(jp, jcfg, jnp.asarray(tokens, dtype=jnp.int32),
+                           jnp.asarray(vis, dtype=jnp.float32))
     _close(x, want, 2e-5)
     nv = cfg.n_vision_tokens
     _close(x[:, :nv], vis @ np.asarray(jp["vis_proj"]), 2e-5)
@@ -105,8 +106,8 @@ def test_bf16_forward_matches():
     jp = j_init_params(jax.random.PRNGKey(1), jcfg)
     p = convert.params_from(_np(jp), cfg)
     tokens, vis = _inputs(cfg, seed=2)
-    jh, _ = JT.forward(jp, jcfg, jnp.asarray(tokens),
-                       vision_embeds=jnp.asarray(vis))
+    jh, _ = JT.forward(jp, jcfg, jnp.asarray(tokens, dtype=jnp.int32),
+                       vision_embeds=jnp.asarray(vis, dtype=jnp.float32))
     h, _ = forward(p, cfg, tokens, device="cpu", vision_embeds=vis)
     assert h.dtype == torch.bfloat16
     _close(h, jh, 2e-2)
@@ -134,7 +135,7 @@ def test_serving_stays_text_only(vlm):
     tokens equal the reference's on a text prompt."""
     jcfg, jp, cfg, p = vlm
     tokens, _ = _inputs(cfg, s=6, seed=4)
-    want = j_greedy(jp, jcfg, jnp.asarray(tokens), 5, 16)
+    want = j_greedy(jp, jcfg, jnp.asarray(tokens, dtype=jnp.int32), 5, 16)
     got = greedy_generate(p, cfg, torch.from_numpy(tokens), 5, 16,
                           device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
