@@ -30,7 +30,7 @@ and read just after:
    two-hop batch read each data plane's device events a slot and idle
    share.
 1a. The n = 64 grid of ``fct_bench.timing_table`` (d_hat = 4, load 0.6,
-   1500 slots, seed 1): Vermilion (one Sinkhorn launch), rotorlb and vlb,
+   seed 1; cut from its 1500 slots to ``HORIZON64``): Vermilion (one Sinkhorn launch), rotorlb and vlb,
    whose batch takes ``twohop_fct`` and so has per-flow FCTs, gated
    against the CPU run like the sweep's; ``simulate_aggregate`` on the
    Vermilion schedule, card against CPU (per-slot delivered rtol 1e-5,
@@ -284,6 +284,22 @@ state, S = 1, ragged S, bf16 and f32 inputs, B 2 at a narrow D, d_state
 8, S at a lane's 16 positions and a 64-position tile and one past each,
 an odd D).
 
+7. The dry-run (``repro_torch.launch.dryrun``), in subprocesses that see
+   no card (all four started together after the training phase, the
+   script's last, so that no host-timed phase runs beside them): the
+   reference tests' two cells, Qwen1.5-0.5B's ``train_4k`` on the 16 x 16
+   mesh and Whisper-tiny's ``decode_32k`` on 2 x 16 x 16, each printed on
+   a ``dryrun:`` line and ``ok``; and the estimator on a (1, 1) mesh for
+   two configurations this script runs on the card, Qwen's train step at
+   ``TRAIN_BATCH`` x ``TRAIN_SEQ`` and its serving decode at ``SERVING``'s
+   lanes and cache: the estimate's argument bytes must equal the card's
+   train state (params, moments, step) and the engine's served weights
+   and caches exactly, and its training peak lie within ``PEAK_BAND`` of
+   the traced step's ``max_memory_allocated``.  The meta rules' Python
+   copies of the mLSTM forward and backward and the scan backward's
+   workspace formulas must equal the built libraries' own at every shape
+   the checks and the training and serving paths give those kernels.
+
 Any failure raises: no phase is caught.
 
 Output: readable lines, then the card's name and power limit, a
@@ -300,6 +316,7 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -445,11 +462,13 @@ TWOHOP_MODES = ("rotorlb", "vlb")
 # formulations (tests/test_simulator.py)
 TWOHOP_RTOL, SPARSE_RTOL = 1e-4, 1e-3
 # the n = 64 grid: fct_bench.timing_table's deployment (n = 64, d_hat =
-# 4, load 0.6, 1500 slots, seed 1), where the two-hop batch takes the
+# 4, load 0.6, seed 1), where the two-hop batch takes the
 # twohop_fct route (per-flow FCTs), and the aggregate plane on its
 # Vermilion schedule: card vs CPU per-slot delivered rtol 1e-5, final VOQ
 # within 1e-3 bits
-N64, D_HAT64, LOAD64, HORIZON64 = 64, 4, 0.6, 1500
+# (cut from the deployment's 1500 slots to 750 when the dry-run phase came:
+# the phase took 74.9 s of the script's 807.9 s)
+N64, D_HAT64, LOAD64, HORIZON64 = 64, 4, 0.6, 750
 AGG_RTOL, AGG_VOQ_ATOL = 1e-5, 1e-3
 
 # the adaptive loop, grid (a): the sweep's fabric in closed loop under
@@ -1471,6 +1490,11 @@ def check_mamba(label: str, b: int, s: int, d: int, n: int,
             "deterministic": same}
 
 
+def _nbytes(tree) -> int:
+    """Bytes of a tree's tensors (a train state, weights, caches)."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
 def _numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -2144,6 +2168,7 @@ def serving_phases(arch: str) -> dict:
                       device=DEV)
     del params
     n_params = _numel(eng.params)
+    held = {"params": _nbytes(eng.params), "caches": _nbytes(eng.caches)}
     torch.cuda.synchronize()
     log(f"  weights: {n_params} parameters, drawn into {cfg.dtype} in "
         f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated()} "
@@ -2200,6 +2225,7 @@ def serving_phases(arch: str) -> dict:
                "decode_tokens": st["decode_tokens"],
                "decode_ms_per_step": step_ms, "decode_tok_per_s": decode_tps,
                "peak_mem_bytes": peak, "launches": serve_launches,
+               "held_bytes": held,
                "weights": n_params}
     log(f"  engine wall {serve_wall:.6f} s; prefill {st['prefill_tokens']} "
         f"tokens in {st['prefill_s']:.6f} s ({prefill_tps:.1f} tok/s); "
@@ -4429,6 +4455,170 @@ def grad_check(label: str, cfg, batch: dict) -> dict:
             "calls": calls}
 
 
+# the dry-run (repro_torch.launch.dryrun): the cells of the reference's own
+# tests (tests/test_dryrun.py), and the estimator on a (1, 1) mesh for
+# Qwen's train step and serving decode as this script runs them; the
+# training estimate's peak against the card's traced step
+DRYRUN_REF_CELLS = (("qwen1.5-0.5b", "train_4k", False),
+                    ("whisper-tiny", "decode_32k", True))
+DRYRUN_TIMEOUT = 600
+PEAK_BAND = (0.9, 1.1)
+DRYRUNS: dict = {}      # {label: (start, process, out, err)}, stopped at exit
+# (B, S, D, N) the scan backward takes beyond SCAN_BWD_SHAPES, and (B, S, H,
+# dh) the mLSTM beyond MLSTM_BWD_SHAPES: Jamba's and xLSTM's served prefills
+SCAN_WORKSPACE_SHAPES = ((1, 980, 16384, 16),)
+MLSTM_WORKSPACE_SHAPES = ((1, 128, 4, 512), (1, 980, 4, 512),
+                          (1, 1024, 4, 512))
+
+
+def dryrun_cmds() -> dict:
+    """{label: argv} of the dry-run's cells."""
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    cmds = {f"{a} {sh} {'2x16x16' if mp else '16x16'}":
+            base + ["--arch", a, "--shape", sh] + (["--multi-pod"] * mp)
+            for a, sh, mp in DRYRUN_REF_CELLS}
+    cmds["one-card train"] = base + [
+        "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", "1x1",
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    cmds["one-card decode"] = base + [
+        "--arch", ARCH, "--shape", "decode_32k", "--mesh", "1x1",
+        "--batch", str(SERVING.lanes), "--seq", str(SERVING.max_len),
+        "--served"]
+    return cmds
+
+
+def start_dryruns() -> dict:
+    """The dry-run's cells, each in a subprocess that sees no card (a fake
+    process group must not live in this process, which holds the card),
+    all started together, their output in temporary files (a pipe left
+    unread would stall them): {label: (start time, process, stdout,
+    stderr)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    out = {}
+    for label, cmd in dryrun_cmds().items():
+        so, se = (tempfile.TemporaryFile("w+") for _ in range(2))
+        out[label] = (time.perf_counter(), subprocess.Popen(
+            cmd, env=env, stdout=so, stderr=se, text=True), so, se)
+    return out
+
+
+def stop_dryruns(procs: dict) -> None:
+    for _, p, so, se in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        so.close()
+        se.close()
+
+
+def wait_dryruns(procs: dict) -> dict:
+    """Each process's own wall time from its start to its exit, polled
+    every 50 ms, within ``DRYRUN_TIMEOUT``: {label: s}."""
+    ended: dict = {}
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    while len(ended) < len(procs):
+        for label, (start, p, _, _) in procs.items():
+            if label not in ended and p.poll() is not None:
+                ended[label] = time.perf_counter() - start
+        if len(ended) < len(procs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"dry-run cells past {DRYRUN_TIMEOUT} "
+                                     f"s: {sorted(set(procs) - set(ended))}")
+            time.sleep(0.05)
+    return ended
+
+
+def workspace_gates() -> dict:
+    """The meta rules' Python copies of the kernels' workspace formulas
+    (``workspace_floats`` of the mLSTM forward and backward and the scan
+    backward) against the built libraries' ``*_workspace_floats`` at every
+    shape the checks, the training path and the served prefills give those
+    kernels: {kernel: shapes compared}; any difference raises (the
+    dry-run's peak would drift from the card's)."""
+    mlstm = [sh[1:5] for sh in MLSTM_BWD_SHAPES] + list(MLSTM_WORKSPACE_SHAPES)
+    scan = [sh[1:5] for sh in SCAN_BWD_SHAPES] + list(SCAN_WORKSPACE_SHAPES)
+    out = {}
+    for name, ops, shapes in (("mlstm", mlstm_ops, mlstm),
+                              ("mlstm_bwd", mlstm_bwd_ops, mlstm),
+                              ("mamba_scan_bwd", scan_bwd_ops, scan)):
+        lib = ops._entry()[1]
+        for shape in shapes:
+            want, got = lib(*shape), ops.workspace_floats(*shape)
+            if want != got:
+                raise AssertionError(f"{name}.workspace_floats{shape} = {got}"
+                                     f", the library's {want}")
+        out[name] = len(shapes)
+    log(f"  workspace formulas equal to the libraries': {json.dumps(out)}")
+    return out
+
+
+def dryrun_phases(procs: dict, traced: dict, served: dict) -> dict:
+    """Each dry-run cell's JSON line (a ``dryrun:`` line each), the
+    reference tests' cells ``ok`` on their meshes, and the one-card
+    estimates against the card: the train state's and the serving engine's
+    bytes exactly, the traced step's peak within ``PEAK_BAND``."""
+    log("== dry-run: the reference tests' cells on the production meshes, "
+        "the estimator on a (1, 1) mesh against the card")
+    t0 = time.perf_counter()
+    workspace = workspace_gates()
+    wall = wait_dryruns(procs)
+    out: dict = {}
+    for label, (_, p, so, se) in procs.items():
+        so.seek(0)
+        se.seek(0)
+        lines = [ln for ln in so.read().splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"dry-run {label} failed (exit "
+                                 f"{p.returncode}): {se.read()[-3000:]}")
+        res = json.loads(lines[-1])
+        log(f"dryrun: {json.dumps(res)}")
+        out[label] = {"result": res, "wall_s": wall[label]}
+    for a, sh, mp in DRYRUN_REF_CELLS:
+        res = out[f"{a} {sh} {'2x16x16' if mp else '16x16'}"]["result"]
+        mesh, n = ("2x16x16", 512) if mp else ("16x16", 256)
+        c = res["collectives"]
+        if not (res["ok"] and res["mesh"] == mesh and res["n_devices"] == n
+                and res["flops_per_device"] > 0):
+            raise AssertionError(f"dry-run {a} {sh}: {res}")
+        if sh == "train_4k" and not (c["all-reduce"] > 0
+                                     or c["reduce-scatter"] > 0):
+            raise AssertionError(f"dry-run {a} {sh}: no reduction: {c}")
+    train = out["one-card train"]["result"]["memory"]
+    decode = out["one-card decode"]["result"]["memory"]
+    held = sum(served["held_bytes"].values())
+    ratio = train["peak_bytes"] / traced["peak_bytes"]
+    gates = {
+        "train_argument_bytes": [train["sharded_argument_bytes_exact"],
+                                 traced["state_bytes"]],
+        "decode_argument_bytes": [decode["sharded_argument_bytes_exact"],
+                                  held],
+        "train_peak_bytes": [train["peak_bytes"], traced["peak_bytes"],
+                             ratio],
+        "workspace_shapes": workspace}
+    log(f"  one-card train: estimated arguments "
+        f"{train['sharded_argument_bytes_exact']:.0f} B, the card's state "
+        f"{traced['state_bytes']} B; estimated peak {train['peak_bytes']} B, "
+        f"the card's traced step {traced['peak_bytes']} B: x {ratio:.4f} "
+        f"(band {PEAK_BAND})")
+    log(f"  one-card decode: estimated arguments "
+        f"{decode['sharded_argument_bytes_exact']:.0f} B, the engine's "
+        f"weights and caches {held} B ({served['held_bytes']})")
+    if train["sharded_argument_bytes_exact"] != traced["state_bytes"]:
+        raise AssertionError(f"the train estimate's arguments differ from "
+                             f"the card's state: {gates}")
+    if decode["sharded_argument_bytes_exact"] != held:
+        raise AssertionError(f"the decode estimate's arguments differ from "
+                             f"the engine's weights and caches: {gates}")
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        raise AssertionError(f"the train estimate's peak is x {ratio:.4f} "
+                             f"of the card's (band {PEAK_BAND})")
+    phase = time.perf_counter() - t0
+    log(f"  dry-run phase {phase:.1f} s; each process's wall (s) "
+        + json.dumps({k: round(v["wall_s"], 1) for k, v in out.items()}))
+    return {"cells": out, "gates": gates, "phase_s": phase}
+
+
 def traced_train_step(cfg, tc, warm: bool = True) -> dict:
     """One bf16 train step of fresh weights, warmed by one untraced step
     (``warm``), under the profiler: its wall time, device events, busy time
@@ -4441,6 +4631,7 @@ def traced_train_step(cfg, tc, warm: bool = True) -> dict:
     if warm:
         state, m = step(state, batch)
         float(m["loss"])
+    state_bytes = _nbytes(state)
     reset_kernels()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=list(TRAIN_TRACE_ACTIVITIES)) as prof:
@@ -4459,7 +4650,8 @@ def traced_train_step(cfg, tc, warm: bool = True) -> dict:
     out = {"wall_s": wall, "device_events": events, "busy_s": busy,
            "idle_share": 1 - busy / wall, "busy_by_kind": by_kind,
            "calls": calls, "cuda_launches_per_call": per_call,
-           "peak_mem_gib": peak / 2 ** 30}
+           "peak_mem_gib": peak / 2 ** 30, "peak_bytes": peak,
+           "state_bytes": state_bytes}
     log(f"  traced step: {json.dumps(out)}")
     return out
 
@@ -5211,6 +5403,12 @@ def main() -> int:
     mark("scan_bwd_checks")
     training = training_phases()
     mark("training")
+
+    # -- 5h. the dry-run: reference cells, one-card estimates vs the card ---
+    # (its subprocesses start here, when no host-timed phase is left)
+    DRYRUNS.update(start_dryruns())
+    dryrun = dryrun_phases(DRYRUNS, training["traced_step"], served[ARCH])
+    mark("dryrun")
     # each kernel's launches on every serving path that runs it, each path
     # read between its own resets
     by_path: dict = {}
@@ -5246,6 +5444,7 @@ def main() -> int:
     log(f"mlstm_bwd instances: {json.dumps(mlstm_bwd)}")
     log(f"mamba_scan_bwd instances: {json.dumps(scan_bwd)}")
     log(f"training: {json.dumps(training)}")
+    log(f"dryrun_gates: {json.dumps(dryrun['gates'])}")
     log("adaptive: " + json.dumps(adaptive))
     log("sweep: " + json.dumps({"us_per_slot": per_slot_us, "traces": traces,
                                 "phases": phases}))
@@ -5338,4 +5537,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_dryruns(DRYRUNS)
+    sys.exit(rc)

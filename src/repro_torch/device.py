@@ -4,6 +4,8 @@
 asks for it by name (``device="cpu"``): a missing card is an error, never
 a silent switch to the CPU.  On the CPU every kernel wrapper takes its
 plain PyTorch version; on a CUDA tensor it launches its kernel or raises.
+``device="meta"``, never a default, is the dry-run's (``launch.dryrun``):
+shapes without storage, on which every kernel takes its meta rule.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; entry points of repro_torch run "
             "on the card by default — pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (expected cuda or cpu; "
+                         f"meta for the dry-run)")
     return dev

@@ -21,12 +21,13 @@ import functools
 
 import torch
 
-from .. import _build, no_backward
+from ...parallel import spmd
+from .. import H100_SMS, _build, count_flops, no_backward, on_meta
 from .ref import decode_attention_ref
 
 __all__ = ["HEAD_DIMS", "MAX_REP", "TILE", "check_aligned", "check_q",
            "decode_attn", "decode_kernel", "launches", "reset_launches",
-           "sm_count", "split_plan"]
+           "sm_count", "split_plan", "visible_keys"]
 
 HEAD_DIMS = (64, 128)
 MAX_REP = 32        # query heads per kv head (kernel's register plan)
@@ -129,6 +130,17 @@ def lengths_vector(length, batch: int, device) -> torch.Tensor:
     return ln.contiguous()
 
 
+def visible_keys(length, b: int, s: int, window: int = 0) -> int:
+    """Keys the lanes see in all at an int ``length`` (positions ``<=
+    length``, above ``length - window``, within ``[0, S)``); at a tensor
+    ``length``, whose values a meta rule cannot read, every key a window
+    lets through: S, or ``window`` where that is shorter."""
+    if not isinstance(length, int):
+        return b * (min(s, window) if window else s)
+    lo = max(0, length - window + 1) if window else 0
+    return b * max(0, min(length, s - 1) - lo + 1)
+
+
 def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   length, window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel.  q (B, 1, H, dh) and a cache k/v
@@ -140,7 +152,9 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sliding window (0: none), which hides keys at or below ``length -
     window``.  Returns a new contiguous (B, 1, H, dh) tensor."""
     global launches
-    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+    meta = on_meta(q, k, v)
+    if not (meta or q.device.type == k.device.type == v.device.type
+            == "cuda"):
         raise ValueError("decode_kernel needs CUDA tensors (got "
                          f"{q.device}, {k.device}, {v.device})")
     if q.dtype not in _FNS or not (q.dtype == k.dtype == v.dtype):
@@ -173,6 +187,14 @@ def decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_aligned("k", k)
     check_aligned("v", v)
     lengths = lengths_vector(length, b, q.device)
+    if meta:    # the dry-run's rule: the split scratch, 4 dh a visible key
+        nsplit = split_plan(b, kvh, s, H100_SMS, window)
+        scratch = (q.new_empty((b, h, nsplit, 2), dtype=torch.float32),
+                   q.new_empty((b, h, nsplit, dh), dtype=torch.float32))
+        count_flops(4.0 * h * dh * visible_keys(length, b, s, window))
+        out = q.new_empty((b, 1, h, dh))
+        del scratch
+        return out
     fn, err_str = _entry(q.dtype)
     nsplit = split_plan(b, kvh, s, sm_count(q.device), window)
     out = torch.empty((b, 1, h, dh), dtype=q.dtype, device=q.device)
@@ -198,7 +220,11 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain version (:func:`decode_attention_ref`); CUDA tensors launch
     the kernel, or raise if it does not take them or need a gradient (a
     loss has no cache, and its one-query cross-attention takes the flash
-    kernel)."""
+    kernel).  DTensors run on each rank's shards, a sequence-sharded cache
+    gathered whole first (``parallel.spmd.attention``)."""
+    if spmd.is_dtensor(q):
+        return spmd.attention(decode_attn, q, k, v, length=length,
+                              window=window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, length, window)
     no_backward("decode-attention", None, q, k, v)

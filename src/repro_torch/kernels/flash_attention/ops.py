@@ -28,7 +28,8 @@ import functools
 
 import torch
 
-from .. import _build
+from ...parallel import spmd
+from .. import _build, count_flops, on_meta, visible_pairs
 from ..flash_attention_bwd import ops as bwd_ops
 from .ref import attention_lse_ref, attention_ref
 
@@ -102,7 +103,9 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor; with ``with_lse``, also each row's log-sum-exp of the scaled
     scores, f32 (B, H, Sq)."""
     global launches
-    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+    meta = on_meta(q, k, v)
+    if not (meta or q.device.type == k.device.type == v.device.type
+            == "cuda"):
         raise ValueError("attention_kernel needs CUDA tensors (got "
                          f"{q.device}, {k.device}, {v.device})")
     if q.dtype not in _FNS or not (q.dtype == k.dtype == v.dtype):
@@ -123,6 +126,12 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS} (got {(dqk, dv)})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_heads_packed(name, t)
+    if meta:    # the dry-run's rule: Q K^T and P V, 2 (dqk + dv) a pair
+        count_flops(2.0 * b * h * (dqk + dv)
+                    * visible_pairs(sq, sk, causal, window))
+        out = q.new_empty((b, sq, h, dv))
+        return (out, q.new_empty((b, h, sq), dtype=torch.float32)) \
+            if with_lse else out
     strides = [(t.stride(0), t.stride(1)) for t in (q, k, v)]
     if q.dtype == torch.bfloat16:
         strides = [tma_strides(name, t)
@@ -180,7 +189,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal/windowed GQA attention, end-aligned query positions.  CPU
     tensors take the plain version (:func:`attention_ref`); CUDA tensors
     launch the kernel, or raise if it does not take them.  Where a gradient
-    is wanted the call goes through :class:`FlashAttention`."""
+    is wanted the call goes through :class:`FlashAttention`.  DTensors run
+    on each rank's shards (``parallel.spmd.attention``)."""
+    if spmd.is_dtensor(q):
+        return spmd.attention(attention, q, k, v, causal=causal,
+                              window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)

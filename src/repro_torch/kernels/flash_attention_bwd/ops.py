@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, count_flops, on_meta, visible_pairs
 from ..flash_attention.ref import attention_bwd_ref
 
 __all__ = ["HEAD_DIMS", "attention_bwd", "attention_bwd_kernel", "launches",
@@ -93,7 +93,8 @@ def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns new contiguous (dq, dk, dv) in the inputs' type."""
     global launches
     ts = (q, k, v, o, do)
-    if not all(t.device.type == "cuda" for t in ts + (lse,)):
+    meta = on_meta(*ts, lse)
+    if not (meta or all(t.device.type == "cuda" for t in ts + (lse,))):
         raise ValueError("attention_bwd_kernel needs CUDA tensors")
     if q.dtype not in _FNS or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"attention_bwd_kernel takes float32 or bfloat16 "
@@ -116,11 +117,17 @@ def attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype} {tuple(lse.shape)})")
     prep = tma_ready if q.dtype == torch.bfloat16 else torch.Tensor.contiguous
     q, k, v, o, do, lse = (prep(t) for t in (q, k, v, o, do, lse))
-    fn, err_str = _entry(q.dtype)
+    if meta:    # the dry-run's rule: 5 products a visible pair
+        count_flops(2.0 * b * h * (3 * dqk + 2 * dvw)
+                    * visible_pairs(sq, sk, causal, window))
+    else:
+        fn, err_str = _entry(q.dtype)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if meta:
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

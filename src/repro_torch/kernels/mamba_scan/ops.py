@@ -30,7 +30,8 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...parallel import spmd
+from .. import _build, count_flops, on_meta
 from ..mamba_scan_bwd import ops as bwd_ops
 from .ref import selective_scan_ref
 
@@ -74,7 +75,8 @@ def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
     ins = {"dt": dt, "a": a, "bmat": bmat, "cmat": cmat, "u": u}
     if h0 is not None:
         ins["h0"] = h0
-    if any(t.device.type != "cuda" for t in ins.values()):
+    meta = on_meta(*ins.values())
+    if not meta and any(t.device.type != "cuda" for t in ins.values()):
         raise ValueError("selective_scan_kernel needs CUDA tensors (got "
                          f"{[str(t.device) for t in ins.values()]})")
     if dt.dim() != 2 or a.dim() != 2 or u.dim() != 3:
@@ -105,12 +107,17 @@ def selective_scan_kernel(dt: torch.Tensor, a: torch.Tensor,
                   for m in (bmat, cmat))
     if u.dtype == torch.bfloat16 and (d % 2 or u.data_ptr() % 4):
         u = u.float()
-    fn, err_str = _entry()
+    if meta:    # the dry-run's rule: 7 operations a (position, channel,
+        count_flops(7.0 * b * s * d * n + b * s * n)        # state), 1 dt B
+    else:
+        fn, err_str = _entry()
     y = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=u.device)
     hs = (torch.empty((b, -(-s // bwd_ops.TILE), d, n),
                       dtype=torch.float32, device=u.device)
           if keep_states else None)
+    if meta:
+        return (y, h_last, hs) if keep_states else (y, h_last)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
@@ -165,7 +172,10 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
     out: (y (B, S, D), h_last (B, D, N)), f32.  CPU tensors take the plain
     version (:func:`selective_scan_ref`); CUDA tensors launch the kernel,
     or raise if it does not take them.  Where a gradient is wanted the call
-    goes through :class:`SelectiveScan`, from the zero state only."""
+    goes through :class:`SelectiveScan`, from the zero state only.
+    DTensors run on each rank's shards (``parallel.spmd.selective_scan``)."""
+    if spmd.is_dtensor(u):
+        return spmd.selective_scan(selective_scan, dt, a, bmat, cmat, u, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (dt, a, bmat, cmat, u, h0)):

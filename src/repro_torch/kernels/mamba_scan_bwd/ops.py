@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, count_flops, on_meta
 from ..mamba_scan.ref import selective_scan_bwd_ref
 
 __all__ = ["D_STATES", "TILE", "launches", "reset_launches",
@@ -61,6 +61,14 @@ def _entry():
     return fn, lib.mamba_scan_bwd_workspace_floats, lib.cuda_error_string
 
 
+def workspace_floats(b: int, s: int, d: int, n: int) -> int:
+    """``mamba_scan_bwd_workspace_floats`` of ``csrc/mamba_scan_bwd.cu`` in
+    Python (what a meta rule allocates): the blocks' partial sums, 32
+    channels a block."""
+    nblk = -(-d // 32)
+    return b * (2 * nblk * s * n + nblk * s + d * n)
+
+
 def selective_scan_bwd_kernel(dt: torch.Tensor, a: torch.Tensor,
                               bmat: torch.Tensor, cmat: torch.Tensor,
                               u: torch.Tensor, dy: torch.Tensor,
@@ -75,7 +83,8 @@ def selective_scan_bwd_kernel(dt: torch.Tensor, a: torch.Tensor,
     global launches
     ins = {"dt": dt, "a": a, "bmat": bmat, "cmat": cmat, "u": u, "dy": dy,
            "hs": hs}
-    if any(t.device.type != "cuda" for t in ins.values()):
+    meta = on_meta(*ins.values())
+    if not meta and any(t.device.type != "cuda" for t in ins.values()):
         raise ValueError("selective_scan_bwd_kernel needs CUDA tensors (got "
                          f"{[str(t.device) for t in ins.values()]})")
     if dt.dim() != 2 or a.dim() != 2 or u.dim() != 3:
@@ -103,11 +112,16 @@ def selective_scan_bwd_kernel(dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("dt, a, u and hs must be contiguous")
     bmat, cmat = (m.float().contiguous() for m in (bmat, cmat))
     dy = dy.contiguous()
-    fn, work_floats, err_str = _entry()
     ddt = torch.empty_like(dt)
     da = torch.empty_like(a)
     dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
     du = torch.empty_like(u)
+    if meta:    # the dry-run's rule: the workspace, one exponential a
+        work = dt.new_empty(workspace_floats(b, s, d, n))   # (position,
+        count_flops(1.0 * b * s * d * n)                   # channel, state)
+        del work
+        return ddt, da, dbm, dcm, du
+    fn, work_floats, err_str = _entry()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         work = torch.empty(work_floats(b, s, d, n), dtype=torch.float32,

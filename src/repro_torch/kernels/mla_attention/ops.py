@@ -25,7 +25,9 @@ import functools
 
 import torch
 
-from .. import _build, no_backward
+from ...parallel import spmd
+from .. import H100_SMS, _build, count_flops, no_backward, on_meta, \
+    visible_pairs
 from ..decode_attention import ops as decode_ops
 from .ref import mla_decode_ref, mla_prefill_ref
 
@@ -135,7 +137,7 @@ def _check(q_lat, q_rope, c, k_rope, scale) -> list:
     """The kernels' shared checks; returns the ten strides of the C
     interface."""
     ts = (q_lat, q_rope, c, k_rope)
-    if not all(t.device.type == "cuda" for t in ts):
+    if not (on_meta(*ts) or all(t.device.type == "cuda" for t in ts)):
         raise ValueError("the MLA kernels need CUDA tensors (got "
                          f"{', '.join(str(t.device) for t in ts)})")
     if q_lat.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -192,6 +194,10 @@ def mla_prefill_kernel(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if sq > sk:
         raise ValueError(f"a prefill of {sq} queries needs at least as many "
                          f"keys (got {sk})")
+    if on_meta(q_lat):  # the dry-run's rule: 2 (2 R + Dr) a visible pair
+        count_flops(2.0 * b * h * (2 * r + ROPE)
+                    * visible_pairs(sq, sk, True, 0))
+        return q_lat.new_empty((b, sq, h, r))
     fn, err_str = _entry("prefill", q_lat.dtype)
     out = torch.empty((b, sq, h, r), dtype=q_lat.dtype, device=q_lat.device)
     with torch.cuda.device(q_lat.device):
@@ -234,6 +240,16 @@ def mla_decode_kernel(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if sq != 1:
         raise ValueError(f"mla_decode takes one query a lane (got {sq})")
     lengths = decode_ops.lengths_vector(length, b, q_lat.device)
+    if on_meta(q_lat):  # the dry-run's rule: the split scratch, 2 (2 R + Dr)
+        nsplit = split_plan(b, h, s, H100_SMS)      # a visible key
+        scratch = (q_lat.new_empty((b, h, nsplit, 2), dtype=torch.float32),
+                   q_lat.new_empty((b, h, nsplit, LATENT),
+                                   dtype=torch.float32))
+        count_flops(2.0 * h * (2 * r + ROPE)
+                    * decode_ops.visible_keys(length, b, s))
+        out = q_lat.new_empty((b, 1, h, r))
+        del scratch
+        return out
     fn, err_str = _entry("decode", q_lat.dtype)
     nsplit = split_plan(b, h, s, decode_ops.sm_count(q_lat.device))
     out = torch.empty((b, 1, h, r), dtype=q_lat.dtype, device=q_lat.device)
@@ -259,7 +275,11 @@ def mla_prefill(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                 k_rope: torch.Tensor, scale: float) -> torch.Tensor:
     """Causal latent attention, end-aligned query positions.  CPU tensors
     take the plain version (:func:`mla_prefill_ref`); CUDA tensors launch
-    the kernel, or raise if it does not take them."""
+    the kernel, or raise if it does not take them.  DTensors run on each
+    rank's shards (``parallel.spmd.latent_attention``)."""
+    if spmd.is_dtensor(q_lat):
+        return spmd.latent_attention(mla_prefill, q_lat, q_rope, c, k_rope,
+                                     scale)
     if q_lat.device.type == "cpu":
         return mla_prefill_ref(q_lat, q_rope, c, k_rope, scale)
     no_backward("MLA prefill", None, q_lat, q_rope, c, k_rope,
@@ -271,7 +291,12 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                k_rope: torch.Tensor, length, scale: float) -> torch.Tensor:
     """One query a lane against the latent cache up to ``length``.  CPU
     tensors take the plain version (:func:`mla_decode_ref`); CUDA tensors
-    launch the kernels, or raise if they do not take them."""
+    launch the kernels, or raise if they do not take them.  DTensors run on
+    each rank's shards, a sequence-sharded cache gathered whole first
+    (``parallel.spmd.latent_attention``)."""
+    if spmd.is_dtensor(q_lat):
+        return spmd.latent_attention(mla_decode, q_lat, q_rope, c, k_rope,
+                                     length, scale)
     if q_lat.device.type == "cpu":
         return mla_decode_ref(q_lat, q_rope, c, k_rope, length, scale)
     no_backward("MLA decode", None, q_lat, q_rope, c, k_rope,

@@ -29,7 +29,8 @@ import ctypes
 
 import torch
 
-from .. import _build
+from ...parallel import spmd
+from .. import _build, count_flops, on_meta
 from ..mlstm_bwd import ops as bwd_ops
 from .ref import M_INIT, mlstm_chunkwise_ref, pads
 
@@ -59,6 +60,18 @@ def _entry():
     return fn, lib.mlstm_workspace_floats, lib.cuda_error_string
 
 
+def workspace_floats(b: int, s: int, h: int, dh: int) -> int:
+    """``mlstm_workspace_floats`` of ``csrc/mlstm.cu`` in Python (what a
+    meta rule allocates): the gates, a window of 16 chunks' partial scores
+    (dh / 128 splits from dh 256 on), states and normalisers."""
+    q, slots, ngate = 64, 16, 5
+    nc = -(-s // q)
+    win, bh = min(nc, slots), b * h
+    splits = dh // 128 if dh >= 256 else 1
+    gates = -(-bh * (ngate * nc * q + nc + 1) // 64) * 64
+    return gates + win * bh * (splits * q * q + dh * dh + dh)
+
+
 def _zero_state(b: int, h: int, dh: int, device) -> tuple:
     return (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=device),
             torch.zeros((b, h, dh), dtype=torch.float32, device=device),
@@ -79,7 +92,8 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if len(state) != 3:
             raise ValueError("state must be (C, n, m)")
         ins += tuple(zip(("C", "n", "m"), state))
-    if any(t.device.type != "cuda" for _, t in ins):
+    meta = on_meta(*(t for _, t in ins))
+    if not meta and any(t.device.type != "cuda" for _, t in ins):
         raise ValueError("mlstm_kernel needs CUDA tensors (got "
                          f"{[str(t.device) for _, t in ins]})")
     if any(t.dtype != torch.float32 for _, t in ins):
@@ -111,6 +125,13 @@ def mlstm_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     c0, n0, m0 = state
+    if meta:    # the dry-run's rule: the workspace, the recurrent form's
+        work = q.new_empty(workspace_floats(b, s, h, dh))     # operations
+        count_flops(2.0 * b * s * h * (2 * dh * dh + 2 * dh))
+        out = torch.empty_like(q)
+        c1, n1, m1 = (torch.empty_like(t) for t in state)
+        del work
+        return out, (c1, n1, m1)
     fn, work_floats, err_str = _entry()
     out = torch.empty_like(q)
     c1, n1, m1 = (torch.empty_like(t) for t in state)
@@ -166,7 +187,10 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors take the plain version (:func:`mlstm_chunkwise_ref`); CUDA
     tensors launch the kernel, or raise if it does not take them.  Where a
     gradient is wanted the call goes through :class:`MLSTM`, from the zero
-    state only."""
+    state only.  DTensors run on each rank's shards
+    (``parallel.spmd.mlstm``)."""
+    if spmd.is_dtensor(q):
+        return spmd.mlstm(mlstm, q, k, v, logi, logf, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, logi, logf, *(state or ()))):
         if state is not None:

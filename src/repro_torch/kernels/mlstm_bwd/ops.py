@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, count_flops, on_meta
 from ..mlstm.ref import mlstm_chunkwise_bwd_ref
 
 __all__ = ["HEAD_DIMS", "launches", "mlstm_bwd", "mlstm_bwd_kernel",
@@ -59,6 +59,19 @@ def _entry():
     return fn, lib.mlstm_bwd_workspace_floats, lib.cuda_error_string
 
 
+def workspace_floats(b: int, s: int, h: int, dh: int) -> int:
+    """``mlstm_bwd_workspace_floats`` of ``csrc/mlstm_bwd.cu`` in Python
+    (what a meta rule allocates): its seven parts, each rounded up to 64
+    floats."""
+    q, npos, nmat, ngate = 64, 4, 3, 5
+    nc = -(-s // q)
+    bh, sp = b * h, nc * q
+    tiles = dh // min(dh, 64)
+    sizes = (bh * (ngate * nc * q + nc + 1), bh * npos * sp, bh * sp * tiles,
+             2 * bh, nc * bh * dh, nc * bh * nmat * q * q, nc * bh * dh * dh)
+    return sum(-(-x // 64) * 64 for x in sizes)
+
+
 def mlstm_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      logi: torch.Tensor, logf: torch.Tensor,
                      out: torch.Tensor, dout: torch.Tensor) -> tuple:
@@ -70,7 +83,8 @@ def mlstm_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     ins = (("q", q), ("k", k), ("v", v), ("logi", logi), ("logf", logf),
            ("out", out), ("dout", dout))
-    if any(t.device.type != "cuda" for _, t in ins):
+    meta = on_meta(*(t for _, t in ins))
+    if not meta and any(t.device.type != "cuda" for _, t in ins):
         raise ValueError("mlstm_bwd_kernel needs CUDA tensors (got "
                          f"{[str(t.device) for _, t in ins]})")
     if any(t.dtype != torch.float32 for _, t in ins):
@@ -96,6 +110,12 @@ def mlstm_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout = dout.contiguous()
     q, k, v, out, dout = (t.clone() if t.data_ptr() % 16 else t
                           for t in (q, k, v, out, dout))
+    if meta:    # the dry-run's rule: the workspace, ~4 dh^2 MACs a position
+        work = q.new_empty(workspace_floats(b, s, h, dh))     # and head
+        count_flops(2.0 * 4 * dh * dh * b * s * h)
+        grads = tuple(torch.empty_like(t) for t in (q, k, v, logi, logf))
+        del work
+        return grads
     fn, work_floats, err_str = _entry()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dli, dlf = torch.empty_like(logi), torch.empty_like(logf)

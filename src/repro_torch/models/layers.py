@@ -23,6 +23,11 @@ reference's weight-absorbed path over the latent cache, prefill through
 K and V and attends through the flash kernel at q/k width
 ``head_dim + rope_head_dim`` and v width ``head_dim`` (its forward and
 backward kernels' (96, 64) instances at MiniCPM3's widths).
+
+On DTensors (the dry-run, ``launch.dryrun``) the kernel ops run on each
+rank's shards and the caches are written shard by shard
+(``parallel.spmd``); a sharded cache is filled from position 0, and a
+decode step reads it at an int length, gathered whole.
 """
 from __future__ import annotations
 
@@ -35,9 +40,10 @@ from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import attention_ref
 from ..kernels.mla_attention import ops as mla_ops
 from ..kernels.mla_attention.ref import mla_decode_ref, mla_prefill_ref
+from ..parallel import spmd
 
 __all__ = ["dense_init", "rms_norm", "init_rms_norm", "rope", "init_gqa",
-           "gqa_qkv", "gqa_attention", "write_cache", "init_mla",
+           "gqa_qkv", "gqa_attention", "write_cache", "prompt_keys", "init_mla",
            "mla_attention",
            "init_ffn", "ffn"]
 
@@ -49,8 +55,11 @@ def dense_init(gen: torch.Generator, shape: tuple,
                dtype: torch.dtype) -> torch.Tensor:
     """Weights drawn as the reference's ``_dense_init`` draws them,
     truncated normal with stddev 0.02 (its distribution, not its bits: the
-    generators differ)."""
+    generators differ).  On the meta device (``launch.input_specs``'s
+    shape-only tree) it draws nothing."""
     t = torch.empty(shape, dtype=dtype, device=gen.device)
+    if t.is_meta:
+        return t
     return torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0,
                                        generator=gen).mul_(0.02 / _TRUNC_STD)
 
@@ -105,8 +114,8 @@ def gqa_qkv(p: dict, x: torch.Tensor, cfg):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    return (spmd.split_last(q, h, hd), spmd.split_last(k, kv, hd),
+            spmd.split_last(v, kv, hd))
 
 
 def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -151,14 +160,14 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = x @ p["wq"].to(x.dtype)
         if cfg.qkv_bias:
             q = q + p["bq"].to(x.dtype)
-        q = q.reshape(b, s, h, hd)
+        q = spmd.split_last(q, h, hd)
         se, kvh = cross_kv.shape[1], cfg.n_kv_heads
         enc = cross_kv.to(x.dtype)
-        k = (enc @ p["wk"].to(x.dtype)).reshape(b, se, kvh, hd)
-        v = (enc @ p["wv"].to(x.dtype)).reshape(b, se, kvh, hd)
+        k = spmd.split_last(enc @ p["wk"].to(x.dtype), kvh, hd)
+        v = spmd.split_last(enc @ p["wv"].to(x.dtype), kvh, hd)
         if s == 1 and not (torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v))):
-            o = decode(q, k, v, se - 1)
+            o = decode(q, k, v, length=se - 1)
         else:
             o = attend(q, k, v, causal=False)
     else:
@@ -173,11 +182,21 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
             if s == 1:
                 o = decode(q, ck, cv, ln, cfg.sliding_window)
             else:
-                o = attend(q, ck[:, :ln + s], cv[:, :ln + s], causal=True,
-                           window=cfg.sliding_window)
+                o = attend(q, *prompt_keys((ck, cv), (k, v), ln),
+                           causal=True, window=cfg.sliding_window)
             new_cache = (ck, cv, ln + s)
-    o = o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    o = spmd.merge_last(o) @ p["wo"].to(x.dtype)
     return o, new_cache
+
+
+def prompt_keys(caches: tuple, news: tuple, ln) -> tuple:
+    """The keys a prompt of S tokens written at ``ln`` attends over: the
+    caches' prefix ``[0, ln + S)`` (a sharded cache: the prompt's own
+    ``news``, ``parallel.spmd.prompt_keys``)."""
+    if spmd.is_dtensor(caches[0]):
+        return spmd.prompt_keys(news, ln)
+    s = news[0].shape[1]
+    return tuple(c[:, :ln + s] for c in caches)
 
 
 def init_mla(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
@@ -198,7 +217,10 @@ def write_cache(caches: tuple, news: tuple, ln) -> None:
     """Each ``new`` (B, S, ...) into its ``cache`` (B, max_len, ...) at
     ``ln``: a prompt at an int offset, or one token a lane at ``ln`` (an int
     or a ``(B,)`` tensor) clamped to ``max_len - 1``, as the reference's
-    ``dynamic_update_slice`` clamps it."""
+    ``dynamic_update_slice`` clamps it.  A sharded cache: each rank writes
+    its shard (``parallel.spmd.write_cache``)."""
+    if spmd.is_dtensor(caches[0]):
+        return spmd.write_cache(caches, news, ln)
     b, s = news[0].shape[:2]
     n = caches[0].shape[1]
     if s == 1:
@@ -246,24 +268,24 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     rkv = cfg.kv_lora_rank
     cq = x @ p["w_dq"].to(x.dtype)
-    q = (cq @ p["w_uq"].to(x.dtype)).reshape(b, s, h, hd + rd)
+    q = spmd.split_last(cq @ p["w_uq"].to(x.dtype), h, hd + rd)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     c_kv = x @ p["w_dkv"].to(x.dtype)                   # (B, S, rkv)
     k_rope = rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0, :]           # (B, S, rd)
     if kv_cache is None:
-        kv = (c_kv @ p["w_ukv"].to(x.dtype)).reshape(b, s, h, 2 * hd)
+        kv = spmd.split_last(c_kv @ p["w_ukv"].to(x.dtype), h, 2 * hd)
         k_nope, v = kv[..., :hd], kv[..., hd:].contiguous()
         k_full = torch.cat(
             [k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         attend = attention_ref if plain else flash_ops.attention
         o = attend(q_full, k_full, v, causal=causal)
-        return o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype), None
+        return spmd.merge_last(o) @ p["wo"].to(x.dtype), None
     cc, ckr, ln = kv_cache
     write_cache((cc, ckr), (c_kv, k_rope), ln)
-    w_ukv = p["w_ukv"].to(x.dtype).reshape(rkv, h, 2 * hd)
+    w_ukv = spmd.split_last(p["w_ukv"].to(x.dtype), h, 2 * hd)
     w_uk, w_uv = w_ukv[..., :hd], w_ukv[..., hd:]
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
     scale = (hd + rd) ** -0.5
@@ -272,9 +294,10 @@ def mla_attention(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         ctx = decode(q_lat, q_rope, cc, ckr, ln, scale)
     else:
         attend = mla_prefill_ref if plain else mla_ops.mla_prefill
-        ctx = attend(q_lat, q_rope, cc[:, :ln + s], ckr[:, :ln + s], scale)
+        ctx = attend(q_lat, q_rope,
+                     *prompt_keys((cc, ckr), (c_kv, k_rope), ln), scale)
     o = torch.einsum("bshr,rhd->bshd", ctx.to(x.dtype), w_uv)
-    o = o.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    o = spmd.merge_last(o) @ p["wo"].to(x.dtype)
     return o, (cc, ckr, ln + s)
 
 

@@ -85,7 +85,7 @@ def _frames(cfg, frames, dev):
 
 
 def prefill(params, cfg, tokens, max_len: int, device=None,
-            plain: bool = False, frames=None):
+            plain: bool = False, frames=None, caches=None):
     """Run the prompt ``tokens`` (B, S) through the model, filling fresh
     caches (``max_len`` positions for attention; recurrent states hold the
     prompt's final state).  Returns (logits of the last position
@@ -96,12 +96,15 @@ def prefill(params, cfg, tokens, max_len: int, device=None,
     each :func:`decode_step` takes; any other model refuses ``frames``.
     ``plain=True`` is a check-only switch: it takes the kernels' plain
     versions on any device, to hold the kernels against them on the card;
-    serving never sets it."""
+    serving never sets it.  ``caches``, fresh caches of ``max_len`` to fill
+    (``T.init_cache``'s layout), default new ones: the dry-run passes
+    sharded ones."""
     dev = _device(params, device)
     tokens = torch.as_tensor(tokens, device=dev)
     frames = _frames(cfg, frames, dev)
     b, s = tokens.shape
-    caches = T.init_cache(cfg, b, max_len, dev)
+    if caches is None:
+        caches = T.init_cache(cfg, b, max_len, dev)
     cross_kv = (None if frames is None
                 else T.encode(params, cfg, frames, plain))
     x = T.embed_tokens(params, cfg, tokens)

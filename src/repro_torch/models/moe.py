@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spmd
 from .layers import dense_init
 
 __all__ = ["GROUP_TOKENS", "init_moe", "moe_ffn", "route"]
@@ -86,6 +87,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg,
     Tokens are grouped over all B x S, as the reference groups them, or,
     with ``per_row``, within each row, as the reference's engine groups
     each lane of its ``vmap``-ped one-lane decode."""
+    if spmd.is_dtensor(x):
+        return spmd.moe_ffn(moe_ffn, p, x, cfg, per_row)
     b, s, d = x.shape
     e = cfg.n_experts
     g = b * _num_groups(s) if per_row else _num_groups(b * s)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spmd
 from . import layers as L
 from . import mamba as MB
 from . import moe as MOE
@@ -208,13 +209,14 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
     adds cross-attention to ``cross_kv`` after its own, as the reference
     does.  ``per_lane`` groups an MoE FFN's tokens within each batch row
     (see :func:`run_cells`)."""
+    x, bp, cross_p = spmd.block_inputs(x, bp, cross_p)
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     new_state = aux = None
     if kind == "attn":
         fn = L.mla_attention if cfg.attention == "mla" else L.gqa_attention
         o, _ = fn(bp["attn"], h, cfg, positions, kv_cache=cache, plain=plain)
         if cross_p is not None:
-            x = x + o
+            x = x + spmd.batch_layout(o)
             hc = L.rms_norm(x, cross_p["ln"]["scale"], cfg.norm_eps)
             o, _ = L.gqa_attention(cross_p["attn"], hc, cfg, positions,
                                    cross_kv=cross_kv, plain=plain)
@@ -226,15 +228,15 @@ def _block_forward(bp, x, cfg, kind, ffn_kind, positions, cache=None,
                                       plain=plain)
     else:
         o, new_state = X.slstm_block(bp["slstm"], h, cfg, state=cache)
-    x = x + o
+    x = x + spmd.batch_layout(o)
     if ffn_kind == "dense":
-        x = x + L.ffn(bp["ffn"], L.rms_norm(x, bp["ln2"]["scale"],
-                                            cfg.norm_eps))
+        x = x + spmd.batch_layout(L.ffn(bp["ffn"], L.rms_norm(
+            x, bp["ln2"]["scale"], cfg.norm_eps)))
     elif ffn_kind == "moe":
         o, aux = MOE.moe_ffn(bp["moe"], L.rms_norm(x, bp["ln2"]["scale"],
                                                    cfg.norm_eps), cfg,
                              per_row=per_lane)
-        x = x + o
+        x = x + spmd.batch_layout(o)
     return x, new_state, aux
 
 
@@ -300,9 +302,11 @@ def run_cells(params, x, cfg, positions, caches=None, length=0,
 def embed_tokens(params, cfg, tokens, vision_embeds=None):
     """Token embeddings in ``cfg.dtype``; a VLM given ``vision_embeds``
     (B, Nv, d) puts ``vision_embeds @ vis_proj`` before them."""
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = spmd.embed(spmd.fsdp_gather(params["embed"]), tokens).to(
+        getattr(torch, cfg.dtype))
     if cfg.family == "vlm" and vision_embeds is not None:
-        vis = vision_embeds.to(x.dtype) @ params["vis_proj"].to(x.dtype)
+        vis = (vision_embeds.to(x.dtype)
+               @ spmd.fsdp_gather(params["vis_proj"]).to(x.dtype))
         x = torch.cat([vis, x], dim=1)
     return x
 
@@ -323,13 +327,13 @@ def encode(params, cfg, frames, plain=False):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for r in range(cfg.n_enc_layers):
-        lp = _layer(params["encoder"], r)
+        x, lp = spmd.block_inputs(x, _layer(params["encoder"], r))
         h = L.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps)
         o, _ = L.gqa_attention(lp["attn"], h, cfg, positions, causal=False,
                                plain=plain)
-        x = x + o
-        x = x + L.ffn(lp["ffn"], L.rms_norm(x, lp["ln2"]["scale"],
-                                            cfg.norm_eps))
+        x = x + spmd.batch_layout(o)
+        x = x + spmd.batch_layout(L.ffn(lp["ffn"], L.rms_norm(
+            x, lp["ln2"]["scale"], cfg.norm_eps)))
     return L.rms_norm(x, params["enc_ln_f"]["scale"], cfg.norm_eps)
 
 
@@ -359,17 +363,21 @@ def rms_norm_final(params, cfg, x):
     return L.rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
 
 
-def logits_fn(params, cfg, h):
+def _unembed(params, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return h @ w.to(h.dtype)
+    return spmd.fsdp_gather(w)
+
+
+def logits_fn(params, cfg, h):
+    return h @ _unembed(params, cfg).to(h.dtype)
 
 
 def _chunk_nll(w, h, labels, mask):
     """Sum over one chunk of the masked negative log-likelihood, from its
     f32 logits ``h @ w``."""
-    logits = (h @ w.to(h.dtype)).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logits = spmd.vocab_logits(h, w)
+    logz = spmd.logsumexp(logits)
+    gold = spmd.label_logits(logits, labels)
     return ((logz - gold) * mask).sum()
 
 
@@ -382,16 +390,17 @@ def chunked_softmax_xent(params, cfg, h, labels, mask, chunk: int = 512):
     b, s, d = h.shape
     c = min(chunk, s)
     pad = (-s) % c
-    hp = F.pad(h, (0, 0, 0, pad))
-    lp = F.pad(labels, (0, pad))
-    mp = F.pad(mask, (0, pad))
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    if pad:     # (a DTensor pad of nothing trips some torch versions)
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    w = _unembed(params, cfg)
     remat = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(hp.shape[1] // c):
-        part = (w, hp[:, i * c:(i + 1) * c], lp[:, i * c:(i + 1) * c],
-                mp[:, i * c:(i + 1) * c])
+    for i in range(h.shape[1] // c):
+        part = (w, h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+                mask[:, i * c:(i + 1) * c])
         nll = (checkpoint(_chunk_nll, *part, use_reentrant=False,
                           preserve_rng_state=False)
                if remat else _chunk_nll(*part))

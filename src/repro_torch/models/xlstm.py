@@ -16,11 +16,14 @@ outside any Pallas kernel.  Every state is f32.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.mlstm import ops as mlstm_ops
 from ..kernels.mlstm.ref import mlstm_chunkwise_ref
+from ..parallel import spmd
 from .layers import dense_init, init_rms_norm, rms_norm
 
 __all__ = ["init_mlstm", "mlstm_parallel", "mlstm_chunkwise", "mlstm_block",
@@ -92,11 +95,11 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg, state: tuple | None = None,
     b, s, _ = x.shape
     di, h, dh = _dims(cfg)
     u, z = torch.chunk(x @ p["up"].to(x.dtype), 2, dim=-1)
-    q = (u @ p["wq"].to(x.dtype)).reshape(b, s, h, dh)
-    k = (u @ p["wk"].to(x.dtype)).reshape(b, s, h, dh)
-    v = (u @ p["wv"].to(x.dtype)).reshape(b, s, h, dh)
+    q = spmd.split_last(u @ p["wq"].to(x.dtype), h, dh)
+    k = spmd.split_last(u @ p["wk"].to(x.dtype), h, dh)
+    v = spmd.split_last(u @ p["wv"].to(x.dtype), h, dh)
     logi = (u @ p["w_i"].to(x.dtype)).float()                      # (B,S,H)
-    logf = F.logsigmoid((u @ p["w_f"].to(x.dtype)).float())
+    logf = spmd.pointwise(F.logsigmoid, (u @ p["w_f"].to(x.dtype)).float())
 
     new_state = None
     if state is not None and s == 1:
@@ -127,7 +130,7 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg, state: tuple | None = None,
         o, _ = mlstm_chunkwise(q.float(), k.float(), v.float(), logi, logf,
                                plain=plain)
     og = torch.sigmoid(u @ p["w_o"].to(x.dtype))
-    y = rms_norm(o.reshape(b, s, di).to(x.dtype), p["norm"], cfg.norm_eps)
+    y = rms_norm(spmd.merge_last(o).to(x.dtype), p["norm"], cfg.norm_eps)
     y = y * og * F.silu(z)
     return y @ p["down"].to(x.dtype), new_state
 
@@ -163,16 +166,26 @@ def slstm_block(p: dict, x: torch.Tensor, cfg,
     state = (c (B, di), h (B, di), n (B, di), m (B, di)).  The input half
     of every step's gates, ``u_t @ w_gates``, is one product for all steps
     ahead of the loop (the reference computes it inside its scan)."""
-    b, s, _ = x.shape
-    di, _, _ = _dims(cfg)
     u, z_out = torch.chunk(x @ p["up"].to(x.dtype), 2, dim=-1)
-    wg = p["w_gates"].float()
+    gx = u.float() @ p["w_gates"].float()              # (B, S, 4 di)
     rg = p["r_gates"].float()
-    if state is None:
-        c, hprev, n, m = init_slstm_state(cfg, b, x.device)
-    else:
-        c, hprev, n, m = (t.float() for t in state)
-    gx = u.float() @ wg                                  # (B, S, 4 di)
+    st = None if state is None else tuple(t.float() for t in state)
+    hs, (c, hprev, n, m) = spmd.slstm_scan(
+        functools.partial(_slstm_loop, cfg=cfg), gx, rg, st)
+    hs = hs.to(x.dtype)                                  # (B, S, di)
+    y = rms_norm(hs, p["norm"], cfg.norm_eps) * F.silu(z_out)
+    out = y @ p["down"].to(x.dtype)
+    new_state = (c, hprev, n, m) if state is not None else None
+    return out, new_state
+
+
+def _slstm_loop(gx: torch.Tensor, rg: torch.Tensor, state, cfg) -> tuple:
+    """The sLSTM's recurrence over the input gates ``gx`` (B, S, 4 di) with
+    the recurrent gates ``rg`` (di, 4 di), f32, from ``state`` (c, h, n, m)
+    or a fresh one: (the hidden states (B, S, di), the final state)."""
+    b, s = gx.shape[:2]
+    c, hprev, n, m = (init_slstm_state(cfg, b, gx.device) if state is None
+                      else state)
     hs = []
     for t in range(s):
         g = gx[:, t] + hprev @ rg
@@ -186,11 +199,7 @@ def slstm_block(p: dict, x: torch.Tensor, cfg,
         hprev = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
         m = m1
         hs.append(hprev)
-    hs = torch.stack(hs, dim=1).to(x.dtype)              # (B, S, di)
-    y = rms_norm(hs, p["norm"], cfg.norm_eps) * F.silu(z_out)
-    out = y @ p["down"].to(x.dtype)
-    new_state = (c, hprev, n, m) if state is not None else None
-    return out, new_state
+    return torch.stack(hs, dim=1), (c, hprev, n, m)
 
 
 def init_slstm_state(cfg, batch: int, device,
